@@ -1,0 +1,46 @@
+"""Recognizer: backbone + head (port of ``dsgcn_tpu/models/recognizer.py``).
+
+Reference: pyskl/models/recognizers/recognizergcn.py and base.py
+average_clip (:93-116).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+class RecognizerGCN(nn.Module):
+    """Composes a GCN backbone and a classification head.
+
+    ``forward`` takes ``(N, M, T, V, C)`` and returns float32 logits
+    ``(N, classes)``.  ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the
+    input so the whole forward runs in that type.  Multi-clip averaging is
+    done by the caller (:func:`average_clip`).
+    """
+
+    def __init__(self, backbone: nn.Module, head: nn.Module,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.backbone = backbone
+        self.head = head
+        self.compute_dtype = compute_dtype
+
+    def forward(self, keypoint: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            keypoint = keypoint.to(self.compute_dtype)
+        return self.head(self.backbone(keypoint)).float()
+
+
+def average_clip(cls_score: torch.Tensor,
+                 mode: Optional[str] = "prob") -> torch.Tensor:
+    """Average class scores over clips: (N, nc, K) -> (N, K)
+    (reference base.py:93-116)."""
+    if mode is None:
+        return cls_score
+    if mode == "prob":
+        return torch.softmax(cls_score, dim=2).mean(dim=1)
+    if mode == "score":
+        return cls_score.mean(dim=1)
+    raise ValueError(f"average_clips={mode!r} not supported")

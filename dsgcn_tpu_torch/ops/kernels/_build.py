@@ -1,0 +1,173 @@
+"""Compile the port's CUDA kernels at first use and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes ``lib<name>-<hash>.so`` through one ``nvcc``
+call for ``sm_90a``.  The sources expose a plain C interface and include no
+PyTorch headers, so a build takes seconds; ``build_all`` starts one ``nvcc``
+per source at once.  Libraries live in ``build/kernels`` at the repository
+root (listed in ``.gitignore``), named by a hash of their sources and flags,
+so an edited source is never served from a stale build.  Nothing here runs
+at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel -> (C entry point, argtypes); see the extern "C" functions in csrc
+SIGNATURES = {
+    "bd_agg": ("dsgcn_bd_agg", [_P, _P, _I] + [_P] * 9 + [_I] * 8 + [_P]),
+    "dyn_graph": ("dsgcn_dyn_graph_fwd",
+                  [_P, _P, _I] + [_P] * 8 + [_I] * 8 + [_P]),
+}
+
+_lock = threading.Lock()
+_entry_points: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit to build")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def compile_kernel(name: str) -> Path:
+    """Build ``csrc/<name>.cu`` unless a build of the same sources exists.
+    ptxas's register/spill report goes to the ``.log`` beside the library."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> Dict[str, float]:
+    """Build every kernel, one nvcc per source started together; returns the
+    seconds each build took (0 where a current build existed)."""
+    def timed(name):
+        t0 = time.perf_counter()
+        compile_kernel(name)
+        return time.perf_counter() - t0
+    with ThreadPoolExecutor(len(SIGNATURES)) as ex:
+        futures = {name: ex.submit(timed, name) for name in SIGNATURES}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def entry_point(name: str):
+    """The kernel's C launcher (built and loaded on first use)."""
+    with _lock:
+        fn = _entry_points.get(name)
+        if fn is None:
+            symbol, argtypes = SIGNATURES[name]
+            lib = ctypes.CDLL(str(compile_kernel(name)))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, symbol + "_error")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            fn.error_string = err
+            _entry_points[name] = fn
+        return fn
+
+
+def launch(name: str, *args) -> None:
+    """Call the kernel's launcher; raise if the launch was refused."""
+    fn = entry_point(name)
+    code = fn(*args)
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{fn.error_string(code).decode()} ({code})")
+
+
+def ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream_of(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def graph_operand(t: torch.Tensor, shape, name: str,
+                  device: torch.device) -> torch.Tensor:
+    """A small graph operand as the contiguous float32 tensor the kernels
+    read (the Pallas wrappers cast these to float32 too); raises on a wrong
+    shape, device or type."""
+    if t is None:
+        raise ValueError(f"{name} is required")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, pre is on {device}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return t.float().contiguous()
+
+
+def check_activation(pre: torch.Tensor, name: str) -> None:
+    """The large input of a kernel: on a CUDA device, float32 or bfloat16,
+    contiguous; raises on what the kernel cannot take."""
+    if pre.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {pre.device}")
+    if pre.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: pre must be float32 or bfloat16, "
+                        f"got {pre.dtype}")
+    if not pre.is_contiguous():
+        raise ValueError(f"{name}: pre must be contiguous")
+
+
+# what the kernels take (csrc/graph_agg.cuh VMAX, EMAX; the grid's z axis)
+MAX_JOINTS, MAX_EDGE_CLASSES, MAX_SAMPLES = 32, 16, 65535
+
+
+def check_limits(name: str, N: int, V: int, E: int) -> None:
+    """Refuse sizes the kernels do not take."""
+    if not 1 <= V <= MAX_JOINTS:
+        raise ValueError(f"{name}: {V} joints; the kernel takes 1-{MAX_JOINTS}")
+    if E > MAX_EDGE_CLASSES:
+        raise ValueError(f"{name}: {E} edge classes; the kernel takes at "
+                         f"most {MAX_EDGE_CLASSES}")
+    if N > MAX_SAMPLES:
+        raise ValueError(f"{name}: batch {N} over {MAX_SAMPLES}; split it")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """The kernels have no backward yet: refuse inputs that need a gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet (it comes with the training "
+            "port); call it under torch.no_grad() or torch.inference_mode()")

@@ -1,0 +1,103 @@
+"""Dynamic-graph aggregation for DS-GCN eval (K3).
+
+The port of ``dsgcn_tpu/ops/pallas/bd_agg.py:bd_dyn_graph_agg``: the same
+function as the K1 forward (``dyn_graph.py``) from other input packaging.
+pre2/y2 are the flat ``(N, T, V*K*Cm)`` views of ``(N, T, V, K*Cm)``, x1
+arrives transposed as ``(N, K, V, Cm)``, and the edge-class attention
+arrives precomputed: per-class projections p1t ``(N, E, V, Cm)`` and p2
+``(N, E, Cm, V)`` and a ``(V, Cm, V)`` bias field.  The TPU kernel's
+block-diagonal densification is a TPU mechanic and is not ported.
+
+On a CUDA tensor :func:`bd_dyn_graph_agg` launches the hand-written kernel
+(``csrc/bd_agg.cu``); on a CPU tensor it runs the plain version
+:func:`reference_bd_dyn_graph_agg`.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .dyn_graph import _ada
+
+
+def reference_bd_dyn_graph_agg(pre2, x1t, x2, A, alpha, beta, p1t=None,
+                               p2=None, edge_sel=None, ebias=None, *, K, Cm,
+                               edge_k=-1, edge_num=15, v_real=-1):
+    """Plain PyTorch version of K3 from its own inputs: the graph builds in
+    float32 as (N, K, V, Cm, W) and is cast to pre2's dtype for the
+    contraction."""
+    N, T, VKC = pre2.shape
+    V = A.shape[-1]
+    x1t, x2 = x1t.float(), x2.float()
+    ada = _ada(torch.einsum("nkvc,nkcw->nkvw", x1t, x2), v_real)
+    ctr = torch.tanh(x1t[..., :, :, None] - x2[:, :, None, :, :])
+    if edge_k >= 0:
+        sel = edge_sel.float()
+        ea = (ebias.float()[None]
+              + torch.einsum("evw,nevc->nvcw", sel, p1t.float())
+              - torch.einsum("evw,necw->nvcw", sel, p2.float()))
+        ctr = torch.cat([ctr[:, :edge_k], torch.tanh(ea)[:, None],
+                         ctr[:, edge_k + 1:]], dim=1)
+    G = (ctr * alpha.float()[None, :, None, None, None]
+         + (ada * beta.float()[None, :, None, None]
+            + A.float()[None])[:, :, :, None, :])            # (N,K,V,Cm,W)
+    y = torch.einsum("ntvkc,nkvcw->ntwkc", pre2.reshape(N, T, V, K, Cm),
+                     G.to(pre2.dtype))
+    return y.reshape(N, T, VKC)
+
+
+def bd_dyn_graph_agg(pre2: torch.Tensor, x1t: torch.Tensor, x2: torch.Tensor,
+                     A: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                     p1t=None, p2=None, edge_sel=None, ebias=None, *, K: int,
+                     Cm: int, edge_k: int = -1, edge_num: int = 15,
+                     v_real: int = -1) -> torch.Tensor:
+    """y2 = aggregate(pre2, G(x1, x2, A, alpha, beta[, edge attention])).
+
+    pre2: (N, T, V*K*Cm) float32 or bfloat16; x1t: (N, K, V, Cm); x2:
+    (N, K, Cm, V); A: (K, V, V); alpha/beta: (K,) effective gates; with
+    ``edge_k >= 0``: p1t (N, E, V, Cm), p2 (N, E, Cm, V), edge_sel
+    (E, V, V) one-hot class mask, ebias (V, Cm, V).  Returns (N, T, V*K*Cm)
+    with columns (w, k, c), the layout of pre2.
+    """
+    if pre2.device.type == "cpu":
+        return reference_bd_dyn_graph_agg(
+            pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias, K=K,
+            Cm=Cm, edge_k=edge_k, edge_num=edge_num, v_real=v_real)
+    name = "bd_dyn_graph_agg"
+    _build.check_activation(pre2, name)
+    _build.refuse_grad(name, pre2, x1t, x2, A, alpha, beta, p1t, p2, ebias)
+    N, T, VKC = pre2.shape
+    V, E, dev = A.shape[-1], edge_num, pre2.device
+    _build.check_limits(name, N, V, E)
+    if VKC != V * K * Cm:
+        raise ValueError(f"{name}: pre2 width {VKC} != V*K*Cm = {V * K * Cm}")
+    op = lambda t, shape, n: _build.graph_operand(t, shape, n, dev)  # noqa: E731
+    x1t = op(x1t, (N, K, V, Cm), "x1t")
+    x2 = op(x2, (N, K, Cm, V), "x2")
+    A = op(A, (K, V, V), "A")
+    alpha, beta = op(alpha, (K,), "alpha"), op(beta, (K,), "beta")
+    if edge_k >= 0:
+        if edge_k >= K:
+            raise ValueError(f"{name}: edge_k={edge_k} outside [0, {K})")
+        p1t = op(p1t, (N, E, V, Cm), "p1t")
+        p2 = op(p2, (N, E, Cm, V), "p2")
+        edge_sel = op(edge_sel, (E, V, V), "edge_sel")
+        ebias = op(ebias, (V, Cm, V), "ebias")
+    else:
+        p1t = p2 = edge_sel = ebias = None
+    out = torch.empty_like(pre2)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        _build.launch(
+            "bd_agg", _build.ptr(pre2), _build.ptr(out),
+            int(pre2.dtype == torch.bfloat16), _build.ptr(x1t),
+            _build.ptr(x2), _build.ptr(A), _build.ptr(alpha),
+            _build.ptr(beta), _build.ptr(p1t), _build.ptr(p2),
+            _build.ptr(edge_sel), _build.ptr(ebias), N, T, V, K, Cm, E,
+            edge_k, v_real, _build.stream_of(pre2))
+    bd_dyn_graph_agg.launches += 1
+    return out
+
+
+bd_dyn_graph_agg.launches = 0

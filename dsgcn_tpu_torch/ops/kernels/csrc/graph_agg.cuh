@@ -1,0 +1,181 @@
+// Shared device code of the dynamic-graph aggregation kernels (bd_agg.cu,
+// dyn_graph.cu): the graph build and the per-channel aggregation
+//
+//   ctr[c,v,w] = tanh(x1[c,v] - x2[c,w])               (diff graph)
+//   ctr[c,v,w] = tanh(sum_e sel[e,v,w] (P1[e,c,v] - P2[e,c,w]) + bias[c,v,w])
+//                                                       (edge-class subset)
+//   ada[v,w]   = softmax_v(sum_c x1[c,v] x2[c,w])      (v >= v_real masked)
+//   G[c,v,w]   = alpha * ctr + (beta * ada + A[v,w])
+//   y[t,w,c]   = sum_v pre[t,v,c] G[c,v,w]
+//
+// for one subset k of one sample n.  Work split: a thread block owns one
+// (n, k, channel group, T-chunk); thread (c, w) builds its column G[c, :, w]
+// in registers and reuses it for every row t of the chunk, so the graph
+// never touches device memory.  Graph math is float32; with bfloat16 pre/y
+// the graph is rounded to bfloat16 before the contraction and the sum runs
+// in float32, as the TPU kernels' MXU contraction does.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace dsgcn {
+
+constexpr int VMAX = 32;     // most joints a graph may have
+constexpr int EMAX = 16;     // most edge classes
+constexpr int T_TILE = 4;    // rows of pre staged in shared memory per pass
+constexpr int T_CHUNK = 32;  // rows of pre per thread block
+constexpr int CG_MAX = 16;   // channels per thread block
+constexpr int MAX_THREADS = CG_MAX * VMAX;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Channels per block: the largest divisor of Cm that is at most CG_MAX.
+inline int channel_group(int Cm) {
+  for (int g = CG_MAX < Cm ? CG_MAX : Cm; g > 1; --g)
+    if (Cm % g == 0) return g;
+  return 1;
+}
+
+// Odd row stride of the (channel, joint) tables, so that threads of one
+// warp reading one joint of consecutive channels hit distinct banks.
+__host__ __device__ inline int row_stride(int V) { return V | 1; }
+
+// Shared memory of one block, in floats: x1, x2 (Cm rows), ada (V x V),
+// P1 and P2 of the channel group (edge subset only), the staged pre tile.
+inline size_t smem_bytes(int V, int Cm, int CG, int E) {
+  const int XS = row_stride(V);
+  size_t floats = 2 * (size_t)Cm * XS + (size_t)V * V +
+                  2 * (size_t)E * CG * XS + (size_t)T_TILE * V * CG;
+  return floats * sizeof(float);
+}
+
+struct Smem {
+  float *xs1, *xs2, *ada, *p1s, *p2s, *pres;
+};
+
+__device__ inline Smem carve_smem(float *base, int V, int Cm, int CG, int E) {
+  const int XS = row_stride(V);
+  Smem s;
+  s.xs1 = base;
+  s.xs2 = s.xs1 + Cm * XS;
+  s.ada = s.xs2 + Cm * XS;
+  s.p1s = s.ada + V * V;
+  s.p2s = s.p1s + E * CG * XS;
+  s.pres = s.p2s + E * CG * XS;
+  return s;
+}
+
+// ada[v*V + w] = softmax over the source joint v of sum_c x1[c,v] x2[c,w];
+// sources v >= v_real (when 0 < v_real < V) are masked out.
+__device__ inline void build_ada(float *ada, const float *xs1,
+                                 const float *xs2, int Cm, int V,
+                                 int v_real) {
+  const int XS = row_stride(V);
+  for (int i = threadIdx.x; i < V * V; i += blockDim.x) {
+    const int v = i / V, w = i % V;
+    float s = 0.f;
+    for (int c = 0; c < Cm; ++c) s += xs1[c * XS + v] * xs2[c * XS + w];
+    ada[i] = (v_real > 0 && v >= v_real) ? -1e30f : s;
+  }
+  __syncthreads();
+  for (int w = threadIdx.x; w < V; w += blockDim.x) {
+    float m = -INFINITY;
+    for (int v = 0; v < V; ++v) m = fmaxf(m, ada[v * V + w]);
+    float sum = 0.f;
+    for (int v = 0; v < V; ++v) {
+      const float e = expf(ada[v * V + w] - m);
+      ada[v * V + w] = e;
+      sum += e;
+    }
+    const float inv = 1.f / sum;
+    for (int v = 0; v < V; ++v) ada[v * V + w] *= inv;
+  }
+  __syncthreads();
+}
+
+// The graph-build function of both kernels: g[v] = G[c, v, w] of subset k
+// for v < V, 0 beyond.  c is the channel within the subset, cl its index in
+// the block's channel group.  With ``edge``, ctr comes from the per-class
+// projections p1s/p2s ([e][cl][joint], stride row_stride(V)), the one-hot
+// class mask sel (E, V, V) and the bias field, read at
+// bias[c * bias_c + v * bias_v + w].
+template <typename Tio>
+__device__ inline void graph_column(float (&g)[VMAX], int c, int cl, int w,
+                                    const Smem &s, int V, int CG,
+                                    const float *A_k, float alpha, float beta,
+                                    bool edge, int E, const float *sel,
+                                    const float *bias, int bias_c,
+                                    int bias_v) {
+  const int XS = row_stride(V);
+  const float x2cw = s.xs2[c * XS + w];
+#pragma unroll
+  for (int v = 0; v < VMAX; ++v) {
+    float gv = 0.f;
+    if (v < V) {
+      float ctr;
+      if (edge) {
+        float ea = __ldg(bias + c * bias_c + v * bias_v + w);
+        for (int e = 0; e < E; ++e) {
+          const float m = __ldg(sel + (e * V + v) * V + w);
+          if (m != 0.f)
+            ea += m * (s.p1s[(e * CG + cl) * XS + v] -
+                       s.p2s[(e * CG + cl) * XS + w]);
+        }
+        ctr = tanhf(ea);
+      } else {
+        ctr = tanhf(s.xs1[c * XS + v] - x2cw);
+      }
+      gv = ctr * alpha + (s.ada[v * V + w] * beta + __ldg(A_k + v * V + w));
+      // the contraction runs in the working type of pre (a no-op for f32)
+      gv = to_f32(from_f32<Tio>(gv));
+    }
+    g[v] = gv;
+  }
+}
+
+// y[n, t, w, ch0 + cl] = sum_v pre[n, t, v, ch0 + cl] g[v] for the rows
+// t in [t_begin, t_end), pre/y of row width KC.  pre rows are staged
+// T_TILE at a time; every thread of the block takes part in the staging,
+// threads with active == false (padding of the last warp) compute nothing.
+template <typename Tio>
+__device__ inline void aggregate(const float (&g)[VMAX], const Tio *pre,
+                                 Tio *out, float *pres, int n, int T, int V,
+                                 int KC, int ch0, int CG, int cl, int w,
+                                 bool active, int t_begin, int t_end) {
+  for (int t0 = t_begin; t0 < t_end; t0 += T_TILE) {
+    const int rows = min(T_TILE, t_end - t0);
+    for (int i = threadIdx.x; i < rows * V * CG; i += blockDim.x) {
+      const int cc = i % CG, rv = i / CG;
+      const int v = rv % V, r = rv / V;
+      pres[i] = to_f32(pre[(((size_t)n * T + t0 + r) * V + v) * KC + ch0 + cc]);
+    }
+    __syncthreads();
+    if (active) {
+      for (int r = 0; r < rows; ++r) {
+        const float *pr = pres + r * V * CG + cl;
+        float acc = 0.f;
+#pragma unroll
+        for (int v = 0; v < VMAX; ++v)
+          if (v < V) acc += pr[v * CG] * g[v];
+        out[(((size_t)n * T + t0 + r) * V + w) * KC + ch0 + cl] =
+            from_f32<Tio>(acc);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace dsgcn

@@ -1,0 +1,79 @@
+"""JAX variables -> the port's ``state_dict``.
+
+The port names its submodules after the JAX package's flax scopes
+(``backbone.block{i}.gcn.pre_conv``, ``...tcn.branches.branch{j}_tcn.conv.conv``,
+``head.fc_cls``, ...), so a conversion only rewrites leaf names and
+re-orients kernels:
+
+* ``kernel`` -> ``weight``: a dense (I, O) kernel becomes (O, I); a conv
+  (k, 1, I, O) kernel becomes (O, I, k, 1);
+* a BatchNorm's ``<name>/bn/{scale,bias}`` params and ``<name>/bn/{mean,var}``
+  statistics become ``<name>.{weight,bias,running_mean,running_var}``;
+* every other leaf (biases, ``A``, ``alpha``, ``beta``, ``add_coeff``) keeps
+  its name and value.
+
+Load the result with ``model.load_state_dict(sd, strict=True)``: together
+with the converter's own check that no two leaves land on one name, every
+JAX leaf is then used exactly once and every port tensor is filled.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
+              ("batch_stats", "mean"): "running_mean",
+              ("batch_stats", "var"): "running_var"}
+
+
+def _leaves(tree: Mapping[str, Any],
+            prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
+                                                            Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":   # ml_dtypes bfloat16 from a JAX array
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _convert_leaf(collection: str, path: Tuple[str, ...],
+                  a: np.ndarray) -> Tuple[str, np.ndarray]:
+    *scope, leaf = path
+    if scope and scope[-1] == "bn" and (collection, leaf) in _BN_LEAVES:
+        return ".".join(scope[:-1] + [_BN_LEAVES[collection, leaf]]), a
+    if collection != "params":
+        raise ValueError(f"unexpected {collection} leaf {'/'.join(path)}")
+    if leaf == "kernel":
+        if a.ndim == 2:
+            a = a.T
+        elif a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"kernel {'/'.join(path)} has rank {a.ndim}")
+        return ".".join(scope + ["weight"]), a
+    return ".".join(path), a
+
+
+def convert_jax_variables(variables: Mapping[str, Any]) -> Dict[str,
+                                                                torch.Tensor]:
+    """Convert the JAX ``{'params', 'batch_stats'}`` tree (nested dicts of
+    numpy arrays) into the port's ``state_dict``."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"unexpected variable collections {sorted(unknown)}")
+    sd: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _leaves(variables.get(collection, {})):
+            key, a = _convert_leaf(collection, path, np.asarray(leaf))
+            if key in sd:
+                raise ValueError(f"two JAX leaves map to {key}")
+            sd[key] = _tensor(a)
+    return sd
