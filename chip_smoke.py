@@ -4,14 +4,21 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``dsgcn_tpu_torch/ops/kernels/csrc``,
-holds each against its plain PyTorch version on the card at the DS-GCN
-block shapes, serves full-width DS-GCN through ``init_recognizer`` /
+It builds the port's CUDA kernels from ``dsgcn_tpu_torch/ops/kernels/csrc``
+and holds each against its plain PyTorch version on the card at the DS-GCN
+block shapes (phase 2: K1, K3 at the serving shapes; phase 6: K2 and K1 at
+the training shapes, K2 also against autograd through the plain forward).
+It serves full-width DS-GCN through ``init_recognizer`` /
 ``inference_recognizer`` (random seeded weights, gates nudged off zero,
 BN statistics taken from data), checks the kernels were launched on that
 path and that the GPU answers match the same model on the CPU, and times a
-batch forward.  Any
-failed check raises, and the script exits non-zero without a result line.
+batch forward (phases 3-5).  Phase 7 trains the config's full-width model
+(b128 x M2 x T60, synthetic data through the train pipeline and the
+port's Loader): one step against the same step on the CPU, timed steps in
+float32 and bfloat16 compute with their K1/K2 launches, one
+``Trainer.validate`` (K3), and the training CLI with a checkpoint and a
+resume.  Any failed check raises, and the script exits non-zero without a
+result line.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it lists the kernels with their launches, errors and
@@ -34,6 +41,11 @@ CONFIG = ROOT / "configs" / "dsgcn" / "ntu60_xsub_3dkp" / "j.py"
 BLOCK_SHAPES = [(8, 100, 4), (16, 100, 1), (16, 50, 2), (32, 50, 1),
                 (32, 25, 2)]
 N_BLOCK = 128
+# DS-GCN training at b128 x M2 x T60 (N=256 skeletons): (mid, T at the GCN,
+# blocks with this shape)
+TRAIN_BLOCK_SHAPES = [(8, 60, 4), (16, 60, 1), (16, 30, 2), (32, 30, 1),
+                      (32, 15, 2)]
+N_TRAIN = 256
 V, K, E = 25, 3, 15
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # CUDA-core float32, H100 SXM data sheet
@@ -80,14 +92,13 @@ def cold_ms(fn, iters: int = 10, flush=None) -> float:
 # phase 2: kernels against their plain versions at the block shapes
 # ---------------------------------------------------------------------------
 
-def block_inputs(rng, dev, Cm, T, dtype, Vp=V, v_real=-1):
+def block_inputs(rng, dev, Cm, T, dtype, Vp=V, v_real=-1, N=N_BLOCK):
     """K1 and K3 inputs of one DS-GCN block's aggregation (random, with the
     NTU edge classes)."""
     from dsgcn_tpu_torch.graph import Graph
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import edge_onehot
     f = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32)).to(dev)
-    N = N_BLOCK
     d = dict(pre=f(N, T, Vp, K * Cm).to(dtype), x1=f(N, K, Cm, Vp),
              x2=f(N, K, Cm, Vp), A=f(K, Vp, Vp) * 0.04,
              alpha=f(K).clamp(-1, 1), beta=f(K).clamp(-1, 1),
@@ -218,6 +229,386 @@ def kernel_checks(dev, rng, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: K2 (the backward kernel) against its plain version
+# ---------------------------------------------------------------------------
+
+K2_OUTPUTS = ("dpre", "dx1", "dx2", "dA", "dalpha", "dbeta", "dedge_w",
+              "dedge_b")
+# relative to each output's largest entry: summation order in float32 (the
+# gradients are float32 in both types); a bfloat16 dpre is one rounding of
+# the same float32 sum (2^-8), doubled
+K2_TOL, K2_TOL_BF16_DPRE = 1e-4, 8e-3
+
+
+def k2_args(d, Cm, edge):
+    ek = 1 if edge else -1
+    return ((d["pre"], d["x1"], d["x2"], d["A"], d["alpha"], d["beta"])
+            + ((d["ew"], d["eb"], d["sel"]) if edge else (None, None, None))
+            + (d["dy"], K, Cm, ek, E))
+
+
+def k2_bound(d, Cm, edge):
+    """Least time of K2's work (ms) and what bounds it: pre and dy read and
+    dpre written once, plus the small operands and gradients, over the
+    memory rate, against the two T-contractions and the graph chain in
+    float32 over the CUDA-core rate."""
+    N, T, Vp, KC = d["pre"].shape
+    act = d["pre"].numel() * d["pre"].element_size()
+    small = sum(d[k].numel() * 4 for k in
+                ["x1", "x2", "A", "alpha", "beta"]
+                + (["ew", "eb", "sel"] if edge else []))
+    grads = (2 * d["x1"].numel() + d["A"].numel() + 2 * K
+             + ((d["ew"].numel() + d["eb"].numel()) if edge else 0)) * 4
+    nbytes = 3 * act + small + grads
+    flops = 4 * N * T * Vp * Vp * KC                    # dpre and dG
+    flops += N * K * 12 * Cm * Vp * Vp                  # graph, chain, ada
+    if edge:
+        flops += N * Cm * Vp * Vp * 4 * E               # edge ctr and dP
+        flops += N * 8 * Cm * E * Cm * Vp               # P, dx, dedge_w
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k2_checks(dev, rng, report):
+    """K2 at the five DS-GCN training block shapes (N=256), f32 and bf16,
+    with and without edge attention: against the plain backward, and in
+    f32 also against torch.autograd through the plain forward."""
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
+        fused_dyn_graph_agg_bwd, reference_dyn_graph_agg,
+        reference_dyn_graph_agg_bwd)
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    worst = {"fused_dyn_graph_agg": 0.0, "fused_dyn_graph_agg_bwd": 0.0}
+    per_step = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                           bound_ms=0.0, bound_by=set()) for name in worst}
+    for Cm, T, nblocks in TRAIN_BLOCK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for edge in (True, False):
+                d = block_inputs(rng, dev, Cm, T, dtype, N=N_TRAIN)
+                d["dy"] = torch.from_numpy(rng.standard_normal(
+                    d["pre"].shape).astype(np.float32)).to(dev).to(dtype)
+                args = k2_args(d, Cm, edge)
+                got = fused_dyn_graph_agg_bwd(*args)
+                want = reference_dyn_graph_agg_bwd(*args)
+                refs = {"plain": want}
+                if dtype == torch.float32:
+                    ins = [a for a in args[:8] if a is not None]
+                    ins = [a.detach().requires_grad_() for a in ins]
+                    full = ins[:6] + (ins[6:] + [d["sel"]] if edge
+                                      else [None, None, None])
+                    with torch.enable_grad():
+                        y = reference_dyn_graph_agg(
+                            *full, K=K, Cm=Cm, edge_k=1 if edge else -1,
+                            edge_num=E)
+                        auto = torch.autograd.grad(y, ins, d["dy"])
+                    refs["autograd"] = list(auto[:6]) + (
+                        list(auto[6:]) if edge else [None, None])
+                torch.cuda.synchronize()
+                row = dict(kernel="fused_dyn_graph_agg_bwd", Cm=Cm, T=T,
+                           N=N_TRAIN, dtype=str(dtype).split(".")[-1],
+                           edge=edge, rel_err={}, max_abs_err=0.0)
+                for ref_name, ref in refs.items():
+                    for out, g, w in zip(K2_OUTPUTS, got, ref):
+                        if w is None:
+                            check(g is None, f"K2 gave {out} without edge")
+                            continue
+                        check(bool(torch.isfinite(g.float()).all()),
+                              f"K2 {out} not finite at {row}")
+                        err = (g.float() - w.float()).abs().max().item()
+                        rel = err / max(w.float().abs().max().item(), 1e-30)
+                        tol = (K2_TOL_BF16_DPRE if out == "dpre"
+                               and dtype == torch.bfloat16 else K2_TOL)
+                        row["rel_err"][f"{ref_name}:{out}"] = rel
+                        if ref_name == "plain":
+                            row["max_abs_err"] = max(row["max_abs_err"], err)
+                        check(rel <= tol, f"K2 {out} off its {ref_name} "
+                              f"reference by {rel:.3e} rel (tol {tol}) at "
+                              f"Cm={Cm} T={T} {dtype} edge={edge}")
+                worst[row["kernel"]] = max(worst[row["kernel"]],
+                                           row["max_abs_err"])
+                rows = [row]
+                if edge:
+                    row.update(k2_times(d, args, Cm, flush))
+                    rows.append(k1_at_training_shape(d, Cm, dtype, flush))
+                    worst[rows[1]["kernel"]] = max(
+                        worst[rows[1]["kernel"]], rows[1]["max_abs_err"])
+                for r in rows:
+                    r["blocks_per_step"] = nblocks
+                    if edge and dtype == torch.float32:
+                        acc = per_step[r["kernel"]]
+                        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                            acc[k] += nblocks * r[k]
+                        acc["bound_by"].add(r["bound_by"])
+                    report["k2_checks"].append(r)
+                    print("kernel", json.dumps(r), flush=True)
+                del d, got, want, refs
+    return worst, per_step
+
+
+def k1_at_training_shape(d, Cm, dtype, flush):
+    """K1's forward against its plain version and timed at a training block
+    shape (the forward of the step K2 differentiates)."""
+    kern, plain, library = kernel_calls(d, Cm, True)["fused_dyn_graph_agg"]
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype]
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"fused_dyn_graph_agg disagrees with its plain version at "
+          f"Cm={Cm} N={N_TRAIN} {dtype}")
+    bound_ms, bound_by = bound(d, "fused_dyn_graph_agg", Cm, True)
+    return dict(kernel="fused_dyn_graph_agg", Cm=Cm, T=d["pre"].shape[1],
+                N=N_TRAIN, dtype=str(dtype).split(".")[-1], edge=True,
+                max_abs_err=err, tol=tol, ms=cold_ms(kern, flush=flush),
+                plain_ms=cold_ms(plain, iters=3, flush=flush),
+                library_ms=cold_ms(library, flush=flush), bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def k2_times(d, args, Cm, flush):
+    """K2's device time, its plain version's, and the library yardstick:
+    the two einsums that compute dpre and dG from a prebuilt graph."""
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
+        fused_dyn_graph_agg_bwd, reference_dyn_graph_agg_bwd)
+    N, T, Vp, _ = d["pre"].shape
+    G = torch.randn(N, K, Cm, Vp, Vp, device=d["pre"].device).to(
+        d["pre"].dtype)
+    pre5 = d["pre"].reshape(N, T, Vp, K, Cm)
+    dy5 = d["dy"].reshape(N, T, Vp, K, Cm)
+
+    def library():
+        torch.einsum("ntwkc,nkcvw->ntvkc", dy5, G)
+        torch.einsum("ntvkc,ntwkc->nkcvw", pre5, dy5)
+    bound_ms, bound_by = k2_bound(d, Cm, args[6] is not None)
+    return dict(ms=cold_ms(lambda: fused_dyn_graph_agg_bwd(*args),
+                           flush=flush),
+                plain_ms=cold_ms(lambda: reference_dyn_graph_agg_bwd(*args),
+                                 iters=3, flush=flush),
+                library_ms=cold_ms(library, flush=flush),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training through the entry points
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_STEPS = 128, 3     # videos per step; timed steps per dtype
+CPU_CHECK_CLIPS = 4
+
+
+def nudge_gates_(model, gen):
+    """Gates and joint coefficients off zero, so the ctr/ada graphs and the
+    global-joint branch carry gradient from the first step."""
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("alpha", "beta", "add_coeff"):
+                t.uniform_(-0.3, 0.3, generator=gen)
+
+
+def train_data(tmp, cfg, seed=0):
+    """Synthetic NTU-shaped annotations (T=100 raw frames, 60 classes)
+    through the config's train and val pipelines and the port's Loader."""
+    from dsgcn_tpu_torch.data.dataset import (Loader, PoseDataset,
+                                              make_synthetic_pose_dataset)
+    path = str(tmp / "synth.pkl")
+    # the train split (the first 3/4) holds 1 + TRAIN_STEPS batches
+    need = (1 + TRAIN_STEPS) * TRAIN_BATCH
+    n = -(-need * 4 // 3)
+    make_synthetic_pose_dataset(num_samples=n, num_classes=60, t=100,
+                                seed=seed, path=path)
+    data = cfg["data"]
+    train = Loader(PoseDataset(path, data["train"]["pipeline"],
+                               split="train"),
+                   batch_size=TRAIN_BATCH, seed=seed, drop_last=True,
+                   num_workers=8)
+    val = Loader(PoseDataset(path, data["val"]["pipeline"], split="val",
+                             test_mode=True),
+                 batch_size=data["test_dataloader"]["videos_per_gpu"],
+                 shuffle=False, num_workers=8)
+    return train, val
+
+
+def as_batch(b, n=None):
+    kp = b["keypoint"][:, 0]              # (N, nc=1, M, T, V, C) -> one clip
+    return dict(keypoint=kp[:n], label=b["label"][:n])
+
+
+def gpu_vs_cpu_step(model, batch, report):
+    """One train_step on the card and the same step on the CPU (plain
+    versions) from the same weights and batch: loss within 1e-4, train-mode
+    logits within 1e-3 relative, each parameter's update with cosine >
+    0.995 and norm within 5% (float32 rounding grows through the untrained
+    BatchNorm stacks; tests/test_training_dynamics_parity.py)."""
+    import copy
+    from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+    model = copy.deepcopy(model)          # the caller's model stays as it is
+    cpu = copy.deepcopy(model).cpu()
+    init = {k: v.detach().cpu().clone() for k, v in cpu.state_dict().items()}
+    kp = torch.from_numpy(batch["keypoint"])
+    logits = []
+    for m in (model, cpu):
+        probe = copy.deepcopy(m).train()
+        with torch.no_grad():
+            logits.append(probe(kp.to(next(m.parameters()).device)).cpu())
+    losses = []
+    for m in (model, cpu):
+        opt, sched = make_optimizer(m, 10)
+        losses.append(train_step(m, opt, sched, batch)["loss"].item())
+    lerr = rel_err(logits[0], logits[1])
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst_cos, worst_ratio = 1.0, 0.0
+    gpu_state = model.state_dict()
+    for name, p in cpu.named_parameters():
+        du_c = (p.detach() - init[name]).ravel()
+        du_g = (gpu_state[name].cpu() - init[name]).ravel()
+        cos = (du_g @ du_c / (du_g.norm() * du_c.norm())).item()
+        worst_cos = min(worst_cos, cos)
+        worst_ratio = max(worst_ratio,
+                          abs((du_g.norm() / du_c.norm()).item() - 1))
+    row = dict(loss_gpu=losses[0], loss_cpu=losses[1], loss_rel_err=loss_err,
+               logits_rel_err=lerr, worst_update_cos=worst_cos,
+               worst_update_norm_ratio_err=worst_ratio)
+    print("train gpu vs cpu", json.dumps(row), flush=True)
+    report["train"]["gpu_vs_cpu"] = row
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(loss_err <= 1e-4, f"GPU loss off the CPU's by {loss_err:.3e} rel")
+    check(lerr <= 1e-3, f"GPU logits off the CPU's by {lerr:.3e} rel")
+    check(worst_cos > 0.995 and worst_ratio < 5e-2,
+          f"GPU update off the CPU's: cosine {worst_cos}, norm {worst_ratio}")
+
+
+def timed_steps(model, batches, dtype_name, card, report):
+    """Full-size steps: one warm-up, then TRAIN_STEPS timed ones, each with
+    its loss, wall ms, clips/s, peak device memory and K1/K2 launches."""
+    from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+    compute = None if dtype_name == "f32" else "bfloat16"
+    opt, sched = make_optimizer(model, 100)
+    nblocks = model.backbone.num_blocks
+    rows = []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        t0 = time.perf_counter()
+        m = train_step(model, opt, sched, b, compute_dtype=compute)
+        loss = m["loss"].item()            # synchronizes
+        wall = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        k1 = after["fused_dyn_graph_agg"] - before["fused_dyn_graph_agg"]
+        k2 = (after["fused_dyn_graph_agg_bwd"]
+              - before["fused_dyn_graph_agg_bwd"])
+        row = dict(dtype=dtype_name, step=i, warmup=i == 0, loss=loss,
+                   wall_ms=wall, clips_per_s=TRAIN_BATCH / wall * 1e3,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   k1_launches=k1, k2_launches=k2)
+        print("train step", json.dumps(row), f"on {card}", flush=True)
+        check(np.isfinite(loss), f"non-finite loss at {row}")
+        check(k1 == nblocks and k2 == nblocks,
+              f"a step launched K1 {k1} and K2 {k2} times for {nblocks} "
+              "blocks")
+        rows.append(row)
+    report["train"]["steps"].extend(rows)
+    # one more step of the same kind under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, sched, batches[-1], compute_dtype=compute)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report["train"].setdefault("profile", {})[dtype_name] = device_rows(
+        prof, wall, f"train profile {dtype_name}")
+
+
+def train_cli(tmp, report):
+    """The CLI, one short epoch on a synthetic pickle, twice: the second run
+    resumes from the first one's checkpoint."""
+    from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
+    ann = tmp / "cli.pkl"
+    make_synthetic_pose_dataset(num_samples=64, num_classes=60, t=100, seed=5,
+                                path=str(ann))
+    cfg = tmp / "cli_cfg.py"
+    cfg.write_text(f"_base_ = [{str(CONFIG)!r}]\n"
+                   f"data = dict(videos_per_gpu=16, workers_per_gpu=4,\n"
+                   f"    train=dict(ann_file={str(ann)!r}, split='train'),\n"
+                   f"    val=dict(ann_file={str(ann)!r}, split='val'))\n"
+                   "checkpoint_config = dict(interval=1)\n")
+    wd = tmp / "wd"
+    for epochs in (1, 2):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "dsgcn_tpu_torch.tools.train", str(cfg),
+             "--work-dir", str(wd), "--validate", "--total-epochs",
+             str(epochs)], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        print(f"train CLI, {epochs} epoch(s): rc {out.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for line in out.stdout.splitlines()[-4:]:
+            print(f"  cli: {line}", flush=True)
+        check(out.returncode == 0, f"train CLI failed:\n{out.stderr[-3000:]}")
+    ckpts = sorted(p.name for p in (wd / "ckpt").glob("*.pt"))
+    records = [json.loads(line) for f in sorted(wd.glob("*.log.jsonl"))
+               for line in f.read_text().splitlines()]
+    resumed = [r for r in records if r.get("event") == "resume"]
+    print(f"train CLI checkpoints {ckpts}, resumed {resumed}", flush=True)
+    check(ckpts == ["3.pt", "6.pt"], f"CLI checkpoints {ckpts}")
+    check(len(resumed) == 1 and resumed[0]["step"] == 3,
+          f"the second CLI run did not resume from step 3: {resumed}")
+    report["train"]["cli"] = dict(checkpoints=ckpts, resumed=resumed)
+
+
+def train(dev, card, report):
+    """Phase 7.  Returns the kernel counts of the training path: the full
+    size steps (f32, then bf16 compute) and one Trainer.validate."""
+    import tempfile
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.core.trainer import Trainer
+    from dsgcn_tpu_torch.models.builder import build_model
+
+    cfg = Config.fromfile(str(CONFIG))
+    check(cfg["data"]["videos_per_gpu"] == TRAIN_BATCH
+          and cfg["clip_len"] == 60, "the j config is not b128 x T60")
+    report["train"] = dict(steps=[])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        model = build_model(cfg["model"])
+        nudge_gates_(model, torch.Generator().manual_seed(7))
+        check(model.backbone.num_blocks == 10, "DS-GCN has not 10 blocks")
+        train_loader, val_loader = train_data(tmp, cfg)
+        # the trainer draws the conv and head weights from its seed and
+        # moves the model to the card
+        trainer = Trainer(model, str(tmp / "trainer"), train_loader,
+                          val_loader, seed=7, device=dev,
+                          eval_metrics=cfg["evaluation"]["metrics"])
+        model = trainer.model
+        batches = [as_batch(b) for b in train_loader.epoch(0)]
+        check(len(batches) == 1 + TRAIN_STEPS, f"{len(batches)} batches")
+        gpu_vs_cpu_step(model, as_batch(next(train_loader.epoch(1)),
+                                        CPU_CHECK_CLIPS), report)
+
+        reset_counts()
+        timed_steps(model, batches, "f32", card, report)
+        timed_steps(model, batches, "bf16", card, report)
+        t0 = time.perf_counter()
+        val = trainer.validate()
+        val_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        print("train path launches", json.dumps(counts), flush=True)
+        print(f"validate: {json.dumps(val)} in {val_ms:.1f} ms "
+              f"({len(val_loader.dataset)} clips)", flush=True)
+        n_val = -(-len(val_loader.dataset) // val_loader.batch_size)
+        check(all(np.isfinite(v) for v in val.values()),
+              f"validation gave {val}")
+        check(counts["bd_dyn_graph_agg"] == 10 * n_val,
+              f"validate launched K3 {counts['bd_dyn_graph_agg']} times for "
+              f"{n_val} batches")
+        report["train"].update(validate=val, validate_ms=val_ms)
+        train_cli(tmp, report)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 3-5: serving through the entry points
 # ---------------------------------------------------------------------------
 
@@ -290,17 +681,20 @@ def synthetic_annos(seed, n=4):
     return annos
 
 
-def reset_counts():
+def _wrappers():
     from dsgcn_tpu_torch.ops.kernels.bd_agg import bd_dyn_graph_agg
-    from dsgcn_tpu_torch.ops.kernels.dyn_graph import fused_dyn_graph_agg
-    bd_dyn_graph_agg.launches = fused_dyn_graph_agg.launches = 0
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
+        fused_dyn_graph_agg, fused_dyn_graph_agg_bwd)
+    return (bd_dyn_graph_agg, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd)
+
+
+def reset_counts():
+    for w in _wrappers():
+        w.launches = 0
 
 
 def read_counts():
-    from dsgcn_tpu_torch.ops.kernels.bd_agg import bd_dyn_graph_agg
-    from dsgcn_tpu_torch.ops.kernels.dyn_graph import fused_dyn_graph_agg
-    return {"bd_dyn_graph_agg": bd_dyn_graph_agg.launches,
-            "fused_dyn_graph_agg": fused_dyn_graph_agg.launches}
+    return {w.__name__: w.launches for w in _wrappers()}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -443,6 +837,18 @@ def breakdown(model, x, name, report):
             model(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+    report["profile"][name] = device_rows(prof, wall_ms, f"profile {name}")
+
+
+# the port's dynamic-graph kernels, as the profiler names them
+GRAPH_KERNELS = ("bd_agg_kernel", "dyn_graph_fwd_kernel",
+                 "dyn_graph_bwd_kernel", "sum_over_samples_kernel")
+
+
+def device_rows(prof, wall_ms, tag):
+    """Device time by kernel from a profile, the dynamic-graph kernels'
+    share and the device's idle share of ``wall_ms``; printed and
+    returned."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
@@ -451,20 +857,17 @@ def breakdown(model, x, name, report):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        print(f"profile {name}: the profiler saw no device time", flush=True)
-        return
-    ours = sum(r[0] for r in rows if "agg_kernel" in r[2]
-               or "dyn_graph_fwd_kernel" in r[2])
-    print(f"profile {name}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+        print(f"{tag}: the profiler saw no device time", flush=True)
+        return {}
+    ours = sum(r[0] for r in rows if any(k in r[2] for k in GRAPH_KERNELS))
+    print(f"{tag}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
           f"wall (idle {1 - busy / wall_ms:.1%}, under the profiler); "
           f"dynamic-graph kernels {ours:.3f} ms ({ours / busy:.1%})",
           flush=True)
     for ms, count, key in rows[:12]:
-        print(f"profile {name}: {ms:9.3f} ms {count:4d}x {key[:90]}",
-              flush=True)
-    report["profile"][name] = dict(
-        wall_ms=wall_ms, busy_ms=busy, graph_kernels_ms=ours,
-        top=[dict(ms=ms, count=c, kernel=k) for ms, c, k in rows[:25]])
+        print(f"{tag}: {ms:9.3f} ms {count:4d}x {key[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy, graph_kernels_ms=ours,
+                top=[dict(ms=ms, count=c, kernel=k) for ms, c, k in rows[:25]])
 
 
 def main() -> int:
@@ -491,28 +894,35 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    report = dict(card=card, kernel_checks=[], serving=[], throughput={},
-                  profile={})
+    report = dict(card=card, kernel_checks=[], k2_checks=[], serving=[],
+                  throughput={}, profile={})
     rng = np.random.default_rng(0)
     worst, per_forward = kernel_checks(dev, rng, report)
     model, bf16, main_counts, fused_counts = serve(dev, report)
     throughput(model, bf16, dev, card, report)
+    del model, bf16
+    worst_t, per_step = k2_checks(dev, rng, report)
+    train_counts = train(dev, card, report)
 
-    sources = {
-        "bd_dyn_graph_agg": ("dsgcn_tpu_torch/ops/kernels/csrc/bd_agg.cu",
-                             "dsgcn_tpu/ops/pallas/bd_agg.py:170",
-                             main_counts),
-        "fused_dyn_graph_agg": (
-            "dsgcn_tpu_torch/ops/kernels/csrc/dyn_graph.cu",
-            "dsgcn_tpu/ops/pallas/dyn_graph.py:232", fused_counts),
-    }
+    # K1 and K2 on the training path (times per step at b128 x M2 x T60),
+    # K3 on the serving path (times per forward at b64 x M2 x T100)
+    sources = [
+        ("bd_dyn_graph_agg", "bd_agg.cu", "bd_agg.py:170", main_counts,
+         worst, per_forward),
+        ("fused_dyn_graph_agg", "dyn_graph.cu", "dyn_graph.py:232",
+         train_counts, worst_t, per_step),
+        ("fused_dyn_graph_agg_bwd", "dyn_graph_bwd.cu", "dyn_graph.py:511",
+         train_counts, worst_t, per_step),
+    ]
     kernels = []
-    for name, (src, replaces, counts) in sources.items():
-        pf = per_forward[name]
+    for name, src, replaces, counts, errs, times in sources:
+        pf = times[name]
         check(counts[name] > 0, f"{name} was never launched on its path")
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[name], max_abs_err=worst[name], ms=pf["ms"],
+            name=name, route="cuda",
+            source=f"dsgcn_tpu_torch/ops/kernels/csrc/{src}",
+            replaces=f"dsgcn_tpu/ops/pallas/{replaces}",
+            launches=counts[name], max_abs_err=errs[name], ms=pf["ms"],
             plain_ms=pf["plain_ms"], bound_ms=pf["bound_ms"],
             bound_by="/".join(sorted(pf["bound_by"])),
             library_ms=pf["library_ms"]))

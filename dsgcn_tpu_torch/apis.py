@@ -20,7 +20,9 @@ from .models.builder import build_model
 from .models.recognizer import average_clip
 
 
-def _device(device) -> torch.device:
+def resolve_device(device=None) -> torch.device:
+    """The CUDA device, unless the caller names another; raises without a
+    GPU rather than falling back to the CPU."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
@@ -39,7 +41,7 @@ def init_recognizer(config, checkpoint: Optional[str] = None,
     strictly.  Without one the weights are the initial ones, drawn from
     torch's global generator.  The config rides on the model as ``.cfg``.
     """
-    dev = _device(device)
+    dev = resolve_device(device)
     cfg = config if isinstance(config, (dict, Config)) \
         else Config.fromfile(config)
     model = build_model(cfg["model"])

@@ -1,0 +1,45 @@
+"""Classification loss and the on-device top-k metric (port of
+``dsgcn_tpu/core/losses.py``; reference pyskl/models/losses/
+cross_entropy_loss.py and heads/base.py)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def cross_entropy(cls_score: torch.Tensor, label: torch.Tensor,
+                  class_weight: Optional[torch.Tensor] = None,
+                  loss_weight: float = 1.0) -> torch.Tensor:
+    """Hard- or soft-label cross entropy.
+
+    Hard labels: int (N,) -> standard CE, a class-weighted mean with
+    ``class_weight`` (cross_entropy_loss.py:42-78).  Soft labels: float
+    (N, K) -> -sum(logsoftmax * label) per sample, normalized by the
+    weighted label mass with ``class_weight`` (cross_entropy_loss.py:55-66).
+    """
+    logp = torch.log_softmax(cls_score, dim=-1)
+    if label.dim() == cls_score.dim():
+        lsm = -(logp * label)
+        if class_weight is not None:
+            lsm = lsm * class_weight[None]
+        loss = lsm.sum(dim=-1)
+        if class_weight is not None:
+            loss = loss / (class_weight[None] * label).sum(dim=-1)
+        loss = loss.mean()
+    else:
+        picked = torch.gather(logp, -1, label[:, None].long())[:, 0]
+        if class_weight is not None:
+            w = class_weight[label.long()]
+            loss = -(picked * w).sum() / w.sum()
+        else:
+            loss = -picked.mean()
+    return loss * loss_weight
+
+
+def top_k_correct(cls_score: torch.Tensor, label: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Fraction of samples whose true label is among the k highest scores
+    (reference heads/base.py:66-72)."""
+    topk = torch.topk(cls_score, min(k, cls_score.shape[-1]), dim=-1).indices
+    return (topk == label[:, None]).any(dim=-1).float().mean()

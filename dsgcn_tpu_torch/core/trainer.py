@@ -1,0 +1,165 @@
+"""The training loop on one device: epochs, validation, checkpoints and a
+JSONL log (port of ``dsgcn_tpu/core/trainer.py``; reference
+EpochBasedSparseRunner and apis/train.py).
+
+The model trains on the CUDA device unless the caller asks for
+``device='cpu'``.  Its random weights come from a ``torch.Generator``
+seeded with ``seed`` (``models/builder.py:init_weights_``), its dropout
+masks from a generator on the device seeded the same way.  The JAX
+trainer's ``n_graph`` joint partition and device mesh are not ported.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..apis import resolve_device
+from ..data.dataset import Loader, prefetch
+from ..models.builder import init_weights_, set_dropout_generator
+from ..models.recognizer import average_clip
+from .checkpoint import CheckpointManager
+from .metrics import evaluate
+from .train import eval_step, make_optimizer, train_step
+
+
+class JsonlLogger:
+    """One JSON object per record in ``<work_dir>/<time>.log.jsonl``,
+    echoed to standard output."""
+
+    def __init__(self, work_dir: str):
+        os.makedirs(work_dir, exist_ok=True)
+        self.path = os.path.join(
+            work_dir, f"{time.strftime('%Y%m%d_%H%M%S')}.log.jsonl")
+
+    def log(self, record: Dict[str, Any]):
+        record = {k: (float(v) if isinstance(v, (np.floating, torch.Tensor))
+                      else v) for k, v in record.items()}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(record) + "\n")
+        print(" ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                       else f"{k}={v}" for k, v in record.items()),
+              flush=True)
+
+
+class Trainer:
+    def __init__(self, model, work_dir: str, train_loader: Loader,
+                 val_loader: Optional[Loader] = None, total_epochs: int = 80,
+                 lr: float = 0.1, momentum: float = 0.9,
+                 weight_decay: float = 5e-4, grad_clip: Optional[float] = None,
+                 seed: int = 0, log_interval: int = 20,
+                 ckpt_interval_epochs: int = 5, eval_interval: int = 1,
+                 eval_metrics: Sequence[str] = ("top_k_accuracy",),
+                 average_clips: str = "prob", paramwise_cfg=None,
+                 prefetch_depth: int = 2,
+                 compute_dtype: Optional[str] = None, device=None):
+        self.device = resolve_device(device)
+        self.work_dir = work_dir
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.total_epochs = total_epochs
+        self.log_interval = log_interval
+        self.ckpt_interval_epochs = ckpt_interval_epochs
+        self.eval_interval = eval_interval
+        self.eval_metrics = list(eval_metrics)
+        self.average_clips = average_clips
+        self.prefetch_depth = prefetch_depth
+        self.compute_dtype = compute_dtype
+        self.logger = JsonlLogger(work_dir)
+
+        init_weights_(model, torch.Generator().manual_seed(seed))
+        self.model = model.to(self.device)
+        set_dropout_generator(self.model, torch.Generator(
+            device=self.device).manual_seed(seed))
+        total_steps = train_loader.steps_per_epoch() * total_epochs
+        self.opt, self.sched = make_optimizer(
+            self.model, max(total_steps, 1), lr=lr, momentum=momentum,
+            weight_decay=weight_decay, grad_clip=grad_clip,
+            paramwise_cfg=paramwise_cfg)
+        self.step = 0
+        self.ckpt = CheckpointManager(work_dir)
+        self.best = (-1.0, None)
+        self.start_epoch = 0
+
+    def resume_if_possible(self) -> bool:
+        meta = self.ckpt.restore(self.model, self.opt, self.sched)
+        if meta is None:
+            return False
+        self.step, self.start_epoch = int(meta["step"]), int(meta["epoch"])
+        if meta.get("score") is not None:
+            self.best = (float(meta["score"]), meta.get("best_epoch"))
+        self.logger.log(dict(event="resume", epoch=self.start_epoch,
+                             step=self.step))
+        return True
+
+    def _device_batches(self, epoch: int):
+        def to_device(batch):
+            kp = batch["keypoint"]
+            if kp.ndim == 6:          # (N, nc=1, M, T, V, C)
+                kp = kp[:, 0]
+            return dict(keypoint=torch.from_numpy(kp).to(
+                            self.device, non_blocking=True),
+                        label=torch.from_numpy(batch["label"]).to(
+                            self.device, non_blocking=True))
+        return prefetch(self.train_loader.epoch(epoch), to_device,
+                        depth=self.prefetch_depth)
+
+    def fit(self):
+        for epoch in range(self.start_epoch, self.total_epochs):
+            t_ep = time.perf_counter()
+            n_seen = 0
+            for it, batch in enumerate(self._device_batches(epoch)):
+                metrics = train_step(self.model, self.opt, self.sched, batch,
+                                     self.compute_dtype)
+                self.step += 1
+                n_seen += batch["keypoint"].shape[0]
+                if it % self.log_interval == 0:
+                    self.logger.log(dict(
+                        mode="train", epoch=epoch, iter=it, step=self.step,
+                        lr=self.opt.param_groups[0]["lr"],
+                        **{k: v.item() for k, v in metrics.items()}))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t_ep
+            self.logger.log(dict(event="epoch_done", epoch=epoch, seconds=dt,
+                                 clips_per_sec=n_seen / max(dt, 1e-9)))
+            is_best = False
+            if self.val_loader is not None and \
+                    (epoch + 1) % self.eval_interval == 0:
+                results = self.validate()
+                self.logger.log(dict(mode="val", epoch=epoch, **results))
+                # best by top-1 (the reference's save_best='auto'), else the
+                # first metric reported
+                key = next((k for k in results if "top1" in k),
+                           next(iter(results)))
+                if results[key] > self.best[0]:
+                    self.best = (results[key], epoch)
+                    is_best = True
+            if (epoch + 1) % self.ckpt_interval_epochs == 0 or \
+                    epoch + 1 == self.total_epochs or is_best:
+                self.ckpt.save(self.step, self.model, self.opt, self.sched,
+                               epoch + 1, meta=dict(
+                                   best=is_best, score=self.best[0],
+                                   best_epoch=self.best[1]))
+        return self.model
+
+    def validate(self) -> Dict[str, float]:
+        """Eval-mode scores of the validation set, clips averaged per
+        sample (``average_clips``), then the named metrics."""
+        scores, labels = [], []
+        for batch in prefetch(self.val_loader.epoch(0),
+                              depth=self.prefetch_depth):
+            kp = batch["keypoint"]                     # (N, nc, M, T, V, C)
+            n, nc = kp.shape[:2]
+            logits = eval_step(self.model, kp.reshape((n * nc,) + kp.shape[2:]))
+            avg = average_clip(logits.float().reshape(n, nc, -1),
+                               self.average_clips)
+            scores.append(avg.cpu().numpy())
+            labels.extend(batch["label"].tolist())
+        return {k: float(v) for k, v in evaluate(
+            np.concatenate(scores, axis=0), labels,
+            self.eval_metrics).items()}

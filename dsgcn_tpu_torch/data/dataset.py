@@ -1,0 +1,203 @@
+"""Skeleton datasets and batch loading (port of
+``dsgcn_tpu/data/dataset.py``: ``PoseDataset``, ``epoch_indices``,
+``Loader``, ``prefetch``, ``make_synthetic_pose_dataset``,
+``build_dataset``).
+
+Reference parity targets: PoseDataset (datasets/pose_dataset.py:12-125)
+and the deterministic per-epoch sampler (samplers/distributed_sampler.py).
+The per-epoch permutation and every sample's ``RandomState`` are seeded
+exactly as in the JAX ``Loader``, so both packages yield the same batches
+for one seed.  Batches are stacked numpy arrays; the trainer moves them to
+the device.
+"""
+from __future__ import annotations
+
+import copy as cp
+import pickle
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from .transforms import Compose, build_pipeline
+
+
+def load_annotations(ann_file: str) -> Dict:
+    with open(ann_file, "rb") as f:
+        return pickle.load(f)
+
+
+class PoseDataset:
+    """Skeleton pickle dataset with named splits (pose_dataset.py:12-125).
+
+    anno file layout: {'split': {name: [frame_dir, ...]}, 'annotations':
+    [{frame_dir, label, keypoint (M, T, V, C), total_frames, ...}, ...]}.
+    """
+
+    def __init__(self, ann_file: str, pipeline, split: Optional[str] = None,
+                 test_mode: bool = False):
+        self.ann_file = ann_file
+        self.pipeline = (pipeline if isinstance(pipeline, Compose)
+                         else build_pipeline(pipeline))
+        self.test_mode = test_mode
+        data = load_annotations(ann_file)
+        annos = data["annotations"] if isinstance(data, dict) else data
+        if split is not None:
+            if not (isinstance(data, dict) and "split" in data):
+                raise ValueError("split requested but the annotation file "
+                                 "has no split dict")
+            allowed = set(data["split"][split])
+            key = "frame_dir" if "frame_dir" in annos[0] else "filename"
+            annos = [a for a in annos if a[key] in allowed]
+        self.video_infos = annos
+
+    def __len__(self) -> int:
+        return len(self.video_infos)
+
+    def prepare(self, idx: int, rng: Optional[np.random.RandomState] = None):
+        results = cp.deepcopy(self.video_infos[idx])
+        results.setdefault("start_index", 0)
+        results.setdefault("total_frames", results["keypoint"].shape[1])
+        results["test_mode"] = self.test_mode
+        return self.pipeline(results, rng=rng)
+
+    __getitem__ = prepare
+
+    @property
+    def labels(self) -> np.ndarray:
+        return np.array([a["label"] for a in self.video_infos])
+
+
+def epoch_indices(n: int, epoch: int, shuffle: bool = True,
+                  seed: int = 0) -> np.ndarray:
+    """Deterministic per-epoch indices (distributed_sampler.py:9-43): a
+    permutation of range(n) from ``RandomState(seed + epoch)``, the JAX
+    package's on one shard.  Its host shards and ``class_prob`` replication
+    are not ported."""
+    if not shuffle:
+        return np.arange(n)
+    return np.random.RandomState(seed + epoch).permutation(n)
+
+
+class Loader:
+    """Maps the pipeline over an index shard into stacked numpy batches.
+
+    Sample ``idx`` of epoch ``e`` runs the pipeline with
+    ``RandomState((seed * 1_000_003 + e * 7919 + idx) % 2**31)``, so the
+    batches do not depend on worker scheduling and equal the JAX loader's.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, num_workers: int = 8,
+                 drop_last: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self._pool = ThreadPoolExecutor(num_workers) if num_workers else None
+
+    def _indices(self, epoch: int) -> np.ndarray:
+        return epoch_indices(len(self.dataset), epoch, self.shuffle,
+                             self.seed)
+
+    def steps_per_epoch(self) -> int:
+        n = len(self._indices(0))
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _prepare(self, idx: int, epoch: int):
+        rng = np.random.RandomState(
+            (self.seed * 1_000_003 + epoch * 7919 + int(idx)) % (2 ** 31))
+        return self.dataset.prepare(int(idx), rng=rng)
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        inds = self._indices(epoch)
+        for b in range(self.steps_per_epoch()):
+            chunk = inds[b * self.batch_size:(b + 1) * self.batch_size]
+            if self._pool is not None:
+                samples = list(self._pool.map(
+                    lambda i: self._prepare(i, epoch), chunk))
+            else:
+                samples = [self._prepare(i, epoch) for i in chunk]
+            yield _collate(samples)
+
+
+def prefetch(iterable, fn=None, depth: int = 2):
+    """Run an iterator (and ``fn`` on each item) ``depth`` items ahead in a
+    background thread, so the host pipeline of step s+1 overlaps the
+    device's step s.  A producer's exception re-raises at the consumer.
+    ``depth=0`` maps in line, without a thread."""
+    if depth <= 0:
+        for item in iterable:
+            yield fn(item) if fn is not None else item
+        return
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    failure: List[BaseException] = []
+
+    def producer():
+        try:
+            for item in iterable:
+                q.put(fn(item) if fn is not None else item)
+        except BaseException as e:   # noqa: BLE001 -- re-raised below
+            failure.append(e)
+        finally:
+            q.put(sentinel)
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            if failure:
+                raise failure[0]
+            return
+        yield item
+
+
+def _collate(samples: List[Dict]) -> Dict[str, np.ndarray]:
+    out = {}
+    for k in samples[0]:
+        vals = [s[k] for s in samples]
+        out[k] = (np.stack(vals) if isinstance(vals[0], np.ndarray)
+                  else np.asarray(vals))
+    return out
+
+
+def make_synthetic_pose_dataset(num_samples=64, num_classes=10, m=2, t=80,
+                                v=25, c=3, seed=0, path=None):
+    """Synthetic NTU-like annotations (no real data needed), the same draws
+    as the JAX package's: a per-sample scale carries the class, so it
+    survives centering and random rotations.  Splits 'train' (the first
+    3/4) and 'val'.  Written to ``path`` as a pickle when given."""
+    rng = np.random.default_rng(seed)
+    annos = []
+    for i in range(num_samples):
+        label = int(rng.integers(num_classes))
+        kp = (rng.standard_normal((m, t, v, c)) * (1.0 + 0.75 * label)
+              ).astype(np.float32)
+        annos.append(dict(frame_dir=f"S{i:05d}", label=label, keypoint=kp,
+                          total_frames=t))
+    cut = num_samples * 3 // 4
+    data = dict(split={"train": [a["frame_dir"] for a in annos[:cut]],
+                       "val": [a["frame_dir"] for a in annos[cut:]]},
+                annotations=annos)
+    if path is not None:
+        with open(path, "wb") as f:
+            pickle.dump(data, f)
+    return data
+
+
+def build_dataset(dcfg: Dict, test_mode: bool = False) -> PoseDataset:
+    """Config-dict dataset factory (reference datasets/builder.py:42); the
+    port has ``PoseDataset``."""
+    dcfg = dict(dcfg)
+    typ = dcfg.pop("type", "PoseDataset")
+    if typ != "PoseDataset":
+        raise NotImplementedError(f"dataset {typ!r} is not ported yet (the "
+                                  "port has 'PoseDataset')")
+    return PoseDataset(dcfg["ann_file"], dcfg["pipeline"],
+                       split=dcfg.get("split"), test_mode=test_mode)

@@ -1,12 +1,14 @@
-"""Skeleton test-pipeline transforms (host-side NumPy).
+"""Skeleton pipeline transforms (host-side NumPy).
 
-The port's copy of the transforms that the DS-GCN test pipeline
-(``configs/dsgcn/ntu60_xsub_3dkp/j.py``) uses, from
-``dsgcn_tpu/data/transforms.py``: pre-normalization, joint-stream feature
-generation, deterministic test-mode clip sampling, decode, format and
+The port's copy of the transforms that the DS-GCN train and test pipelines
+(``configs/dsgcn/ntu60_xsub_3dkp/j.py``) use, from
+``dsgcn_tpu/data/transforms.py``: pre-normalization, random rotation,
+joint-stream feature generation, clip sampling, decode, format and
 collect.  Behavioral parity with the reference pipelines (pyskl
-``pose_related.py``, ``sampling.py``, ``formatting.py``); test-time sampling
-seeds a local ``RandomState(seed)`` so clip indices are bit-identical.
+``pose_related.py``, ``sampling.py``, ``formatting.py``).  Randomized
+transforms draw from the ``RandomState`` that ``Compose`` passes them, so
+a loader that seeds it as the JAX ``Loader`` does gets the same clips;
+test-time sampling seeds a local ``RandomState(seed)``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 __all__ = [
-    "Compose", "PreNormalize3D", "MergeSkeFeat", "GenSkeFeat",
+    "Compose", "PreNormalize3D", "RandomRot", "MergeSkeFeat", "GenSkeFeat",
     "UniformSampleFrames", "UniformSample", "PoseDecode", "FormatGCNInput",
     "Collect", "Rename", "build_pipeline",
 ]
@@ -133,6 +135,42 @@ class PreNormalize3D:
         results["total_frames"] = T_new
         if self.align_center:
             results["body_center"] = main_body_center
+        return results
+
+
+class RandomRot:
+    """Random xyz Euler rotation (pose_related.py:144-179); 2D keypoints
+    rotate in the plane."""
+    randomized = True
+
+    def __init__(self, theta=0.3):
+        self.theta = theta
+
+    @staticmethod
+    def _rot3d(theta):
+        cos, sin = np.cos(theta), np.sin(theta)
+        rx = np.array([[1, 0, 0], [0, cos[0], sin[0]], [0, -sin[0], cos[0]]])
+        ry = np.array([[cos[1], 0, -sin[1]], [0, 1, 0], [sin[1], 0, cos[1]]])
+        rz = np.array([[cos[2], sin[2], 0], [-sin[2], cos[2], 0], [0, 0, 1]])
+        return np.matmul(rz, np.matmul(ry, rx))
+
+    @staticmethod
+    def _rot2d(theta):
+        cos, sin = np.cos(theta), np.sin(theta)
+        return np.array([[cos, -sin], [sin, cos]])
+
+    def __call__(self, results: Dict, rng) -> Dict:
+        skeleton = results["keypoint"]
+        C = skeleton.shape[-1]
+        if np.all(np.isclose(skeleton, 0)):
+            return results
+        if C not in (2, 3):
+            raise ValueError(f"RandomRot takes 2D or 3D keypoints, got {C}")
+        if C == 3:
+            rot = self._rot3d(rng.uniform(-self.theta, self.theta, size=3))
+        else:
+            rot = self._rot2d(rng.uniform(-self.theta))
+        results["keypoint"] = np.einsum("ab,mtvb->mtva", rot, skeleton)
         return results
 
 
@@ -322,7 +360,8 @@ class Collect:
 
 
 TRANSFORMS = {c.__name__: c for c in
-              [PreNormalize3D, MergeSkeFeat, GenSkeFeat, UniformSampleFrames,
+              [PreNormalize3D, RandomRot, MergeSkeFeat, GenSkeFeat,
+               UniformSampleFrames,
                UniformSample, PoseDecode, FormatGCNInput, Collect, Rename]}
 
 

@@ -7,7 +7,11 @@ are the JAX package's.
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
 
 from ..graph import GraphConfig
 from .backbones import DGSTGCN
@@ -65,7 +69,6 @@ def build_model(cfg: Dict[str, Any]) -> RecognizerGCN:
         raise NotImplementedError("recognizer necks are not ported yet")
     compute_dtype = cfg.get("compute_dtype")
     if compute_dtype is not None:
-        import torch
         compute_dtype = getattr(torch, compute_dtype)
     return RecognizerGCN(backbone=build_backbone(cfg["backbone"]),
                          head=build_head(cfg["cls_head"]),
@@ -90,3 +93,35 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
                              init_off=0.04, init_std=0.02, seed=graph_seed))
     head = dict(type="GCNHead", num_classes=num_classes, in_channels=256)
     return dict(type="RecognizerGCN", backbone=bb, cls_head=head)
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw the model's random weights from ``generator`` with the JAX
+    package's initializers (``dsgcn_tpu/ops/common.py``): every 1x1 and
+    temporal conv kernel and bias U(+-1/sqrt(fan_in)) (torch's defaults,
+    fan_in = in_channels * kernel size), the classifier N(0, init_std) with
+    a zero bias.  Graphs, gates, joint coefficients and BatchNorms keep
+    their deterministic initial values.  The generator lives on the CPU;
+    call this before moving the model to its device."""
+    heads = {id(m.fc_cls) for m in model.modules() if isinstance(m, GCNHead)}
+    for m in model.modules():
+        if isinstance(m, GCNHead):
+            m.fc_cls.weight.normal_(0.0, m.init_std, generator=generator)
+            m.fc_cls.bias.zero_()
+        elif isinstance(m, (nn.Linear, nn.Conv2d)) and id(m) not in heads:
+            fan_in = m.weight[0].numel()
+            bound = 1.0 / math.sqrt(fan_in)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
+    return model
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Let every dropout of ``model`` draw its masks from ``generator`` (on
+    the model's device)."""
+    for m in model.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator

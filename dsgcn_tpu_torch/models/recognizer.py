@@ -14,9 +14,10 @@ from torch import nn
 class RecognizerGCN(nn.Module):
     """Composes a GCN backbone and a classification head.
 
-    ``forward`` takes ``(N, M, T, V, C)`` and returns float32 logits
-    ``(N, classes)``.  ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the
-    input so the whole forward runs in that type.  Multi-clip averaging is
+    ``forward`` takes ``(N, M, T, V, C)`` and returns logits
+    ``(N, classes)`` in the input's type.  ``compute_dtype`` (e.g.
+    ``torch.bfloat16``) casts the input so the whole forward runs in that
+    type, and the logits come back in float32.  Multi-clip averaging is
     done by the caller (:func:`average_clip`).
     """
 
@@ -28,9 +29,10 @@ class RecognizerGCN(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, keypoint: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is not None:
-            keypoint = keypoint.to(self.compute_dtype)
-        return self.head(self.backbone(keypoint)).float()
+        if self.compute_dtype is None:
+            return self.head(self.backbone(keypoint))
+        logits = self.head(self.backbone(keypoint.to(self.compute_dtype)))
+        return logits.float()
 
 
 def average_clip(cls_score: torch.Tensor,

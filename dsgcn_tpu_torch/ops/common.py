@@ -8,6 +8,8 @@ JAX checkpoints.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -52,14 +54,24 @@ class TemporalConv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-class BatchNorm(nn.Module):
-    """Per-channel BatchNorm over the trailing axis, eval form only.
+def accum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Statistics and accumulation type: at least float32 (bf16 inputs
+    accumulate in float32), float64 inputs keep float64 (JAX
+    ``ops/common.py:accum_dtype``)."""
+    return torch.promote_types(dtype, torch.float32)
 
+
+class BatchNorm(nn.Module):
+    """Per-channel BatchNorm over the trailing axis (torch BatchNorm2d on
+    NCTV), as ``dsgcn_tpu/ops/common.py:BatchNorm``.
+
+    Train: batch statistics over every axis but the last in
+    :func:`accum_dtype`, the variance as ``E[x^2] - E[x]^2`` and biased in
+    the normalization, as JAX computes it; the running statistics move with
+    momentum 0.1, the variance with Bessel's correction n/(n-1) (torch).
     Eval applies the folded affine ``x * a + b`` with
     ``a = rsqrt(var + 1e-5) * weight`` and ``b = bias - mean * a``, computed
-    in float32 and applied in the activation dtype, as the JAX package does
-    (``dsgcn_tpu/ops/common.py:190-194``).  Batch statistics come with the
-    training port; a module in training mode raises.
+    in :func:`accum_dtype` and applied in the activation dtype.
     """
 
     def __init__(self, num_features: int):
@@ -70,21 +82,47 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def affine(self):
-        """The float32 (a, b) of the eval affine."""
-        a = torch.rsqrt(self.running_var.float() + BN_EPS) * self.weight.float()
-        return a, self.bias.float() - self.running_mean.float() * a
+    def affine(self, dtype: torch.dtype = torch.float32):
+        """The (a, b) of the eval affine, in ``dtype``."""
+        a = (torch.rsqrt(self.running_var.to(dtype) + BN_EPS)
+             * self.weight.to(dtype))
+        return a, self.bias.to(dtype) - self.running_mean.to(dtype) * a
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm statistics are not ported yet; "
-                "call .eval() first")
-        a, b = self.affine()
-        return x * a.to(x.dtype) + b.to(x.dtype)
+        acc = accum_dtype(x.dtype)
+        if not self.training:
+            a, b = self.affine(acc)
+            return x * a.to(x.dtype) + b.to(x.dtype)
+        xm = x.to(acc)
+        axes = tuple(range(x.dim() - 1))
+        mean = xm.mean(dim=axes)
+        var = (xm * xm).mean(dim=axes) - mean * mean
+        n = xm.numel() // self.num_features
+        with torch.no_grad():
+            bessel = n / max(n - 1, 1)
+            self.running_mean.mul_(0.9).add_(
+                0.1 * mean.to(self.running_mean.dtype))
+            self.running_var.mul_(0.9).add_(
+                0.1 * (var * bessel).to(self.running_var.dtype))
+        mul = torch.rsqrt(var + BN_EPS) * self.weight.to(acc)
+        return ((xm - mean) * mul + self.bias.to(acc)).to(x.dtype)
 
     def extra_repr(self) -> str:
         return f"{self.num_features}"
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout (keep with probability 1 - p, scale by 1/(1 - p)),
+    drawing its mask from ``generator`` (flax ``nn.Dropout`` semantics; the
+    bits differ from JAX's).  The identity in eval or at p = 0."""
+    if not training or p <= 0:
+        return x
+    if p >= 1:
+        return torch.zeros_like(x)
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        1 - p, generator=generator)
+    return x * (keep / (1 - p)).to(x.dtype)
 
 
 def max_pool_t(x: torch.Tensor, window: int, stride: int,

@@ -1,16 +1,18 @@
 """Spatial graph convolution of DS-GCN (channels-last ``(N, T, V, C)``).
 
-The port of ``dsgcn_tpu/ops/gcn.py:DGPHGCN1`` in eval form, with the
+The port of ``dsgcn_tpu/ops/gcn.py:DGPHGCN1``, train and eval, with the
 helpers it uses.  Two aggregation paths, chosen as in the JAX module:
 
 * ``use_pallas=True`` (``build_backbone``'s default): the dynamic-graph
-  kernels, ``eval_kernel`` 'bd' (K3, ``ops/kernels/bd_agg.py``) or 'fused'
-  (K1's forward, ``ops/kernels/dyn_graph.py``), 'auto' picking 'bd' when
+  kernels.  Training always runs K1 and its backward K2 as one autograd
+  Function (``ops/kernels/dyn_graph.py``), as the JAX module does
+  (gcn.py:1142, :1192).  Eval takes ``eval_kernel`` 'bd' (K3,
+  ``ops/kernels/bd_agg.py``) or 'fused' (K1), 'auto' picking 'bd' when
   V*K*mid <= 2400 as the JAX package does.  On CUDA tensors these launch
   the hand-written kernels, on CPU tensors their plain versions.
 * ``use_pallas=False``: the dense path of the JAX module (gcn.py:1206-1259),
   which materializes the (N, K, mid, V, V) graph and contracts it with an
-  einsum.
+  einsum; it trains through autograd.
 """
 from __future__ import annotations
 
@@ -89,7 +91,7 @@ def _dispatch_contract(pre_x: torch.Tensor, G: torch.Tensor, ctr,
 
 class DGPHGCN1(nn.Module):
     """The DS-GCN dynamic semantic spatial graph conv (reference dgphgcn1,
-    gcn.py:2074-2365), eval form.
+    gcn.py:2074-2365).
 
     Subset decomposition into semantic/normal groups, per-node-type queries
     and per-edge-class attention on the diff graph.  Reproduces the
@@ -97,8 +99,8 @@ class DGPHGCN1(nn.Module):
     ``conv1_se`` query x1 (gcn.py:2253-2254, 2272), and the edge-attention
     diff uses the subset slice [norm-sem : norm] (gcn.py:2279).  Submodule
     names follow the JAX module's flax scopes.  The JAX module's
-    ``ada_attention`` and ``target_specific`` options, per-frame graphs
-    (``ctr``/``ada`` 'NA') and training are not ported yet.
+    ``ada_attention`` and ``target_specific`` options and per-frame graphs
+    (``ctr``/``ada`` 'NA') are not ported yet.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -185,9 +187,6 @@ class DGPHGCN1(nn.Module):
         return torch.cat([x1, s], dim=1), torch.cat([x2, s], dim=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("DGPHGCN1 runs in eval mode only; the "
-                                      "training port is not done yet")
         K, mid, sem = self.K, self.mid, self.sem
         n, t, v, _ = x.shape
         res = (self.down_bn(self.down_conv(x))
@@ -208,12 +207,13 @@ class DGPHGCN1(nn.Module):
         return F.relu(y + res)
 
     def _kernel_aggregate(self, pre_x, x1, x2, active_edge):
-        """The dynamic-graph kernels (JAX gcn.py:1119-1196)."""
+        """The dynamic-graph kernels (JAX gcn.py:1119-1196): K1+K2 in
+        training, ``eval_kernel`` in eval."""
         K, mid, sem, norm, E = self.K, self.mid, self.sem, self.norm, self.E
         n, t, v, _ = pre_x.shape
         a_vec = _gate_vec(self.alpha, K, sem, norm, self.subset_wise)
         b_vec = _gate_vec(self.beta, K, sem, norm, self.subset_wise)
-        ek = self.eval_kernel
+        ek = "fused" if self.training else self.eval_kernel
         if ek == "auto":
             ek = "bd" if v * K * mid <= 2400 else "fused"
         if ek == "mega":

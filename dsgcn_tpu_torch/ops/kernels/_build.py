@@ -34,6 +34,8 @@ SIGNATURES = {
     "bd_agg": ("dsgcn_bd_agg", [_P, _P, _I] + [_P] * 9 + [_I] * 8 + [_P]),
     "dyn_graph": ("dsgcn_dyn_graph_fwd",
                   [_P, _P, _I] + [_P] * 8 + [_I] * 8 + [_P]),
+    "dyn_graph_bwd": ("dsgcn_dyn_graph_bwd",
+                      [_P, _P, _P, _I] + [_P] * 12 + [_I] * 7 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -149,8 +151,10 @@ def check_activation(pre: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: pre must be contiguous")
 
 
-# what the kernels take (csrc/graph_agg.cuh VMAX, EMAX; the grid's z axis)
+# what the kernels take (csrc/graph_agg.cuh VMAX, EMAX; the grid's z axis;
+# csrc/dyn_graph_bwd.cu BWD_MAX_THREADS, one thread per channel and joint)
 MAX_JOINTS, MAX_EDGE_CLASSES, MAX_SAMPLES = 32, 16, 65535
+MAX_BWD_THREADS = 1024
 
 
 def check_limits(name: str, N: int, V: int, E: int) -> None:
@@ -165,9 +169,11 @@ def check_limits(name: str, N: int, V: int, E: int) -> None:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """The kernels have no backward yet: refuse inputs that need a gradient."""
+    """K3 is eval-only (its TPU kernel has no backward): refuse inputs that
+    need a gradient.  Training aggregates through K1 and K2."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward kernel yet (it comes with the training "
-            "port); call it under torch.no_grad() or torch.inference_mode()")
+            f"{name} is eval-only and has no backward; call it under "
+            "torch.no_grad() or torch.inference_mode(), or train through "
+            "fused_dyn_graph_agg (K1 and its backward K2)")

@@ -1,8 +1,8 @@
 // Fused dynamic-graph build + aggregation, forward: the Hopper kernel that
 // replaces the forward of the TPU kernel
 // dsgcn_tpu/ops/pallas/dyn_graph.py:fused_dyn_graph_agg (K1, _fwd_pallas ->
-// _kernel).  Its backward (K2) is not ported yet; the wrapper refuses inputs
-// that require grad.
+// _kernel).  Its backward (K2) is dyn_graph_bwd.cu; the two are one
+// torch.autograd.Function in ops/kernels/dyn_graph.py.
 //
 // Same contract and layout as the Pallas forward: pre/y (N, T, V, K*Cm) in
 // float32 or bfloat16, x1/x2 (N, K, Cm, V), A (K, V, V), alpha/beta (K,),
@@ -47,22 +47,7 @@ dyn_graph_fwd_kernel(const Tio *__restrict__ pre, Tio *__restrict__ out,
     s.xs2[(i / V) * XS + i % V] = q2[i];
   }
   __syncthreads();
-  if (edge) {
-    // P1[e, c, v] = sum_c' edge_w[c', e*Cm + c] x1[c', v], same for P2/x2,
-    // for the channels c of this block's group
-    for (int i = tid; i < E * CG * V; i += blockDim.x) {
-      const int v = i % V, cl = (i / V) % CG, e = i / (V * CG);
-      const float *wcol = edge_w + e * Cm + c0 + cl;
-      float a1 = 0.f, a2 = 0.f;
-      for (int c = 0; c < Cm; ++c) {
-        const float wv = __ldg(wcol + (size_t)c * E * Cm);
-        a1 += wv * s.xs1[c * XS + v];
-        a2 += wv * s.xs2[c * XS + v];
-      }
-      s.p1s[(e * CG + cl) * XS + v] = a1;
-      s.p2s[(e * CG + cl) * XS + v] = a2;
-    }
-  }
+  if (edge) edge_projections(s, edge_w, V, Cm, CG, c0, E);
   build_ada(s.ada, s.xs1, s.xs2, Cm, V, v_real);   // syncs before reading
 
   const int cl = tid % CG, w = tid / CG;

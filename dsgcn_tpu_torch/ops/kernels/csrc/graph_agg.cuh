@@ -1,5 +1,6 @@
 // Shared device code of the dynamic-graph aggregation kernels (bd_agg.cu,
-// dyn_graph.cu): the graph build and the per-channel aggregation
+// dyn_graph.cu, and the graph build of dyn_graph_bwd.cu): the graph build
+// and the per-channel aggregation
 //
 //   ctr[c,v,w] = tanh(x1[c,v] - x2[c,w])               (diff graph)
 //   ctr[c,v,w] = tanh(sum_e sel[e,v,w] (P1[e,c,v] - P2[e,c,w]) + bias[c,v,w])
@@ -106,12 +107,67 @@ __device__ inline void build_ada(float *ada, const float *xs1,
   __syncthreads();
 }
 
-// The graph-build function of both kernels: g[v] = G[c, v, w] of subset k
-// for v < V, 0 beyond.  c is the channel within the subset, cl its index in
-// the block's channel group.  With ``edge``, ctr comes from the per-class
-// projections p1s/p2s ([e][cl][joint], stride row_stride(V)), the one-hot
-// class mask sel (E, V, V) and the bias field, read at
-// bias[c * bias_c + v * bias_v + w].
+// P1[e, cl, v] = sum_c edge_w[c, e*Cm + c0 + cl] x1[c, v], and P2 the same
+// of x2, for the CG channels of the block's group from c0: the per-class
+// projections of the edge subset's queries into p1s/p2s ([e][cl][joint],
+// stride row_stride(V)).  The caller syncs before reading them.
+__device__ inline void edge_projections(const Smem &s, const float *edge_w,
+                                        int V, int Cm, int CG, int c0,
+                                        int E) {
+  const int XS = row_stride(V);
+  for (int i = threadIdx.x; i < E * CG * V; i += blockDim.x) {
+    const int v = i % V, cl = (i / V) % CG, e = i / (V * CG);
+    const float *wcol = edge_w + e * Cm + c0 + cl;
+    float a1 = 0.f, a2 = 0.f;
+    for (int c = 0; c < Cm; ++c) {
+      const float wv = __ldg(wcol + (size_t)c * E * Cm);
+      a1 += wv * s.xs1[c * XS + v];
+      a2 += wv * s.xs2[c * XS + v];
+    }
+    s.p1s[(e * CG + cl) * XS + v] = a1;
+    s.p2s[(e * CG + cl) * XS + v] = a2;
+  }
+}
+
+// ctr[c, v, w] of one subset.  c is the channel within the subset, cl its
+// index in the block's channel group.  With ``edge``, ctr comes from the
+// per-class projections p1s/p2s, the one-hot class mask sel (E, V, V) and
+// the bias field, read at bias[c * bias_c + v * bias_v + w].
+__device__ __forceinline__ float ctr_entry(int c, int cl, int v, int w,
+                                           const Smem &s, int V, int CG,
+                                           bool edge, int E,
+                                           const float *sel,
+                                           const float *bias, int bias_c,
+                                           int bias_v) {
+  const int XS = row_stride(V);
+  if (!edge) return tanhf(s.xs1[c * XS + v] - s.xs2[c * XS + w]);
+  float ea = __ldg(bias + c * bias_c + v * bias_v + w);
+  for (int e = 0; e < E; ++e) {
+    const float m = __ldg(sel + (e * V + v) * V + w);
+    if (m != 0.f)
+      ea += m * (s.p1s[(e * CG + cl) * XS + v] - s.p2s[(e * CG + cl) * XS + w]);
+  }
+  return tanhf(ea);
+}
+
+// G[c, v, w] of subset k (A_k its static graph), rounded to the working
+// type of pre, in which the forward contraction runs (a no-op for f32).
+template <typename Tio>
+__device__ __forceinline__ float graph_entry(int c, int cl, int v, int w,
+                                             const Smem &s, int V, int CG,
+                                             const float *A_k, float alpha,
+                                             float beta, bool edge, int E,
+                                             const float *sel,
+                                             const float *bias, int bias_c,
+                                             int bias_v) {
+  const float gv = ctr_entry(c, cl, v, w, s, V, CG, edge, E, sel, bias,
+                             bias_c, bias_v) * alpha +
+                   (s.ada[v * V + w] * beta + __ldg(A_k + v * V + w));
+  return to_f32(from_f32<Tio>(gv));
+}
+
+// The graph-build function of the forward kernels: g[v] = G[c, v, w] of
+// subset k for v < V, 0 beyond.
 template <typename Tio>
 __device__ inline void graph_column(float (&g)[VMAX], int c, int cl, int w,
                                     const Smem &s, int V, int CG,
@@ -119,31 +175,11 @@ __device__ inline void graph_column(float (&g)[VMAX], int c, int cl, int w,
                                     bool edge, int E, const float *sel,
                                     const float *bias, int bias_c,
                                     int bias_v) {
-  const int XS = row_stride(V);
-  const float x2cw = s.xs2[c * XS + w];
 #pragma unroll
-  for (int v = 0; v < VMAX; ++v) {
-    float gv = 0.f;
-    if (v < V) {
-      float ctr;
-      if (edge) {
-        float ea = __ldg(bias + c * bias_c + v * bias_v + w);
-        for (int e = 0; e < E; ++e) {
-          const float m = __ldg(sel + (e * V + v) * V + w);
-          if (m != 0.f)
-            ea += m * (s.p1s[(e * CG + cl) * XS + v] -
-                       s.p2s[(e * CG + cl) * XS + w]);
-        }
-        ctr = tanhf(ea);
-      } else {
-        ctr = tanhf(s.xs1[c * XS + v] - x2cw);
-      }
-      gv = ctr * alpha + (s.ada[v * V + w] * beta + __ldg(A_k + v * V + w));
-      // the contraction runs in the working type of pre (a no-op for f32)
-      gv = to_f32(from_f32<Tio>(gv));
-    }
-    g[v] = gv;
-  }
+  for (int v = 0; v < VMAX; ++v)
+    g[v] = v < V ? graph_entry<Tio>(c, cl, v, w, s, V, CG, A_k, alpha, beta,
+                                    edge, E, sel, bias, bias_c, bias_v)
+                 : 0.f;
 }
 
 // y[n, t, w, ch0 + cl] = sum_v pre[n, t, v, ch0 + cl] g[v] for the rows

@@ -1,7 +1,8 @@
-"""Fused dynamic-graph build + spatial aggregation, forward (K1).
+"""Fused dynamic-graph build + spatial aggregation: forward (K1) and
+backward (K2), one ``torch.autograd.Function``.
 
-The port of ``dsgcn_tpu/ops/pallas/dyn_graph.py:fused_dyn_graph_agg``
-(forward only; the backward K2 comes with the training port):
+The port of ``dsgcn_tpu/ops/pallas/dyn_graph.py:fused_dyn_graph_agg`` and
+its custom VJP:
 
     ctr[k,c,v,w] = tanh(x1[k,c,v] - x2[k,c,w])
     ada[k,v,w]   = softmax_v( sum_c x1[k,c,v]*x2[k,c,w] )
@@ -9,10 +10,12 @@ The port of ``dsgcn_tpu/ops/pallas/dyn_graph.py:fused_dyn_graph_agg``
     y[t,w,k,c]   = sum_v pre[t,v,k,c] * G[k,c,v,w]
 
 with the DS-GCN per-edge-class attention on subset ``edge_k`` and the
-padded-joint softmax mask ``v_real``.  On a CUDA tensor
-:func:`fused_dyn_graph_agg` launches the hand-written kernel
-(``csrc/dyn_graph.cu``); on a CPU tensor it runs the plain version
-:func:`reference_dyn_graph_agg`.
+padded-joint softmax mask ``v_real`` (eval only).  :class:`FusedDynGraphAgg`
+saves only its inputs, never the graph, as the JAX VJP does.  On CUDA
+tensors its forward launches the hand-written kernel ``csrc/dyn_graph.cu``
+and its backward ``csrc/dyn_graph_bwd.cu``; on CPU tensors they run the
+plain versions :func:`reference_dyn_graph_agg` and
+:func:`reference_dyn_graph_agg_bwd`.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -42,6 +46,34 @@ def _ada(raw: torch.Tensor, v_real: int) -> torch.Tensor:
     return torch.softmax(raw, dim=-2)
 
 
+def _ctr(x1, x2, edge_w, edge_b, edge_sel, Cm, edge_k, edge_num):
+    """The float32 ctr graph (N, K, Cm, V, V), with the edge-class attention
+    on subset ``edge_k`` when ``edge_w`` is given."""
+    N, _, _, V = x1.shape
+    ctr = torch.tanh(x1[..., :, None] - x2[..., None, :])
+    if edge_w is None:
+        return ctr
+    d = x1[:, edge_k][..., :, None] - x2[:, edge_k][..., None, :]
+    es = torch.einsum("ncvw,ce->nevw", d, edge_w.float()).reshape(
+        N, edge_num, Cm, V, V)
+    sel = edge_sel.float()
+    ea = torch.sum(es * sel[None, :, None], dim=1)        # (N,Cm,V,V)
+    if edge_b is not None:
+        eb = edge_b.float().reshape(edge_num, Cm)
+        ea = ea + torch.einsum("evw,ec->cvw", sel, eb)[None]
+    return torch.cat([ctr[:, :edge_k], torch.tanh(ea)[:, None],
+                      ctr[:, edge_k + 1:]], dim=1)
+
+
+def _graph(x1, x2, A, alpha, beta, ctr, v_real=-1):
+    """(G, ada) in float32: G (N, K, Cm, V, V), ada (N, K, V, V)."""
+    ada = _ada(torch.einsum("nkcv,nkcw->nkvw", x1, x2), v_real)
+    G = (ctr * alpha.float()[None, :, None, None, None]
+         + (ada * beta.float()[None, :, None, None]
+            + A.float()[None])[:, :, None])
+    return G, ada
+
+
 def reference_dyn_graph_agg(pre_x, x1, x2, A, alpha, beta, edge_w=None,
                             edge_b=None, edge_sel=None, K=3, Cm=8, edge_k=-1,
                             edge_num=15, v_real=-1):
@@ -50,25 +82,225 @@ def reference_dyn_graph_agg(pre_x, x1, x2, A, alpha, beta, edge_w=None,
     to pre's dtype for the contraction, as the kernel does."""
     N, T, V, KC = pre_x.shape
     x1, x2 = x1.float(), x2.float()
-    ctr = torch.tanh(x1[..., :, None] - x2[..., None, :])     # (N,K,Cm,V,V)
-    if edge_w is not None:
-        d = x1[:, edge_k][..., :, None] - x2[:, edge_k][..., None, :]
-        es = torch.einsum("ncvw,ce->nevw", d, edge_w.float()).reshape(
-            N, edge_num, Cm, V, V)
-        sel = edge_sel.float()
-        ea = torch.sum(es * sel[None, :, None], dim=1)        # (N,Cm,V,V)
-        if edge_b is not None:
-            eb = edge_b.float().reshape(edge_num, Cm)
-            ea = ea + torch.einsum("evw,ec->cvw", sel, eb)[None]
-        ctr = torch.cat([ctr[:, :edge_k], torch.tanh(ea)[:, None],
-                         ctr[:, edge_k + 1:]], dim=1)
-    ada = _ada(torch.einsum("nkcv,nkcw->nkvw", x1, x2), v_real)
-    G = (ctr * alpha.float()[None, :, None, None, None]
-         + (ada * beta.float()[None, :, None, None]
-            + A.float()[None])[:, :, None])
+    ctr = _ctr(x1, x2, edge_w, edge_b, edge_sel, Cm, edge_k, edge_num)
+    G, _ = _graph(x1, x2, A, alpha, beta, ctr, v_real)
     pre_k = pre_x.reshape(N, T, V, K, Cm)
     y = torch.einsum("ntvkc,nkcvw->ntwkc", pre_k, G.to(pre_x.dtype))
     return y.reshape(N, T, V, KC)
+
+
+def reference_dyn_graph_agg_bwd(pre_x, x1, x2, A, alpha, beta, edge_w,
+                                edge_b, edge_sel, dy, K=3, Cm=8, edge_k=-1,
+                                edge_num=15):
+    """Plain PyTorch version of K2: the math of the Pallas ``_bwd_kernel``
+    (``dsgcn_tpu/ops/pallas/dyn_graph.py:336-343`` and its edge branch
+    ``:450-480``).  pre and dy are lifted to float32 and G is not rounded,
+    as the TPU kernel does; dpre comes back in pre's dtype, every other
+    gradient in float32.  Returns (dpre, dx1, dx2, dA, dalpha, dbeta,
+    dedge_w, dedge_b); the edge gradients are None without edge attention,
+    dedge_b also without ``edge_b``."""
+    N, T, V, KC = pre_x.shape
+    E = edge_num
+    x1, x2 = x1.float(), x2.float()
+    alpha, beta = alpha.float(), beta.float()
+    ctr = _ctr(x1, x2, edge_w, edge_b, edge_sel, Cm, edge_k, E)
+    G, ada = _graph(x1, x2, A, alpha, beta, ctr)
+    pre_k = pre_x.float().reshape(N, T, V, K, Cm)
+    dy_k = dy.float().reshape(N, T, V, K, Cm)
+    # dpre[t,v,c] = sum_w dy[t,w,c] G[c,v,w]; dG = sum_t pre[t,v,c] dy[t,w,c]
+    dpre = torch.einsum("ntwkc,nkcvw->ntvkc", dy_k, G)
+    dG = torch.einsum("ntvkc,ntwkc->nkcvw", pre_k, dy_k)
+    sC = dG.sum(dim=2)                                          # (N,K,V,W)
+    dA = sC.sum(dim=0)
+    dalpha = (dG * ctr).sum(dim=(0, 2, 3, 4))
+    dbeta = (sC * ada).sum(dim=(0, 2, 3))
+    # ctr path: dz = dG alpha (1 - ctr^2)
+    dz = dG * alpha[None, :, None, None, None] * (1.0 - ctr * ctr)
+    dx1 = dz.sum(dim=-1)
+    dx2 = -dz.sum(dim=-2)
+    dew = deb = None
+    if edge_w is not None:
+        # through ea = sum_e sel (P1 - P2) + bias, P = edge_w^T q
+        sel = edge_sel.float()
+        dze = dz[:, edge_k]                                     # (N,Cm,V,W)
+        dP1 = torch.einsum("evw,ncvw->necv", sel, dze).reshape(N, E * Cm, V)
+        dP2 = -torch.einsum("evw,ncvw->necw", sel, dze).reshape(N, E * Cm, V)
+        ew = edge_w.float()
+        dx1[:, edge_k] = torch.einsum("cf,nfv->ncv", ew, dP1)
+        dx2[:, edge_k] = torch.einsum("cf,nfw->ncw", ew, dP2)
+        dew = (torch.einsum("ncv,nfv->cf", x1[:, edge_k], dP1)
+               + torch.einsum("ncw,nfw->cf", x2[:, edge_k], dP2))
+        if edge_b is not None:
+            deb = dP1.sum(dim=(0, 2))
+    # ada path: softmax VJP over the source axis v
+    ds = beta[None, :, None, None] * sC
+    inner = (ds * ada).sum(dim=-2, keepdim=True)
+    draw = ada * (ds - inner)
+    dx1 = dx1 + torch.einsum("nkcw,nkvw->nkcv", x2, draw)
+    dx2 = dx2 + torch.einsum("nkcv,nkvw->nkcw", x1, draw)
+    return (dpre.reshape(N, T, V, KC).to(pre_x.dtype), dx1, dx2, dA, dalpha,
+            dbeta, dew, deb)
+
+
+def _edge_operands(edge_w, edge_b, edge_sel, Cm, E, V, dev):
+    """edge_w (Cm, E*Cm), the (Cm, V, V) bias field and sel (E, V, V) as the
+    kernels read them; the bias field b[class(v,w), c] is built outside the
+    kernels, as the Pallas wrapper does (``_edge_specs_args``)."""
+    op = lambda t, shape, n: _build.graph_operand(t, shape, n, dev)  # noqa
+    edge_w = op(edge_w, (Cm, E * Cm), "edge_w")
+    sel = op(edge_sel, (E, V, V), "edge_sel")
+    eb = (torch.zeros(E * Cm, device=dev) if edge_b is None
+          else op(edge_b, (E * Cm,), "edge_b"))
+    bias_field = torch.einsum("evw,ec->cvw", sel,
+                              eb.reshape(E, Cm)).contiguous()
+    return edge_w, bias_field, sel
+
+
+def _graph_operands(name, pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
+                    edge_sel, K, Cm, edge_k, E):
+    """Check a kernel call and bring its graph operands to the contiguous
+    float32 tensors the kernels read."""
+    _build.check_activation(pre_x, name)
+    N, T, V, KC = pre_x.shape
+    if KC != K * Cm:
+        raise ValueError(f"{name}: pre_x has {KC} channels, K*Cm = {K * Cm}")
+    dev = pre_x.device
+    _build.check_limits(name, N, V, E)
+    op = lambda t, shape, n: _build.graph_operand(t, shape, n, dev)  # noqa
+    ops = dict(x1=op(x1, (N, K, Cm, V), "x1"), x2=op(x2, (N, K, Cm, V), "x2"),
+               A=op(A, (K, V, V), "A"), alpha=op(alpha, (K,), "alpha"),
+               beta=op(beta, (K,), "beta"), edge_w=None, bias_field=None,
+               sel=None, edge_k=-1)
+    if edge_w is not None:
+        if not 0 <= edge_k < K:
+            raise ValueError(f"{name}: edge_k={edge_k} outside [0, {K})")
+        ops["edge_w"], ops["bias_field"], ops["sel"] = _edge_operands(
+            edge_w, edge_b, edge_sel, Cm, E, V, dev)
+        ops["edge_k"] = edge_k
+    return ops
+
+
+def _forward_kernel(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel,
+                    K, Cm, edge_k, E, v_real):
+    """Launch K1 (``csrc/dyn_graph.cu``) on CUDA tensors."""
+    o = _graph_operands("fused_dyn_graph_agg", pre_x, x1, x2, A, alpha, beta,
+                        edge_w, edge_b, edge_sel, K, Cm, edge_k, E)
+    N, T, V, _ = pre_x.shape
+    out = torch.empty_like(pre_x)
+    if out.numel() == 0:
+        return out
+    ptr = _build.ptr
+    with torch.cuda.device(pre_x.device):
+        _build.launch(
+            "dyn_graph", ptr(pre_x), ptr(out),
+            int(pre_x.dtype == torch.bfloat16), ptr(o["x1"]), ptr(o["x2"]),
+            ptr(o["A"]), ptr(o["alpha"]), ptr(o["beta"]), ptr(o["edge_w"]),
+            ptr(o["bias_field"]), ptr(o["sel"]), N, T, V, K, Cm, E,
+            o["edge_k"], v_real, _build.stream_of(pre_x))
+    fused_dyn_graph_agg.launches += 1
+    return out
+
+
+def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
+                            x2: torch.Tensor, A: torch.Tensor,
+                            alpha: torch.Tensor, beta: torch.Tensor,
+                            edge_w: Optional[torch.Tensor],
+                            edge_b: Optional[torch.Tensor],
+                            edge_sel: Optional[torch.Tensor],
+                            dy: torch.Tensor, K: int = 3, Cm: int = 8,
+                            edge_k: int = -1, edge_num: int = 15):
+    """The backward of :func:`fused_dyn_graph_agg` (K2) for the upstream
+    gradient ``dy`` (pre_x's shape and dtype).  Returns (dpre, dx1, dx2,
+    dA, dalpha, dbeta, dedge_w, dedge_b) as
+    :func:`reference_dyn_graph_agg_bwd` does.  On a CUDA tensor it launches
+    ``csrc/dyn_graph_bwd.cu``; on a CPU tensor it runs the plain version."""
+    if pre_x.device.type == "cpu":
+        return reference_dyn_graph_agg_bwd(pre_x, x1, x2, A, alpha, beta,
+                                           edge_w, edge_b, edge_sel, dy, K=K,
+                                           Cm=Cm, edge_k=edge_k,
+                                           edge_num=edge_num)
+    name = "fused_dyn_graph_agg_bwd"
+    E = edge_num
+    o = _graph_operands(name, pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
+                        edge_sel, K, Cm, edge_k, E)
+    if dy.shape != pre_x.shape or dy.dtype != pre_x.dtype \
+            or dy.device != pre_x.device or not dy.is_contiguous():
+        raise ValueError(f"{name}: dy must be a contiguous tensor of pre_x's "
+                         "shape, dtype and device")
+    N, T, V, _ = pre_x.shape
+    if Cm * V > _build.MAX_BWD_THREADS:
+        raise ValueError(f"{name}: Cm*V = {Cm * V} over "
+                         f"{_build.MAX_BWD_THREADS} (one thread per channel "
+                         "and joint)")
+    dev, f32 = pre_x.device, torch.float32
+    has_edge = o["edge_k"] >= 0
+    VV, F = V * V, E * Cm
+    W = K * VV + 2 * K + (Cm * F + F if has_edge else 0)
+    dpre = torch.empty_like(pre_x)
+    dx1 = torch.empty((N, K, Cm, V), device=dev, dtype=f32)
+    dx2 = torch.empty_like(dx1)
+    parts = torch.empty((N, W), device=dev, dtype=f32)   # per-sample sums
+    sums = torch.zeros(W, device=dev, dtype=f32)
+    if N > 0:
+        ptr = _build.ptr
+        with torch.cuda.device(dev):
+            _build.launch(
+                "dyn_graph_bwd", ptr(pre_x), ptr(dy), ptr(dpre),
+                int(pre_x.dtype == torch.bfloat16), ptr(dx1), ptr(dx2),
+                ptr(parts), ptr(sums), ptr(o["x1"]), ptr(o["x2"]),
+                ptr(o["A"]), ptr(o["alpha"]), ptr(o["beta"]),
+                ptr(o["edge_w"]), ptr(o["bias_field"]), ptr(o["sel"]), N, T,
+                V, K, Cm, E, o["edge_k"], _build.stream_of(pre_x))
+        fused_dyn_graph_agg_bwd.launches += 1
+    dA = sums[:K * VV].view(K, V, V)
+    dgates = sums[K * VV:K * VV + 2 * K].view(2, K)
+    dew = deb = None
+    if has_edge:
+        dew = sums[K * VV + 2 * K:K * VV + 2 * K + Cm * F].view(Cm, F)
+        deb = sums[K * VV + 2 * K + Cm * F:] if edge_b is not None else None
+    return dpre, dx1, dx2, dA, dgates[0], dgates[1], dew, deb
+
+
+fused_dyn_graph_agg_bwd.launches = 0
+
+
+def _cast(g, like):
+    return None if g is None or like is None else g.to(like.dtype)
+
+
+class FusedDynGraphAgg(torch.autograd.Function):
+    """K1 forward and K2 backward; saves the inputs only (JAX ``_vjp_fwd``).
+    Grad-of-grad is not supported (``once_differentiable`` raises)."""
+
+    @staticmethod
+    def forward(ctx, pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel,
+                K, Cm, edge_k, edge_num, v_real):
+        ctx.save_for_backward(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
+                              edge_sel)
+        ctx.static = (K, Cm, edge_k, edge_num, v_real)
+        if pre_x.device.type == "cpu":
+            return reference_dyn_graph_agg(pre_x, x1, x2, A, alpha, beta,
+                                           edge_w, edge_b, edge_sel, K=K,
+                                           Cm=Cm, edge_k=edge_k,
+                                           edge_num=edge_num, v_real=v_real)
+        return _forward_kernel(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
+                               edge_sel, K, Cm, edge_k, edge_num, v_real)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        K, Cm, edge_k, edge_num, v_real = ctx.static
+        if v_real > 0:
+            raise NotImplementedError(
+                "joint-padded mode (v_real) is eval-only: it has no backward")
+        pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel = \
+            ctx.saved_tensors
+        dpre, dx1, dx2, dA, da, db, dew, deb = fused_dyn_graph_agg_bwd(
+            pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel,
+            dy.to(pre_x.dtype).contiguous(), K, Cm, edge_k, edge_num)
+        return (dpre, _cast(dx1, x1), _cast(dx2, x2), _cast(dA, A),
+                _cast(da, alpha), _cast(db, beta), _cast(dew, edge_w),
+                _cast(deb, edge_b), None, None, None, None, None, None)
 
 
 def fused_dyn_graph_agg(pre_x: torch.Tensor, x1: torch.Tensor,
@@ -80,59 +312,27 @@ def fused_dyn_graph_agg(pre_x: torch.Tensor, x1: torch.Tensor,
                         K: int = 3, Cm: int = 8, edge_k: int = -1,
                         edge_num: int = 15,
                         v_real: int = -1) -> torch.Tensor:
-    """y = aggregate(pre_x, G(x1, x2, A, alpha, beta[, edge attention])).
+    """y = aggregate(pre_x, G(x1, x2, A, alpha, beta[, edge attention])),
+    differentiable in every tensor but ``edge_sel``.
 
     pre_x: (N, T, V, K*Cm) float32 or bfloat16; x1/x2: (N, K, Cm, V);
     A: (K, V, V); alpha/beta: (K,) effective per-subset gates; edge_w:
     (Cm, edge_num*Cm) or None; edge_b: (edge_num*Cm,) or None; edge_sel:
     (edge_num, V, V) one-hot class mask or None; v_real: the ada softmax
-    masks source joints >= v_real (joint-padded input).  Returns y in
-    pre_x's layout and dtype.
+    masks source joints >= v_real (joint-padded eval input; it has no
+    backward).  Returns y in pre_x's layout and dtype.
     """
-    if pre_x.device.type == "cpu":
-        return reference_dyn_graph_agg(pre_x, x1, x2, A, alpha, beta, edge_w,
-                                       edge_b, edge_sel, K=K, Cm=Cm,
-                                       edge_k=edge_k, edge_num=edge_num,
-                                       v_real=v_real)
-    name = "fused_dyn_graph_agg"
-    _build.check_activation(pre_x, name)
-    _build.refuse_grad(name, pre_x, x1, x2, A, alpha, beta, edge_w, edge_b)
-    N, T, V, KC = pre_x.shape
-    if KC != K * Cm:
-        raise ValueError(f"{name}: pre_x has {KC} channels, K*Cm = {K * Cm}")
-    dev, E = pre_x.device, edge_num
-    _build.check_limits(name, N, V, E)
-    op = lambda t, shape, n: _build.graph_operand(t, shape, n, dev)  # noqa: E731
-    x1 = op(x1, (N, K, Cm, V), "x1")
-    x2 = op(x2, (N, K, Cm, V), "x2")
-    A = op(A, (K, V, V), "A")
-    alpha, beta = op(alpha, (K,), "alpha"), op(beta, (K,), "beta")
-    if edge_w is not None:
-        if not 0 <= edge_k < K:
-            raise ValueError(f"{name}: edge_k={edge_k} outside [0, {K})")
-        edge_w = op(edge_w, (Cm, E * Cm), "edge_w")
-        sel = op(edge_sel, (E, V, V), "edge_sel")
-        eb = (torch.zeros(E * Cm, device=dev) if edge_b is None
-              else op(edge_b, (E * Cm,), "edge_b"))
-        # bias field b[class(v,w), c] as a (Cm, V, V) constant, built
-        # outside the kernel as the Pallas wrapper does
-        bias_field = torch.einsum("evw,ec->cvw", sel,
-                                  eb.reshape(E, Cm)).contiguous()
-    else:
-        edge_k, sel, bias_field = -1, None, None
-    out = torch.empty_like(pre_x)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(dev):
-        _build.launch(
-            "dyn_graph", _build.ptr(pre_x), _build.ptr(out),
-            int(pre_x.dtype == torch.bfloat16), _build.ptr(x1),
-            _build.ptr(x2), _build.ptr(A), _build.ptr(alpha),
-            _build.ptr(beta), _build.ptr(edge_w), _build.ptr(bias_field),
-            _build.ptr(sel), N, T, V, K, Cm, E, edge_k, v_real,
-            _build.stream_of(pre_x))
-    fused_dyn_graph_agg.launches += 1
-    return out
+    if v_real > 0 and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (pre_x, x1, x2, A, alpha, beta, edge_w, edge_b)):
+        raise NotImplementedError(
+            "fused_dyn_graph_agg: joint-padded mode (v_real) is eval-only; "
+            "call it under torch.no_grad()")
+    if edge_w is None:
+        edge_k = -1
+    return FusedDynGraphAgg.apply(pre_x, x1, x2, A, alpha, beta, edge_w,
+                                  edge_b, edge_sel, K, Cm, edge_k, edge_num,
+                                  v_real)
 
 
 fused_dyn_graph_agg.launches = 0

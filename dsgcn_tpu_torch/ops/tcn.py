@@ -1,10 +1,11 @@
 """Temporal convolution ops of DS-GCN (channels-last ``(N, T, V, C)``).
 
 The port of ``UnitTCN``, ``_MSBranches`` and ``DGMSTCN`` from
-``dsgcn_tpu/ops/tcn.py``, eval form.  DGMSTCN runs the reference ``concat``
-layout: the mean joint is appended as an extra joint row, the branch stack
-runs once, and the global row is scaled back onto every joint
-(tcn.py:428-460).  Submodule names follow the JAX module's flax scopes.
+``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN runs the reference
+``concat`` layout, which is also the layout JAX trains with: the mean joint
+is appended as an extra joint row, the branch stack runs once (so in
+training the branch BatchNorms see the 26th joint), and the global row is
+scaled back onto every joint (tcn.py:428-460).  Submodule names follow the JAX module's flax scopes.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm, PointConv, TemporalConv, max_pool_t
+from .common import BatchNorm, PointConv, TemporalConv, dropout, max_pool_t
 
 MsCfgEntry = Union[str, Tuple[Union[str, int], int]]
 DEFAULT_MS_CFG: Tuple[MsCfgEntry, ...] = ((3, 1), (3, 2), (3, 3), (3, 4),
@@ -91,9 +92,11 @@ class _MSBranches(nn.Module):
 
 class DGMSTCN(nn.Module):
     """DG-STGCN multi-scale TCN with a global joint-mean branch (reference
-    dgmstcn, tcn.py:344-431), eval form in the ``concat`` layout (dropout
-    is the identity in eval).  The JAX module's ``split`` eval layout,
-    ``branch_kind='mlp'`` and fused eval kernel (K7) are not ported yet.
+    dgmstcn, tcn.py:344-431) in the ``concat`` layout.  ``dropout`` acts in
+    training only, its mask drawn from ``self.generator`` (a
+    ``torch.Generator`` on the activations' device, or None for torch's
+    default).  The JAX module's ``split`` eval layout, ``branch_kind='mlp'``
+    and fused eval kernel (K7) are not ported yet.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -109,6 +112,8 @@ class DGMSTCN(nn.Module):
         self.transform_bn = BatchNorm(width)
         self.transform_conv = PointConv(width, out_channels)
         self.bn = BatchNorm(out_channels)
+        self.dropout = dropout
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         v = x.shape[2]
@@ -118,4 +123,5 @@ class DGMSTCN(nn.Module):
         coeff = self.add_coeff[:v].to(x.dtype)
         feat = out[:, :, :v] + out[:, :, v:] * coeff[None, None, :, None]
         feat = self.transform_conv(F.relu(self.transform_bn(feat)))
-        return self.bn(feat)
+        return dropout(self.bn(feat), self.dropout, self.training,
+                       self.generator)

@@ -1,6 +1,6 @@
 """Port parity, host side: the graph, the config loader and the DS-GCN test
-pipeline of ``dsgcn_tpu_torch`` must reproduce ``dsgcn_tpu`` exactly (the
-port keeps its own copies of these numpy-only modules)."""
+and train pipelines of ``dsgcn_tpu_torch`` must reproduce ``dsgcn_tpu``
+exactly (the port keeps its own copies of these numpy-only modules)."""
 import numpy as np
 import pytest
 
@@ -56,6 +56,31 @@ def test_test_pipeline_identity(t):
 
 def test_unported_transforms_raise():
     with pytest.raises(NotImplementedError):
-        T.build_pipeline([dict(type="RandomRot", theta=0.2)])
+        T.build_pipeline([dict(type="RandomScale", scale=0.2)])
     with pytest.raises(NotImplementedError):
         T.GenSkeFeat(feats=["b"])
+
+
+@pytest.mark.parametrize("c", [3, 2])
+def test_random_rot_identity(c):
+    """RandomRot draws the same angles from the same RandomState and
+    rotates the same way (exact: the same numpy arithmetic)."""
+    kp = np.random.default_rng(c).standard_normal((2, 20, 25, c)).astype(
+        np.float32)
+    ours = T.RandomRot(theta=0.2)(dict(keypoint=kp.copy()),
+                                  rng=np.random.RandomState(7))
+    ref = JT.RandomRot(theta=0.2)(dict(keypoint=kp.copy()),
+                                  rng=np.random.RandomState(7))
+    np.testing.assert_array_equal(ours["keypoint"], ref["keypoint"])
+
+
+@pytest.mark.parametrize("t", [80, 45])
+def test_train_pipeline_identity(t):
+    """The config's train pipeline (RandomRot, random clip sampling) from one
+    RandomState: tolerance 1e-5 as for the test pipeline."""
+    pipe = Config.fromfile(CONFIG)["data"]["train"]["pipeline"]
+    ours = T.build_pipeline(pipe)(_anno(t=t), rng=np.random.RandomState(3))
+    ref = JT.build_pipeline(pipe)(_anno(t=t), rng=np.random.RandomState(3))
+    assert ours["keypoint"].shape == (1, 2, 60, 25, 3)
+    np.testing.assert_allclose(ours["keypoint"], ref["keypoint"],
+                               rtol=1e-5, atol=1e-5)

@@ -1,9 +1,11 @@
-"""The port's dynamic-graph kernels K1 (fused_dyn_graph_agg forward) and K3
-(bd_dyn_graph_agg).
+"""The port's dynamic-graph kernels K1 (fused_dyn_graph_agg forward), K2
+(its backward) and K3 (bd_dyn_graph_agg).
 
 On the CPU each wrapper runs its plain PyTorch version, held here against
 the JAX Pallas kernels in interpret mode and the JAX plain reference, on the
-same numpy inputs (tolerance 1e-5, float32).  The CUDA kernels themselves
+same numpy inputs (tolerance 1e-5, float32; for K2 relative to each
+gradient's largest entry, the same sums in another order).  The CUDA
+kernels themselves
 are held against the plain versions on the card by
 ``test_torch_port_cuda.py`` and ``chip_smoke.py``.
 """
@@ -19,9 +21,9 @@ from dsgcn_tpu.ops.pallas.dyn_graph import (
     reference_dyn_graph_agg as j_reference)
 from dsgcn_tpu_torch.graph import Graph
 from dsgcn_tpu_torch.ops.kernels.bd_agg import bd_dyn_graph_agg
-from dsgcn_tpu_torch.ops.kernels.dyn_graph import (edge_onehot,
-                                                   fused_dyn_graph_agg,
-                                                   reference_dyn_graph_agg)
+from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
+    edge_onehot, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
+    reference_dyn_graph_agg)
 from torch_port_cases import CASES, E, block_inputs, k3_packaging, to_torch
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -121,3 +123,32 @@ def test_bf16_plain_contracts_in_bf16():
     assert y16.dtype == torch.bfloat16
     np.testing.assert_allclose(y16.float().numpy(), y32, rtol=2e-2,
                                atol=2e-2 * np.abs(y32).max())
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_k2_plain_matches_jax_reference_vjp(edge):
+    """K2's plain version against jax.vjp of the JAX plain forward
+    (``reference_dyn_graph_agg``, XLA autodiff) at a DS-GCN width."""
+    import jax
+    K, Cm, edge_k = 3, 16, (1 if edge else -1)
+    d = block_inputs(seed=8, N=2, T=5, Cm=Cm, edge=edge)
+    dy = np.random.default_rng(9).standard_normal(d["pre"].shape).astype(
+        np.float32)
+    names = ["pre", "x1", "x2", "A", "alpha", "beta"] + (
+        ["ew", "eb"] if edge else [])
+    sel = _j(d.get("sel"))
+
+    def f(*a):
+        ew, eb = (a[6], a[7]) if edge else (None, None)
+        return j_reference(*a[:6], ew, eb, sel, K=K, Cm=Cm, edge_k=edge_k,
+                           edge_num=E)
+    _, vjp = jax.vjp(f, *[_j(d[k]) for k in names])
+    want = vjp(jnp.asarray(dy))
+    got = fused_dyn_graph_agg_bwd(*_k1_args(d, to_torch), to_torch(dy),
+                                  K, Cm, edge_k, E)
+    got = [g for g in got if g is not None]
+    assert len(got) == len(want)
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= 1e-5, (name, err)

@@ -292,9 +292,19 @@ def test_init_recognizer_needs_cuda_unless_cpu_asked():
 
 
 def test_train_mode_raises():
+    """Training runs (K1+K2 on the kernel path) and raises where the JAX
+    package does: the joint-padded mode (v_real) has no backward
+    (``dsgcn_tpu/ops/pallas/dyn_graph.py:634``)."""
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import fused_dyn_graph_agg
     model = build_model(_cfgs(False)[1]).train()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 2, 8, 25, 3))
+    model(torch.zeros(1, 2, 8, 25, 3)).sum().backward()
+    assert model.backbone.block0.gcn.alpha.grad is not None
+    K, Cm, V = 3, 4, 25
+    x1 = torch.zeros(1, K, Cm, V, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="eval-only"):
+        fused_dyn_graph_agg(torch.zeros(1, 2, V, K * Cm), x1, x1,
+                            torch.zeros(K, V, V), torch.zeros(K),
+                            torch.zeros(K), K=K, Cm=Cm, v_real=20)
 
 
 def test_graph_a_is_per_block():
