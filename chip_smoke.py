@@ -5,20 +5,27 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``dsgcn_tpu_torch/ops/kernels/csrc``
-and holds each against its plain PyTorch version on the card at the DS-GCN
-block shapes (phase 2: K1, K3 at the serving shapes; phase 6: K2 and K1 at
-the training shapes, K2 also against autograd through the plain forward).
-It serves full-width DS-GCN through ``init_recognizer`` /
-``inference_recognizer`` (random seeded weights, gates nudged off zero,
-BN statistics taken from data), checks the kernels were launched on that
-path and that the GPU answers match the same model on the CPU, and times a
-batch forward (phases 3-5).  Phase 7 trains the config's full-width model
-(b128 x M2 x T60, synthetic data through the train pipeline and the
-port's Loader): one step against the same step on the CPU, timed steps in
-float32 and bfloat16 compute with their K1/K2 launches, one
+and holds each against its plain PyTorch version on the card, in float32
+and bfloat16.  DS-GCN: phase 2 checks K1 and K3 at its serving shapes;
+phases 3-5 serve full-width DS-GCN through ``init_recognizer`` /
+``inference_recognizer`` (random seeded weights, gates nudged off zero, BN
+statistics taken from data), check the kernels were launched on that path,
+that the GPU answers match the same model on the CPU and that 'fused' and
+'mega' (K6) agree with 'auto', and time a batch forward; phase 6 checks K2
+and K1 at its training shapes (K2 also against autograd through the plain
+forward).  DG-STGCN (the j config with ``model_cfg('dgstgcn')``): phase 8
+checks K4, K5, K6 (and K6 at DS-GCN's shapes with edge attention) at its
+serving shapes and K2 at its training shapes, Cm = 64 included, and times
+its GCN blocks per eval path; phase 9 serves it (GPU against CPU, 7 K1 and
+3 K4 launches per 'auto' forward, every ``eval_kernel`` option against
+'auto' with its own launches, clips/s and profiles).  Phase 7 trains
+DS-GCN (b128 x M2 x T60, synthetic data through the train pipeline and
+the port's Loader): one step against the same step on the CPU, timed
+steps in float32 and bfloat16 compute with their K1/K2 launches, one
 ``Trainer.validate`` (K3), and the training CLI with a checkpoint and a
-resume.  Any failed check raises, and the script exits non-zero without a
-result line.
+resume; phase 10 takes the same batches through DG-STGCN's steps.  Phases
+run in the order 2-6, 8, 9, 7, 10.  Any failed check raises, and the
+script exits non-zero without a result line.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it lists the kernels with their launches, errors and
@@ -41,6 +48,7 @@ CONFIG = ROOT / "configs" / "dsgcn" / "ntu60_xsub_3dkp" / "j.py"
 BLOCK_SHAPES = [(8, 100, 4), (16, 100, 1), (16, 50, 2), (32, 50, 1),
                 (32, 25, 2)]
 N_BLOCK = 128
+THROUGHPUT_BATCH = (64, 2, 100, 25, 3)    # clips, bodies, frames, joints, xyz
 # DS-GCN training at b128 x M2 x T60 (N=256 skeletons): (mid, T at the GCN,
 # blocks with this shape)
 TRAIN_BLOCK_SHAPES = [(8, 60, 4), (16, 60, 1), (16, 30, 2), (32, 30, 1),
@@ -92,9 +100,9 @@ def cold_ms(fn, iters: int = 10, flush=None) -> float:
 # phase 2: kernels against their plain versions at the block shapes
 # ---------------------------------------------------------------------------
 
-def block_inputs(rng, dev, Cm, T, dtype, Vp=V, v_real=-1, N=N_BLOCK):
-    """K1 and K3 inputs of one DS-GCN block's aggregation (random, with the
-    NTU edge classes)."""
+def block_inputs(rng, dev, Cm, T, dtype, Vp=V, v_real=-1, N=N_BLOCK, K=K):
+    """K1 and K3 inputs of one DS-GCN (K = 3) or DG-STGCN (K = 8) block's
+    aggregation (random, with the NTU edge classes)."""
     from dsgcn_tpu_torch.graph import Graph
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import edge_onehot
     f = lambda *s: torch.from_numpy(  # noqa: E731
@@ -127,6 +135,7 @@ def kernel_calls(d, Cm, edge, v_real=-1):
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
         fused_dyn_graph_agg, reference_dyn_graph_agg)
     ek = 1 if edge else -1
+    K = d["A"].shape[0]
     k1 = (d["pre"], d["x1"], d["x2"], d["A"], d["alpha"], d["beta"]) + (
         (d["ew"], d["eb"], d["sel"]) if edge else (None, None, None)) + (
         K, Cm, ek, E, v_real)
@@ -157,11 +166,13 @@ def bound(d, name, Cm, edge):
     against the aggregation's and the graph build's float32 operations
     over the CUDA-core rate (the kernels compute in float32)."""
     N, T, Vp, KC = d["pre"].shape
+    K = d["A"].shape[0]
     keys = (["pre", "x1", "x2", "A", "alpha", "beta"]
             + (["ew", "eb", "sel"] if edge else [])
             if name == "fused_dyn_graph_agg" else
             ["pre2", "x1t", "x2", "A", "alpha", "beta"]
             + (["p1t", "p2", "sel", "ebias"] if edge else []))
+    # K4 (bd_dyn_graph_agg_subset) reads K3's inputs without the edge ones
     nbytes = sum(d[k].numel() * d[k].element_size() for k in keys)
     nbytes += d["pre"].numel() * d["pre"].element_size()       # y
     flops = 2 * N * T * Vp * Vp * KC                            # y
@@ -191,20 +202,10 @@ def kernel_checks(dev, rng, report):
                 d, Cm, edge, v_real).items():
             if v_real > 0 and name == "fused_dyn_graph_agg":
                 continue     # v_real on V=32 is checked for K3
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            tol = TOL[dtype]
-            ok = torch.allclose(got.float(), want.float(), rtol=tol,
-                                atol=tol)
             row = dict(kernel=name, Cm=Cm, T=T, N=N_BLOCK, V=Vp,
                        v_real=v_real, dtype=str(dtype).split(".")[-1],
-                       edge=edge, max_abs_err=err, max_abs_ref=scale,
-                       tol=tol, ok=ok)
-            check(bool(torch.isfinite(got.float()).all()),
-                  f"{name} non-finite output at {row}")
-            check(ok, f"{name} disagrees with its plain version: {row}")
+                       edge=edge)
+            err = compare(name, kern(), plain(), dtype, row)
             worst[name] = max(worst.get(name, 0.0), err)
             if Vp == V and edge:
                 # the DS-GCN path's own configuration: time it
@@ -240,11 +241,36 @@ K2_OUTPUTS = ("dpre", "dx1", "dx2", "dA", "dalpha", "dbeta", "dedge_w",
 K2_TOL, K2_TOL_BF16_DPRE = 1e-4, 8e-3
 
 
+def compare_k2(got, refs, dtype, row):
+    """Hold K2's gradients against each reference (the plain backward,
+    autograd): each within K2_TOL of its largest entry, a bf16 dpre within
+    K2_TOL_BF16_DPRE.  Records the relative errors and the max abs error
+    against the plain backward in ``row``."""
+    torch.cuda.synchronize()
+    row.update(rel_err={}, max_abs_err=0.0)
+    for ref_name, ref in refs.items():
+        for out, g, w in zip(K2_OUTPUTS, got, ref):
+            if w is None:
+                check(g is None, f"K2 gave {out} without edge")
+                continue
+            check(bool(torch.isfinite(g.float()).all()),
+                  f"K2 {out} not finite at {row}")
+            err = (g.float() - w.float()).abs().max().item()
+            rel = err / max(w.float().abs().max().item(), 1e-30)
+            tol = (K2_TOL_BF16_DPRE if out == "dpre"
+                   and dtype == torch.bfloat16 else K2_TOL)
+            row["rel_err"][f"{ref_name}:{out}"] = rel
+            if ref_name == "plain":
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+            check(rel <= tol, f"K2 {out} off its {ref_name} reference by "
+                  f"{rel:.3e} rel (tol {tol}) at {row}")
+
+
 def k2_args(d, Cm, edge):
     ek = 1 if edge else -1
     return ((d["pre"], d["x1"], d["x2"], d["A"], d["alpha"], d["beta"])
             + ((d["ew"], d["eb"], d["sel"]) if edge else (None, None, None))
-            + (d["dy"], K, Cm, ek, E))
+            + (d["dy"], d["A"].shape[0], Cm, ek, E))
 
 
 def k2_bound(d, Cm, edge):
@@ -253,6 +279,7 @@ def k2_bound(d, Cm, edge):
     memory rate, against the two T-contractions and the graph chain in
     float32 over the CUDA-core rate."""
     N, T, Vp, KC = d["pre"].shape
+    K = d["A"].shape[0]
     act = d["pre"].numel() * d["pre"].element_size()
     small = sum(d[k].numel() * 4 for k in
                 ["x1", "x2", "A", "alpha", "beta"]
@@ -303,27 +330,10 @@ def k2_checks(dev, rng, report):
                         auto = torch.autograd.grad(y, ins, d["dy"])
                     refs["autograd"] = list(auto[:6]) + (
                         list(auto[6:]) if edge else [None, None])
-                torch.cuda.synchronize()
                 row = dict(kernel="fused_dyn_graph_agg_bwd", Cm=Cm, T=T,
                            N=N_TRAIN, dtype=str(dtype).split(".")[-1],
-                           edge=edge, rel_err={}, max_abs_err=0.0)
-                for ref_name, ref in refs.items():
-                    for out, g, w in zip(K2_OUTPUTS, got, ref):
-                        if w is None:
-                            check(g is None, f"K2 gave {out} without edge")
-                            continue
-                        check(bool(torch.isfinite(g.float()).all()),
-                              f"K2 {out} not finite at {row}")
-                        err = (g.float() - w.float()).abs().max().item()
-                        rel = err / max(w.float().abs().max().item(), 1e-30)
-                        tol = (K2_TOL_BF16_DPRE if out == "dpre"
-                               and dtype == torch.bfloat16 else K2_TOL)
-                        row["rel_err"][f"{ref_name}:{out}"] = rel
-                        if ref_name == "plain":
-                            row["max_abs_err"] = max(row["max_abs_err"], err)
-                        check(rel <= tol, f"K2 {out} off its {ref_name} "
-                              f"reference by {rel:.3e} rel (tol {tol}) at "
-                              f"Cm={Cm} T={T} {dtype} edge={edge}")
+                           edge=edge)
+                compare_k2(got, refs, dtype, row)
                 worst[row["kernel"]] = max(worst[row["kernel"]],
                                            row["max_abs_err"])
                 rows = [row]
@@ -345,24 +355,20 @@ def k2_checks(dev, rng, report):
     return worst, per_step
 
 
-def k1_at_training_shape(d, Cm, dtype, flush):
+def k1_at_training_shape(d, Cm, dtype, flush, edge=True):
     """K1's forward against its plain version and timed at a training block
     shape (the forward of the step K2 differentiates)."""
-    kern, plain, library = kernel_calls(d, Cm, True)["fused_dyn_graph_agg"]
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    tol = TOL[dtype]
-    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-          f"fused_dyn_graph_agg disagrees with its plain version at "
-          f"Cm={Cm} N={N_TRAIN} {dtype}")
-    bound_ms, bound_by = bound(d, "fused_dyn_graph_agg", Cm, True)
-    return dict(kernel="fused_dyn_graph_agg", Cm=Cm, T=d["pre"].shape[1],
-                N=N_TRAIN, dtype=str(dtype).split(".")[-1], edge=True,
-                max_abs_err=err, tol=tol, ms=cold_ms(kern, flush=flush),
-                plain_ms=cold_ms(plain, iters=3, flush=flush),
-                library_ms=cold_ms(library, flush=flush), bound_ms=bound_ms,
-                bound_by=bound_by)
+    kern, plain, library = kernel_calls(d, Cm, edge)["fused_dyn_graph_agg"]
+    row = dict(kernel="fused_dyn_graph_agg", Cm=Cm, T=d["pre"].shape[1],
+               N=N_TRAIN, K=d["A"].shape[0], dtype=str(dtype).split(".")[-1],
+               edge=edge)
+    compare(row["kernel"], kern(), plain(), dtype, row)
+    bound_ms, bound_by = bound(d, "fused_dyn_graph_agg", Cm, edge)
+    row.update(ms=cold_ms(kern, flush=flush),
+               plain_ms=cold_ms(plain, iters=3, flush=flush),
+               library_ms=cold_ms(library, flush=flush), bound_ms=bound_ms,
+               bound_by=bound_by)
+    return row
 
 
 def k2_times(d, args, Cm, flush):
@@ -371,6 +377,7 @@ def k2_times(d, args, Cm, flush):
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
         fused_dyn_graph_agg_bwd, reference_dyn_graph_agg_bwd)
     N, T, Vp, _ = d["pre"].shape
+    K = d["A"].shape[0]
     G = torch.randn(N, K, Cm, Vp, Vp, device=d["pre"].device).to(
         d["pre"].dtype)
     pre5 = d["pre"].reshape(N, T, Vp, K, Cm)
@@ -433,7 +440,7 @@ def as_batch(b, n=None):
     return dict(keypoint=kp[:n], label=b["label"][:n])
 
 
-def gpu_vs_cpu_step(model, batch, report):
+def gpu_vs_cpu_step(model, batch, out):
     """One train_step on the card and the same step on the CPU (plain
     versions) from the same weights and batch: loss within 1e-4, train-mode
     logits within 1e-3 relative, each parameter's update with cosine >
@@ -469,7 +476,7 @@ def gpu_vs_cpu_step(model, batch, report):
                logits_rel_err=lerr, worst_update_cos=worst_cos,
                worst_update_norm_ratio_err=worst_ratio)
     print("train gpu vs cpu", json.dumps(row), flush=True)
-    report["train"]["gpu_vs_cpu"] = row
+    out["gpu_vs_cpu"] = row
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
     check(loss_err <= 1e-4, f"GPU loss off the CPU's by {loss_err:.3e} rel")
     check(lerr <= 1e-3, f"GPU logits off the CPU's by {lerr:.3e} rel")
@@ -477,7 +484,7 @@ def gpu_vs_cpu_step(model, batch, report):
           f"GPU update off the CPU's: cosine {worst_cos}, norm {worst_ratio}")
 
 
-def timed_steps(model, batches, dtype_name, card, report):
+def timed_steps(model, batches, dtype_name, card, out):
     """Full-size steps: one warm-up, then TRAIN_STEPS timed ones, each with
     its loss, wall ms, clips/s, peak device memory and K1/K2 launches."""
     from dsgcn_tpu_torch.core.train import make_optimizer, train_step
@@ -507,7 +514,7 @@ def timed_steps(model, batches, dtype_name, card, report):
               f"a step launched K1 {k1} and K2 {k2} times for {nblocks} "
               "blocks")
         rows.append(row)
-    report["train"]["steps"].extend(rows)
+    out["steps"].extend(rows)
     # one more step of the same kind under the profiler
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -517,7 +524,7 @@ def timed_steps(model, batches, dtype_name, card, report):
         train_step(model, opt, sched, batches[-1], compute_dtype=compute)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    report["train"].setdefault("profile", {})[dtype_name] = device_rows(
+    out.setdefault("profile", {})[dtype_name] = device_rows(
         prof, wall, f"train profile {dtype_name}")
 
 
@@ -559,8 +566,9 @@ def train_cli(tmp, report):
 
 
 def train(dev, card, report):
-    """Phase 7.  Returns the kernel counts of the training path: the full
-    size steps (f32, then bf16 compute) and one Trainer.validate."""
+    """Phases 7 and 10, on the same synthetic batches.  Returns the kernel
+    counts of DS-GCN's training path (the full size steps, f32 then bf16
+    compute, and one Trainer.validate)."""
     import tempfile
     from dsgcn_tpu_torch.configs.config import Config
     from dsgcn_tpu_torch.core.trainer import Trainer
@@ -584,12 +592,12 @@ def train(dev, card, report):
         model = trainer.model
         batches = [as_batch(b) for b in train_loader.epoch(0)]
         check(len(batches) == 1 + TRAIN_STEPS, f"{len(batches)} batches")
-        gpu_vs_cpu_step(model, as_batch(next(train_loader.epoch(1)),
-                                        CPU_CHECK_CLIPS), report)
+        cpu_batch = as_batch(next(train_loader.epoch(1)), CPU_CHECK_CLIPS)
+        gpu_vs_cpu_step(model, cpu_batch, report["train"])
 
         reset_counts()
-        timed_steps(model, batches, "f32", card, report)
-        timed_steps(model, batches, "bf16", card, report)
+        timed_steps(model, batches, "f32", card, report["train"])
+        timed_steps(model, batches, "bf16", card, report["train"])
         t0 = time.perf_counter()
         val = trainer.validate()
         val_ms = (time.perf_counter() - t0) * 1e3
@@ -605,7 +613,458 @@ def train(dev, card, report):
               f"{n_val} batches")
         report["train"].update(validate=val, validate_ms=val_ms)
         train_cli(tmp, report)
+        del model, trainer
+        train_dgstgcn(dev, card, report, batches, cpu_batch)
     return counts
+
+
+def train_dgstgcn(dev, card, report, batches, cpu_batch):
+    """Phase 10: DG-STGCN (the j config with model_cfg('dgstgcn')) through
+    train_step on the same batches: one GPU step against the CPU's, then
+    timed full-size steps in float32 and bfloat16 compute, each launching
+    K1 and K2 once per block, with their peak device memory."""
+    from dsgcn_tpu_torch.models.builder import init_weights_
+
+    gen = torch.Generator().manual_seed(8)
+    model = init_weights_(build_dgstgcn(), gen)
+    nudge_gates_(model, gen)
+    model = model.to(dev)
+    out = report["dgstgcn_train"] = dict(steps=[])
+    gpu_vs_cpu_step(model, cpu_batch, out)
+    timed_steps(model, batches, "f32", card, out)
+    timed_steps(model, batches, "bf16", card, out)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: DG-STGCN's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# DG-STGCN (model_cfg('dgstgcn'): K = 8 subsets, ratio 0.25) at
+# b64 x M2 x T100: (C in, C out, mid, T at the GCN) of its ten blocks;
+# DS-GCN's ten blocks for K6 (K = 3, edge attention on subset 1)
+DG_K = 8
+DG_BLOCKS = ([(3, 64, 16, 100)] + [(64, 64, 16, 100)] * 3
+             + [(64, 128, 32, 100)] + [(128, 128, 32, 50)] * 2
+             + [(128, 256, 64, 50)] + [(256, 256, 64, 25)] * 2)
+DS_BLOCKS = ([(3, 64, 8, 100)] + [(64, 64, 8, 100)] * 3
+             + [(64, 128, 16, 100)] + [(128, 128, 16, 50)] * 2
+             + [(128, 256, 32, 50)] + [(256, 256, 32, 25)] * 2)
+# DG-STGCN training at b128 x M2 x T60: (mid, T at the GCN, blocks)
+DG_TRAIN_BLOCK_SHAPES = [(16, 60, 4), (32, 60, 1), (32, 30, 2), (64, 30, 1),
+                         (64, 15, 2)]
+
+
+def distinct(blocks):
+    """[(shape, how many blocks have it)] in first-seen order."""
+    counts = {}
+    for b in blocks:
+        counts[b] = counts.get(b, 0) + 1
+    return list(counts.items())
+
+
+def compare(name, got, want, dtype, row):
+    """Hold a kernel's output against its plain version (TOL); returns the
+    max abs error."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype]
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    row.update(max_abs_err=err, max_abs_ref=want.float().abs().max().item(),
+               tol=tol, ok=ok)
+    check(bool(torch.isfinite(got.float()).all()),
+          f"{name} non-finite output at {row}")
+    check(got.dtype == want.dtype, f"{name} returned {got.dtype}")
+    check(ok, f"{name} disagrees with its plain version: {row}")
+    return err
+
+
+def block_weights(rng, dev, C, KC, Cout, down):
+    """Folded 1x1 weights of one GCN block, (in, out) orientation."""
+    f = lambda *s: torch.from_numpy((rng.standard_normal(s) / np.sqrt(  # noqa
+        s[0])).astype(np.float32)).to(dev)
+    w = dict(w_pre=f(C, KC), b_pre=f(KC), w_post=f(KC, Cout), b_post=f(Cout),
+             w_down=None, b_down=None)
+    if down:
+        w.update(w_down=f(C, Cout), b_down=f(Cout))
+    return w
+
+
+def block_bound(N, T, C, KC, Cout, K, Cm, down, xbytes, edge=False,
+                post=True):
+    """Least time (ms) of K5 (post=False: pre 1x1 + aggregation, output
+    (N, T, V, K*Cm)) or K6 (the whole block) and what bounds it: x read
+    and the output written once, weights and queries once, against the
+    1x1 products, the aggregation and the graph build in float32 over the
+    CUDA-core rate (the kernels compute in float32)."""
+    act = N * T * V * (C + (Cout if post else KC)) * xbytes
+    wts = C * KC * (4 if post else xbytes) + 4 * KC
+    if post:
+        wts += 4 * (KC * Cout + Cout + ((C * Cout + Cout) if down else 0))
+    small = 4 * (2 * N * K * Cm * V + K * V * V + 2 * K)
+    flops = 2 * N * T * V * C * KC + 2 * N * T * V * V * KC
+    flops += N * K * 6 * Cm * V * V
+    if post:
+        flops += 2 * N * T * V * KC * Cout
+        flops += 2 * N * T * V * C * Cout if down else 0
+    if edge:
+        flops += N * Cm * V * V * 2 * E + N * 2 * (2 * Cm * E * Cm * V)
+    t_bytes = (act + wts + small) / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def new_sum():
+    return dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+                bound_by=set())
+
+
+def add_to(acc, row, n):
+    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        if row.get(k) is not None:
+            acc[k] = (acc[k] or 0.0) + n * row[k]
+    acc["bound_by"].add(row["bound_by"])
+
+
+def dg_kernel_checks(dev, rng, report):
+    """Phase 8: K4, K5 and K6 at DG-STGCN's serving shapes (N = 128), K6
+    also at DS-GCN's with edge attention, K1 at DG-STGCN's 'auto' blocks,
+    each in f32 and bf16 against its plain version; f32 times per forward
+    at b64 x M2 x T100.  Then K2 (and K1) at DG-STGCN's training shapes."""
+    from dsgcn_tpu_torch.ops.kernels.bd_agg import (
+        bd_dyn_graph_agg_subset, reference_bd_dyn_graph_agg_subset)
+    from dsgcn_tpu_torch.ops.kernels.dggcn_block import (
+        fused_dggcn_block_eval, reference_dggcn_block_eval)
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
+        fused_dyn_graph_agg_eval, reference_dyn_graph_agg_eval)
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    names = ("bd_dyn_graph_agg_subset", "fused_dyn_graph_agg_eval",
+             "fused_dggcn_block_eval", "fused_dyn_graph_agg")
+    worst = dict.fromkeys(names, 0.0)
+    per_forward = {n: new_sum() for n in names}
+    rows = report["dg_kernel_checks"] = []
+
+    def record(row, kern, plain, library=None, bound=None, nblocks=0):
+        """Time a f32 case (ms, plain ms, library ms, bound) and add it to
+        the kernel's per-forward sums."""
+        row.update(ms=cold_ms(kern, flush=flush),
+                   plain_ms=cold_ms(plain, iters=3, flush=flush),
+                   library_ms=(cold_ms(library, flush=flush)
+                               if library is not None else None),
+                   bound_ms=bound[0], bound_by=bound[1],
+                   blocks_per_forward=nblocks)
+        if nblocks:
+            add_to(per_forward[row["kernel"]], row, nblocks)
+
+    def done(row):
+        worst[row["kernel"]] = max(worst[row["kernel"]], row["max_abs_err"])
+        rows.append(row)
+        print("kernel", json.dumps(row), flush=True)
+
+    # K4 where 'auto' takes it (mid 64), g = 32 (the path's) and g = Cm,
+    # and with joints padded 25 -> 32
+    for (C, Cout, Cm, T), nb in distinct(DG_BLOCKS):
+        if Cm < 64:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            for g, Vp, v_real in ((32, V, -1), (None, V, -1), (32, 32, 25)):
+                d = block_inputs(rng, dev, Cm, T, dtype, Vp, v_real,
+                                 N=N_BLOCK, K=DG_K)
+                args = (d["pre2"], d["x1t"], d["x2"], d["A"], d["alpha"],
+                        d["beta"])
+                kw = dict(K=DG_K, Cm=Cm, g=g, v_real=v_real)
+                kern = lambda: bd_dyn_graph_agg_subset(*args, **kw)  # noqa
+                plain = lambda: reference_bd_dyn_graph_agg_subset(  # noqa
+                    *args, **kw)
+                row = dict(kernel=names[0], Cm=Cm, T=T, N=N_BLOCK, V=Vp,
+                           v_real=v_real, g=g, dtype=str(dtype).split(".")[-1])
+                compare(names[0], kern(), plain(), dtype, row)
+                if dtype == torch.float32 and g == 32 and Vp == V:
+                    library = kernel_calls(d, Cm, False)[
+                        "bd_dyn_graph_agg"][2]
+                    record(row, kern, plain, library,
+                           bound(d, names[0], Cm, False), nb)
+                done(row)
+                del d
+
+    # K1 at the blocks where 'auto' takes it (mid 16 and 32)
+    for (C, Cout, Cm, T), nb in distinct(DG_BLOCKS):
+        if Cm >= 64:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            d = block_inputs(rng, dev, Cm, T, dtype, N=N_BLOCK, K=DG_K)
+            kern, plain, library = kernel_calls(d, Cm, False)[names[3]]
+            row = dict(kernel=names[3], Cm=Cm, T=T, N=N_BLOCK, K=DG_K,
+                       dtype=str(dtype).split(".")[-1], model="dgstgcn")
+            compare(names[3], kern(), plain(), dtype, row)
+            if dtype == torch.float32:
+                record(row, kern, plain, library,
+                       bound(d, names[3], Cm, False), nb)
+            done(row)
+            del d
+
+    # K5 at every block with c >= 64 ('fusedpre'); w_pre in x's dtype
+    for (C, Cout, Cm, T), nb in distinct(DG_BLOCKS):
+        if C < 64:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            d = block_inputs(rng, dev, Cm, T, dtype, N=N_BLOCK, K=DG_K)
+            w = block_weights(rng, dev, C, DG_K * Cm, Cout, False)
+            x = torch.from_numpy(rng.standard_normal(
+                (N_BLOCK, T, V, C)).astype(np.float32)).to(dev, dtype)
+            args = (x, w["w_pre"].to(dtype), w["b_pre"], d["x1"], d["x2"],
+                    d["A"], d["alpha"], d["beta"])
+            kern = lambda: fused_dyn_graph_agg_eval(  # noqa
+                *args, K=DG_K, Cm=Cm)
+            plain = lambda: reference_dyn_graph_agg_eval(  # noqa
+                *args, K=DG_K, Cm=Cm)
+            row = dict(kernel=names[1], C=C, Cm=Cm, T=T, N=N_BLOCK,
+                       dtype=str(dtype).split(".")[-1])
+            compare(names[1], kern(), plain(), dtype, row)
+            if dtype == torch.float32:
+                record(row, kern, plain, None, block_bound(
+                    N_BLOCK, T, C, DG_K * Cm, Cout, DG_K, Cm, False, 4,
+                    post=False), nb)
+            done(row)
+            del d, x
+
+    # K6 at every DG-STGCN block (down path where channels change) and at
+    # DS-GCN's with edge attention
+    dsgcn_mega = new_sum()
+    for blocks, Kb, edge in ((DG_BLOCKS, DG_K, False), (DS_BLOCKS, K, True)):
+        for (C, Cout, Cm, T), nb in distinct(blocks):
+            down = C != Cout
+            for dtype in (torch.float32, torch.bfloat16):
+                d = block_inputs(rng, dev, Cm, T, dtype, N=N_BLOCK, K=Kb)
+                w = block_weights(rng, dev, C, Kb * Cm, Cout, down)
+                x = torch.from_numpy(rng.standard_normal(
+                    (N_BLOCK, T, V, C)).astype(np.float32)).to(dev, dtype)
+                args = (x, d["x1"], d["x2"], w["w_pre"], w["b_pre"], d["A"],
+                        d["alpha"], d["beta"], w["w_post"], w["b_post"],
+                        w["w_down"], w["b_down"])
+                kw = dict(K=Kb, Cm=Cm)
+                if edge:
+                    kw.update(edge_w=d["ew"], edge_b=d["eb"],
+                              edge_sel=d["sel"], edge_k=1, edge_num=E)
+                kern = lambda: fused_dggcn_block_eval(*args, **kw)  # noqa
+                plain = lambda: reference_dggcn_block_eval(  # noqa
+                    *args, **kw)
+                row = dict(kernel=names[2], C=C, Cout=Cout, Cm=Cm, K=Kb,
+                           T=T, N=N_BLOCK, down=down, edge=edge,
+                           dtype=str(dtype).split(".")[-1])
+                compare(names[2], kern(), plain(), dtype, row)
+                if dtype == torch.float32:
+                    record(row, kern, plain, None, block_bound(
+                        N_BLOCK, T, C, Kb * Cm, Cout, Kb, Cm, down, 4,
+                        edge), nb if not edge else 0)
+                    if edge:
+                        add_to(dsgcn_mega, row, nb)
+                done(row)
+                del d, x
+    report["dg_per_forward"] = per_forward
+    report["dsgcn_mega_per_forward"] = dsgcn_mega
+    report["dg_block_ms"] = dg_block_times(dev, flush)
+    worst_t, per_step = dg_k2_checks(dev, rng, report, flush)
+    return worst, per_forward, worst_t, per_step
+
+
+def dg_block_times(dev, flush):
+    """Device time of each DG-STGCN GCN block (the DGGCN module in eval,
+    f32, N = 128) per eval path, summed per forward: 'fused' is the
+    unfused block (pre 1x1 + BN + ReLU, K1, post 1x1 + BN, residual) that
+    K5 ('fusedpre') and K6 ('mega') replace."""
+    from dsgcn_tpu_torch.graph import Graph
+    from dsgcn_tpu_torch.models.builder import init_weights_
+    from dsgcn_tpu_torch.ops.gcn import DGGCN
+    A = Graph(layout="nturgb+d", mode="random", num_filter=DG_K,
+              seed=0).A.astype(np.float32)
+    sums = {}
+    gen = torch.Generator().manual_seed(9)
+    for (C, Cout, Cm, T), nb in distinct(DG_BLOCKS):
+        m = init_weights_(DGGCN(C, Cout, A_init=A, use_pallas=True), gen)
+        nudge_gates_(m, gen)
+        m = m.to(dev).eval()
+        x = torch.randn(N_BLOCK, T, V, C, generator=gen).to(dev)
+        for ek in ("fused", "fusedpre", "mega"):
+            m.eval_kernel = ek
+            with torch.inference_mode():
+                ms = cold_ms(lambda: m(x), flush=flush)
+            sums[ek] = sums.get(ek, 0.0) + nb * ms
+            print(f"DGGCN block C={C} Cout={Cout} mid={Cm} T={T} "
+                  f"{ek}: {ms:.3f} ms (x{nb} per forward)", flush=True)
+        del m, x
+    print("DGGCN blocks per forward, ms: " + json.dumps(sums), flush=True)
+    return sums
+
+
+def dg_k2_checks(dev, rng, report, flush):
+    """K2 (and K1) at DG-STGCN's training shapes (K = 8, no edge
+    attention, N = 256), f32 and bf16, against the plain backward; at one
+    Cm = 64 shape also against autograd through the plain forward."""
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
+        fused_dyn_graph_agg_bwd, reference_dyn_graph_agg,
+        reference_dyn_graph_agg_bwd)
+    worst = {"fused_dyn_graph_agg": 0.0, "fused_dyn_graph_agg_bwd": 0.0}
+    per_step = {name: new_sum() for name in worst}
+    for Cm, T, nblocks in DG_TRAIN_BLOCK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            d = block_inputs(rng, dev, Cm, T, dtype, N=N_TRAIN, K=DG_K)
+            d["dy"] = torch.from_numpy(rng.standard_normal(
+                d["pre"].shape).astype(np.float32)).to(dev).to(dtype)
+            args = k2_args(d, Cm, False)
+            got = fused_dyn_graph_agg_bwd(*args)
+            refs = {"plain": reference_dyn_graph_agg_bwd(*args)}
+            if dtype == torch.float32 and (Cm, T) == (64, 15):
+                ins = [a.detach().requires_grad_() for a in args[:6]]
+                with torch.enable_grad():
+                    y = reference_dyn_graph_agg(*ins, K=DG_K, Cm=Cm)
+                    refs["autograd"] = list(torch.autograd.grad(
+                        y, ins, d["dy"])) + [None, None]
+            row = dict(kernel="fused_dyn_graph_agg_bwd", Cm=Cm, T=T,
+                       N=N_TRAIN, K=DG_K, dtype=str(dtype).split(".")[-1], edge=False)
+            compare_k2(got, refs, dtype, row)
+            rows = [row]
+            if dtype == torch.float32:
+                row.update(k2_times(d, args, Cm, flush))
+                rows.append(k1_at_training_shape(d, Cm, dtype, flush,
+                                                 edge=False))
+            for r in rows:
+                worst[r["kernel"]] = max(worst[r["kernel"]],
+                                         r["max_abs_err"])
+                r["blocks_per_step"] = nblocks
+                if dtype == torch.float32:
+                    add_to(per_step[r["kernel"]], r, nblocks)
+                report["dg_k2_checks"].append(r)
+                print("kernel", json.dumps(r), flush=True)
+            del d, got, refs
+    report["dg_per_step"] = per_step
+    return worst, per_step
+
+
+# ---------------------------------------------------------------------------
+# phase 9: DG-STGCN serving through the entry points
+# ---------------------------------------------------------------------------
+
+# launches per forward of DG-STGCN's eval paths
+DG_AUTO = {"fused_dyn_graph_agg": 7, "bd_dyn_graph_agg_subset": 3}
+DG_OPTIONS = {
+    "bd": {"bd_dyn_graph_agg": 10},
+    "bdps": {"bd_dyn_graph_agg_subset": 10},
+    "bdg": {"bd_dyn_graph_agg_subset": 10},
+    "fused": {"fused_dyn_graph_agg": 10},
+    "fusedpre": {"fused_dyn_graph_agg_eval": 9, "fused_dyn_graph_agg": 1},
+    "mega": {"fused_dggcn_block_eval": 10},
+}
+
+
+def expect_counts(counts, per_forward, forwards, what):
+    """Every kernel launched exactly as often as the path says."""
+    want = dict.fromkeys(counts, 0)
+    want.update({k: n * forwards for k, n in per_forward.items()})
+    check(counts == want, f"{what} launched {counts}, expected {want}")
+
+
+def dg_config(eval_kernel=None):
+    """The DS-GCN j config with its model replaced by DG-STGCN."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.models.builder import model_cfg
+    cfg = Config.fromfile(str(CONFIG))
+    cfg["model"] = model_cfg("dgstgcn")
+    if eval_kernel is not None:
+        cfg["model"]["backbone"]["gcn_eval_kernel"] = eval_kernel
+    return cfg
+
+
+def build_dgstgcn():
+    from dsgcn_tpu_torch.models.builder import build_model
+    return build_model(dg_config()["model"])
+
+
+def serve_dgstgcn(dev, card, report):
+    """Phase 9.  Returns the launch counts of 'auto' (the main path) and of
+    each eval_kernel option, over the four requests."""
+    from dsgcn_tpu_torch.apis import (inference_recognizer, init_recognizer,
+                                      to_bf16_inference)
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    from dsgcn_tpu_torch.ops.gcn import DGGCN
+
+    out = report["dgstgcn_serving"] = dict(requests=[], options={})
+    torch.manual_seed(1)
+    model = init_recognizer(dg_config(), device=dev)
+    pipeline = build_pipeline(model.cfg["data"]["test"]["pipeline"])
+    calibrate_(model, torch.from_numpy(pipeline(
+        synthetic_annos(seed=1)[0])["keypoint"]).to(dev), seed=3)
+    annos = synthetic_annos(seed=2)
+    blocks = [getattr(model.backbone, f"block{i}").gcn
+              for i in range(model.backbone.num_blocks)]
+    check(len(blocks) == 10 and all(isinstance(b, DGGCN) for b in blocks),
+          "DG-STGCN has not ten DGGCN blocks")
+
+    # the main path ('auto'), counts read around it
+    reset_counts()
+    answers, request_ms = [], []
+    for a in annos:
+        t0 = time.perf_counter()
+        answers.append(inference_recognizer(model, a))
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    auto_counts = read_counts()
+    print("DG-STGCN main path launches", json.dumps(auto_counts), flush=True)
+    print("DG-STGCN request latency ms (f32): "
+          + ", ".join(f"{ms:.3f}" for ms in request_ms), flush=True)
+    expect_counts(auto_counts, DG_AUTO, len(annos), "DG-STGCN 'auto'")
+    out["request_ms"] = {"f32": request_ms}
+
+    cpu = init_recognizer(dg_config(), device="cpu")
+    cpu.load_state_dict(model.state_dict(), strict=True)
+    auto_logits = []
+    for a, ans in zip(annos, answers):
+        cpu_ans = inference_recognizer(cpu, a)
+        g, c = logits_of(model, pipeline, a), logits_of(cpu, pipeline, a)
+        check(g.shape == (10, 60) and bool(torch.isfinite(g).all()),
+              f"logits of shape {tuple(g.shape)} or not finite")
+        err = rel_err(g, c)
+        print(f"DG-STGCN request {a['frame_dir']}: gpu top-5 {ans}; cpu "
+              f"top-5 {cpu_ans}; logits rel err {err:.3e} (max |logit| "
+              f"{c.abs().max().item():.3f})", flush=True)
+        check(ans[0][0] == cpu_ans[0][0],
+              f"DG-STGCN GPU top-1 {ans[0]} != CPU top-1 {cpu_ans[0]}")
+        check(err <= 1e-3, f"DG-STGCN GPU logits off the CPU's by {err:.3e}")
+        out["requests"].append(dict(request=a["frame_dir"], top5=ans,
+                                    cpu_top5=cpu_ans, logits_rel_err=err))
+        auto_logits.append(g)
+    del cpu
+
+    # every eval_kernel option on the same weights
+    option_counts = {}
+    for ek, per_forward in DG_OPTIONS.items():
+        m = init_recognizer(dg_config(ek), device=dev)
+        m.load_state_dict(model.state_dict(), strict=True)
+        reset_counts()
+        logits = [logits_of(m, pipeline, a) for a in annos]
+        torch.cuda.synchronize()
+        counts = option_counts[ek] = read_counts()
+        errs = [rel_err(lg, al) for lg, al in zip(logits, auto_logits)]
+        print(f"DG-STGCN {ek}: launches {json.dumps(counts)}; logits vs "
+              "auto rel err " + ", ".join(f"{e:.3e}" for e in errs),
+              flush=True)
+        expect_counts(counts, per_forward, len(annos), f"DG-STGCN {ek!r}")
+        check(max(errs) <= 1e-4,
+              f"DG-STGCN {ek!r} logits off 'auto' by {max(errs):.3e}")
+        out["options"][ek] = dict(counts=counts, logits_rel_err=errs)
+        del m
+
+    bf16 = to_bf16_inference(model)
+    out["request_ms"]["bf16"] = []
+    out["bf16_top1_equal"] = []
+    for a, ans in zip(annos, answers):
+        t0 = time.perf_counter()
+        bans = inference_recognizer(bf16, a)
+        out["request_ms"]["bf16"].append((time.perf_counter() - t0) * 1e3)
+        out["bf16_top1_equal"].append(bans[0][0] == ans[0][0])
+        print(f"DG-STGCN request {a['frame_dir']}: bf16 top-5 {bans}",
+              flush=True)
+    throughput(model, bf16, dev, card, out)
+    return auto_counts, option_counts
 
 
 # ---------------------------------------------------------------------------
@@ -682,10 +1141,16 @@ def synthetic_annos(seed, n=4):
 
 
 def _wrappers():
-    from dsgcn_tpu_torch.ops.kernels.bd_agg import bd_dyn_graph_agg
+    from dsgcn_tpu_torch.ops.kernels.bd_agg import (bd_dyn_graph_agg,
+                                                    bd_dyn_graph_agg_subset)
+    from dsgcn_tpu_torch.ops.kernels.dggcn_block import (
+        fused_dggcn_block_eval)
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
-        fused_dyn_graph_agg, fused_dyn_graph_agg_bwd)
-    return (bd_dyn_graph_agg, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd)
+        fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
+        fused_dyn_graph_agg_eval)
+    return (bd_dyn_graph_agg, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
+            bd_dyn_graph_agg_subset, fused_dyn_graph_agg_eval,
+            fused_dggcn_block_eval)
 
 
 def reset_counts():
@@ -785,6 +1250,26 @@ def serve(dev, report):
         check(err <= 1e-4, f"fused logits off bd by {err:.3e} rel")
         check(fans[0][0] == ans[0][0], "fused top-1 differs from bd")
 
+    # 'mega' (K6): the whole GCN block in one kernel, same weights
+    cfg = Config.fromfile(str(CONFIG))
+    cfg["model"]["backbone"]["gcn_eval_kernel"] = "mega"
+    mega = init_recognizer(cfg, device=dev)
+    mega.load_state_dict(model.state_dict(), strict=True)
+    reset_counts()
+    mega_logits = [logits_of(mega, pipeline, a) for a in annos]
+    torch.cuda.synchronize()
+    mega_counts = read_counts()
+    print("DS-GCN mega path launches", json.dumps(mega_counts), flush=True)
+    expect_counts(mega_counts, {"fused_dggcn_block_eval": nblocks},
+                  len(annos), "DS-GCN 'mega'")
+    errs = [rel_err(m, logits_of(model, pipeline, a))
+            for m, a in zip(mega_logits, annos)]
+    print("DS-GCN mega vs bd logits rel err "
+          + ", ".join(f"{e:.3e}" for e in errs), flush=True)
+    check(max(errs) <= 1e-4, f"DS-GCN mega logits off bd by {max(errs)}")
+    report["dsgcn_mega"] = dict(counts=mega_counts, logits_rel_err=errs)
+    del mega, fused
+
     bf16 = to_bf16_inference(model)
     report["request_ms"]["bf16"] = []
     for a, ans in zip(annos, answers):
@@ -798,32 +1283,35 @@ def serve(dev, report):
     return model, bf16, main_counts, fused_counts
 
 
-def throughput(model, bf16, dev, card, report):
+def throughput(model, bf16, dev, card, out):
+    """Phase 5 (DS-GCN) and 9 (DG-STGCN): clips/s of a batch forward in
+    f32 and bf16, each with a profiler breakdown; into ``out``."""
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        (64, 2, 100, 25, 3)).astype(np.float32)).to(dev)
+        THROUGHPUT_BATCH).astype(np.float32)).to(dev)
     for name, m in (("f32", model), ("bf16", bf16)):
         with torch.inference_mode():
             for _ in range(2):
-                out = m(x)
+                y = m(x)
             torch.cuda.synchronize()
             iters = 5
             t0 = time.perf_counter()
             for _ in range(iters):
-                out = m(x)
+                y = m(x)
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / iters
-        check(out.shape == (64, 60) and bool(torch.isfinite(out).all()),
-              f"{name} batch forward gave {tuple(out.shape)} / non-finite")
-        clips = 64 / dt
-        print(f"throughput {name}: batch (64, 2, 100, 25, 3) "
+        n = THROUGHPUT_BATCH[0]
+        check(y.shape == (n, 60) and bool(torch.isfinite(y).all()),
+              f"{name} batch forward gave {tuple(y.shape)} / non-finite")
+        clips = n / dt
+        print(f"throughput {name}: batch {THROUGHPUT_BATCH} "
               f"{dt * 1e3:.3f} ms/forward, {clips:.1f} clips/s on {card}",
               flush=True)
-        report["throughput"][name] = dict(ms_per_forward=dt * 1e3,
-                                          clips_per_s=clips)
-        breakdown(m, x, name, report)
+        out.setdefault("throughput", {})[name] = dict(
+            ms_per_forward=dt * 1e3, clips_per_s=clips)
+        breakdown(m, x, name, out)
 
 
-def breakdown(model, x, name, report):
+def breakdown(model, x, name, out):
     """Device time of one batch forward by kernel (torch.profiler), the
     dynamic-graph kernels' share, and the device's idle share of the
     forward's wall time."""
@@ -837,12 +1325,15 @@ def breakdown(model, x, name, report):
             model(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    report["profile"][name] = device_rows(prof, wall_ms, f"profile {name}")
+    out.setdefault("profile", {})[name] = device_rows(prof, wall_ms,
+                                                      f"profile {name}")
 
 
 # the port's dynamic-graph kernels, as the profiler names them
 GRAPH_KERNELS = ("bd_agg_kernel", "dyn_graph_fwd_kernel",
-                 "dyn_graph_bwd_kernel", "sum_over_samples_kernel")
+                 "dyn_graph_bwd_kernel", "sum_over_samples_kernel",
+                 "bd_agg_subset_kernel", "dyn_graph_eval_kernel",
+                 "dggcn_block_kernel")
 
 
 def device_rows(prof, wall_ms, tag):
@@ -894,35 +1385,48 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    report = dict(card=card, kernel_checks=[], k2_checks=[], serving=[],
-                  throughput={}, profile={})
+    report = dict(card=card, kernel_checks=[], k2_checks=[],
+                  dg_k2_checks=[], serving=[], throughput={}, profile={})
     rng = np.random.default_rng(0)
-    worst, per_forward = kernel_checks(dev, rng, report)
-    model, bf16, main_counts, fused_counts = serve(dev, report)
-    throughput(model, bf16, dev, card, report)
+    worst, per_forward = kernel_checks(dev, rng, report)          # phase 2
+    model, bf16, main_counts, fused_counts = serve(dev, report)   # 3-4
+    throughput(model, bf16, dev, card, report)                     # 5
     del model, bf16
-    worst_t, per_step = k2_checks(dev, rng, report)
-    train_counts = train(dev, card, report)
+    worst_t, per_step = k2_checks(dev, rng, report)               # 6
+    dg_worst, dg_fwd, dg_worst_t, dg_step = dg_kernel_checks(     # 8
+        dev, rng, report)
+    dg_auto, dg_options = serve_dgstgcn(dev, card, report)        # 9
+    train_counts = train(dev, card, report)                        # 7, 10
 
-    # K1 and K2 on the training path (times per step at b128 x M2 x T60),
-    # K3 on the serving path (times per forward at b64 x M2 x T100)
+    # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
+    # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per
+    # forward at b64 x M2 x T100), K5 and K6 on DG-STGCN's 'fusedpre' and
+    # 'mega' serving paths; errors over every check of the kernel
     sources = [
         ("bd_dyn_graph_agg", "bd_agg.cu", "bd_agg.py:170", main_counts,
-         worst, per_forward),
+         per_forward),
         ("fused_dyn_graph_agg", "dyn_graph.cu", "dyn_graph.py:232",
-         train_counts, worst_t, per_step),
+         train_counts, per_step),
         ("fused_dyn_graph_agg_bwd", "dyn_graph_bwd.cu", "dyn_graph.py:511",
-         train_counts, worst_t, per_step),
+         train_counts, per_step),
+        ("bd_dyn_graph_agg_subset", "bd_agg_subset.cu", "bd_agg.py:244",
+         dg_auto, dg_fwd),
+        ("fused_dyn_graph_agg_eval", "dyn_graph_eval.cu", "dyn_graph.py:655",
+         dg_options["fusedpre"], dg_fwd),
+        ("fused_dggcn_block_eval", "dggcn_block.cu", "dggcn_block.py:141",
+         dg_options["mega"], dg_fwd),
     ]
     kernels = []
-    for name, src, replaces, counts, errs, times in sources:
+    for name, src, replaces, counts, times in sources:
         pf = times[name]
         check(counts[name] > 0, f"{name} was never launched on its path")
+        err = max(w.get(name, 0.0) for w in (worst, worst_t, dg_worst,
+                                             dg_worst_t))
         kernels.append(dict(
             name=name, route="cuda",
             source=f"dsgcn_tpu_torch/ops/kernels/csrc/{src}",
             replaces=f"dsgcn_tpu/ops/pallas/{replaces}",
-            launches=counts[name], max_abs_err=errs[name], ms=pf["ms"],
+            launches=counts[name], max_abs_err=err, ms=pf["ms"],
             plain_ms=pf["plain_ms"], bound_ms=pf["bound_ms"],
             bound_by="/".join(sorted(pf["bound_by"])),
             library_ms=pf["library_ms"]))

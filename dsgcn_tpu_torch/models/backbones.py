@@ -1,13 +1,13 @@
-"""DGSTGCN backbone (DS-GCN), eval form.
+"""DGSTGCN backbone (DG-STGCN and DS-GCN), train and eval.
 
 The port of ``split_stage_kwargs``, ``route_prefix``, ``DataBN``,
 ``ResidualTCN``, ``DGBlock``, ``stage_plan``, ``_BackboneBase`` and
 ``DGSTGCN`` from ``dsgcn_tpu/models/backbones.py``: the 10-stage template
 of the reference (stgcn.py:100-128), channel inflation x2 and temporal
-stride 2 at stages 5 and 8, block = spatial GCN -> temporal conv
-(+ residual, ReLU).  Input ``(N, M, T, V, C)`` channels-last, output
-``(N, M, T/4, V, C_out)``.  Blocks are named ``block{i}`` as the flax
-scopes are.
+stride 2 at stages 5 and 8, block = spatial GCN (``dggcn`` for DG-STGCN,
+``dgphgcn1`` for DS-GCN) -> temporal conv (``dgmstcn``) (+ residual, ReLU).
+Input ``(N, M, T, V, C)`` channels-last, output ``(N, M, T/4, V, C_out)``.
+Blocks are named ``block{i}`` as the flax scopes are.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from torch import nn
 
 from ..graph import Graph, GraphConfig
 from ..ops.common import BatchNorm
-from ..ops.gcn import DGPHGCN1
+from ..ops.gcn import DGGCN, DGPHGCN1
 from ..ops.tcn import DGMSTCN, UnitTCN
 
 EPS = 1e-4
@@ -87,7 +87,8 @@ class ResidualTCN(nn.Module):
 
 
 class DGBlock(nn.Module):
-    """dgphgcn1 + dgmstcn (reference dgstgcn.py:12-65)."""
+    """{dggcn | dgphgcn1} + dgmstcn (reference dgstgcn.py:12-65); the edge
+    and node types go to dgphgcn1 only."""
 
     def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
                  edge_type: Optional[np.ndarray],
@@ -97,10 +98,10 @@ class DGBlock(nn.Module):
                  tcn_type: str = "dgmstcn",
                  tcn_kwargs: Optional[Dict[str, Any]] = None):
         super().__init__()
-        if gcn_type != "dgphgcn1":
+        if gcn_type not in ("dggcn", "dgphgcn1"):
             raise NotImplementedError(
                 f"gcn_type={gcn_type!r} is not ported yet (the port has "
-                "'dgphgcn1')")
+                "'dggcn' and 'dgphgcn1')")
         if tcn_type != "dgmstcn":
             raise NotImplementedError(
                 f"tcn_type={tcn_type!r} is not ported yet (the port has "
@@ -110,9 +111,13 @@ class DGBlock(nn.Module):
             tcn_kwargs["ms_cfg"] = tuple(map(tuple_ify, tcn_kwargs["ms_cfg"]))
         self.residual = ResidualTCN(in_channels, out_channels, stride,
                                     residual)
-        self.gcn = DGPHGCN1(in_channels, out_channels, A_init=A,
-                            edge_type=edge_type, node_type=node_type,
-                            **(gcn_kwargs or {}))
+        if gcn_type == "dggcn":
+            self.gcn = DGGCN(in_channels, out_channels, A_init=A,
+                             **(gcn_kwargs or {}))
+        else:
+            self.gcn = DGPHGCN1(in_channels, out_channels, A_init=A,
+                                edge_type=edge_type, node_type=node_type,
+                                **(gcn_kwargs or {}))
         self.tcn = DGMSTCN(out_channels, out_channels, stride=stride,
                            **tcn_kwargs)
 
@@ -191,10 +196,10 @@ class _BackboneBase(nn.Module):
 
 
 class DGSTGCN(_BackboneBase):
-    """DG-STGCN / DS-GCN backbone (reference dgstgcn.py:74-170); the port
-    builds the DS-GCN form (gcn_type='dgphgcn1', tcn_type='dgmstcn').
-    The per-stage 'gcn_stage' list toggles semantics on listed stages
-    (dgstgcn.py:115-120).
+    """DG-STGCN / DS-GCN backbone (reference dgstgcn.py:74-170): blocks of
+    gcn_type 'dggcn' (DG-STGCN, the default) or 'dgphgcn1' (DS-GCN) with
+    tcn_type 'dgmstcn'.  The per-stage 'gcn_stage' list toggles semantics
+    on listed stages (dgstgcn.py:115-120).
     """
 
     def __init__(self, graph_cfg: GraphConfig = GraphConfig(

@@ -1,8 +1,8 @@
 """Model factory: config dict -> RecognizerGCN module.
 
 The port of ``dsgcn_tpu/models/builder.py`` for what the port has: the
-``DGSTGCN`` backbone in its DS-GCN form and the ``GCNHead``.  Config keys
-are the JAX package's.
+``DGSTGCN`` backbone in its DG-STGCN and DS-GCN forms and the ``GCNHead``.
+Config keys are the JAX package's.
 """
 from __future__ import annotations
 
@@ -76,23 +76,42 @@ def build_model(cfg: Dict[str, Any]) -> RecognizerGCN:
 
 
 def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
-              graph_seed: int = 0) -> Dict[str, Any]:
+              graph_seed: int = 0, use_pallas=None) -> Dict[str, Any]:
     """The reference's published setup of a ported model.
 
+    * dgstgcn: dggcn+dgmstcn, random graph (DG-STGCN, configs/dgstgcn
+      upstream)
     * dsgcn: dgphgcn1 with semantic node+edge attention, decompose,
       subset_wise, ratio=0.125 (configs/dsstgcn/DSSTGCN_model.py)
+
+    ``use_pallas`` sets ``gcn_use_pallas`` and ``tcn_use_pallas`` as the
+    JAX package does; the port has no fused TCN kernel (K7) yet, so
+    ``tcn_use_pallas=True`` raises when the model is built.
     """
-    if name != "dsgcn":
+    graph = dict(layout=layout, mode="random", init_off=0.04, init_std=0.02,
+                 seed=graph_seed)
+    if name == "dgstgcn":
+        bb = dict(type="DGSTGCN", gcn_type="dggcn", gcn_ratio=0.25,
+                  gcn_ctr="T", gcn_ada="T", tcn_type="dgmstcn",
+                  graph_cfg=dict(graph, num_filter=8))
+    elif name == "dsgcn":
+        bb = dict(type="DGSTGCN", gcn_type="dgphgcn1", gcn_ratio=0.125,
+                  gcn_node_attention=True, gcn_edge_attention=True,
+                  gcn_decompose=True, gcn_subset_wise=True,
+                  gcn_ctr="T", gcn_ada="T", tcn_type="dgmstcn",
+                  graph_cfg=dict(graph, num_filter=3))
+    else:
         raise NotImplementedError(f"model {name!r} is not ported yet "
-                                  "(the port has 'dsgcn')")
-    bb = dict(type="DGSTGCN", gcn_type="dgphgcn1", gcn_ratio=0.125,
-              gcn_node_attention=True, gcn_edge_attention=True,
-              gcn_decompose=True, gcn_subset_wise=True,
-              gcn_ctr="T", gcn_ada="T", tcn_type="dgmstcn",
-              graph_cfg=dict(layout=layout, mode="random", num_filter=3,
-                             init_off=0.04, init_std=0.02, seed=graph_seed))
+                                  "(the port has 'dgstgcn' and 'dsgcn')")
+    if use_pallas is not None:
+        bb["gcn_use_pallas"] = use_pallas
+        bb["tcn_use_pallas"] = use_pallas
     head = dict(type="GCNHead", num_classes=num_classes, in_channels=256)
     return dict(type="RecognizerGCN", backbone=bb, cls_head=head)
+
+
+def build_named_model(name: str, **kw) -> RecognizerGCN:
+    return build_model(model_cfg(name, **kw))
 
 
 @torch.no_grad()

@@ -61,6 +61,15 @@ def accum_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+            var: torch.Tensor, eps: float = BN_EPS):
+    """Eval BatchNorm as the per-channel affine ``y = x * a + b``:
+    ``a = scale * rsqrt(var + eps)``, ``b = bias - mean * a``
+    (``dsgcn_tpu/ops/pallas/ms_tcn.py:fold_bn``)."""
+    a = scale * torch.rsqrt(var + eps)
+    return a, bias - mean * a
+
+
 class BatchNorm(nn.Module):
     """Per-channel BatchNorm over the trailing axis (torch BatchNorm2d on
     NCTV), as ``dsgcn_tpu/ops/common.py:BatchNorm``.
@@ -84,9 +93,9 @@ class BatchNorm(nn.Module):
 
     def affine(self, dtype: torch.dtype = torch.float32):
         """The (a, b) of the eval affine, in ``dtype``."""
-        a = (torch.rsqrt(self.running_var.to(dtype) + BN_EPS)
-             * self.weight.to(dtype))
-        return a, self.bias.to(dtype) - self.running_mean.to(dtype) * a
+        return fold_bn(self.weight.to(dtype), self.bias.to(dtype),
+                       self.running_mean.to(dtype),
+                       self.running_var.to(dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         acc = accum_dtype(x.dtype)

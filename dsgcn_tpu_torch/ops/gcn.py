@@ -1,18 +1,24 @@
-"""Spatial graph convolution of DS-GCN (channels-last ``(N, T, V, C)``).
+"""Spatial graph convolutions of DG-STGCN and DS-GCN (channels-last
+``(N, T, V, C)``).
 
-The port of ``dsgcn_tpu/ops/gcn.py:DGPHGCN1``, train and eval, with the
-helpers it uses.  Two aggregation paths, chosen as in the JAX module:
+The ports of ``dsgcn_tpu/ops/gcn.py:DGGCN`` (DG-STGCN) and ``DGPHGCN1``
+(DS-GCN), train and eval, with the helpers they use.  Two aggregation
+paths, chosen as in the JAX modules:
 
 * ``use_pallas=True`` (``build_backbone``'s default): the dynamic-graph
   kernels.  Training always runs K1 and its backward K2 as one autograd
-  Function (``ops/kernels/dyn_graph.py``), as the JAX module does
-  (gcn.py:1142, :1192).  Eval takes ``eval_kernel`` 'bd' (K3,
-  ``ops/kernels/bd_agg.py``) or 'fused' (K1), 'auto' picking 'bd' when
-  V*K*mid <= 2400 as the JAX package does.  On CUDA tensors these launch
-  the hand-written kernels, on CPU tensors their plain versions.
-* ``use_pallas=False``: the dense path of the JAX module (gcn.py:1206-1259),
-  which materializes the (N, K, mid, V, V) graph and contracts it with an
-  einsum; it trains through autograd.
+  Function (``ops/kernels/dyn_graph.py``), as the JAX modules do
+  (gcn.py:701-705, :1192).  Eval takes ``eval_kernel``: 'bd' (K3,
+  ``ops/kernels/bd_agg.py``), 'fused' (K1), 'mega' (K6, the whole block in
+  one kernel, ``ops/kernels/dggcn_block.py``), and for DGGCN also 'bdps'
+  and 'bdg' (K4, per subset / per channel group of g = min(32, mid)) and
+  'fusedpre' (K5, the pre 1x1 inside K1, at C >= 64).  'auto' follows the
+  JAX package: 'bd' when V*K*mid <= 2400, else DGGCN takes 'bdg' at
+  mid >= 64 and 'fused' otherwise, DGPHGCN1 'fused'.  On CUDA tensors these
+  launch the hand-written kernels, on CPU tensors their plain versions.
+* ``use_pallas=False``: the dense path of the JAX modules
+  (gcn.py:710-736, :1206-1259), which materializes the (N, K, mid, V, V)
+  graph and contracts it with an einsum; it trains through autograd.
 """
 from __future__ import annotations
 
@@ -23,9 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm, PointConv
-from .kernels.bd_agg import bd_dyn_graph_agg
-from .kernels.dyn_graph import edge_onehot, fused_dyn_graph_agg
+from .common import BatchNorm, PointConv, fold_bn
+from .kernels.bd_agg import bd_dyn_graph_agg, bd_dyn_graph_agg_subset
+from .kernels.dggcn_block import fused_dggcn_block_eval
+from .kernels.dyn_graph import (edge_onehot, fused_dyn_graph_agg,
+                                fused_dyn_graph_agg_eval)
 
 ACTS = {
     "relu": torch.relu,
@@ -89,6 +97,178 @@ def _dispatch_contract(pre_x: torch.Tensor, G: torch.Tensor, ctr,
     return torch.einsum("ntvkc,nkcvw->ntwkc", pre_x, G.to(pre_x.dtype))
 
 
+def _fold(conv: PointConv, bn: BatchNorm):
+    """A 1x1 with its eval BatchNorm folded in: (w (in, out), b), float32."""
+    a, b = fold_bn(bn.weight.float(), bn.bias.float(),
+                   bn.running_mean.float(), bn.running_var.float())
+    return conv.weight.float().t() * a[None], conv.bias.float() * a + b
+
+
+def fold_block_params(mod: nn.Module, changes_channels: bool):
+    """(w_pre, b_pre, w_post, b_post, w_down, b_down) of a DG/DS-GCN block:
+    pre_conv/pre_bn, post_conv/bn and down_conv/down_bn (None without a
+    channel change) folded for the whole-block kernel K6, in the JAX (in,
+    out) orientation (``dsgcn_tpu/ops/gcn.py:_fold_block_params``)."""
+    w_pre, b_pre = _fold(mod.pre_conv, mod.pre_bn)
+    w_post, b_post = _fold(mod.post_conv, mod.bn)
+    w_down = b_down = None
+    if changes_channels:
+        w_down, b_down = _fold(mod.down_conv, mod.down_bn)
+    return w_pre, b_pre, w_post, b_post, w_down, b_down
+
+
+def _graph_acts_ok(mod) -> bool:
+    """The kernels' graph form: T-pooled ctr and ada, tanh and softmax."""
+    return (mod.ctr == "T" and mod.ada == "T" and mod.ctr_act == "tanh"
+            and mod.ada_act == "softmax")
+
+
+DGGCN_EVAL_KERNELS = ("auto", "bd", "bdps", "bdg", "fused", "fusedpre",
+                      "mega")
+
+
+class DGGCN(nn.Module):
+    """The DG-STGCN dynamic-group graph conv (reference dggcn,
+    gcn.py:1445-1584; JAX ``dsgcn_tpu/ops/gcn.py:DGGCN``).
+
+    ctr: the channel-wise diff graph act(x1 - x2); ada: the outer-product
+    graph act(x1^T x2); both T-pooled and added to the trained A with the
+    gates alpha/beta (per subset with ``subset_wise``, else alpha[0] and
+    beta[0] for every subset; the parameters keep shape (K,)).  Submodule
+    names follow the JAX module's flax scopes.  The JAX module's
+    joint-partitioned mesh mode (``graph_axis``), joint padding
+    (``v_pad``) and per-frame graphs (``ctr``/``ada`` 'NA') are not ported
+    and raise.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, ratio=0.25, ctr="T", ada="T",
+                 subset_wise=False, ada_act="softmax", ctr_act="tanh",
+                 use_pallas=False, eval_kernel="auto", graph_axis=None,
+                 v_pad=0):
+        super().__init__()
+        if graph_axis is not None:
+            raise NotImplementedError(
+                "DGGCN graph_axis (the joint-partitioned mesh mode, "
+                "_jp_aggregate) is not ported")
+        if v_pad:
+            raise NotImplementedError(
+                "DGGCN v_pad (joint-padded eval) is not ported")
+        if ctr not in (None, "T") or ada not in (None, "T"):
+            raise NotImplementedError(
+                f"DGGCN ctr={ctr!r}/ada={ada!r}: only T-pooled graphs "
+                "('T' or None) are ported")
+        if eval_kernel not in DGGCN_EVAL_KERNELS:
+            raise ValueError(f"unknown eval_kernel {eval_kernel!r}")
+        K = A_init.shape[0]
+        self.in_channels, self.out_channels, self.K = (in_channels,
+                                                       out_channels, K)
+        self.mid = int((ratio if ratio is not None else 1.0 / K)
+                       * out_channels)
+        self.ctr, self.ada = ctr, ada
+        self.ctr_act, self.ada_act = ctr_act, ada_act
+        self.subset_wise = subset_wise
+        self.use_pallas, self.eval_kernel = use_pallas, eval_kernel
+        mid = self.mid
+        if in_channels != out_channels:
+            self.down_conv = PointConv(in_channels, out_channels)
+            self.down_bn = BatchNorm(out_channels)
+        # a copy: blocks are built from one numpy graph and must not share it
+        self.A = nn.Parameter(torch.tensor(np.asarray(A_init),
+                                           dtype=torch.float32))
+        self.pre_conv = PointConv(in_channels, mid * K)
+        self.pre_bn = BatchNorm(mid * K)
+        self.alpha = nn.Parameter(torch.zeros(K))
+        self.beta = nn.Parameter(torch.zeros(K))
+        if ctr is not None or ada is not None:
+            self.conv1 = PointConv(in_channels, mid * K)
+            self.conv2 = PointConv(in_channels, mid * K)
+        self.post_conv = PointConv(K * mid, out_channels)
+        self.bn = BatchNorm(out_channels)
+
+    def eval_path(self, c: int) -> str:
+        """The eval kernel the JAX dispatch picks (gcn.py:621-700): 'auto'
+        resolved by the real joint count and mid; 'fusedpre' only at
+        c >= 64, else 'fused'."""
+        K, mid = self.K, self.mid
+        ek = self.eval_kernel
+        if ek == "auto":
+            V = self.A.shape[-1]
+            ek = ("bd" if V * K * mid <= 2400
+                  else "bdg" if mid >= 64 else "fused")
+        if ek == "fusedpre" and c < 64:
+            ek = "fused"
+        return ek
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        K, mid = self.K, self.mid
+        n, t, v, c = x.shape
+        x1 = x2 = None
+        if self.ctr is not None or self.ada is not None:
+            tmp = x.mean(dim=1)                                 # (n, v, c)
+            x1 = self.conv1(tmp).reshape(n, v, K, mid).permute(0, 2, 3, 1)
+            x2 = self.conv2(tmp).reshape(n, v, K, mid).permute(0, 2, 3, 1)
+        kernel = self.use_pallas and _graph_acts_ok(self)
+        ek = "fused" if self.training else self.eval_path(c)
+        a_vec = _gate_vec(self.alpha, K, 0, K, self.subset_wise)
+        b_vec = _gate_vec(self.beta, K, 0, K, self.subset_wise)
+        if kernel and ek == "mega":
+            # the whole block in one kernel (JAX gcn.py:635-648)
+            w = fold_block_params(self, c != self.out_channels)
+            return fused_dggcn_block_eval(x, x1, x2, w[0], w[1], self.A,
+                                          a_vec, b_vec, *w[2:], K=K, Cm=mid)
+        res = (self.down_bn(self.down_conv(x))
+               if c != self.out_channels else x)
+        if kernel and ek == "fusedpre":
+            # K5: the BN-folded pre 1x1 inside the kernel, w_pre in x's
+            # dtype and b_pre in float32 (JAX gcn.py:686-700)
+            w_pre, b_pre = _fold(self.pre_conv, self.pre_bn)
+            y = fused_dyn_graph_agg_eval(x, w_pre.to(x.dtype), b_pre, x1, x2,
+                                         self.A, a_vec, b_vec, K=K, Cm=mid)
+        else:
+            pre_x = F.relu(self.pre_bn(self.pre_conv(x)))     # (n,t,v,K*mid)
+            if kernel:
+                y = self._kernel_aggregate(pre_x, x1, x2, a_vec, b_vec, ek)
+            else:
+                y = self._dense_aggregate(pre_x.reshape(n, t, v, K, mid),
+                                          x1, x2)
+        y = self.bn(self.post_conv(y.reshape(n, t, v, K * mid)))
+        return F.relu(y + res)
+
+    def _kernel_aggregate(self, pre_x, x1, x2, a_vec, b_vec, ek):
+        """K1+K2 in training and 'fused' eval, K3 for 'bd', K4 for
+        'bdps'/'bdg' (JAX gcn.py:649-705)."""
+        K, mid = self.K, self.mid
+        n, t, v, _ = pre_x.shape
+        if ek in ("bd", "bdps", "bdg"):
+            args = (pre_x.reshape(n, t, v * K * mid), x1.transpose(-1, -2),
+                    x2, self.A, a_vec, b_vec)
+            if ek == "bd":
+                return bd_dyn_graph_agg(*args, K=K, Cm=mid)
+            g = min(32, mid) if ek == "bdg" else None
+            return bd_dyn_graph_agg_subset(*args, K=K, Cm=mid, g=g)
+        return fused_dyn_graph_agg(pre_x, x1, x2, self.A, a_vec, b_vec,
+                                   K=K, Cm=mid)
+
+    def _dense_aggregate(self, pre_x, x1, x2):
+        """Materialized graph + einsum (JAX gcn.py:710-732)."""
+        K = self.K
+        dt = pre_x.dtype
+        G = self.A.to(dt)                                       # (K, V, V)
+        if self.ctr is not None or self.ada is not None:
+            G = G[None, :, None]                                # (1,K,1,V,V)
+        if self.ctr is not None:
+            g = ACTS[self.ctr_act](x1[..., :, None] - x2[..., None, :])
+            G = g * _gate(self.alpha, K, 0, K, self.subset_wise,
+                          3).to(dt) + G
+        if self.ada is not None:
+            g = torch.einsum("nkcv,nkcw->nkvw", x1, x2)[:, :, None]
+            g = ACTS[self.ada_act](g)                           # (n,K,1,V,V)
+            G = g * _gate(self.beta, K, 0, K, self.subset_wise,
+                          3).to(dt) + G
+        return _dispatch_contract(pre_x, G, self.ctr, self.ada)
+
+
 class DGPHGCN1(nn.Module):
     """The DS-GCN dynamic semantic spatial graph conv (reference dgphgcn1,
     gcn.py:2074-2365).
@@ -98,9 +278,12 @@ class DGPHGCN1(nn.Module):
     reference quirks the JAX module keeps: x2 of the semantic subset is the
     ``conv1_se`` query x1 (gcn.py:2253-2254, 2272), and the edge-attention
     diff uses the subset slice [norm-sem : norm] (gcn.py:2279).  Submodule
-    names follow the JAX module's flax scopes.  The JAX module's
-    ``ada_attention`` and ``target_specific`` options and per-frame graphs
-    (``ctr``/``ada`` 'NA') are not ported yet.
+    names follow the JAX module's flax scopes.  ``eval_kernel='mega'`` runs
+    the whole eval block in K6, the edge-class attention included, as the
+    JAX module does where ``target_specific`` is off (the port has no
+    ``target_specific``).  The JAX module's ``ada_attention`` and
+    ``target_specific`` options and per-frame graphs (``ctr``/``ada`` 'NA')
+    are not ported yet.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -189,17 +372,18 @@ class DGPHGCN1(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         K, mid, sem = self.K, self.mid, self.sem
         n, t, v, _ = x.shape
-        res = (self.down_bn(self.down_conv(x))
-               if self.in_channels != self.out_channels else x)
-        pre_x = F.relu(self.pre_bn(self.pre_conv(x)))          # (n,t,v,K*mid)
         x1 = x2 = None
         if self.ctr is not None or self.ada is not None:
             x1, x2 = self._queries(x)
-
         active_edge = self.edge_attention and self.decompose
-        if (self.use_pallas and self.ctr == "T" and self.ada == "T"
-                and self.ctr_act == "tanh" and self.ada_act == "softmax"
-                and (not active_edge or sem == 1)):
+        kernel = (self.use_pallas and _graph_acts_ok(self)
+                  and (not active_edge or sem == 1))
+        if kernel and not self.training and self.eval_kernel == "mega":
+            return self._mega(x, x1, x2, active_edge)
+        res = (self.down_bn(self.down_conv(x))
+               if self.in_channels != self.out_channels else x)
+        pre_x = F.relu(self.pre_bn(self.pre_conv(x)))          # (n,t,v,K*mid)
+        if kernel:
             y = self._kernel_aggregate(pre_x, x1, x2, active_edge)
         else:
             y = self._dense_aggregate(pre_x.reshape(n, t, v, K, mid), x1, x2)
@@ -216,11 +400,6 @@ class DGPHGCN1(nn.Module):
         ek = "fused" if self.training else self.eval_kernel
         if ek == "auto":
             ek = "bd" if v * K * mid <= 2400 else "fused"
-        if ek == "mega":
-            raise NotImplementedError(
-                "eval_kernel='mega' needs the whole-block kernel K6 "
-                "(dsgcn_tpu/ops/pallas/dggcn_block.py:"
-                "fused_dggcn_block_eval), which is not ported yet")
         edge_k = norm - sem if active_edge else -1
         if active_edge:
             ew, eb = self.edge_linears.weight, self.edge_linears.bias
@@ -248,6 +427,22 @@ class DGPHGCN1(nn.Module):
                                        edge_k, E)
         return fused_dyn_graph_agg(pre_x, x1, x2, self.A, a_vec, b_vec,
                                    K=K, Cm=mid, edge_num=E)
+
+    def _mega(self, x, x1, x2, active_edge):
+        """The whole eval block in K6, the semantic queries and the edge
+        attention of subset norm - sem included (JAX gcn.py:1154-1167)."""
+        K, mid, sem, norm, E = self.K, self.mid, self.sem, self.norm, self.E
+        w = fold_block_params(self, self.in_channels != self.out_channels)
+        kw = {}
+        if active_edge:
+            kw = dict(edge_w=self.edge_linears.weight.t(),
+                      edge_b=self.edge_linears.bias, edge_sel=self.edge_sel,
+                      edge_k=norm - sem, edge_num=E)
+        return fused_dggcn_block_eval(
+            x, x1, x2, w[0], w[1], self.A,
+            _gate_vec(self.alpha, K, sem, norm, self.subset_wise),
+            _gate_vec(self.beta, K, sem, norm, self.subset_wise), *w[2:],
+            K=K, Cm=mid, **kw)
 
     def _dense_aggregate(self, pre_x, x1, x2):
         """Materialized graph + einsum (JAX gcn.py:1206-1259)."""

@@ -36,6 +36,12 @@ SIGNATURES = {
                   [_P, _P, _I] + [_P] * 8 + [_I] * 8 + [_P]),
     "dyn_graph_bwd": ("dsgcn_dyn_graph_bwd",
                       [_P, _P, _P, _I] + [_P] * 12 + [_I] * 7 + [_P]),
+    "bd_agg_subset": ("dsgcn_bd_agg_subset",
+                      [_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P]),
+    "dyn_graph_eval": ("dsgcn_dyn_graph_eval",
+                       [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P]),
+    "dggcn_block": ("dsgcn_dggcn_block",
+                    [_P, _P, _I] + [_P] * 14 + [_I] * 9 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -152,9 +158,13 @@ def check_activation(pre: torch.Tensor, name: str) -> None:
 
 
 # what the kernels take (csrc/graph_agg.cuh VMAX, EMAX; the grid's z axis;
-# csrc/dyn_graph_bwd.cu BWD_MAX_THREADS, one thread per channel and joint)
+# csrc/dyn_graph_bwd.cu BWD_MAX_THREADS: K2's edge-class subset keeps all
+# its Cm*V channels and joints in one block)
 MAX_JOINTS, MAX_EDGE_CLASSES, MAX_SAMPLES = 32, 16, 65535
 MAX_BWD_THREADS = 1024
+# K5's (C, 16) slice of w_pre in shared memory beside the graph build
+# (csrc/dyn_graph_eval.cu eval_smem_bytes at Cm = 64, V = 32)
+MAX_PRE_CHANNELS = 2048
 
 
 def check_limits(name: str, N: int, V: int, E: int) -> None:
@@ -169,8 +179,8 @@ def check_limits(name: str, N: int, V: int, E: int) -> None:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """K3 is eval-only (its TPU kernel has no backward): refuse inputs that
-    need a gradient.  Training aggregates through K1 and K2."""
+    """K3-K6 are eval-only (their TPU kernels have no backward): refuse
+    inputs that need a gradient.  Training aggregates through K1 and K2."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(

@@ -1,16 +1,22 @@
-"""Dynamic-graph aggregation for DS-GCN eval (K3).
+"""Dynamic-graph aggregation for DS-GCN and DG-STGCN eval (K3, K4).
 
-The port of ``dsgcn_tpu/ops/pallas/bd_agg.py:bd_dyn_graph_agg``: the same
-function as the K1 forward (``dyn_graph.py``) from other input packaging.
-pre2/y2 are the flat ``(N, T, V*K*Cm)`` views of ``(N, T, V, K*Cm)``, x1
-arrives transposed as ``(N, K, V, Cm)``, and the edge-class attention
-arrives precomputed: per-class projections p1t ``(N, E, V, Cm)`` and p2
-``(N, E, Cm, V)`` and a ``(V, Cm, V)`` bias field.  The TPU kernel's
-block-diagonal densification is a TPU mechanic and is not ported.
+The ports of ``dsgcn_tpu/ops/pallas/bd_agg.py``:
 
-On a CUDA tensor :func:`bd_dyn_graph_agg` launches the hand-written kernel
-(``csrc/bd_agg.cu``); on a CPU tensor it runs the plain version
-:func:`reference_bd_dyn_graph_agg`.
+* :func:`bd_dyn_graph_agg` (K3): the same function as the K1 forward
+  (``dyn_graph.py``) from other input packaging.  pre2/y2 are the flat
+  ``(N, T, V*K*Cm)`` views of ``(N, T, V, K*Cm)``, x1 arrives transposed
+  as ``(N, K, V, Cm)``, and the edge-class attention arrives precomputed:
+  per-class projections p1t ``(N, E, V, Cm)`` and p2 ``(N, E, Cm, V)`` and
+  a ``(V, Cm, V)`` bias field.
+* :func:`bd_dyn_graph_agg_subset` (K4): K3's function without edge
+  attention, in the TPU kernel's per-subset / channel-group form; its ada
+  graph is computed outside the kernel, in torch, as the Pallas wrapper
+  does.
+
+The TPU kernels' block-diagonal densification and group-major relayouts are
+TPU mechanics and are not ported.  On a CUDA tensor each wrapper launches
+its hand-written kernel (``csrc/bd_agg.cu``, ``csrc/bd_agg_subset.cu``); on
+a CPU tensor it runs its plain version.
 """
 from __future__ import annotations
 
@@ -26,10 +32,8 @@ def reference_bd_dyn_graph_agg(pre2, x1t, x2, A, alpha, beta, p1t=None,
     """Plain PyTorch version of K3 from its own inputs: the graph builds in
     float32 as (N, K, V, Cm, W) and is cast to pre2's dtype for the
     contraction."""
-    N, T, VKC = pre2.shape
-    V = A.shape[-1]
     x1t, x2 = x1t.float(), x2.float()
-    ada = _ada(torch.einsum("nkvc,nkcw->nkvw", x1t, x2), v_real)
+    ada = subset_ada(x1t, x2, v_real)
     ctr = torch.tanh(x1t[..., :, :, None] - x2[:, :, None, :, :])
     if edge_k >= 0:
         sel = edge_sel.float()
@@ -38,6 +42,21 @@ def reference_bd_dyn_graph_agg(pre2, x1t, x2, A, alpha, beta, p1t=None,
               - torch.einsum("evw,necw->nvcw", sel, p2.float()))
         ctr = torch.cat([ctr[:, :edge_k], torch.tanh(ea)[:, None],
                          ctr[:, edge_k + 1:]], dim=1)
+    return _contract(pre2, ctr, ada, A, alpha, beta, K, Cm)
+
+
+def subset_ada(x1t, x2, v_real=-1):
+    """The float32 ada graph (N, K, V, W): softmax over the source joint of
+    each subset's full query product, padded sources masked."""
+    return _ada(torch.einsum("nkvc,nkcw->nkvw", x1t.float(), x2.float()),
+                v_real)
+
+
+def _contract(pre2, ctr, ada, A, alpha, beta, K, Cm):
+    """y2 from the float32 graphs ctr (N, K, V, Cm, W) and ada (N, K, V, W);
+    G is cast to pre2's dtype for the contraction, as the kernels do."""
+    N, T, VKC = pre2.shape
+    V = A.shape[-1]
     G = (ctr * alpha.float()[None, :, None, None, None]
          + (ada * beta.float()[None, :, None, None]
             + A.float()[None])[:, :, :, None, :])            # (N,K,V,Cm,W)
@@ -101,3 +120,69 @@ def bd_dyn_graph_agg(pre2: torch.Tensor, x1t: torch.Tensor, x2: torch.Tensor,
 
 
 bd_dyn_graph_agg.launches = 0
+
+
+def _check_group(name, Cm, g):
+    g = g or Cm
+    if Cm % g or g % 8:
+        raise ValueError(f"{name}: channel group g={g} must divide Cm={Cm} "
+                         "and be a multiple of 8")
+
+
+def reference_bd_dyn_graph_agg_subset(pre2, x1t, x2, A, alpha, beta, *, K,
+                                      Cm, g=None, v_real=-1):
+    """Plain PyTorch version of K4 from its own inputs: the ada graph from
+    each subset's full queries, then K3's function without edge attention
+    (the channel groups of g do not change the function)."""
+    _check_group("bd_dyn_graph_agg_subset", Cm, g)
+    x1t, x2 = x1t.float(), x2.float()
+    ctr = torch.tanh(x1t[..., :, :, None] - x2[:, :, None, :, :])
+    return _contract(pre2, ctr, subset_ada(x1t, x2, v_real), A, alpha, beta,
+                     K, Cm)
+
+
+def bd_dyn_graph_agg_subset(pre2: torch.Tensor, x1t: torch.Tensor,
+                            x2: torch.Tensor, A: torch.Tensor,
+                            alpha: torch.Tensor, beta: torch.Tensor, *,
+                            K: int, Cm: int, g=None,
+                            v_real: int = -1) -> torch.Tensor:
+    """y2 = aggregate(pre2, G(x1, x2, A, alpha, beta)) without edge
+    attention, K3's contract and layout: pre2 (N, T, V*K*Cm) float32 or
+    bfloat16, x1t (N, K, V, Cm), x2 (N, K, Cm, V), A (K, V, V), alpha/beta
+    (K,) effective gates.  ``g`` (default Cm) is the TPU kernel's channel
+    group; it must divide Cm and be a multiple of 8.  ``v_real`` masks
+    padded sources of the ada softmax, which is computed here, outside the
+    kernel (``bd_agg.py:275-281``)."""
+    if pre2.device.type == "cpu":
+        return reference_bd_dyn_graph_agg_subset(
+            pre2, x1t, x2, A, alpha, beta, K=K, Cm=Cm, g=g, v_real=v_real)
+    name = "bd_dyn_graph_agg_subset"
+    _check_group(name, Cm, g)
+    _build.check_activation(pre2, name)
+    _build.refuse_grad(name, pre2, x1t, x2, A, alpha, beta)
+    N, T, VKC = pre2.shape
+    V, dev = A.shape[-1], pre2.device
+    _build.check_limits(name, N, V, 0)
+    if VKC != V * K * Cm:
+        raise ValueError(f"{name}: pre2 width {VKC} != V*K*Cm = {V * K * Cm}")
+    op = lambda t, shape, n: _build.graph_operand(t, shape, n, dev)  # noqa: E731
+    x1t = op(x1t, (N, K, V, Cm), "x1t")
+    x2 = op(x2, (N, K, Cm, V), "x2")
+    A = op(A, (K, V, V), "A")
+    alpha, beta = op(alpha, (K,), "alpha"), op(beta, (K,), "beta")
+    ada = subset_ada(x1t, x2, v_real).contiguous()
+    out = torch.empty_like(pre2)
+    if out.numel() == 0:
+        return out
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        _build.launch(
+            "bd_agg_subset", ptr(pre2), ptr(out),
+            int(pre2.dtype == torch.bfloat16), ptr(x1t), ptr(x2), ptr(ada),
+            ptr(A), ptr(alpha), ptr(beta), N, T, V, K, Cm,
+            _build.stream_of(pre2))
+    bd_dyn_graph_agg_subset.launches += 1
+    return out
+
+
+bd_dyn_graph_agg_subset.launches = 0

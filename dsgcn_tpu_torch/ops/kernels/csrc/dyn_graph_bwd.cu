@@ -21,12 +21,19 @@
 // cannot (blocks run in no order), so:
 //
 // * one block owns one (sample, subset) and loops over all of T: the sums
-//   over T stay in the block.  Thread (c, i) keeps the dG column
-//   dG[c, :, i] in registers, and reads the graph row G[c, i, :] for dpre
-//   from shared memory, where the block builds G once (Cm*V*V floats,
-//   80 KB at Cm = 32).  The block holds every channel of the subset (Cm*V
-//   threads, at most 1024), because the sum over c of dG feeds dA, dbeta
-//   and the softmax VJP.
+//   over T stay in the block.  The block takes the subset's channels in
+//   groups of CG, one group after the other (Pallas: subsets kg at a time,
+//   _bwd_plan): thread (c, i) of a group keeps the dG column dG[c, :, i] in
+//   registers and reads the graph row G[c, i, :] for dpre from shared
+//   memory, where the block builds the group's G once (CG*V*V floats).  CG
+//   is Cm while Cm*V threads fit a block (every DS-GCN subset), else the
+//   largest divisor of Cm that fits (32 at DG-STGCN's Cm = 64, V = 25).
+// * the sum over channels of dG feeds dA, dbeta and the softmax VJP.  Each
+//   group adds its channels to a (V, V) sum in shared memory, groups in
+//   order; the ctr part of dx1/dx2 is written per group, and the ada part
+//   is added once every group is in.  The edge-class subset needs all its
+//   channels at once (dx = edge_w dP mixes them), so edge attention takes
+//   Cm*V <= 1024.
 // * sums over samples (dA, dalpha, dbeta, dedge_w, dedge_b) are written per
 //   sample to a scratch the wrapper allocates, and a second kernel of this
 //   file adds them up in a fixed order: no atomics, the same bits in every
@@ -42,26 +49,35 @@
 namespace dsgcn {
 
 constexpr int BWD_ROWS = 4;            // rows of pre and dy staged per pass
-constexpr int BWD_MAX_THREADS = 1024;  // Cm * V, rounded up to a warp
+constexpr int BWD_MAX_THREADS = 1024;  // CG * V, rounded up to a warp
+
+// Channels per pass: all Cm when Cm*V threads fit a block, else the largest
+// divisor of Cm that fits.
+inline int bwd_channel_group(int Cm, int V) {
+  for (int g = Cm; g > 1; --g)
+    if (Cm % g == 0 && g * V <= BWD_MAX_THREADS) return g;
+  return 1;
+}
 
 struct BwdSmem {
-  Smem g;               // xs1, xs2, ada, p1s, p2s (the graph build)
-  float *gbuf;          // (Cm, V, V): G in the T loop, then dG, then dz
+  Smem g;               // xs1, xs2 (all Cm channels), ada, p1s, p2s
+  float *gbuf;          // (CG, V, V): G in the T loop, then dG, then dz
   float *sc;            // (V, V): sum over channels of dG
   float *draw;          // (V, V): the softmax VJP
-  float *pre_s, *dy_s;  // (BWD_ROWS, V, Cm) staged rows
+  float *pre_s, *dy_s;  // (BWD_ROWS, V, CG) staged rows
   float *red;           // 32 floats for block sums
 };
 
-inline size_t bwd_smem_bytes(int V, int Cm, int E) {
+inline size_t bwd_smem_bytes(int V, int Cm, int CG, int E) {
   const int XS = row_stride(V);
   const size_t floats = 2 * (size_t)Cm * XS + (size_t)V * V +
-                        2 * (size_t)E * Cm * XS + (size_t)Cm * V * V +
-                        2 * (size_t)V * V + 2 * (size_t)BWD_ROWS * V * Cm + 32;
+                        2 * (size_t)E * Cm * XS + (size_t)CG * V * V +
+                        2 * (size_t)V * V + 2 * (size_t)BWD_ROWS * V * CG + 32;
   return floats * sizeof(float);
 }
 
-__device__ inline BwdSmem carve_bwd(float *base, int V, int Cm, int E) {
+__device__ inline BwdSmem carve_bwd(float *base, int V, int Cm, int CG,
+                                    int E) {
   const int XS = row_stride(V);
   BwdSmem b;
   b.g.xs1 = base;
@@ -71,11 +87,11 @@ __device__ inline BwdSmem carve_bwd(float *base, int V, int Cm, int E) {
   b.g.p2s = b.g.p1s + E * Cm * XS;
   b.g.pres = nullptr;
   b.gbuf = b.g.p2s + E * Cm * XS;
-  b.sc = b.gbuf + Cm * V * V;
+  b.sc = b.gbuf + CG * V * V;
   b.draw = b.sc + V * V;
   b.pre_s = b.draw + V * V;
-  b.dy_s = b.pre_s + BWD_ROWS * V * Cm;
-  b.red = b.dy_s + BWD_ROWS * V * Cm;
+  b.dy_s = b.pre_s + BWD_ROWS * V * CG;
+  b.red = b.dy_s + BWD_ROWS * V * CG;
   return b;
 }
 
@@ -95,6 +111,7 @@ __device__ inline float block_sum(float v, float *red) {
 
 // Per-sample partial sums, one row of W floats per sample:
 // [dA (K, V, V) | dalpha (K) | dbeta (K) | dedge_w (Cm, E*Cm) | dedge_b].
+// With edge attention (edge_k >= 0) the caller passes CG == Cm.
 template <typename Tio>
 __global__ void __launch_bounds__(BWD_MAX_THREADS)
 dyn_graph_bwd_kernel(const Tio *__restrict__ pre, const Tio *__restrict__ dy,
@@ -107,16 +124,17 @@ dyn_graph_bwd_kernel(const Tio *__restrict__ pre, const Tio *__restrict__ dy,
                      const float *__restrict__ edge_w,
                      const float *__restrict__ bias_field,
                      const float *__restrict__ sel, int T, int V, int K,
-                     int Cm, int E, int edge_k, int W) {
+                     int Cm, int CG, int E, int edge_k, int W) {
   extern __shared__ float smem[];
   const int k = blockIdx.x, n = blockIdx.y;
   const bool edge = (k == edge_k);
-  const BwdSmem b = carve_bwd(smem, V, Cm, edge_k >= 0 ? E : 0);
+  const BwdSmem b = carve_bwd(smem, V, Cm, CG, edge_k >= 0 ? E : 0);
   const Smem &s = b.g;
   const int XS = row_stride(V);
   const int tid = threadIdx.x, KC = K * Cm, VV = V * V;
-  const int c = tid % Cm, i = tid / Cm;   // thread (channel c, joint i)
-  const bool active = tid < Cm * V;
+  // thread (channel cl of a group, joint i)
+  const int cl = tid % CG, i = tid / CG;
+  const bool active = tid < CG * V;
   const float a_k = alpha[k], b_k = beta[k];
   const float *A_k = A + (size_t)k * VV;
   float *part = parts + (size_t)n * W;
@@ -130,80 +148,125 @@ dyn_graph_bwd_kernel(const Tio *__restrict__ pre, const Tio *__restrict__ dy,
   __syncthreads();
   if (edge) edge_projections(s, edge_w, V, Cm, Cm, 0, E);
   build_ada(s.ada, s.xs1, s.xs2, Cm, V, -1);   // syncs before reading
+  for (int j = tid; j < VV; j += blockDim.x) b.sc[j] = 0.f;
 
-  // G of the subset, in float32 as the Pallas backward uses it
-  if (active) {
-    for (int v = 0; v < V; ++v)
-      b.gbuf[(c * V + v) * V + i] =
-          graph_entry<float>(c, c, v, i, s, V, Cm, A_k, a_k, b_k, edge, E,
-                             sel, bias_field, VV, V);
-  }
-
-  // the T loop: dpre out, dG into registers
-  float dg[VMAX];
-#pragma unroll
-  for (int v = 0; v < VMAX; ++v) dg[v] = 0.f;
+  float da = 0.f;
   const size_t row0 = (size_t)n * T;
-  for (int t0 = 0; t0 < T; t0 += BWD_ROWS) {
-    const int rows = min(BWD_ROWS, T - t0);
-    __syncthreads();                       // G built / the last tile read
-    for (int j = tid; j < rows * V * Cm; j += blockDim.x) {
-      const size_t g = ((row0 + t0) * V + j / Cm) * KC + k * Cm + j % Cm;
-      b.pre_s[j] = to_f32(pre[g]);
-      b.dy_s[j] = to_f32(dy[g]);
+  for (int c0 = 0; c0 < Cm; c0 += CG) {
+    const int c = c0 + cl;
+    // G of the group, in float32 as the Pallas backward uses it
+    if (active) {
+      for (int v = 0; v < V; ++v)
+        b.gbuf[(cl * V + v) * V + i] =
+            graph_entry<float>(c, cl, v, i, s, V, CG, A_k, a_k, b_k, edge, E,
+                               sel, bias_field, VV, V);
+    }
+
+    // the T loop: dpre out, dG into registers
+    float dg[VMAX];
+#pragma unroll
+    for (int v = 0; v < VMAX; ++v) dg[v] = 0.f;
+    for (int t0 = 0; t0 < T; t0 += BWD_ROWS) {
+      const int rows = min(BWD_ROWS, T - t0);
+      __syncthreads();                     // G built / the last tile read
+      for (int j = tid; j < rows * V * CG; j += blockDim.x) {
+        const size_t g =
+            ((row0 + t0) * V + j / CG) * KC + k * Cm + c0 + j % CG;
+        b.pre_s[j] = to_f32(pre[g]);
+        b.dy_s[j] = to_f32(dy[g]);
+      }
+      __syncthreads();
+      if (active) {
+        const float *grow = b.gbuf + (cl * V + i) * V;  // G[c, i, :]
+        for (int r = 0; r < rows; ++r) {
+          const float *pr = b.pre_s + r * V * CG + cl;  // pre[t, v, c]
+          const float *dr = b.dy_s + r * V * CG + cl;   // dy[t, w, c]
+          const float dyi = dr[i * CG];
+          float acc = 0.f;
+#pragma unroll
+          for (int v = 0; v < VMAX; ++v) {
+            if (v < V) {
+              dg[v] += pr[v * CG] * dyi;     // dG[c, v, i]
+              acc += dr[v * CG] * grow[v];   // sum_w dy[t, w, c] G[c, i, w]
+            }
+          }
+          dpre[((row0 + t0 + r) * V + i) * KC + k * Cm + c] =
+              from_f32<Tio>(acc);
+        }
+      }
+    }
+    __syncthreads();                       // every thread is done with G
+
+    // gbuf <- dG; sc += the group's sum over channels
+    if (active) {
+#pragma unroll
+      for (int v = 0; v < VMAX; ++v)
+        if (v < V) b.gbuf[(cl * V + v) * V + i] = dg[v];
     }
     __syncthreads();
+    for (int j = tid; j < VV; j += blockDim.x) {
+      float sum = b.sc[j];
+      for (int cc = 0; cc < CG; ++cc) sum += b.gbuf[cc * VV + j];
+      b.sc[j] = sum;
+    }
+    __syncthreads();                       // gbuf is read above
+
+    // ctr path: dalpha and gbuf <- dz
     if (active) {
-      const float *grow = b.gbuf + (c * V + i) * V;     // G[c, i, :]
-      for (int r = 0; r < rows; ++r) {
-        const float *pr = b.pre_s + r * V * Cm + c;     // pre[t, v, c]
-        const float *dr = b.dy_s + r * V * Cm + c;      // dy[t, w, c]
-        const float dyi = dr[i * Cm];
-        float acc = 0.f;
 #pragma unroll
-        for (int v = 0; v < VMAX; ++v) {
-          if (v < V) {
-            dg[v] += pr[v * Cm] * dyi;       // dG[c, v, i]
-            acc += dr[v * Cm] * grow[v];     // sum_w dy[t, w, c] G[c, i, w]
-          }
+      for (int v = 0; v < VMAX; ++v) {
+        if (v < V) {
+          const float ct = ctr_entry(c, cl, v, i, s, V, CG, edge, E, sel,
+                                     bias_field, VV, V);
+          da += dg[v] * ct;
+          b.gbuf[(cl * V + v) * V + i] = dg[v] * a_k * (1.f - ct * ct);
         }
-        dpre[((row0 + t0 + r) * V + i) * KC + k * Cm + c] = from_f32<Tio>(acc);
       }
     }
-  }
-  __syncthreads();                         // every thread is done with G
+    __syncthreads();                       // dz published
 
-  // gbuf <- dG; sC = sum_c dG, which is also this sample's dA
-  if (active) {
-#pragma unroll
-    for (int v = 0; v < VMAX; ++v)
-      if (v < V) b.gbuf[(c * V + v) * V + i] = dg[v];
-  }
-  __syncthreads();
-  for (int j = tid; j < VV; j += blockDim.x) {
-    float sum = 0.f;
-    for (int cc = 0; cc < Cm; ++cc) sum += b.gbuf[cc * VV + j];
-    b.sc[j] = sum;
-    part[k * VV + j] = sum;
-  }
-  __syncthreads();                         // gbuf is read above
-
-  // ctr path: dalpha and gbuf <- dz
-  float da = 0.f;
-  if (active) {
-#pragma unroll
-    for (int v = 0; v < VMAX; ++v) {
-      if (v < V) {
-        const float ct = ctr_entry(c, c, v, i, s, V, Cm, edge, E, sel,
-                                   bias_field, VV, V);
-        da += dg[v] * ct;
-        b.gbuf[(c * V + v) * V + i] = dg[v] * a_k * (1.f - ct * ct);
+    // edge subset (CG == Cm): p1s/p2s <- dP1/dP2 (P is no longer read)
+    if (edge) {
+      for (int j = tid; j < E * Cm * V; j += blockDim.x) {
+        const int v = j % V, cc = (j / V) % Cm, e = j / (V * Cm);
+        const float *dz = b.gbuf + cc * VV;
+        const float *se = sel + (size_t)e * VV;
+        float d1 = 0.f, d2 = 0.f;
+        for (int u = 0; u < V; ++u) {
+          d1 += __ldg(se + v * V + u) * dz[v * V + u];   // over targets w = u
+          d2 -= __ldg(se + u * V + v) * dz[u * V + v];   // over sources, w = v
+        }
+        s.p1s[(e * Cm + cc) * XS + v] = d1;
+        s.p2s[(e * Cm + cc) * XS + v] = d2;
       }
+      __syncthreads();
     }
+
+    // the ctr part of dx1[c, i], dx2[c, i]
+    if (active) {
+      float d1 = 0.f, d2 = 0.f;
+      if (edge) {
+        const float *wrow = edge_w + (size_t)c * E * Cm;   // edge_w[c, :]
+        for (int f = 0; f < E * Cm; ++f) {
+          const float wv = __ldg(wrow + f);
+          d1 += wv * s.p1s[f * XS + i];
+          d2 += wv * s.p2s[f * XS + i];
+        }
+      } else {
+        for (int u = 0; u < V; ++u) {
+          d1 += b.gbuf[(cl * V + i) * V + u];    // sum_w dz[c, i, w]
+          d2 -= b.gbuf[(cl * V + u) * V + i];    // -sum_v dz[c, v, i]
+        }
+      }
+      dx1[q + c * V + i] = d1;
+      dx2[q + c * V + i] = d2;
+    }
+    __syncthreads();                       // the next group rebuilds gbuf
   }
+
+  // every group is in: this sample's dA, dalpha; the ada path
+  for (int j = tid; j < VV; j += blockDim.x) part[k * VV + j] = b.sc[j];
   const float dalpha = block_sum(da, b.red);
-
-  // ada path: draw, dbeta
   float dbl = 0.f;
   for (int w = tid; w < V; w += blockDim.x) {
     float inner = 0.f;
@@ -215,51 +278,23 @@ dyn_graph_bwd_kernel(const Tio *__restrict__ pre, const Tio *__restrict__ dy,
     for (int v = 0; v < V; ++v)
       b.draw[v * V + w] = s.ada[v * V + w] * (b_k * b.sc[v * V + w] - inner);
   }
-  const float dbeta = block_sum(dbl, b.red);   // publishes dz and draw
+  const float dbeta = block_sum(dbl, b.red);   // publishes draw
   if (tid == 0) {
     part[K * VV + k] = dalpha;
     part[K * VV + K + k] = dbeta;
   }
 
-  // edge subset: p1s/p2s <- dP1/dP2 (P is no longer read)
-  if (edge) {
-    for (int j = tid; j < E * Cm * V; j += blockDim.x) {
-      const int v = j % V, cc = (j / V) % Cm, e = j / (V * Cm);
-      const float *dz = b.gbuf + cc * VV;
-      const float *se = sel + (size_t)e * VV;
-      float d1 = 0.f, d2 = 0.f;
-      for (int u = 0; u < V; ++u) {
-        d1 += __ldg(se + v * V + u) * dz[v * V + u];   // over targets w = u
-        d2 -= __ldg(se + u * V + v) * dz[u * V + v];   // over sources, w = v
-      }
-      s.p1s[(e * Cm + cc) * XS + v] = d1;
-      s.p2s[(e * Cm + cc) * XS + v] = d2;
-    }
-    __syncthreads();
-  }
-
-  // dx1[c, i], dx2[c, i]
-  if (active) {
+  // the ada part of dx1, dx2: each thread adds to the entries it wrote
+  for (int c0 = 0; c0 < Cm; c0 += CG) {
+    if (!active) break;
+    const int c = c0 + cl;
     float d1 = 0.f, d2 = 0.f;
-    if (edge) {
-      const float *wrow = edge_w + (size_t)c * E * Cm;   // edge_w[c, :]
-      for (int f = 0; f < E * Cm; ++f) {
-        const float wv = __ldg(wrow + f);
-        d1 += wv * s.p1s[f * XS + i];
-        d2 += wv * s.p2s[f * XS + i];
-      }
-    } else {
-      for (int u = 0; u < V; ++u) {
-        d1 += b.gbuf[(c * V + i) * V + u];     // sum_w dz[c, i, w]
-        d2 -= b.gbuf[(c * V + u) * V + i];     // -sum_v dz[c, v, i]
-      }
-    }
     for (int u = 0; u < V; ++u) {
       d1 += s.xs2[c * XS + u] * b.draw[i * V + u];
       d2 += s.xs1[c * XS + u] * b.draw[u * V + i];
     }
-    dx1[q + c * V + i] = d1;
-    dx2[q + c * V + i] = d2;
+    dx1[q + c * V + i] += d1;
+    dx2[q + c * V + i] += d2;
   }
 
   // edge subset: this sample's dedge_w (Cm, E*Cm) and dedge_b (E*Cm)
@@ -305,8 +340,9 @@ static int launch_bwd(const void *pre, const void *dy, void *dpre,
                       const float *edge_w, const float *bias_field,
                       const float *sel, int N, int T, int V, int K, int Cm,
                       int E, int edge_k, cudaStream_t stream) {
-  const int threads = (Cm * V + 31) / 32 * 32;
-  const size_t smem = bwd_smem_bytes(V, Cm, edge_k >= 0 ? E : 0);
+  const int CG = edge_k >= 0 ? Cm : bwd_channel_group(Cm, V);
+  const int threads = (CG * V + 31) / 32 * 32;
+  const size_t smem = bwd_smem_bytes(V, Cm, CG, edge_k >= 0 ? E : 0);
   const int W = partial_width(V, K, Cm, E, edge_k);
   cudaError_t err = cudaFuncSetAttribute(
       dyn_graph_bwd_kernel<Tio>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -314,7 +350,8 @@ static int launch_bwd(const void *pre, const void *dy, void *dpre,
   if (err != cudaSuccess) return (int)err;
   dyn_graph_bwd_kernel<Tio><<<dim3(K, N), threads, smem, stream>>>(
       (const Tio *)pre, (const Tio *)dy, (Tio *)dpre, dx1, dx2, parts, x1,
-      x2, A, alpha, beta, edge_w, bias_field, sel, T, V, K, Cm, E, edge_k, W);
+      x2, A, alpha, beta, edge_w, bias_field, sel, T, V, K, Cm, CG, E, edge_k,
+      W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_over_samples_kernel<<<(W + 255) / 256, 256, 0, stream>>>(parts, sums,
@@ -339,7 +376,7 @@ extern "C" int dsgcn_dyn_graph_bwd(const void *pre, const void *dy,
                                    int edge_k, void *stream) {
   using namespace dsgcn;
   if (V < 1 || V > VMAX || E > EMAX || Cm < 1 ||
-      Cm * V > BWD_MAX_THREADS || N > 65535 || K > 65535)
+      (edge_k >= 0 && Cm * V > BWD_MAX_THREADS) || N > 65535 || K > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return bf16 ? launch_bwd<__nv_bfloat16>(pre, dy, dpre, dx1, dx2, parts,

@@ -1,6 +1,7 @@
 // Shared device code of the dynamic-graph aggregation kernels (bd_agg.cu,
-// dyn_graph.cu, and the graph build of dyn_graph_bwd.cu): the graph build
-// and the per-channel aggregation
+// bd_agg_subset.cu, dyn_graph.cu, dyn_graph_eval.cu, dggcn_block.cu, and
+// the graph build of dyn_graph_bwd.cu): the graph build and the
+// per-channel aggregation
 //
 //   ctr[c,v,w] = tanh(x1[c,v] - x2[c,w])               (diff graph)
 //   ctr[c,v,w] = tanh(sum_e sel[e,v,w] (P1[e,c,v] - P2[e,c,w]) + bias[c,v,w])
@@ -182,6 +183,25 @@ __device__ inline void graph_column(float (&g)[VMAX], int c, int cl, int w,
                  : 0.f;
 }
 
+// y[n, t0 + r, w, ch0 + cl] = sum_v pres[r, v, cl] g[v] for the rows
+// r < rows staged in pres ((rows, V, CG)), y of row width KC.
+template <typename Tio>
+__device__ __forceinline__ void contract_rows(const float (&g)[VMAX],
+                                              const float *pres, Tio *out,
+                                              int n, int T, int V, int KC,
+                                              int ch0, int CG, int cl, int w,
+                                              int t0, int rows) {
+  for (int r = 0; r < rows; ++r) {
+    const float *pr = pres + r * V * CG + cl;
+    float acc = 0.f;
+#pragma unroll
+    for (int v = 0; v < VMAX; ++v)
+      if (v < V) acc += pr[v * CG] * g[v];
+    out[(((size_t)n * T + t0 + r) * V + w) * KC + ch0 + cl] =
+        from_f32<Tio>(acc);
+  }
+}
+
 // y[n, t, w, ch0 + cl] = sum_v pre[n, t, v, ch0 + cl] g[v] for the rows
 // t in [t_begin, t_end), pre/y of row width KC.  pre rows are staged
 // T_TILE at a time; every thread of the block takes part in the staging,
@@ -199,17 +219,8 @@ __device__ inline void aggregate(const float (&g)[VMAX], const Tio *pre,
       pres[i] = to_f32(pre[(((size_t)n * T + t0 + r) * V + v) * KC + ch0 + cc]);
     }
     __syncthreads();
-    if (active) {
-      for (int r = 0; r < rows; ++r) {
-        const float *pr = pres + r * V * CG + cl;
-        float acc = 0.f;
-#pragma unroll
-        for (int v = 0; v < VMAX; ++v)
-          if (v < V) acc += pr[v * CG] * g[v];
-        out[(((size_t)n * T + t0 + r) * V + w) * KC + ch0 + cl] =
-            from_f32<Tio>(acc);
-      }
-    }
+    if (active)
+      contract_rows<Tio>(g, pres, out, n, T, V, KC, ch0, CG, cl, w, t0, rows);
     __syncthreads();
   }
 }

@@ -16,6 +16,10 @@ tensors its forward launches the hand-written kernel ``csrc/dyn_graph.cu``
 and its backward ``csrc/dyn_graph_bwd.cu``; on CPU tensors they run the
 plain versions :func:`reference_dyn_graph_agg` and
 :func:`reference_dyn_graph_agg_bwd`.
+
+:func:`fused_dyn_graph_agg_eval` (K5, eval only) is the same forward with
+the BatchNorm-folded pre 1x1 inside the kernel (``csrc/dyn_graph_eval.cu``;
+plain version :func:`reference_dyn_graph_agg_eval`).
 """
 from __future__ import annotations
 
@@ -228,10 +232,10 @@ def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
         raise ValueError(f"{name}: dy must be a contiguous tensor of pre_x's "
                          "shape, dtype and device")
     N, T, V, _ = pre_x.shape
-    if Cm * V > _build.MAX_BWD_THREADS:
-        raise ValueError(f"{name}: Cm*V = {Cm * V} over "
-                         f"{_build.MAX_BWD_THREADS} (one thread per channel "
-                         "and joint)")
+    if o["edge_k"] >= 0 and Cm * V > _build.MAX_BWD_THREADS:
+        raise ValueError(f"{name}: edge attention with Cm*V = {Cm * V} over "
+                         f"{_build.MAX_BWD_THREADS} (the edge subset's "
+                         "channels and joints share one block)")
     dev, f32 = pre_x.device, torch.float32
     has_edge = o["edge_k"] >= 0
     VV, F = V * V, E * Cm
@@ -336,3 +340,73 @@ def fused_dyn_graph_agg(pre_x: torch.Tensor, x1: torch.Tensor,
 
 
 fused_dyn_graph_agg.launches = 0
+
+
+def reference_dyn_graph_agg_eval(x, w_pre, b_pre, x1, x2, A, alpha, beta, *,
+                                 K, Cm, v_real=-1):
+    """Plain PyTorch version of K5: pre = relu(x w_pre + b_pre), summed in
+    float32 and rounded to x's dtype as the TPU kernel does, then the K1
+    forward without edge attention."""
+    pre = torch.relu(x.float() @ w_pre.float() + b_pre.float()).to(x.dtype)
+    return reference_dyn_graph_agg(pre, x1, x2, A, alpha, beta, K=K, Cm=Cm,
+                                   v_real=v_real)
+
+
+def fused_dyn_graph_agg_eval(x: torch.Tensor, w_pre: torch.Tensor,
+                             b_pre: torch.Tensor, x1: torch.Tensor,
+                             x2: torch.Tensor, A: torch.Tensor,
+                             alpha: torch.Tensor, beta: torch.Tensor, *,
+                             K: int, Cm: int,
+                             v_real: int = -1) -> torch.Tensor:
+    """Eval only: y = aggregate(relu(x w_pre + b_pre), G(x1, x2, A, alpha,
+    beta)) with the pre 1x1 inside the kernel, so pre never reaches device
+    memory (``dsgcn_tpu/ops/pallas/dyn_graph.py:fused_dyn_graph_agg_eval``).
+
+    x: (N, T, V, C) float32 or bfloat16; w_pre: (C, K*Cm) in x's dtype and
+    b_pre: (K*Cm,) float32, the BatchNorm-folded pre-conv; x1/x2:
+    (N, K, Cm, V); A: (K, V, V); alpha/beta: (K,).  No edge attention.
+    Returns (N, T, V, K*Cm) in x's dtype."""
+    if x.device.type == "cpu":
+        return reference_dyn_graph_agg_eval(x, w_pre, b_pre, x1, x2, A,
+                                            alpha, beta, K=K, Cm=Cm,
+                                            v_real=v_real)
+    name = "fused_dyn_graph_agg_eval"
+    _build.check_activation(x, name)
+    _build.refuse_grad(name, x, w_pre, b_pre, x1, x2, A, alpha, beta)
+    N, T, V, C = x.shape
+    KC = K * Cm
+    if w_pre.shape != (C, KC) or w_pre.dtype != x.dtype \
+            or w_pre.device != x.device:
+        raise ValueError(f"{name}: w_pre must be ({C}, {KC}) in x's dtype "
+                         f"and device, got {tuple(w_pre.shape)} "
+                         f"{w_pre.dtype} on {w_pre.device}")
+    if b_pre.shape != (KC,) or b_pre.dtype != torch.float32 \
+            or b_pre.device != x.device:
+        raise ValueError(f"{name}: b_pre must be float32 ({KC},) on "
+                         f"x's device")
+    _build.check_limits(name, N, V, 0)
+    # shared memory: the graph build, the staged pre rows and the (C, 16)
+    # column slice of w_pre (csrc/dyn_graph_eval.cu eval_smem_bytes)
+    if C > _build.MAX_PRE_CHANNELS:
+        raise ValueError(f"{name}: {C} input channels; the kernel takes at "
+                         f"most {_build.MAX_PRE_CHANNELS}")
+    op = lambda t, shape, n: _build.graph_operand(t, shape, n, x.device)  # noqa
+    x1, x2 = op(x1, (N, K, Cm, V), "x1"), op(x2, (N, K, Cm, V), "x2")
+    A = op(A, (K, V, V), "A")
+    alpha, beta = op(alpha, (K,), "alpha"), op(beta, (K,), "beta")
+    w_pre, b_pre = w_pre.contiguous(), b_pre.contiguous()
+    out = torch.empty((N, T, V, KC), device=x.device, dtype=x.dtype)
+    if out.numel() == 0:
+        return out
+    ptr = _build.ptr
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "dyn_graph_eval", ptr(x), ptr(w_pre), ptr(b_pre), ptr(out),
+            int(x.dtype == torch.bfloat16),
+            ptr(x1), ptr(x2), ptr(A), ptr(alpha), ptr(beta), N, T, V, C, K,
+            Cm, v_real, _build.stream_of(x))
+    fused_dyn_graph_agg_eval.launches += 1
+    return out
+
+
+fused_dyn_graph_agg_eval.launches = 0

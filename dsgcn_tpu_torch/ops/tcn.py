@@ -96,15 +96,20 @@ class DGMSTCN(nn.Module):
     training only, its mask drawn from ``self.generator`` (a
     ``torch.Generator`` on the activations' device, or None for torch's
     default).  The JAX module's ``split`` eval layout, ``branch_kind='mlp'``
-    and fused eval kernel (K7) are not ported yet.
+    and fused eval kernel (K7, ``use_pallas=True``) are not ported yet.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[float] = None, num_joints: int = 25,
                  dropout: float = 0.0,
                  ms_cfg: Sequence[MsCfgEntry] = DEFAULT_MS_CFG,
-                 stride: int = 1):
+                 stride: int = 1, use_pallas: bool = False):
         super().__init__()
+        if use_pallas:
+            raise NotImplementedError(
+                "tcn_use_pallas needs the fused DGMSTCN eval kernel K7 "
+                "(dsgcn_tpu/ops/pallas/ms_tcn.py:fused_dgmstcn_eval), which "
+                "is not ported yet")
         self.branches = _MSBranches(in_channels, out_channels, mid_channels,
                                     ms_cfg, stride)
         width = sum(self.branches.widths)

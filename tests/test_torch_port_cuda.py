@@ -1,7 +1,9 @@
 """The port's CUDA kernels K1 (fused_dyn_graph_agg forward), K2 (its
-backward) and K3 (bd_dyn_graph_agg) against their plain PyTorch versions
-on the card, the K1+K2 autograd Function, and one DS-GCN train step on the
-card against the same step on the CPU.
+backward), K3 (bd_dyn_graph_agg), K4 (bd_dyn_graph_agg_subset), K5
+(fused_dyn_graph_agg_eval) and K6 (fused_dggcn_block_eval) against their
+plain PyTorch versions on the card, the K1+K2 autograd Function, a narrow
+DG-STGCN's eval options on the card against the CPU, and one DS-GCN train
+step on the card against the same step on the CPU.
 
 Marked ``cuda``: they skip without a GPU.  The file imports no JAX, so it
 runs on a GPU machine without it; there, run it without the JAX-side
@@ -18,11 +20,15 @@ import torch
 from dsgcn_tpu_torch.core.train import make_optimizer, train_step
 from dsgcn_tpu_torch.models.builder import (build_model, init_weights_,
                                            model_cfg)
-from dsgcn_tpu_torch.ops.kernels.bd_agg import (bd_dyn_graph_agg,
-                                                reference_bd_dyn_graph_agg)
+from dsgcn_tpu_torch.ops.kernels.bd_agg import (
+    bd_dyn_graph_agg, bd_dyn_graph_agg_subset, reference_bd_dyn_graph_agg,
+    reference_bd_dyn_graph_agg_subset)
+from dsgcn_tpu_torch.ops.kernels.dggcn_block import (
+    fused_dggcn_block_eval, reference_dggcn_block_eval)
 from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
-    fused_dyn_graph_agg, fused_dyn_graph_agg_bwd, reference_dyn_graph_agg,
-    reference_dyn_graph_agg_bwd)
+    fused_dyn_graph_agg, fused_dyn_graph_agg_bwd, fused_dyn_graph_agg_eval,
+    reference_dyn_graph_agg, reference_dyn_graph_agg_bwd,
+    reference_dyn_graph_agg_eval)
 from torch_port_cases import CASES, E, block_inputs, k3_packaging, to_torch
 
 K2_OUTS = ("dpre", "dx1", "dx2", "dA", "dalpha", "dbeta", "dedge_w",
@@ -193,3 +199,204 @@ def test_cuda_train_step_matches_cpu(cuda):
         cos = (du_got @ du_want / (du_got.norm() * du_want.norm())).item()
         assert cos > 0.995, (name, cos)
         assert abs(du_got.norm() / du_want.norm() - 1) < 5e-2, name
+
+
+# ---------------------------------------------------------------------------
+# DG-STGCN: K4, K5, K6 and K2 at Cm = 64
+# ---------------------------------------------------------------------------
+
+def _tol(dtype):
+    """f32: 1e-4 of the largest output (summation order); bf16: 2e-2 (one
+    bf16 rounding of the output, or of pre and the graph, either way)."""
+    return 1e-4 if dtype == torch.float32 else 2e-2
+
+
+def _on(cuda, d, *names):
+    return [to_torch(d[k]).to(cuda) for k in names]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,v_real,g", [(25, -1, None), (25, -1, 32),
+                                        (32, 25, 32)])
+def test_cuda_k4_matches_plain(cuda, V, v_real, g, dtype):
+    """K4 at DG-STGCN's widest width (K = 8, Cm = 64), g = Cm and g = 32,
+    and with padded joints masked out of the softmax."""
+    K, Cm = 8, 64
+    d = block_inputs(seed=40 + V, N=4, T=25, V=V, K=K, Cm=Cm, edge=False)
+    if v_real > 0:
+        d["pre"][:, :, v_real:] = 0
+    p = k3_packaging(d, K, Cm, -1)
+    pre2, x1t = _on(cuda, p, "pre2", "x1t")
+    args = [pre2.to(dtype), x1t] + _on(cuda, d, "x2", "A", "alpha", "beta")
+    kw = dict(K=K, Cm=Cm, g=g, v_real=v_real)
+    n = bd_dyn_graph_agg_subset.launches
+    got = bd_dyn_graph_agg_subset(*args, **kw)
+    assert bd_dyn_graph_agg_subset.launches == n + 1
+    want = reference_bd_dyn_graph_agg_subset(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _rel(got, want) <= _tol(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cm", [(64, 16), (128, 32), (256, 64)])
+def test_cuda_k5_matches_plain(cuda, C, Cm, dtype):
+    """K5 at DG-STGCN's block widths (K = 8): w_pre in x's dtype, b_pre
+    float32."""
+    K = 8
+    d = block_inputs(seed=C, N=4, T=20, K=K, Cm=Cm, edge=False)
+    gen = torch.Generator().manual_seed(C)
+    x = torch.randn(4, 20, 25, C, generator=gen).to(cuda, dtype)
+    w_pre = (torch.randn(C, K * Cm, generator=gen) / C ** 0.5).to(cuda,
+                                                                   dtype)
+    b_pre = (0.1 * torch.randn(K * Cm, generator=gen)).to(cuda)
+    args = [x, w_pre, b_pre] + _on(cuda, d, "x1", "x2", "A", "alpha", "beta")
+    n = fused_dyn_graph_agg_eval.launches
+    got = fused_dyn_graph_agg_eval(*args, K=K, Cm=Cm)
+    assert fused_dyn_graph_agg_eval.launches == n + 1
+    want = reference_dyn_graph_agg_eval(*args, K=K, Cm=Cm)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _rel(got, want) <= _tol(dtype)
+
+
+def _k6_args(cuda, dtype, C, Cout, K, Cm, down, edge, seed):
+    d = block_inputs(seed=seed, N=4, T=12, K=K, Cm=Cm, edge=edge)
+    gen = torch.Generator().manual_seed(seed)
+    w = lambda *s: (torch.randn(*s, generator=gen) / s[0] ** 0.5).to(  # noqa
+        cuda)
+    x = torch.randn(4, 12, 25, C, generator=gen).to(cuda, dtype)
+    args = [x] + _on(cuda, d, "x1", "x2") + [w(C, K * Cm), w(K * Cm)] + \
+        _on(cuda, d, "A", "alpha", "beta") + [w(K * Cm, Cout), w(Cout)] + \
+        ([w(C, Cout), w(Cout)] if down else [None, None])
+    kw = dict(K=K, Cm=Cm)
+    if edge:
+        ew, eb, sel = _on(cuda, d, "ew", "eb", "sel")
+        kw.update(edge_w=ew, edge_b=eb, edge_sel=sel, edge_k=1, edge_num=E)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cout,K,Cm,down,edge", [
+    (3, 64, 8, 16, True, False), (128, 256, 8, 64, True, False),
+    (256, 256, 8, 64, False, False), (64, 128, 3, 16, True, True),
+    (256, 256, 3, 32, False, True)])
+def test_cuda_k6_matches_plain(cuda, C, Cout, K, Cm, down, edge, dtype):
+    """K6 at DG-STGCN's block widths (K = 8, with and without the down
+    path) and DS-GCN's with edge attention (K = 3)."""
+    args, kw = _k6_args(cuda, dtype, C, Cout, K, Cm, down, edge, seed=C + Cm)
+    n = fused_dggcn_block_eval.launches
+    got = fused_dggcn_block_eval(*args, **kw)
+    assert fused_dggcn_block_eval.launches == n + 1
+    want = reference_dggcn_block_eval(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _rel(got, want) <= _tol(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Cm,T", [(32, 30), (64, 15)])
+def test_cuda_k2_wide_matches_plain(cuda, Cm, T, dtype):
+    """K2 at DG-STGCN's training widths (K = 8, no edge attention): at
+    Cm = 64 (Cm*V = 1600) the block takes the channels in two groups."""
+    K = 8
+    d = block_inputs(seed=Cm + T, N=4, T=T, K=K, Cm=Cm, edge=False)
+    pre, x1, x2, A, a, b = _on(cuda, d, "pre", "x1", "x2", "A", "alpha",
+                               "beta")
+    dy = torch.randn(pre.shape, generator=torch.Generator().manual_seed(T))
+    args = (pre.to(dtype), x1, x2, A, a, b, None, None, None,
+            dy.to(cuda, dtype), K, Cm, -1, E)
+    got = fused_dyn_graph_agg_bwd(*args)
+    want = reference_dyn_graph_agg_bwd(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(K2_OUTS[:6], got, want):
+        tol = 8e-3 if name == "dpre" and dtype == torch.bfloat16 else 1e-4
+        assert _rel(g, w) <= tol, (name, _rel(g, w))
+
+
+@pytest.mark.cuda
+def test_cuda_eval_kernels_refuse_grad(cuda):
+    """K4, K5 and K6 are eval-only, as K3 is."""
+    args, kw = _k6_args(cuda, torch.float32, 16, 16, 3, 8, False, False, 50)
+    args[1].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="eval-only"):
+        fused_dggcn_block_eval(*args, **kw)
+    x, x1, x2, w_pre, b_pre, A, a, b = args[:8]
+    with pytest.raises(NotImplementedError, match="eval-only"):
+        fused_dyn_graph_agg_eval(x, w_pre, b_pre, x1, x2, A, a, b, K=3, Cm=8)
+    pre2 = torch.zeros(4, 12, 25 * 24, device=cuda)
+    with pytest.raises(NotImplementedError, match="eval-only"):
+        bd_dyn_graph_agg_subset(pre2, x1.detach().transpose(-1, -2), x1, A,
+                                a, b, K=3, Cm=8)
+
+
+@pytest.mark.cuda
+def test_cuda_new_kernels_refuse_unsupported_sizes(cuda):
+    """Where the kernels cannot go, the wrappers raise before a launch: K2's
+    edge subset beyond Cm*V = 1024, a K6 frame whose tiles overflow shared
+    memory, K5 beyond its input channels, a K4 group that is no multiple
+    of 8."""
+    d = block_inputs(seed=51, N=2, T=4, Cm=48, edge=True)
+    pre, x1, x2, A, a, b, ew, eb, sel = _on(
+        cuda, d, "pre", "x1", "x2", "A", "alpha", "beta", "ew", "eb", "sel")
+    n2 = fused_dyn_graph_agg_bwd.launches
+    with pytest.raises(ValueError, match="1024"):
+        fused_dyn_graph_agg_bwd(pre, x1, x2, A, a, b, ew, eb, sel, pre, 3,
+                                48, 1, E)
+    assert fused_dyn_graph_agg_bwd.launches == n2
+    args, kw = _k6_args(cuda, torch.float32, 16, 16, 8, 128, False, False,
+                        52)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_dggcn_block_eval(*args, **kw)
+    x = torch.zeros(1, 2, 25, 4096, device=cuda)
+    with pytest.raises(ValueError, match="input channels"):
+        fused_dyn_graph_agg_eval(x, torch.zeros(4096, 24, device=cuda),
+                                 torch.zeros(24, device=cuda), x1[:1],
+                                 x2[:1], A, a, b, K=3, Cm=8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bd_dyn_graph_agg_subset(torch.zeros(2, 4, 25 * 3 * 48, device=cuda),
+                                x1.transpose(-1, -2).contiguous(), x2, A, a,
+                                b, K=3, Cm=48, g=12)
+
+
+@pytest.mark.cuda
+def test_cuda_dgstgcn_eval_options_match_cpu(cuda):
+    """A narrow DG-STGCN (K = 8, mid 16/32) on the card: every eval_kernel
+    gives the CPU model's logits within 1e-4 relative (float32 sums in
+    another order through four blocks) and launches its kernel once per
+    block."""
+    cfg = model_cfg("dgstgcn", num_classes=11)
+    cfg["backbone"].update(num_stages=4, base_channels=64,
+                           inflate_stages=(3,), down_stages=(3,))
+    cfg["cls_head"]["in_channels"] = 128
+    cpu = init_weights_(build_model(cfg), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in cpu.modules():
+            if hasattr(m, "alpha"):
+                m.alpha.uniform_(-0.5, 0.5)
+                m.beta.uniform_(-0.5, 0.5)
+    cpu.eval()
+    x = torch.randn(2, 2, 16, 25, 3, generator=torch.Generator().manual_seed(
+        1))
+    with torch.no_grad():
+        want = cpu(x)
+    kernels = {"bd": bd_dyn_graph_agg, "bdps": bd_dyn_graph_agg_subset,
+               "bdg": bd_dyn_graph_agg_subset, "fused": fused_dyn_graph_agg,
+               "fusedpre": fused_dyn_graph_agg_eval,
+               "mega": fused_dggcn_block_eval}
+    for ek, fn in kernels.items():
+        gpu = copy.deepcopy(cpu).to(cuda)
+        for m in gpu.modules():
+            if hasattr(m, "eval_kernel"):
+                m.eval_kernel = ek
+        n = fn.launches
+        with torch.no_grad():
+            got = gpu(x.to(cuda))
+        torch.cuda.synchronize()
+        # fusedpre: K5 where c >= 64 (three of four blocks), K1 in the stem
+        assert fn.launches - n == (3 if ek == "fusedpre" else 4), ek
+        assert _rel(got.cpu(), want) <= 1e-4, (ek, _rel(got.cpu(), want))

@@ -103,14 +103,6 @@ def test_dgphgcn1_matches_jax(gcn_case, path):
                                **MODULE_TOL)
 
 
-def test_dgphgcn1_mega_raises(gcn_case):
-    graph, v, x, _ = gcn_case
-    port = _load(DGPHGCN1(16, 32, **graph, **GCN_KW, use_pallas=True,
-                          eval_kernel="mega"), v)
-    with pytest.raises(NotImplementedError, match="K6"):
-        _run(port, x)
-
-
 @pytest.mark.parametrize("kw", [
     dict(ctr=None), dict(ada=None, ctr_act="sigmoid"),
     dict(ctr=None, ada=None), dict(stage=False, ada_act="relu")],
