@@ -23,9 +23,18 @@ DS-GCN (b128 x M2 x T60, synthetic data through the train pipeline and
 the port's Loader): one step against the same step on the CPU, timed
 steps in float32 and bfloat16 compute with their K1/K2 launches, one
 ``Trainer.validate`` (K3), and the training CLI with a checkpoint and a
-resume; phase 10 takes the same batches through DG-STGCN's steps.  Phases
-run in the order 2-6, 8, 9, 7, 10.  Any failed check raises, and the
-script exits non-zero without a result line.
+resume; phase 10 takes the same batches through DG-STGCN's steps.
+STGCN++ (the j config ``configs/stgcnpp/ntu60_xsub_3dkp/j.py`` with
+``tcn_use_pallas=True``): phase 11 checks K7 at every temporal unit shape
+of STGCN++ and DG-STGCN serving (with and without the pseudo-joint, stride
+1 and 2) and times it beside the unfused region; phase 12 serves STGCN++
+(10 K7 launches per forward, GPU against CPU, against the same weights
+without K7, request latency, clips/s with and without K7); phase 13 serves
+DG-STGCN and DS-GCN with K7 beside their GCN kernels; phase 14 trains
+STGCN++ from its RepeatDataset train set (GPU step against CPU, timed
+steps, no kernel launched).  Phases run in the order 2-6, 8, 9, 11-13, 7,
+10, 14.  Any failed check raises, and the script exits non-zero without a
+result line.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it lists the kernels with their launches, errors and
@@ -484,13 +493,14 @@ def gpu_vs_cpu_step(model, batch, out):
           f"GPU update off the CPU's: cosine {worst_cos}, norm {worst_ratio}")
 
 
-def timed_steps(model, batches, dtype_name, card, out):
+def timed_steps(model, batches, dtype_name, card, out, per_step):
     """Full-size steps: one warm-up, then TRAIN_STEPS timed ones, each with
-    its loss, wall ms, clips/s, peak device memory and K1/K2 launches."""
+    its loss, wall ms, clips/s, peak device memory and kernel launches,
+    which must be ``per_step`` (launches per step by wrapper; every other
+    kernel none)."""
     from dsgcn_tpu_torch.core.train import make_optimizer, train_step
     compute = None if dtype_name == "f32" else "bfloat16"
     opt, sched = make_optimizer(model, 100)
-    nblocks = model.backbone.num_blocks
     rows = []
     for i, b in enumerate(batches):
         torch.cuda.synchronize()
@@ -501,18 +511,14 @@ def timed_steps(model, batches, dtype_name, card, out):
         loss = m["loss"].item()            # synchronizes
         wall = (time.perf_counter() - t0) * 1e3
         after = read_counts()
-        k1 = after["fused_dyn_graph_agg"] - before["fused_dyn_graph_agg"]
-        k2 = (after["fused_dyn_graph_agg_bwd"]
-              - before["fused_dyn_graph_agg_bwd"])
+        launches = {k: after[k] - before[k] for k in after}
         row = dict(dtype=dtype_name, step=i, warmup=i == 0, loss=loss,
-                   wall_ms=wall, clips_per_s=TRAIN_BATCH / wall * 1e3,
+                   wall_ms=wall, clips_per_s=len(b["label"]) / wall * 1e3,
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   k1_launches=k1, k2_launches=k2)
+                   launches=launches)
         print("train step", json.dumps(row), f"on {card}", flush=True)
         check(np.isfinite(loss), f"non-finite loss at {row}")
-        check(k1 == nblocks and k2 == nblocks,
-              f"a step launched K1 {k1} and K2 {k2} times for {nblocks} "
-              "blocks")
+        expect_counts(launches, per_step, 1, f"a {dtype_name} step")
         rows.append(row)
     out["steps"].extend(rows)
     # one more step of the same kind under the profiler
@@ -596,8 +602,9 @@ def train(dev, card, report):
         gpu_vs_cpu_step(model, cpu_batch, report["train"])
 
         reset_counts()
-        timed_steps(model, batches, "f32", card, report["train"])
-        timed_steps(model, batches, "bf16", card, report["train"])
+        k1k2 = {"fused_dyn_graph_agg": 10, "fused_dyn_graph_agg_bwd": 10}
+        timed_steps(model, batches, "f32", card, report["train"], k1k2)
+        timed_steps(model, batches, "bf16", card, report["train"], k1k2)
         t0 = time.perf_counter()
         val = trainer.validate()
         val_ms = (time.perf_counter() - t0) * 1e3
@@ -631,8 +638,9 @@ def train_dgstgcn(dev, card, report, batches, cpu_batch):
     model = model.to(dev)
     out = report["dgstgcn_train"] = dict(steps=[])
     gpu_vs_cpu_step(model, cpu_batch, out)
-    timed_steps(model, batches, "f32", card, out)
-    timed_steps(model, batches, "bf16", card, out)
+    k1k2 = {"fused_dyn_graph_agg": 10, "fused_dyn_graph_agg_bwd": 10}
+    timed_steps(model, batches, "f32", card, out, k1k2)
+    timed_steps(model, batches, "bf16", card, out, k1k2)
 
 
 # ---------------------------------------------------------------------------
@@ -1148,9 +1156,10 @@ def _wrappers():
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
         fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
         fused_dyn_graph_agg_eval)
+    from dsgcn_tpu_torch.ops.kernels.ms_tcn import fused_dgmstcn_eval
     return (bd_dyn_graph_agg, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
             bd_dyn_graph_agg_subset, fused_dyn_graph_agg_eval,
-            fused_dggcn_block_eval)
+            fused_dggcn_block_eval, fused_dgmstcn_eval)
 
 
 def reset_counts():
@@ -1283,9 +1292,10 @@ def serve(dev, report):
     return model, bf16, main_counts, fused_counts
 
 
-def throughput(model, bf16, dev, card, out):
-    """Phase 5 (DS-GCN) and 9 (DG-STGCN): clips/s of a batch forward in
-    f32 and bf16, each with a profiler breakdown; into ``out``."""
+def throughput(model, bf16, dev, card, out, tag=""):
+    """Phases 5 (DS-GCN), 9 (DG-STGCN), 12 (STGCN++) and 13 (K7 in
+    DG-STGCN and DS-GCN): clips/s of a batch forward in f32 and bf16, each
+    with a profiler breakdown; into ``out``."""
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         THROUGHPUT_BATCH).astype(np.float32)).to(dev)
     for name, m in (("f32", model), ("bf16", bf16)):
@@ -1303,18 +1313,18 @@ def throughput(model, bf16, dev, card, out):
         check(y.shape == (n, 60) and bool(torch.isfinite(y).all()),
               f"{name} batch forward gave {tuple(y.shape)} / non-finite")
         clips = n / dt
-        print(f"throughput {name}: batch {THROUGHPUT_BATCH} "
+        print(f"throughput {tag}{name}: batch {THROUGHPUT_BATCH} "
               f"{dt * 1e3:.3f} ms/forward, {clips:.1f} clips/s on {card}",
               flush=True)
         out.setdefault("throughput", {})[name] = dict(
             ms_per_forward=dt * 1e3, clips_per_s=clips)
-        breakdown(m, x, name, out)
+        breakdown(m, x, name, out, tag)
 
 
-def breakdown(model, x, name, out):
+def breakdown(model, x, name, out, tag=""):
     """Device time of one batch forward by kernel (torch.profiler), the
-    dynamic-graph kernels' share, and the device's idle share of the
-    forward's wall time."""
+    port's kernels' share, and the device's idle share of the forward's
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         model(x)
@@ -1325,21 +1335,20 @@ def breakdown(model, x, name, out):
             model(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    out.setdefault("profile", {})[name] = device_rows(prof, wall_ms,
-                                                      f"profile {name}")
+    out.setdefault("profile", {})[name] = device_rows(
+        prof, wall_ms, f"profile {tag}{name}")
 
 
-# the port's dynamic-graph kernels, as the profiler names them
-GRAPH_KERNELS = ("bd_agg_kernel", "dyn_graph_fwd_kernel",
-                 "dyn_graph_bwd_kernel", "sum_over_samples_kernel",
-                 "bd_agg_subset_kernel", "dyn_graph_eval_kernel",
-                 "dggcn_block_kernel")
+# the port's kernels, as the profiler names them
+PORT_KERNELS = ("bd_agg_kernel", "dyn_graph_fwd_kernel",
+                "dyn_graph_bwd_kernel", "sum_over_samples_kernel",
+                "bd_agg_subset_kernel", "dyn_graph_eval_kernel",
+                "dggcn_block_kernel", "ms_tcn_kernel", "joint_mean_kernel")
 
 
 def device_rows(prof, wall_ms, tag):
-    """Device time by kernel from a profile, the dynamic-graph kernels'
-    share and the device's idle share of ``wall_ms``; printed and
-    returned."""
+    """Device time by kernel from a profile, the port's kernels' share and
+    the device's idle share of ``wall_ms``; printed and returned."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
@@ -1350,15 +1359,323 @@ def device_rows(prof, wall_ms, tag):
     if busy == 0:
         print(f"{tag}: the profiler saw no device time", flush=True)
         return {}
-    ours = sum(r[0] for r in rows if any(k in r[2] for k in GRAPH_KERNELS))
+    ours = sum(r[0] for r in rows if any(k in r[2] for k in PORT_KERNELS))
     print(f"{tag}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
           f"wall (idle {1 - busy / wall_ms:.1%}, under the profiler); "
-          f"dynamic-graph kernels {ours:.3f} ms ({ours / busy:.1%})",
+          f"the port's kernels {ours:.3f} ms ({ours / busy:.1%})",
           flush=True)
     for ms, count, key in rows[:12]:
         print(f"{tag}: {ms:9.3f} ms {count:4d}x {key[:90]}", flush=True)
-    return dict(wall_ms=wall_ms, busy_ms=busy, graph_kernels_ms=ours,
+    return dict(wall_ms=wall_ms, busy_ms=busy, port_kernels_ms=ours,
                 top=[dict(ms=ms, count=c, kernel=k) for ms, c, k in rows[:25]])
+
+
+# ---------------------------------------------------------------------------
+# phase 11: K7 against its plain version
+# ---------------------------------------------------------------------------
+
+STGCNPP_CONFIG = ROOT / "configs" / "stgcnpp" / "ntu60_xsub_3dkp" / "j.py"
+# STGCN++ (MSTCN) and DG-STGCN / DS-GCN (DGMSTCN, with the pseudo-joint)
+# at b64 x M2 x T100 (N = 128 skeletons): (C, T in, stride, blocks) of
+# their ten temporal units
+TCN_SHAPES = [(64, 100, 1, 4), (128, 100, 2, 1), (128, 50, 1, 2),
+              (256, 50, 2, 1), (256, 25, 1, 2)]
+# of the largest output: float32, the same sums in another order; bfloat16,
+# the output is rounded once on both sides and may round the other way
+K7_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def k7_inputs(gen, dev, C, T, dtype, coeff):
+    """x (N_BLOCK, T, V, C) and random folded weights of a C -> C region
+    (mid C // 6), as fused_dgmstcn_eval takes them."""
+    mid = C // 6
+    rem = C - 5 * mid
+    P = rem + 4 * mid
+
+    def w(*s):
+        return (torch.randn(*s, generator=gen) / s[-2] ** 0.5).to(dev)
+
+    def b(n):
+        return (0.1 * torch.randn(n, generator=gen)).to(dev)
+
+    def a(n):
+        return (0.5 + torch.rand(n, generator=gen)).to(dev)
+    widths = (rem, mid, mid, mid)
+    x = torch.randn(N_BLOCK, T, V, C, generator=gen).to(dev, dtype)
+    return [x, w(C, P), b(P), [w(3, cb, cb) for cb in widths],
+            [b(cb) for cb in widths], w(C, mid), b(mid), a(C), b(C),
+            w(C, C), b(C), a(C), b(C),
+            (torch.rand(V, generator=gen) - 0.5).to(dev) if coeff else None]
+
+
+def k7_bound(args, stride):
+    """Least time (ms) of K7's work and what bounds it: x read and the
+    output written once, the weights once, against the region's float32
+    operations (pre 1x1, taps, maxpool, strided 1x1, pseudo-joint mean and
+    broadcast, the BN affines and ReLUs, the transform 1x1) over the
+    CUDA-core rate (the kernel computes in float32)."""
+    x, w11, coeff = args[0], args[5], args[-1]
+    N, T, Vx, C = x.shape
+    rem, mid = args[3][0].shape[-1], w11.shape[-1]
+    P, Cp = rem + 4 * mid, rem + 5 * mid
+    Tp, R = -(-T // stride), Vx + (coeff is not None)
+    weights = sum(t.numel() for t in args[1:-1] if torch.is_tensor(t))
+    weights += sum(t.numel() for t in args[3] + args[4])
+    weights += 0 if coeff is None else coeff.numel()
+    nbytes = (N * T * Vx * C + N * Tp * Vx * Cp) * x.element_size() \
+        + 4 * weights
+    rows_in, rows_out = N * T * R, N * Tp * R
+    flops = rows_in * (2 * C * P + 2 * P)                     # pre
+    flops += rows_out * (6 * (rem * rem + 3 * mid * mid)      # taps
+                         + rem + 3 * mid + 2 * mid            # bias, max
+                         + 2 * C * mid + mid)                 # 1x1
+    flops += N * Tp * Vx * (2 * Cp * Cp + 8 * Cp)             # transform
+    if coeff is not None:
+        flops += N * T * Vx * C                               # mean
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k7_checks(dev, report):
+    """Phase 11: K7 at every temporal unit shape of STGCN++ serving (no
+    pseudo-joint) and of DG-STGCN / DS-GCN serving (with it), stride 1 and
+    2, f32 and bf16, against its plain version; in f32 its time, the plain
+    version's, the bound and the unfused region's (the MSTCN / DGMSTCN
+    module in eval without K7: cuBLAS 1x1s, cuDNN convs), summed per
+    forward at b64 x M2 x T100.  Returns the worst max abs error and the
+    sums per forward by model."""
+    from dsgcn_tpu_torch.ops.kernels.ms_tcn import (
+        fused_dgmstcn_eval, reference_fused_dgmstcn_eval, tile_plan)
+    from dsgcn_tpu_torch.ops.tcn import DGMSTCN, MSTCN
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    gen = torch.Generator().manual_seed(11)
+    rows = report["k7_checks"] = []
+    worst = 0.0
+    per_forward = {m: dict(new_sum(), unfused_ms=0.0)
+                   for m in ("stgcnpp", "dgstgcn")}
+    for C, T, stride, nb in TCN_SHAPES:
+        for coeff in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = k7_inputs(gen, dev, C, T, dtype, coeff)
+                kern = lambda: fused_dgmstcn_eval(  # noqa: E731
+                    *args, stride=stride)
+                plain = lambda: reference_fused_dgmstcn_eval(  # noqa: E731
+                    *args, stride=stride)
+                mid = C // 6
+                row = dict(kernel="fused_dgmstcn_eval", C=C, T=T,
+                           stride=stride, N=N_BLOCK, coeff=coeff,
+                           dtype=str(dtype).split(".")[-1],
+                           tile=tile_plan(N_BLOCK, T, V, C, C - 5 * mid, mid,
+                                          stride, 4, coeff))
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ref = want.float().abs().max().item()
+                row.update(max_abs_err=err, max_abs_ref=ref,
+                           rel_err=err / ref, tol=K7_TOL[dtype])
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"K7 non-finite output at {row}")
+                check(got.dtype == dtype and got.shape == want.shape,
+                      f"K7 returned {got.dtype} {tuple(got.shape)}")
+                check(err <= K7_TOL[dtype] * ref,
+                      f"K7 disagrees with its plain version: {row}")
+                worst = max(worst, err)
+                del got, want
+                if dtype == torch.float32:
+                    module = (DGMSTCN if coeff else MSTCN)(
+                        C, C, stride=stride).to(dev).eval()
+                    with torch.inference_mode():
+                        unfused = cold_ms(lambda: module(args[0]),
+                                          flush=flush)
+                    bound_ms, bound_by = k7_bound(args, stride)
+                    row.update(ms=cold_ms(kern, flush=flush),
+                               plain_ms=cold_ms(plain, iters=3, flush=flush),
+                               unfused_ms=unfused, library_ms=None,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               blocks_per_forward=nb)
+                    acc = per_forward["dgstgcn" if coeff else "stgcnpp"]
+                    add_to(acc, row, nb)
+                    acc["unfused_ms"] += nb * unfused
+                    del module
+                rows.append(row)
+                print("kernel", json.dumps(row), flush=True)
+                del args
+    print("K7 per forward, ms: " + json.dumps(per_forward, default=str),
+          flush=True)
+    report["k7_per_forward"] = per_forward
+    return worst, per_forward
+
+
+# ---------------------------------------------------------------------------
+# phases 12-13: serving with K7
+# ---------------------------------------------------------------------------
+
+def with_k7(cfg, k7):
+    cfg["model"]["backbone"]["tcn_use_pallas"] = k7
+    return cfg
+
+
+def stgcnpp_config(k7):
+    """The STGCN++ j config, its temporal units in K7 or not."""
+    from dsgcn_tpu_torch.configs.config import Config
+    return with_k7(Config.fromfile(str(STGCNPP_CONFIG)), k7)
+
+
+def k7_model_pair(dev, cfg_of, seed):
+    """The model of ``cfg_of(False)`` (module-path temporal units, so that
+    every BatchNorm sees its input) with seeded random weights and BN
+    statistics from data (``calibrate_``), and ``cfg_of(True)``'s model
+    (K7) with the same weights; and the test pipeline."""
+    from dsgcn_tpu_torch.apis import init_recognizer
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    torch.manual_seed(seed)
+    base = init_recognizer(cfg_of(False), device=dev)
+    pipeline = build_pipeline(base.cfg["data"]["test"]["pipeline"])
+    calibrate_(base, torch.from_numpy(pipeline(
+        synthetic_annos(seed=1)[0])["keypoint"]).to(dev), seed=seed)
+    k7 = init_recognizer(cfg_of(True), device=dev)
+    k7.load_state_dict(base.state_dict(), strict=True)
+    return base, k7, pipeline
+
+
+def serve_stgcnpp(dev, card, report):
+    """Phase 12: STGCN++ (the j config with tcn_use_pallas=True) through
+    init_recognizer / inference_recognizer: 10 K7 launches per forward and
+    no other kernel, GPU top-1 equal to the CPU's with logits within 1e-3,
+    logits within 1e-4 of the same weights without K7, request latency,
+    clips/s of a batch forward in f32 and bf16 with and without K7, each
+    with a profile.  Returns the launch counts of the four requests."""
+    from dsgcn_tpu_torch.apis import (inference_recognizer, init_recognizer,
+                                      to_bf16_inference)
+    from dsgcn_tpu_torch.ops.tcn import MSTCN
+    out = report["stgcnpp_serving"] = dict(requests=[])
+    base, model, pipeline = k7_model_pair(dev, stgcnpp_config, seed=12)
+    tcns = [getattr(model.backbone, f"block{i}").tcn
+            for i in range(model.backbone.num_blocks)]
+    check(len(tcns) == 10 and all(isinstance(t, MSTCN) and t.use_pallas
+                                  for t in tcns),
+          "STGCN++ has not ten MSTCN blocks with K7")
+    annos = synthetic_annos(seed=2)
+    reset_counts()
+    answers, request_ms = [], []
+    for a in annos:
+        t0 = time.perf_counter()
+        answers.append(inference_recognizer(model, a))
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    print("STGCN++ main path launches", json.dumps(counts), flush=True)
+    print("STGCN++ request latency ms (f32, 10 clips x 2 bodies x 100 "
+          "frames): " + ", ".join(f"{ms:.3f}" for ms in request_ms),
+          flush=True)
+    expect_counts(counts, {"fused_dgmstcn_eval": 10}, len(annos),
+                  "STGCN++ with K7")
+    out["request_ms"] = request_ms
+    cpu = init_recognizer(stgcnpp_config(True), device="cpu")
+    cpu.load_state_dict(model.state_dict(), strict=True)
+    for a, ans in zip(annos, answers):
+        cpu_ans = inference_recognizer(cpu, a)
+        g, c = logits_of(model, pipeline, a), logits_of(cpu, pipeline, a)
+        err, err_module = rel_err(g, c), rel_err(g, logits_of(base, pipeline,
+                                                               a))
+        print(f"STGCN++ request {a['frame_dir']}: gpu top-5 {ans}; cpu "
+              f"top-5 {cpu_ans}; logits rel err vs cpu {err:.3e}, vs no K7 "
+              f"{err_module:.3e} (max |logit| {c.abs().max().item():.3f})",
+              flush=True)
+        check(g.shape == (10, 60) and bool(torch.isfinite(g).all()),
+              f"logits of shape {tuple(g.shape)} or not finite")
+        check(ans[0][0] == cpu_ans[0][0],
+              f"STGCN++ GPU top-1 {ans[0]} != CPU top-1 {cpu_ans[0]}")
+        check(err <= 1e-3, f"STGCN++ GPU logits off the CPU's by {err:.3e}")
+        check(err_module <= 1e-4,
+              f"STGCN++ K7 logits off the module path's by {err_module:.3e}")
+        out["requests"].append(dict(request=a["frame_dir"], top5=ans,
+                                    cpu_top5=cpu_ans, logits_rel_err=err,
+                                    vs_module_rel_err=err_module))
+    del cpu
+    for name, m in (("k7", model), ("module", base)):
+        out[name] = {}
+        throughput(m, to_bf16_inference(m), dev, card, out[name],
+                   tag=f"STGCN++ {name} ")
+    return counts
+
+
+def serve_with_k7(dev, card, report):
+    """Phase 13: DG-STGCN ('auto') and DS-GCN with tcn_use_pallas=True: 10
+    K7 launches per forward beside their GCN kernels' (as phases 9 and 3
+    count them), logits within 1e-4 of the same weights without K7, clips/s
+    in f32 and bf16.  Returns the launch counts by model."""
+    from dsgcn_tpu_torch.apis import to_bf16_inference
+    from dsgcn_tpu_torch.configs.config import Config
+    models = {
+        "dgstgcn": (lambda k7: with_k7(dg_config(), k7), DG_AUTO),
+        "dsgcn": (lambda k7: with_k7(Config.fromfile(str(CONFIG)), k7),
+                  {"bd_dyn_graph_agg": 10}),
+    }
+    results = {}
+    for key, (cfg_of, gcn) in models.items():
+        out = report[f"{key}_k7"] = {}
+        base, model, pipeline = k7_model_pair(dev, cfg_of, seed=13)
+        annos = synthetic_annos(seed=2)
+        reset_counts()
+        logits = [logits_of(model, pipeline, a) for a in annos]
+        torch.cuda.synchronize()
+        counts = results[key] = read_counts()
+        expect_counts(counts, dict(gcn, fused_dgmstcn_eval=10), len(annos),
+                      f"{key} with K7")
+        errs = [rel_err(lg, logits_of(base, pipeline, a))
+                for lg, a in zip(logits, annos)]
+        print(f"{key} with K7: launches {json.dumps(counts)}; logits vs "
+              "no K7 rel err " + ", ".join(f"{e:.3e}" for e in errs),
+              flush=True)
+        check(max(errs) <= 1e-4,
+              f"{key} K7 logits off the module path's by {max(errs):.3e}")
+        out.update(counts=counts, logits_rel_err=errs)
+        throughput(model, to_bf16_inference(model), dev, card, out,
+                   tag=f"{key} k7 ")
+        del base, model
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 14: STGCN++ training
+# ---------------------------------------------------------------------------
+
+def train_stgcnpp(dev, card, report):
+    """Phase 14: STGCN++ (the j config with tcn_use_pallas=True, which
+    training ignores) through train_step at the config's batch (16 x M2 x
+    T100) from its RepeatDataset train set on a synthetic pickle: one GPU
+    step against the CPU's (phase 7's criteria), then timed f32 steps with
+    their peak memory, launching no kernel of the port at all."""
+    import itertools
+    import tempfile
+    from dsgcn_tpu_torch.data.dataset import (Loader, RepeatDataset,
+                                              build_dataset,
+                                              make_synthetic_pose_dataset)
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    cfg = stgcnpp_config(True)
+    batch = cfg["data"]["videos_per_gpu"]
+    check(batch == 16 and cfg["clip_len"] == 100,
+          "the STGCN++ j config is not b16 x T100")
+    out = report["stgcnpp_train"] = dict(steps=[])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "synth.pkl")
+        make_synthetic_pose_dataset(num_samples=32, num_classes=60, t=100,
+                                    seed=14, path=path)
+        train = dict(cfg["data"]["train"])
+        train["dataset"] = dict(train["dataset"], ann_file=path,
+                                split="train")
+        loader = Loader(build_dataset(train), batch_size=batch, seed=14,
+                        drop_last=True, num_workers=8)
+        check(isinstance(loader.dataset, RepeatDataset)
+              and len(loader.dataset) == 5 * 24, "not RepeatDataset(5)")
+        batches = [as_batch(b) for b in itertools.islice(
+            loader.epoch(0), 1 + TRAIN_STEPS)]
+        cpu_batch = as_batch(next(loader.epoch(1)), CPU_CHECK_CLIPS)
+    model = init_weights_(build_model(cfg["model"]),
+                          torch.Generator().manual_seed(14)).to(dev)
+    gpu_vs_cpu_step(model, cpu_batch, out)
+    timed_steps(model, batches, "f32", card, out, {})
 
 
 def main() -> int:
@@ -1396,12 +1713,17 @@ def main() -> int:
     dg_worst, dg_fwd, dg_worst_t, dg_step = dg_kernel_checks(     # 8
         dev, rng, report)
     dg_auto, dg_options = serve_dgstgcn(dev, card, report)        # 9
+    k7_worst, k7_fwd = k7_checks(dev, report)                      # 11
+    stgcnpp_counts = serve_stgcnpp(dev, card, report)              # 12
+    serve_with_k7(dev, card, report)                               # 13
     train_counts = train(dev, card, report)                        # 7, 10
+    train_stgcnpp(dev, card, report)                               # 14
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per
     # forward at b64 x M2 x T100), K5 and K6 on DG-STGCN's 'fusedpre' and
-    # 'mega' serving paths; errors over every check of the kernel
+    # 'mega' serving paths, K7 on STGCN++'s (per forward, beside it the
+    # unfused region's time); errors over every check of the kernel
     sources = [
         ("bd_dyn_graph_agg", "bd_agg.cu", "bd_agg.py:170", main_counts,
          per_forward),
@@ -1415,13 +1737,16 @@ def main() -> int:
          dg_options["fusedpre"], dg_fwd),
         ("fused_dggcn_block_eval", "dggcn_block.cu", "dggcn_block.py:141",
          dg_options["mega"], dg_fwd),
+        ("fused_dgmstcn_eval", "ms_tcn.cu", "ms_tcn.py:156", stgcnpp_counts,
+         {"fused_dgmstcn_eval": k7_fwd["stgcnpp"]}),
     ]
+    worst_all = (worst, worst_t, dg_worst, dg_worst_t,
+                 {"fused_dgmstcn_eval": k7_worst})
     kernels = []
     for name, src, replaces, counts, times in sources:
         pf = times[name]
         check(counts[name] > 0, f"{name} was never launched on its path")
-        err = max(w.get(name, 0.0) for w in (worst, worst_t, dg_worst,
-                                             dg_worst_t))
+        err = max(w.get(name, 0.0) for w in worst_all)
         kernels.append(dict(
             name=name, route="cuda",
             source=f"dsgcn_tpu_torch/ops/kernels/csrc/{src}",
@@ -1429,7 +1754,9 @@ def main() -> int:
             launches=counts[name], max_abs_err=err, ms=pf["ms"],
             plain_ms=pf["plain_ms"], bound_ms=pf["bound_ms"],
             bound_by="/".join(sorted(pf["bound_by"])),
-            library_ms=pf["library_ms"]))
+            library_ms=pf["library_ms"],
+            **({"unfused_ms": pf["unfused_ms"]} if "unfused_ms" in pf
+               else {})))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

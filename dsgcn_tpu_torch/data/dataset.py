@@ -1,6 +1,6 @@
 """Skeleton datasets and batch loading (port of
-``dsgcn_tpu/data/dataset.py``: ``PoseDataset``, ``epoch_indices``,
-``Loader``, ``prefetch``, ``make_synthetic_pose_dataset``,
+``dsgcn_tpu/data/dataset.py``: ``PoseDataset``, ``RepeatDataset``,
+``epoch_indices``, ``Loader``, ``prefetch``, ``make_synthetic_pose_dataset``,
 ``build_dataset``).
 
 Reference parity targets: PoseDataset (datasets/pose_dataset.py:12-125)
@@ -68,6 +68,28 @@ class PoseDataset:
     @property
     def labels(self) -> np.ndarray:
         return np.array([a["label"] for a in self.video_infos])
+
+
+class RepeatDataset:
+    """A dataset repeated ``times`` times (dataset_wrappers.py:8-38): the
+    reference's way of scaling an epoch (the STGCN++ configs train on
+    ``RepeatDataset(times=5)``)."""
+
+    def __init__(self, dataset, times: int):
+        self.dataset = dataset
+        self.times = times
+
+    def __len__(self) -> int:
+        return self.times * len(self.dataset)
+
+    def prepare(self, idx: int, rng: Optional[np.random.RandomState] = None):
+        return self.dataset.prepare(idx % len(self.dataset), rng=rng)
+
+    __getitem__ = prepare
+
+    @property
+    def labels(self) -> np.ndarray:
+        return np.tile(self.dataset.labels, self.times)
 
 
 def epoch_indices(n: int, epoch: int, shuffle: bool = True,
@@ -191,13 +213,17 @@ def make_synthetic_pose_dataset(num_samples=64, num_classes=10, m=2, t=80,
     return data
 
 
-def build_dataset(dcfg: Dict, test_mode: bool = False) -> PoseDataset:
+def build_dataset(dcfg: Dict, test_mode: bool = False):
     """Config-dict dataset factory (reference datasets/builder.py:42); the
-    port has ``PoseDataset``."""
+    port has ``PoseDataset`` and the ``RepeatDataset`` wrapper."""
     dcfg = dict(dcfg)
     typ = dcfg.pop("type", "PoseDataset")
+    if typ == "RepeatDataset":
+        return RepeatDataset(build_dataset(dcfg["dataset"], test_mode),
+                             dcfg.get("times", 1))
     if typ != "PoseDataset":
         raise NotImplementedError(f"dataset {typ!r} is not ported yet (the "
-                                  "port has 'PoseDataset')")
+                                  "port has 'PoseDataset' and "
+                                  "'RepeatDataset')")
     return PoseDataset(dcfg["ann_file"], dcfg["pipeline"],
                        split=dcfg.get("split"), test_mode=test_mode)

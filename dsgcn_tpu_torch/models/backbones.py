@@ -1,13 +1,16 @@
-"""DGSTGCN backbone (DG-STGCN and DS-GCN), train and eval.
+"""STGCN (ST-GCN, STGCN++) and DGSTGCN (DG-STGCN, DS-GCN) backbones, train
+and eval.
 
 The port of ``split_stage_kwargs``, ``route_prefix``, ``DataBN``,
-``ResidualTCN``, ``DGBlock``, ``stage_plan``, ``_BackboneBase`` and
-``DGSTGCN`` from ``dsgcn_tpu/models/backbones.py``: the 10-stage template
-of the reference (stgcn.py:100-128), channel inflation x2 and temporal
-stride 2 at stages 5 and 8, block = spatial GCN (``dggcn`` for DG-STGCN,
-``dgphgcn1`` for DS-GCN) -> temporal conv (``dgmstcn``) (+ residual, ReLU).
-Input ``(N, M, T, V, C)`` channels-last, output ``(N, M, T/4, V, C_out)``.
-Blocks are named ``block{i}`` as the flax scopes are.
+``_make_tcn``, ``ResidualTCN``, ``STGCNBlock``, ``DGBlock``,
+``stage_plan``, ``_BackboneBase``, ``STGCN`` and ``DGSTGCN`` from
+``dsgcn_tpu/models/backbones.py``: the 10-stage template of the reference
+(stgcn.py:100-128), channel inflation x2 and temporal stride 2 at stages 5
+and 8, block = spatial GCN (``unit_gcn`` for STGCN, ``dggcn`` for
+DG-STGCN, ``dgphgcn1`` for DS-GCN) -> temporal conv (``unit_tcn``,
+``mstcn`` or ``dgmstcn``) (+ residual, ReLU).  Input ``(N, M, T, V, C)``
+channels-last, output ``(N, M, T/4, V, C_out)``.  Blocks are named
+``block{i}`` as the flax scopes are.
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ from torch import nn
 
 from ..graph import Graph, GraphConfig
 from ..ops.common import BatchNorm
-from ..ops.gcn import DGGCN, DGPHGCN1
-from ..ops.tcn import DGMSTCN, UnitTCN
+from ..ops.gcn import DGGCN, DGPHGCN1, UnitGCN
+from ..ops.tcn import DGMSTCN, MSTCN, UnitTCN
 
 EPS = 1e-4
 
@@ -58,6 +61,27 @@ def tuple_ify(v):
     return tuple(v) if isinstance(v, list) else v
 
 
+def _make_tcn(tcn_type: str, in_channels: int, out_channels: int,
+              stride: int, tcn_kwargs: Dict[str, Any]) -> nn.Module:
+    """The temporal unit of a block (JAX backbones.py:85-115): 'unit_tcn'
+    (k = 9), 'mstcn' or 'dgmstcn'.  The temporal-MLP kinds ('unitmlp',
+    'msmlp', 'gcmlp', 'dgmsmlp') are not ported."""
+    kw = {k: (tuple(map(tuple_ify, v)) if k == "ms_cfg" else v)
+          for k, v in tcn_kwargs.items()}
+    if tcn_type == "unit_tcn":
+        return UnitTCN(in_channels, out_channels, kernel_size=9,
+                       stride=stride, **kw)
+    if tcn_type == "mstcn":
+        return MSTCN(in_channels, out_channels, stride=stride, **kw)
+    if tcn_type == "dgmstcn":
+        return DGMSTCN(in_channels, out_channels, stride=stride, **kw)
+    if tcn_type in ("unitmlp", "msmlp", "gcmlp", "dgmsmlp"):
+        raise NotImplementedError(
+            f"tcn_type={tcn_type!r} is not ported yet (the port has "
+            "'unit_tcn', 'mstcn' and 'dgmstcn')")
+    raise ValueError(f"unknown tcn type {tcn_type!r}")
+
+
 class DataBN(BatchNorm):
     """Input batchnorm over the flattened joint-channel features of each
     frame (reference stgcn.py:93-98, BatchNorm1d over V*C), kind 'VC'."""
@@ -86,9 +110,31 @@ class ResidualTCN(nn.Module):
         return x if self.identity else self.down(x)
 
 
+class STGCNBlock(nn.Module):
+    """unit_gcn + temporal unit + residual (reference STGCNBlock,
+    stgcn.py:16-68)."""
+
+    def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
+                 stride: int = 1, residual: bool = True,
+                 gcn_kwargs: Optional[Dict[str, Any]] = None,
+                 tcn_type: str = "unit_tcn",
+                 tcn_kwargs: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        self.residual = ResidualTCN(in_channels, out_channels, stride,
+                                    residual)
+        self.gcn = UnitGCN(in_channels, out_channels, A_init=A,
+                           **(gcn_kwargs or {}))
+        self.tcn = _make_tcn(tcn_type, out_channels, out_channels, stride,
+                             tcn_kwargs or {})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = self.residual(x)
+        return F.relu(self.tcn(self.gcn(x)) + res)
+
+
 class DGBlock(nn.Module):
-    """{dggcn | dgphgcn1} + dgmstcn (reference dgstgcn.py:12-65); the edge
-    and node types go to dgphgcn1 only."""
+    """{dggcn | dgphgcn1} + {unit_tcn | mstcn | dgmstcn} (reference
+    dgstgcn.py:12-65); the edge and node types go to dgphgcn1 only."""
 
     def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
                  edge_type: Optional[np.ndarray],
@@ -102,13 +148,6 @@ class DGBlock(nn.Module):
             raise NotImplementedError(
                 f"gcn_type={gcn_type!r} is not ported yet (the port has "
                 "'dggcn' and 'dgphgcn1')")
-        if tcn_type != "dgmstcn":
-            raise NotImplementedError(
-                f"tcn_type={tcn_type!r} is not ported yet (the port has "
-                "'dgmstcn')")
-        tcn_kwargs = dict(tcn_kwargs or {})
-        if "ms_cfg" in tcn_kwargs:
-            tcn_kwargs["ms_cfg"] = tuple(map(tuple_ify, tcn_kwargs["ms_cfg"]))
         self.residual = ResidualTCN(in_channels, out_channels, stride,
                                     residual)
         if gcn_type == "dggcn":
@@ -118,8 +157,8 @@ class DGBlock(nn.Module):
             self.gcn = DGPHGCN1(in_channels, out_channels, A_init=A,
                                 edge_type=edge_type, node_type=node_type,
                                 **(gcn_kwargs or {}))
-        self.tcn = DGMSTCN(out_channels, out_channels, stride=stride,
-                           **tcn_kwargs)
+        self.tcn = _make_tcn(tcn_type, out_channels, out_channels, stride,
+                             tcn_kwargs or {})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         res = self.residual(x)
@@ -221,3 +260,19 @@ class DGSTGCN(_BackboneBase):
                        node_type=nt, stride=stride, residual=residual,
                        gcn_type=gcn_type, gcn_kwargs=gcn_kwargs,
                        tcn_type=tcn_type, tcn_kwargs=tcn_kwargs)
+
+
+class STGCN(_BackboneBase):
+    """ST-GCN and STGCN++ (reference stgcn.py:71-153): blocks of unit_gcn
+    and tcn_type 'unit_tcn' (the default) or 'mstcn'.  STGCN++ is
+    block_args dict(gcn_adaptive='init', gcn_with_res=True,
+    tcn_type='mstcn') (configs/stgcnpp/STGCNPP_60_model.py)."""
+
+    def make_block(self, i, graph, A, in_c, out_c, stride, residual, kwargs):
+        kwargs = dict(kwargs)
+        kwargs.pop("_lw_index", None)
+        gcn_kwargs, tcn_kwargs = route_prefix(kwargs)
+        tcn_type = tcn_kwargs.pop("type", "unit_tcn")
+        return STGCNBlock(in_c, out_c, A=A, stride=stride, residual=residual,
+                          gcn_kwargs=gcn_kwargs, tcn_type=tcn_type,
+                          tcn_kwargs=tcn_kwargs)

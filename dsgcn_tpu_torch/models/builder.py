@@ -1,8 +1,9 @@
 """Model factory: config dict -> RecognizerGCN module.
 
 The port of ``dsgcn_tpu/models/builder.py`` for what the port has: the
-``DGSTGCN`` backbone in its DG-STGCN and DS-GCN forms and the ``GCNHead``.
-Config keys are the JAX package's.
+``STGCN`` backbone (ST-GCN, STGCN++; alias ``MEGASTGCN``), the ``DGSTGCN``
+backbone in its DG-STGCN and DS-GCN forms and the ``GCNHead``.  Config keys
+are the JAX package's.
 """
 from __future__ import annotations
 
@@ -14,11 +15,12 @@ import torch
 from torch import nn
 
 from ..graph import GraphConfig
-from .backbones import DGSTGCN
+from ..ops.gcn import UnitGCN
+from .backbones import DGSTGCN, STGCN
 from .heads import GCNHead
 from .recognizer import RecognizerGCN
 
-BACKBONES = {"DGSTGCN": DGSTGCN}
+BACKBONES = {"STGCN": STGCN, "MEGASTGCN": STGCN, "DGSTGCN": DGSTGCN}
 HEADS = {"GCNHead": GCNHead}
 
 _BACKBONE_FIELDS = {
@@ -36,14 +38,16 @@ def _lookup(table, typ, what):
 
 def build_backbone(cfg: Dict[str, Any]):
     cfg = copy.deepcopy(dict(cfg))
-    cls = _lookup(BACKBONES, cfg.pop("type"), "backbone")
+    typ = cfg.pop("type")
+    cls = _lookup(BACKBONES, typ, "backbone")
     gc = cfg.pop("graph_cfg")
     if not isinstance(gc, GraphConfig):
         gc = GraphConfig(**gc)
-    # the dynamic-graph kernels are the default: the CUDA kernels on a CUDA
-    # device, their plain versions on the CPU (builder.py:100-101 defaults
-    # them on where Pallas runs)
-    cfg.setdefault("gcn_use_pallas", True)
+    if typ == "DGSTGCN":
+        # the dynamic-graph kernels are the default: the CUDA kernels on a
+        # CUDA device, their plain versions on the CPU (builder.py:91-101
+        # defaults them on where Pallas runs, for DGSTGCN only)
+        cfg.setdefault("gcn_use_pallas", True)
     fields = {k: v for k, v in cfg.items() if k in _BACKBONE_FIELDS}
     for k in ("inflate_stages", "down_stages"):
         if k in fields:
@@ -79,18 +83,29 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
               graph_seed: int = 0, use_pallas=None) -> Dict[str, Any]:
     """The reference's published setup of a ported model.
 
+    * stgcn: plain ST-GCN (stgcn_spatial graph, unit_tcn)
+    * stgcn++: gcn_adaptive='init', gcn_with_res, mstcn
+      (configs/stgcnpp/STGCNPP_60_model.py)
     * dgstgcn: dggcn+dgmstcn, random graph (DG-STGCN, configs/dgstgcn
       upstream)
     * dsgcn: dgphgcn1 with semantic node+edge attention, decompose,
       subset_wise, ratio=0.125 (configs/dsstgcn/DSSTGCN_model.py)
 
-    ``use_pallas`` sets ``gcn_use_pallas`` and ``tcn_use_pallas`` as the
-    JAX package does; the port has no fused TCN kernel (K7) yet, so
-    ``tcn_use_pallas=True`` raises when the model is built.
+    ``use_pallas`` sets ``gcn_use_pallas`` and ``tcn_use_pallas`` of the
+    DGSTGCN models, as the JAX package does (builder.py:196-198); STGCN++
+    takes the fused TCN kernel K7 with
+    ``cfg['backbone']['tcn_use_pallas'] = True``.
     """
     graph = dict(layout=layout, mode="random", init_off=0.04, init_std=0.02,
                  seed=graph_seed)
-    if name == "dgstgcn":
+    if name == "stgcn":
+        bb = dict(type="STGCN",
+                  graph_cfg=dict(layout=layout, mode="stgcn_spatial"))
+    elif name == "stgcn++":
+        bb = dict(type="STGCN", gcn_adaptive="init", gcn_with_res=True,
+                  tcn_type="mstcn",
+                  graph_cfg=dict(layout=layout, mode="spatial"))
+    elif name == "dgstgcn":
         bb = dict(type="DGSTGCN", gcn_type="dggcn", gcn_ratio=0.25,
                   gcn_ctr="T", gcn_ada="T", tcn_type="dgmstcn",
                   graph_cfg=dict(graph, num_filter=8))
@@ -101,9 +116,10 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
                   gcn_ctr="T", gcn_ada="T", tcn_type="dgmstcn",
                   graph_cfg=dict(graph, num_filter=3))
     else:
-        raise NotImplementedError(f"model {name!r} is not ported yet "
-                                  "(the port has 'dgstgcn' and 'dsgcn')")
-    if use_pallas is not None:
+        raise NotImplementedError(f"model {name!r} is not ported yet (the "
+                                  "port has 'stgcn', 'stgcn++', 'dgstgcn' "
+                                  "and 'dsgcn')")
+    if use_pallas is not None and bb["type"] == "DGSTGCN":
         bb["gcn_use_pallas"] = use_pallas
         bb["tcn_use_pallas"] = use_pallas
     head = dict(type="GCNHead", num_classes=num_classes, in_channels=256)
@@ -120,12 +136,15 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     package's initializers (``dsgcn_tpu/ops/common.py``): every 1x1 and
     temporal conv kernel and bias U(+-1/sqrt(fan_in)) (torch's defaults,
     fan_in = in_channels * kernel size), the classifier N(0, init_std) with
-    a zero bias.  Graphs, gates, joint coefficients and BatchNorms keep
-    their deterministic initial values.  The generator lives on the CPU;
-    call this before moving the model to its device."""
+    a zero bias, a UnitGCN's 'offset' PA U(0, 2e-6).  Graphs, gates, joint
+    coefficients and BatchNorms keep their deterministic initial values.
+    The generator lives on the CPU; call this before moving the model to
+    its device."""
     heads = {id(m.fc_cls) for m in model.modules() if isinstance(m, GCNHead)}
     for m in model.modules():
-        if isinstance(m, GCNHead):
+        if isinstance(m, UnitGCN) and m.adaptive == "offset":
+            m.PA.uniform_(0.0, 2e-6, generator=generator)
+        elif isinstance(m, GCNHead):
             m.fc_cls.weight.normal_(0.0, m.init_std, generator=generator)
             m.fc_cls.bias.zero_()
         elif isinstance(m, (nn.Linear, nn.Conv2d)) and id(m) not in heads:

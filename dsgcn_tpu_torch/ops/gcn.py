@@ -1,9 +1,11 @@
-"""Spatial graph convolutions of DG-STGCN and DS-GCN (channels-last
-``(N, T, V, C)``).
+"""Spatial graph convolutions of STGCN++, DG-STGCN and DS-GCN
+(channels-last ``(N, T, V, C)``).
 
-The ports of ``dsgcn_tpu/ops/gcn.py:DGGCN`` (DG-STGCN) and ``DGPHGCN1``
-(DS-GCN), train and eval, with the helpers they use.  Two aggregation
-paths, chosen as in the JAX modules:
+The ports of ``dsgcn_tpu/ops/gcn.py:UnitGCN`` (ST-GCN, STGCN++: a static
+graph, contracted with ``torch.einsum`` as JAX leaves it to XLA),
+``DGGCN`` (DG-STGCN) and ``DGPHGCN1`` (DS-GCN), train and eval, with the
+helpers they use.  DGGCN and DGPHGCN1 have two aggregation paths, chosen
+as in the JAX modules:
 
 * ``use_pallas=True`` (``build_backbone``'s default): the dynamic-graph
   kernels.  Training always runs K1 and its backward K2 as one autograd
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm, PointConv, fold_bn
+from .common import BatchNorm, PointConv, accum_dtype, fold_bn
 from .kernels.bd_agg import bd_dyn_graph_agg, bd_dyn_graph_agg_subset
 from .kernels.dggcn_block import fused_dggcn_block_eval
 from .kernels.dyn_graph import (edge_onehot, fused_dyn_graph_agg,
@@ -42,6 +44,72 @@ ACTS = {
     # softmax over the source-joint (row) axis of the (..., v, w) graph
     "softmax": lambda x: torch.softmax(x, dim=-2),
 }
+
+
+class UnitGCN(nn.Module):
+    """ST-GCN / STGCN++ spatial conv (reference unit_gcn, gcn.py:22-97; JAX
+    ``dsgcn_tpu/ops/gcn.py:UnitGCN``), x (N, T, V, C_in) -> (N, T, V,
+    C_out).
+
+    ``adaptive``: None (the fixed graph), 'init' (a per-block ``A``
+    parameter, a copy of ``A_init``), 'offset' (``A + PA - 1e-6``, ``PA``
+    drawn from U(0, 2e-6)) or 'importance' (``A * PA``, ``PA`` ones).
+    ``conv_pos`` 'pre' runs the 1x1 before the graph contraction, 'post'
+    after it; ``with_res`` adds the input (or its 1x1 + BN where the width
+    changes) before the final ReLU.  The contraction runs in
+    :func:`accum_dtype` and rounds to x's type, as JAX's einsum does.  The
+    external graph of STGCN_GC (``A_ext``) is not ported.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, adaptive="init", conv_pos="pre",
+                 with_res=False):
+        super().__init__()
+        if adaptive not in (None, "init", "offset", "importance"):
+            raise ValueError(f"unknown adaptive {adaptive!r}")
+        if conv_pos not in ("pre", "post"):
+            raise ValueError(f"unknown conv_pos {conv_pos!r}")
+        K, V, _ = A_init.shape
+        self.K, self.out_channels = K, out_channels
+        self.adaptive, self.conv_pos, self.with_res = (adaptive, conv_pos,
+                                                       with_res)
+        if with_res and in_channels != out_channels:
+            self.down_conv = PointConv(in_channels, out_channels)
+            self.down_bn = BatchNorm(out_channels)
+        # a copy: blocks are built from one numpy graph and must not share it
+        A = torch.tensor(np.asarray(A_init), dtype=torch.float32)
+        if adaptive == "init":
+            self.A = nn.Parameter(A)
+        else:                      # a constant, as in JAX: not in the state
+            self.register_buffer("A", A, persistent=False)
+        if adaptive == "offset":
+            self.PA = nn.Parameter(torch.empty(K, V, V).uniform_(0, 2e-6))
+        elif adaptive == "importance":
+            self.PA = nn.Parameter(torch.ones(K, V, V))
+        self.conv = (PointConv(in_channels, out_channels * K)
+                     if conv_pos == "pre" else
+                     PointConv(K * in_channels, out_channels))
+        self.bn = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, t, v, c = x.shape
+        acc = accum_dtype(x.dtype)
+        res = 0.0
+        if self.with_res:
+            res = (self.down_bn(self.down_conv(x))
+                   if c != self.out_channels else x)
+        A = self.A.to(acc)
+        if self.adaptive == "offset":
+            A = A + (self.PA.to(acc) - 1e-6)
+        elif self.adaptive == "importance":
+            A = A * self.PA.to(acc)
+        if self.conv_pos == "pre":
+            y = self.conv(x).reshape(n, t, v, self.K, self.out_channels)
+            y = torch.einsum("ntvkc,kvw->ntwc", y.to(acc), A).to(x.dtype)
+        else:
+            y = torch.einsum("ntvc,kvw->ntwkc", x.to(acc), A).to(x.dtype)
+            y = self.conv(y.reshape(n, t, v, self.K * c))
+        return F.relu(self.bn(y) + res)
 
 
 def _type_gather(x: torch.Tensor, node_type: torch.Tensor,

@@ -42,6 +42,8 @@ SIGNATURES = {
                        [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P]),
     "dggcn_block": ("dsgcn_dggcn_block",
                     [_P, _P, _I] + [_P] * 14 + [_I] * 9 + [_P]),
+    "ms_tcn": ("dsgcn_ms_tcn", [_P, _P, _I, _P] + [_P] * 12 + [_I] * 14
+               + [_P]),
 }
 
 _lock = threading.Lock()
@@ -179,11 +181,13 @@ def check_limits(name: str, N: int, V: int, E: int) -> None:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """K3-K6 are eval-only (their TPU kernels have no backward): refuse
-    inputs that need a gradient.  Training aggregates through K1 and K2."""
+    """K3-K7 are eval-only (their TPU kernels have no backward): refuse
+    inputs that need a gradient.  Training aggregates through K1 and K2,
+    and takes the module path of the temporal convs."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} is eval-only and has no backward; call it under "
             "torch.no_grad() or torch.inference_mode(), or train through "
-            "fused_dyn_graph_agg (K1 and its backward K2)")
+            "fused_dyn_graph_agg (K1 and its backward K2) and the temporal "
+            "convs' module path")

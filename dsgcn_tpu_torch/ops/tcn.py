@@ -1,11 +1,15 @@
-"""Temporal convolution ops of DS-GCN (channels-last ``(N, T, V, C)``).
+"""Temporal convolution ops (channels-last ``(N, T, V, C)``).
 
-The port of ``UnitTCN``, ``_MSBranches`` and ``DGMSTCN`` from
-``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN runs the reference
-``concat`` layout, which is also the layout JAX trains with: the mean joint
-is appended as an extra joint row, the branch stack runs once (so in
-training the branch BatchNorms see the 26th joint), and the global row is
-scaled back onto every joint (tcn.py:428-460).  Submodule names follow the JAX module's flax scopes.
+The port of ``UnitTCN``, ``_MSBranches``, ``MSTCN`` (STGCN++) and
+``DGMSTCN`` (DG-STGCN, DS-GCN) from ``dsgcn_tpu/ops/tcn.py``, train and
+eval.  DGMSTCN runs the reference ``concat`` layout, which is also the
+layout JAX trains with: the mean joint is appended as an extra joint row,
+the branch stack runs once (so in training the branch BatchNorms see the
+26th joint), and the global row is scaled back onto every joint
+(tcn.py:428-460).  With ``use_pallas=True`` both take the fused eval kernel
+K7 (``ops/kernels/ms_tcn.py``) in eval where JAX does (``DEFAULT_MS_CFG``,
+default widths); training keeps the module path.  Submodule names follow
+the JAX modules' flax scopes.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import BatchNorm, PointConv, TemporalConv, dropout, max_pool_t
+from .kernels.ms_tcn import fused_dgmstcn_eval
 
 MsCfgEntry = Union[str, Tuple[Union[str, int], int]]
 DEFAULT_MS_CFG: Tuple[MsCfgEntry, ...] = ((3, 1), (3, 2), (3, 3), (3, 4),
@@ -52,6 +57,7 @@ class _MSBranches(nn.Module):
         super().__init__()
         self.ms_cfg = tuple(ms_cfg)
         self.stride = stride
+        self.mid_channels = mid_channels
         nb = len(self.ms_cfg)
         if mid_channels is None:
             mid = out_channels // nb
@@ -90,13 +96,93 @@ class _MSBranches(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
+def _k7_applies(mod) -> bool:
+    """JAX's condition for the fused eval kernel (tcn.py:231-233, :337-340):
+    eval, the default branches at the default widths."""
+    return (mod.use_pallas and not mod.training
+            and mod.branches.mid_channels is None
+            and mod.branches.ms_cfg == DEFAULT_MS_CFG)
+
+
+def fused_ms_eval(mod: nn.Module, x: torch.Tensor,
+                  coeff: Optional[torch.Tensor]) -> torch.Tensor:
+    """The eval region of an ``MSTCN`` (``coeff=None``) or ``DGMSTCN`` in
+    K7 (JAX ``tcn.py:_fused_ms_eval``): every BatchNorm folded into an
+    affine, each branch BN into its pre 1x1's columns, the weights gathered
+    per branch in the JAX (in, out) orientation.  The folding runs in
+    float32 whatever the parameters' type, as JAX promotes bf16 parameters
+    against float32 statistics."""
+    br, f32 = mod.branches, torch.float32
+    w_pre, b_pre, taps_w, taps_b, dilations = [], [], [], [], []
+    for i, cfg in enumerate(br.ms_cfg):
+        if cfg == "1x1":
+            conv = getattr(br, f"branch{i}_conv").conv
+            w11 = conv.weight.float()[:, :, 0, 0].t()        # (C, mid)
+            b11 = conv.bias.float()
+            continue
+        a, b = getattr(br, f"branch{i}_bn").affine(f32)
+        pre = getattr(br, f"branch{i}_pre")
+        w_pre.append(pre.weight.float().t() * a[None])
+        b_pre.append(pre.bias.float() * a + b)
+        kind, val = cfg
+        if kind != "max":
+            conv = getattr(br, f"branch{i}_tcn").conv.conv   # (O, I, 3, 1)
+            taps_w.append(conv.weight.float()[..., 0].permute(2, 1, 0))
+            taps_b.append(conv.bias.float())
+            dilations.append(val)
+    a_tr, b_tr = mod.transform_bn.affine(f32)
+    a_out, b_out = mod.bn.affine(f32)
+    tc = mod.transform_conv
+    # the kernel reads x row-major; UnitGCN's einsum may leave it permuted
+    return fused_dgmstcn_eval(
+        x.contiguous(), torch.cat(w_pre, 1), torch.cat(b_pre), taps_w, taps_b, w11, b11,
+        a_tr, b_tr, tc.weight.float().t(), tc.bias.float(), a_out, b_out,
+        coeff, dilations=dilations, stride=br.stride)
+
+
+class MSTCN(nn.Module):
+    """STGCN++ multi-scale TCN (reference mstcn, tcn.py:104-180): the
+    branches, then BN -> ReLU -> 1x1 transform -> BN.  ``dropout`` acts in
+    training only, its mask drawn from ``self.generator``.  The JAX
+    module's ``branch_kind='mlp'`` (msmlp) is not ported and raises."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 mid_channels: Optional[float] = None, dropout: float = 0.0,
+                 ms_cfg: Sequence[MsCfgEntry] = DEFAULT_MS_CFG,
+                 stride: int = 1, branch_kind: str = "tcn",
+                 use_pallas: bool = False):
+        super().__init__()
+        if branch_kind != "tcn":
+            raise NotImplementedError(
+                f"MSTCN branch_kind={branch_kind!r} is not ported yet (the "
+                "port has 'tcn')")
+        self.branches = _MSBranches(in_channels, out_channels, mid_channels,
+                                    ms_cfg, stride)
+        width = sum(self.branches.widths)
+        self.transform_bn = BatchNorm(width)
+        self.transform_conv = PointConv(width, out_channels)
+        self.bn = BatchNorm(out_channels)
+        self.dropout = dropout
+        self.use_pallas = use_pallas
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _k7_applies(self):
+            return fused_ms_eval(self, x, None)
+        feat = self.transform_conv(F.relu(self.transform_bn(
+            self.branches(x))))
+        return dropout(self.bn(feat), self.dropout, self.training,
+                       self.generator)
+
+
 class DGMSTCN(nn.Module):
     """DG-STGCN multi-scale TCN with a global joint-mean branch (reference
-    dgmstcn, tcn.py:344-431) in the ``concat`` layout.  ``dropout`` acts in
-    training only, its mask drawn from ``self.generator`` (a
-    ``torch.Generator`` on the activations' device, or None for torch's
-    default).  The JAX module's ``split`` eval layout, ``branch_kind='mlp'``
-    and fused eval kernel (K7, ``use_pallas=True``) are not ported yet.
+    dgmstcn, tcn.py:344-431) in the ``concat`` layout, or K7 in eval with
+    ``use_pallas=True``.  ``dropout`` acts in training only, its mask drawn
+    from ``self.generator`` (a ``torch.Generator`` on the activations'
+    device, or None for torch's default).  The JAX module's ``split`` eval
+    layout (an exact rewrite of the same math) and ``branch_kind='mlp'``
+    are not ported.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -105,11 +191,6 @@ class DGMSTCN(nn.Module):
                  ms_cfg: Sequence[MsCfgEntry] = DEFAULT_MS_CFG,
                  stride: int = 1, use_pallas: bool = False):
         super().__init__()
-        if use_pallas:
-            raise NotImplementedError(
-                "tcn_use_pallas needs the fused DGMSTCN eval kernel K7 "
-                "(dsgcn_tpu/ops/pallas/ms_tcn.py:fused_dgmstcn_eval), which "
-                "is not ported yet")
         self.branches = _MSBranches(in_channels, out_channels, mid_channels,
                                     ms_cfg, stride)
         width = sum(self.branches.widths)
@@ -118,10 +199,13 @@ class DGMSTCN(nn.Module):
         self.transform_conv = PointConv(width, out_channels)
         self.bn = BatchNorm(out_channels)
         self.dropout = dropout
+        self.use_pallas = use_pallas
         self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         v = x.shape[2]
+        if _k7_applies(self):
+            return fused_ms_eval(self, x, self.add_coeff[:v])
         # append the global mean joint as row v (tcn.py:409)
         xg = torch.cat([x, x.mean(dim=2, keepdim=True)], dim=2)
         out = self.branches(xg)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels K1 (fused_dyn_graph_agg forward), K2 (its
 backward), K3 (bd_dyn_graph_agg), K4 (bd_dyn_graph_agg_subset), K5
-(fused_dyn_graph_agg_eval) and K6 (fused_dggcn_block_eval) against their
-plain PyTorch versions on the card, the K1+K2 autograd Function, a narrow
-DG-STGCN's eval options on the card against the CPU, and one DS-GCN train
-step on the card against the same step on the CPU.
+(fused_dyn_graph_agg_eval), K6 (fused_dggcn_block_eval) and K7
+(fused_dgmstcn_eval) against their plain PyTorch versions on the card, the
+K1+K2 autograd Function, a narrow DG-STGCN's eval options on the card
+against the CPU, MSTCN through K7, and one DS-GCN train step on the card
+against the same step on the CPU.
 
 Marked ``cuda``: they skip without a GPU.  The file imports no JAX, so it
 runs on a GPU machine without it; there, run it without the JAX-side
@@ -29,6 +30,9 @@ from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
     fused_dyn_graph_agg, fused_dyn_graph_agg_bwd, fused_dyn_graph_agg_eval,
     reference_dyn_graph_agg, reference_dyn_graph_agg_bwd,
     reference_dyn_graph_agg_eval)
+from dsgcn_tpu_torch.ops.kernels.ms_tcn import (fused_dgmstcn_eval,
+                                                reference_fused_dgmstcn_eval)
+from dsgcn_tpu_torch.ops.tcn import MSTCN
 from torch_port_cases import CASES, E, block_inputs, k3_packaging, to_torch
 
 K2_OUTS = ("dpre", "dx1", "dx2", "dA", "dalpha", "dbeta", "dedge_w",
@@ -400,3 +404,95 @@ def test_cuda_dgstgcn_eval_options_match_cpu(cuda):
         # fusedpre: K5 where c >= 64 (three of four blocks), K1 in the stem
         assert fn.launches - n == (3 if ek == "fusedpre" else 4), ek
         assert _rel(got.cpu(), want) <= 1e-4, (ek, _rel(got.cpu(), want))
+
+
+# ---------------------------------------------------------------------------
+# K7: the fused multi-branch temporal conv
+# ---------------------------------------------------------------------------
+
+def _k7_args(cuda, dtype, C, T, coeff, seed, N=4):
+    """x and the folded weights of a C -> C region (mid C // 6)."""
+    gen = torch.Generator().manual_seed(seed)
+    mid = C // 6
+    rem = C - 5 * mid
+    P = rem + 4 * mid
+
+    def w(*s):
+        return (torch.randn(*s, generator=gen) / s[-2] ** 0.5).to(cuda)
+
+    def b(n):
+        return (0.1 * torch.randn(n, generator=gen)).to(cuda)
+
+    def a(n):
+        return (0.5 + torch.rand(n, generator=gen)).to(cuda)
+    widths = (rem, mid, mid, mid)
+    x = torch.randn(N, T, 25, C, generator=gen).to(cuda, dtype)
+    args = [x, w(C, P), b(P), [w(3, cb, cb) for cb in widths],
+            [b(cb) for cb in widths], w(C, mid), b(mid), a(C), b(C),
+            w(C, C), b(C), a(C), b(C)]
+    c = (torch.rand(25, generator=gen) - 0.5).to(cuda) if coeff else None
+    return args + [c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T,stride,coeff", [
+    (64, 100, 1, True), (128, 51, 2, False), (256, 25, 2, True)])
+def test_cuda_k7_matches_plain(cuda, C, T, stride, coeff, dtype):
+    """K7 at STGCN++ / DG-STGCN widths, with and without the pseudo-joint,
+    stride 1 and 2 (odd T): f32 within 1e-5 of the largest output (the same
+    float32 sums in another order); bf16 within 2e-2 (the output is rounded
+    to bf16 once on both sides, and a sum in another order may round the
+    other way)."""
+    args = _k7_args(cuda, dtype, C, T, coeff, seed=C + T)
+    n = fused_dgmstcn_eval.launches
+    got = fused_dgmstcn_eval(*args, stride=stride)
+    assert fused_dgmstcn_eval.launches == n + 1
+    want = reference_fused_dgmstcn_eval(*args, stride=stride)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_k7_refuses(cuda):
+    """A wrong shape or type and inputs that need a gradient raise before a
+    launch."""
+    args = _k7_args(cuda, torch.float32, 64, 8, True, seed=1)
+    n = fused_dgmstcn_eval.launches
+    bad = list(args)
+    bad[9] = args[9][:, :32]                      # w_tc (C', C'/2)
+    with pytest.raises(ValueError, match="w_tc"):
+        fused_dgmstcn_eval(*bad)
+    bad = list(args)
+    bad[0] = args[0].double()
+    with pytest.raises(TypeError):
+        fused_dgmstcn_eval(*bad)
+    args[1].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="eval-only"):
+        fused_dgmstcn_eval(*args)
+    assert fused_dgmstcn_eval.launches == n
+
+
+@pytest.mark.cuda
+def test_cuda_mstcn_launches_k7_once(cuda):
+    """An eval MSTCN with use_pallas=True on the card, given a permuted
+    (non-contiguous) input as UnitGCN's einsum may leave it: one K7 launch
+    per forward, the CPU module's output within 1e-4 of its largest entry
+    (float32 sums in another order, through cuDNN and cuBLAS on the
+    module side)."""
+    gen = torch.Generator().manual_seed(2)
+    cpu = MSTCN(64, 64, stride=2)
+    init_weights_(cpu, gen)
+    cpu.eval()
+    x = torch.randn(2, 20, 64, 25, generator=gen).transpose(-1, -2)
+    with torch.no_grad():
+        want = cpu(x)
+        gpu = copy.deepcopy(cpu).to(cuda)
+        gpu.use_pallas = True
+        n = fused_dgmstcn_eval.launches
+        got = gpu(x.to(cuda))
+    torch.cuda.synchronize()
+    assert fused_dgmstcn_eval.launches == n + 1
+    assert _rel(got.cpu(), want) <= 1e-4
+

@@ -1,8 +1,9 @@
 """Port parity, DG-STGCN: the kernels K4 (bd_dyn_graph_agg_subset), K5
 (fused_dyn_graph_agg_eval) and K6 (fused_dggcn_block_eval), the DGGCN
 module in eval and train, DGPHGCN1's 'mega' path, a narrow DG-STGCN
-recognizer, a float64 train step and ``model_cfg('dgstgcn')`` of
-``dsgcn_tpu_torch`` against ``dsgcn_tpu`` on the CPU.
+recognizer (also with ``tcn_use_pallas``, the fused TCN kernel K7), a
+float64 train step and ``model_cfg('dgstgcn')`` of ``dsgcn_tpu_torch``
+against ``dsgcn_tpu`` on the CPU.
 
 On the CPU each kernel wrapper runs its plain PyTorch version; the JAX side
 runs its Pallas kernels in interpret mode.  Inputs are numpy from a seed.
@@ -39,6 +40,7 @@ from dsgcn_tpu_torch.ops.kernels.bd_agg import (
 from dsgcn_tpu_torch.ops.kernels.dggcn_block import fused_dggcn_block_eval
 from dsgcn_tpu_torch.ops.kernels.dyn_graph import (fused_dyn_graph_agg_bwd,
                                                    fused_dyn_graph_agg_eval)
+from dsgcn_tpu_torch.ops.kernels.ms_tcn import fused_dgmstcn_eval
 from test_torch_port_grad import _train_parity, assert_rel
 from test_torch_port_model import (GCN_KW, MODEL_TOL, MODULE_TOL, _load,
                                    _run)
@@ -439,8 +441,26 @@ def test_model_cfg_dgstgcn_matches_jax(use_pallas):
                            use_pallas=use_pallas))
 
 
-def test_tcn_use_pallas_raises_naming_k7():
-    with pytest.raises(NotImplementedError, match="K7"):
-        build_named_model("dgstgcn", use_pallas=True)
-    model = build_named_model("dgstgcn", use_pallas=False)
-    assert not model.backbone.block9.gcn.use_pallas
+def test_tcn_use_pallas_raises_naming_k7(narrow_dgstgcn):
+    """``tcn_use_pallas=True`` (the fused TCN kernel K7; it raised, naming
+    K7, while K7 had no port) builds DG-STGCN at full width with K7 in
+    every DGMSTCN, and the narrow model's logits on the CPU (the GCN
+    kernels' and K7's plain versions) match JAX's K7 path in interpret
+    mode."""
+    model = build_named_model("dgstgcn", use_pallas=True)
+    assert all(getattr(model.backbone, f"block{i}").tcn.use_pallas
+               and getattr(model.backbone, f"block{i}").gcn.use_pallas
+               for i in range(10))
+    assert not build_named_model("dgstgcn", use_pallas=False) \
+        .backbone.block9.tcn.use_pallas
+    tcfg, v, x, _ = narrow_dgstgcn
+    jcfg, _ = _cfgs()
+    jcfg["backbone"].update(tcn_use_pallas=True, tcn_pallas_interpret=True)
+    want = np.asarray(j_build_model(jcfg).apply(v, jnp.asarray(x),
+                                                train=False))
+    tcfg = dict(tcfg, backbone=dict(tcfg["backbone"], gcn_use_pallas=True,
+                                    tcn_use_pallas=True))
+    before = fused_dgmstcn_eval.launches
+    np.testing.assert_allclose(_run(_load(build_model(tcfg), v), x), want,
+                               **MODEL_TOL)
+    assert fused_dgmstcn_eval.launches == before    # CPU: plain versions
