@@ -6,7 +6,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``dsgcn_tpu_torch/ops/kernels/csrc``
 and holds each against its plain PyTorch version on the card, in float32
-and bfloat16.  DS-GCN: phase 2 checks K1 and K3 at its serving shapes;
+and bfloat16; every timed kernel row also gives its time over the library
+call's and over its bound.  DS-GCN: phase 2 checks K1 and K3 at its
+serving shapes and times them with and without edge attention;
 phases 3-5 serve full-width DS-GCN through ``init_recognizer`` /
 ``inference_recognizer`` (random seeded weights, gates nudged off zero, BN
 statistics taken from data), check the kernels were launched on that path,
@@ -35,6 +37,9 @@ STGCN++ from its RepeatDataset train set (GPU step against CPU, timed
 steps, no kernel launched).  Phases run in the order 2-6, 8, 9, 11-13, 7,
 10, 14.  Any failed check raises, and the script exits non-zero without a
 result line.
+``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
+under the block plans near their planner's at the main paths' shapes
+(``plan_sweep``) and writes ``chiprun_out/agg_sweep.json``.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it lists the kernels with their launches, errors and
@@ -103,6 +108,15 @@ def cold_ms(fn, iters: int = 10, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.mean(times))
+
+
+def with_ratios(row):
+    """The kernel's time over the library call's and over its bound, on
+    its row (``row`` holds ms, library_ms and bound_ms)."""
+    lib = row.get("library_ms")
+    row.update(ms_over_library=row["ms"] / lib if lib else None,
+               ms_over_bound=row["ms"] / row["bound_ms"])
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +230,9 @@ def kernel_checks(dev, rng, report):
                        edge=edge)
             err = compare(name, kern(), plain(), dtype, row)
             worst[name] = max(worst.get(name, 0.0), err)
-            if Vp == V and edge:
-                # the DS-GCN path's own configuration: time it
+            if Vp == V:
+                # time the path's own configuration (edge attention on
+                # subset 1) and, beside it, the same shape without it
                 ms = cold_ms(kern, flush=flush)
                 plain_ms = cold_ms(plain, iters=3, flush=flush)
                 library_ms = cold_ms(library, flush=flush)
@@ -225,7 +240,8 @@ def kernel_checks(dev, rng, report):
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            blocks_per_forward=nblocks)
-                if dtype == torch.float32:
+                with_ratios(row)
+                if dtype == torch.float32 and edge:
                     acc = per_forward.setdefault(name, dict(
                         ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         bound_by=set()))
@@ -348,9 +364,12 @@ def k2_checks(dev, rng, report):
                 rows = [row]
                 if edge:
                     row.update(k2_times(d, args, Cm, flush))
-                    rows.append(k1_at_training_shape(d, Cm, dtype, flush))
-                    worst[rows[1]["kernel"]] = max(
-                        worst[rows[1]["kernel"]], rows[1]["max_abs_err"])
+                    with_ratios(row)
+                # K1 at the same shape, with the path's edge attention and
+                # without it
+                rows.append(k1_at_training_shape(d, Cm, dtype, flush, edge))
+                worst[rows[1]["kernel"]] = max(
+                    worst[rows[1]["kernel"]], rows[1]["max_abs_err"])
                 for r in rows:
                     r["blocks_per_step"] = nblocks
                     if edge and dtype == torch.float32:
@@ -365,19 +384,22 @@ def k2_checks(dev, rng, report):
 
 
 def k1_at_training_shape(d, Cm, dtype, flush, edge=True):
-    """K1's forward against its plain version and timed at a training block
-    shape (the forward of the step K2 differentiates)."""
+    """K1's forward against its plain version (``compare``; in bfloat16,
+    41-82M outputs at DG-STGCN's shapes, with ``graph_flips``) and timed
+    at a training block shape (the forward of the step K2
+    differentiates)."""
     kern, plain, library = kernel_calls(d, Cm, edge)["fused_dyn_graph_agg"]
     row = dict(kernel="fused_dyn_graph_agg", Cm=Cm, T=d["pre"].shape[1],
                N=N_TRAIN, K=d["A"].shape[0], dtype=str(dtype).split(".")[-1],
                edge=edge)
-    compare(row["kernel"], kern(), plain(), dtype, row)
+    compare(row["kernel"], kern(), plain(), dtype, row,
+            graph_flips(d, Cm, edge) if dtype == torch.bfloat16 else None)
     bound_ms, bound_by = bound(d, "fused_dyn_graph_agg", Cm, edge)
     row.update(ms=cold_ms(kern, flush=flush),
                plain_ms=cold_ms(plain, iters=3, flush=flush),
                library_ms=cold_ms(library, flush=flush), bound_ms=bound_ms,
                bound_by=bound_by)
-    return row
+    return with_ratios(row)
 
 
 def k2_times(d, args, Cm, flush):
@@ -670,20 +692,81 @@ def distinct(blocks):
     return list(counts.items())
 
 
-def compare(name, got, want, dtype, row):
-    """Hold a kernel's output against its plain version (TOL); returns the
-    max abs error."""
+def compare(name, got, want, dtype, row, flips=None):
+    """Hold a kernel's output against its plain version: each element
+    within TOL of itself (rtol = atol = TOL).  With ``flips`` (a bfloat16
+    output over a bfloat16-rounded graph, see ``graph_flips``) at most
+    MAX_FLIPS elements may lie outside that bound, each within its own
+    bound for one graph entry rounded the other way.  Records how many
+    elements are outside the elementwise bound; returns the max abs
+    error."""
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
     tol = TOL[dtype]
-    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-    row.update(max_abs_err=err, max_abs_ref=want.float().abs().max().item(),
-               tol=tol, ok=ok)
+    off = ~torch.isclose(got.float(), want.float(), rtol=tol, atol=tol)
+    outside = int(off.sum().item())
+    ok = outside == 0
+    if flips is not None and 0 < outside <= MAX_FLIPS:
+        row["flips"] = flips(got, want, off, tol)
+        ok = all(f["explained"] for f in row["flips"])
+    row.update(max_abs_err=err, max_abs_ref=ref, tol=tol, ok=ok,
+               outside_elementwise=outside)
     check(bool(torch.isfinite(got.float()).all()),
           f"{name} non-finite output at {row}")
     check(got.dtype == want.dtype, f"{name} returned {got.dtype}")
     check(ok, f"{name} disagrees with its plain version: {row}")
     return err
+
+
+# bfloat16 outputs of K1 that may lie outside the elementwise bound, each
+# explained by one graph entry that rounds the other way (graph_flips)
+MAX_FLIPS = 10
+
+
+def graph_flips(d, Cm, edge):
+    """``compare``'s check of K1's bfloat16 outputs outside the elementwise
+    bound.  Both versions build the graph G in float32, in different
+    orders, and round it to bfloat16: an entry G[c, v, w] within a float32
+    ulp or so of a bfloat16 rounding midpoint can round up in one and down
+    in the other, which moves y[t, w, c] by pre[t, v, c] times a bfloat16
+    ulp of G.  For each such output this records the entry whose flip
+    explains the error best (its float32 value, both roundings, its
+    distance from the midpoint in float32 ulps, pre) and holds the error
+    to TOL plus the largest |pre[t, v, c]| x ulp(G[c, v, w]) over v."""
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import _ctr, _graph
+    edge_args = (d["ew"], d["eb"], d["sel"]) if edge else (None,) * 3
+
+    def explain(got, want, off, tol):
+        out = []
+        for n, t, w, kc in off.nonzero().tolist():
+            k, c = divmod(kc, Cm)
+            x1, x2 = d["x1"][n:n + 1].float(), d["x2"][n:n + 1].float()
+            ctr = _ctr(x1, x2, *edge_args, Cm, 1 if edge else -1, E)
+            g = _graph(x1, x2, d["A"], d["alpha"], d["beta"],
+                       ctr)[0][0, k, c, :, w]               # over sources v
+            gb = g.to(torch.bfloat16).float()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                gb.abs().clamp_min(1e-30))) - 7)
+            other = gb + torch.where(g >= gb, ulp, -ulp)
+            pre = d["pre"][n, t, :, kc].float()
+            e = (got[n, t, w, kc].float() - want[n, t, w, kc].float()).item()
+            v = int((pre * (other - gb) - e).abs().argmin())
+            f32_ulp = torch.exp2(torch.floor(torch.log2(
+                g[v].abs().clamp_min(1e-30))) - 23)
+            limit = (tol * (1 + abs(want[n, t, w, kc].float().item()))
+                     + (pre.abs() * ulp).max().item())
+            out.append(dict(
+                at=[n, t, w, kc], got=got[n, t, w, kc].float().item(),
+                want=want[n, t, w, kc].float().item(), err=e, v=v,
+                G_f32=g[v].item(), G_bf16=gb[v].item(),
+                G_other=other[v].item(),
+                from_midpoint_f32_ulps=(
+                    (g[v] - (gb[v] + other[v]) / 2).abs() / f32_ulp).item(),
+                pre=pre[v].item(), flip=(pre[v] * (other[v] - gb[v])).item(),
+                limit=limit, explained=abs(e) <= limit))
+        return out
+    return explain
 
 
 def block_weights(rng, dev, C, KC, Cout, down):
@@ -761,6 +844,7 @@ def dg_kernel_checks(dev, rng, report):
                                if library is not None else None),
                    bound_ms=bound[0], bound_by=bound[1],
                    blocks_per_forward=nblocks)
+        with_ratios(row)
         if nblocks:
             add_to(per_forward[row["kernel"]], row, nblocks)
 
@@ -795,7 +879,8 @@ def dg_kernel_checks(dev, rng, report):
                 done(row)
                 del d
 
-    # K1 at the blocks where 'auto' takes it (mid 16 and 32)
+    # K1 at the blocks where 'auto' takes it (mid 16 and 32), timed in both
+    # types; the f32 times make the per-forward sums
     for (C, Cout, Cm, T), nb in distinct(DG_BLOCKS):
         if Cm >= 64:
             continue
@@ -805,9 +890,9 @@ def dg_kernel_checks(dev, rng, report):
             row = dict(kernel=names[3], Cm=Cm, T=T, N=N_BLOCK, K=DG_K,
                        dtype=str(dtype).split(".")[-1], model="dgstgcn")
             compare(names[3], kern(), plain(), dtype, row)
-            if dtype == torch.float32:
-                record(row, kern, plain, library,
-                       bound(d, names[3], Cm, False), nb)
+            record(row, kern, plain, library, bound(d, names[3], Cm, False),
+                   nb if dtype == torch.float32 else 0)
+            row["blocks_per_forward"] = nb
             done(row)
             del d
 
@@ -934,8 +1019,9 @@ def dg_k2_checks(dev, rng, report, flush):
             rows = [row]
             if dtype == torch.float32:
                 row.update(k2_times(d, args, Cm, flush))
-                rows.append(k1_at_training_shape(d, Cm, dtype, flush,
-                                                 edge=False))
+                with_ratios(row)
+            rows.append(k1_at_training_shape(d, Cm, dtype, flush,
+                                             edge=False))
             for r in rows:
                 worst[r["kernel"]] = max(worst[r["kernel"]],
                                          r["max_abs_err"])
@@ -947,6 +1033,66 @@ def dg_k2_checks(dev, rng, report, flush):
             del d, got, refs
     report["dg_per_step"] = per_step
     return worst, per_step
+
+
+# ---------------------------------------------------------------------------
+# --sweep: K1 and K3 under every block plan near the planner's
+# ---------------------------------------------------------------------------
+
+def plan_sweep(dev):
+    """K1 and K3 at each of their main-path shapes (K3 in DS-GCN serving,
+    K1 in DS-GCN and DG-STGCN training and DG-STGCN's 'auto' forward, with
+    the paths' edge attention), f32 and bf16, timed under the planner's
+    block plan and every plan of CG channels (16-byte runs) and 1-8 row
+    blocks.  The planned plan's time over the best one is the planner's
+    regret; the sweep calibrates its constants (``dyn_graph._BUILD_ROWS``,
+    ``_SETUP_ROWS``, ``_HIDE_WARPS``)."""
+    from dsgcn_tpu_torch.ops.kernels import _build, bd_agg, dyn_graph
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    rng = np.random.default_rng(0)
+    shapes = (
+        [("bd_dyn_graph_agg", N_BLOCK, K, Cm, T, True)
+         for Cm, T, _ in BLOCK_SHAPES]
+        + [("fused_dyn_graph_agg", N_TRAIN, K, Cm, T, True)
+           for Cm, T, _ in TRAIN_BLOCK_SHAPES]
+        + [("fused_dyn_graph_agg", N_BLOCK, DG_K, Cm, T, False)
+           for (_, _, Cm, T), _ in distinct(DG_BLOCKS) if Cm < 64]
+        + [("fused_dyn_graph_agg", N_TRAIN, DG_K, Cm, T, False)
+           for Cm, T, _ in DG_TRAIN_BLOCK_SHAPES])
+    planner, rows = dyn_graph.agg_plan, []
+    try:
+        for name, N, Kk, Cm, T, edge in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                d = block_inputs(rng, dev, Cm, T, dtype, N=N, K=Kk)
+                kern = kernel_calls(d, Cm, edge)[name][0]
+                esize = d["pre"].element_size()
+                planned = planner(N, T, V, Kk, Cm, esize)
+                plans = {planned}
+                for CG in range(1, min(Cm, 32) + 1):
+                    if Cm % CG or (CG * esize) % 16 or dyn_graph.agg_block(
+                            V, Cm, CG, esize)[0] > _build.AGG_MAX_THREADS:
+                        continue
+                    plans.update((CG, -(-T // S)) for S in (1, 2, 3, 4, 6, 8))
+                times = {}
+                for plan in sorted(plans):
+                    dyn_graph.agg_plan = bd_agg.agg_plan = (
+                        lambda *_, plan=plan: plan)
+                    times[plan] = cold_ms(kern, flush=flush)
+                dyn_graph.agg_plan = bd_agg.agg_plan = planner
+                best = min(times, key=times.get)
+                row = dict(kernel=name, N=N, K=Kk, Cm=Cm, T=T, edge=edge,
+                           dtype=str(dtype).split(".")[-1],
+                           plan=list(planned), ms=times[planned],
+                           best=list(best), best_ms=times[best],
+                           plan_over_best=times[planned] / times[best],
+                           sweep={f"{cg}x{r}": ms
+                                  for (cg, r), ms in times.items()})
+                rows.append(row)
+                print("sweep", json.dumps(row), flush=True)
+                del d
+    finally:
+        dyn_graph.agg_plan = bd_agg.agg_plan = planner
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1340,8 +1486,9 @@ def breakdown(model, x, name, out, tag=""):
 
 
 # the port's kernels, as the profiler names them
-PORT_KERNELS = ("bd_agg_kernel", "dyn_graph_fwd_kernel",
-                "dyn_graph_bwd_kernel", "sum_over_samples_kernel",
+PORT_KERNELS = ("bd_agg_kernel", "dyn_graph_fwd_kernel", "edge_proj_kernel",
+                "edge_ctr_kernel", "dyn_graph_bwd_kernel",
+                "sum_over_samples_kernel",
                 "bd_agg_subset_kernel", "dyn_graph_eval_kernel",
                 "dggcn_block_kernel", "ms_tcn_kernel", "joint_mean_kernel")
 
@@ -1360,13 +1507,15 @@ def device_rows(prof, wall_ms, tag):
         print(f"{tag}: the profiler saw no device time", flush=True)
         return {}
     ours = sum(r[0] for r in rows if any(k in r[2] for k in PORT_KERNELS))
+    launches = sum(r[1] for r in rows)
     print(f"{tag}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-          f"wall (idle {1 - busy / wall_ms:.1%}, under the profiler); "
-          f"the port's kernels {ours:.3f} ms ({ours / busy:.1%})",
-          flush=True)
+          f"wall (idle {1 - busy / wall_ms:.1%}, under the profiler) in "
+          f"{launches} kernel launches; the port's kernels {ours:.3f} ms "
+          f"({ours / busy:.1%})", flush=True)
     for ms, count, key in rows[:12]:
         print(f"{tag}: {ms:9.3f} ms {count:4d}x {key[:90]}", flush=True)
     return dict(wall_ms=wall_ms, busy_ms=busy, port_kernels_ms=ours,
+                launches=launches,
                 top=[dict(ms=ms, count=c, kernel=k) for ms, c, k in rows[:25]])
 
 
@@ -1702,6 +1851,18 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}", flush=True)
 
+    if sys.argv[1:] == ["--sweep"]:
+        rows = plan_sweep(dev)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "agg_sweep.json").write_text(json.dumps(
+            dict(card=card, rows=rows), indent=1))
+        regret = [r["plan_over_best"] for r in rows]
+        print(f"{card}: planner's plan over the best swept plan: max "
+              f"{max(regret):.4f}, mean {np.mean(regret):.4f} over "
+              f"{len(rows)} shapes")
+        return 0
+
     report = dict(card=card, kernel_checks=[], k2_checks=[],
                   dg_k2_checks=[], serving=[], throughput={}, profile={})
     rng = np.random.default_rng(0)
@@ -1755,6 +1916,9 @@ def main() -> int:
             plain_ms=pf["plain_ms"], bound_ms=pf["bound_ms"],
             bound_by="/".join(sorted(pf["bound_by"])),
             library_ms=pf["library_ms"],
+            ms_over_library=(pf["ms"] / pf["library_ms"]
+                             if pf["library_ms"] else None),
+            ms_over_bound=pf["ms"] / pf["bound_ms"],
             **({"unfused_ms": pf["unfused_ms"]} if "unfused_ms" in pf
                else {})))
     report["kernels"] = kernels

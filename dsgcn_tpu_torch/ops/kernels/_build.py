@@ -25,15 +25,25 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# The block of K1 and K3 (csrc/graph_agg_tiled.cuh), defined here once for
+# the kernels (as -D flags) and for the planner (dyn_graph.agg_plan): most
+# threads a block, rows of pre a ring stage, ring stages, and the
+# destination joints a thread holds (WN) at each compile-time joint bound
+AGG_MAX_THREADS, AGG_ROWS, AGG_STAGES = 256, 8, 3
+AGG_JOINTS_PER_THREAD = {25: 4, 32: 3}
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DDSGCN_AGG_MAX_THREADS={AGG_MAX_THREADS}",
+              f"-DDSGCN_AGG_ROWS={AGG_ROWS}",
+              f"-DDSGCN_AGG_STAGES={AGG_STAGES}") + tuple(
+    f"-DDSGCN_AGG_WN{vb}={wn}" for vb, wn in AGG_JOINTS_PER_THREAD.items())
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (C entry point, argtypes); see the extern "C" functions in csrc
 SIGNATURES = {
-    "bd_agg": ("dsgcn_bd_agg", [_P, _P, _I] + [_P] * 9 + [_I] * 8 + [_P]),
+    "bd_agg": ("dsgcn_bd_agg", [_P, _P, _I] + [_P] * 10 + [_I] * 10 + [_P]),
     "dyn_graph": ("dsgcn_dyn_graph_fwd",
-                  [_P, _P, _I] + [_P] * 8 + [_I] * 8 + [_P]),
+                  [_P, _P, _I] + [_P] * 11 + [_I] * 10 + [_P]),
     "dyn_graph_bwd": ("dsgcn_dyn_graph_bwd",
                       [_P, _P, _P, _I] + [_P] * 12 + [_I] * 7 + [_P]),
     "bd_agg_subset": ("dsgcn_bd_agg_subset",

@@ -16,14 +16,15 @@ The ports of ``dsgcn_tpu/ops/pallas/bd_agg.py``:
 The TPU kernels' block-diagonal densification and group-major relayouts are
 TPU mechanics and are not ported.  On a CUDA tensor each wrapper launches
 its hand-written kernel (``csrc/bd_agg.cu``, ``csrc/bd_agg_subset.cu``); on
-a CPU tensor it runs its plain version.
+a CPU tensor it runs its plain version.  K3 shares K1's tiled design
+(``csrc/graph_agg_tiled.cuh``) and block planner (``dyn_graph.agg_plan``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .dyn_graph import _ada
+from .dyn_graph import _ada, agg_plan
 
 
 def reference_bd_dyn_graph_agg(pre2, x1t, x2, A, alpha, beta, p1t=None,
@@ -107,14 +108,18 @@ def bd_dyn_graph_agg(pre2: torch.Tensor, x1t: torch.Tensor, x2: torch.Tensor,
     out = torch.empty_like(pre2)
     if out.numel() == 0:
         return out
+    CG, rows = agg_plan(N, T, V, K, Cm, pre2.element_size())
+    # the edge subset's ctr, built for the whole call ahead of the blocks
+    ectr = (torch.empty(N * V * V * Cm, device=dev) if edge_k >= 0
+            else None)
     with torch.cuda.device(dev):
         _build.launch(
             "bd_agg", _build.ptr(pre2), _build.ptr(out),
             int(pre2.dtype == torch.bfloat16), _build.ptr(x1t),
             _build.ptr(x2), _build.ptr(A), _build.ptr(alpha),
             _build.ptr(beta), _build.ptr(p1t), _build.ptr(p2),
-            _build.ptr(edge_sel), _build.ptr(ebias), N, T, V, K, Cm, E,
-            edge_k, v_real, _build.stream_of(pre2))
+            _build.ptr(edge_sel), _build.ptr(ebias), _build.ptr(ectr), N, T,
+            V, K, Cm, E, edge_k, v_real, CG, rows, _build.stream_of(pre2))
     bd_dyn_graph_agg.launches += 1
     return out
 

@@ -10,102 +10,70 @@
 // (Cm, E*Cm), the bias field (Cm, V, V) (built by the wrapper from edge_b,
 // as _edge_specs_args does) and the class mask sel (E, V, V); all graph
 // operands float32.  Unlike bd_agg.cu, the per-class projections
-// P = edge_w^T x are computed inside the block.  The graph build and the
-// aggregation are shared with bd_agg.cu (graph_agg.cuh); the TPU mechanics
-// (T tiles sized to VMEM, the layout rotations) are not carried over.
+// P = edge_w^T x are computed here, by edge_proj_kernel ahead of the edge
+// subset's ctr (both into scratch the wrapper allocates).  The design is
+// K3's (graph_agg_tiled.cuh); the TPU mechanics (T tiles sized to VMEM,
+// the layout rotations) are not carried over.
 //
 // Bound on the H100: bytes, as bd_agg.cu: pre read once and y written once,
-// 2*V FLOP per output element against 8 (f32) or 4 (bf16) bytes.  Speed work
-// (TMA staging, wgmma, fusing the 1x1 convs) is for later changes.
-#include "graph_agg.cuh"
+// 2*V FLOP per output element against 8 (f32) or 4 (bf16) bytes.
+#include "graph_agg_tiled.cuh"
 
 namespace dsgcn {
 
-template <typename Tio>
-__global__ void __launch_bounds__(MAX_THREADS)
-dyn_graph_fwd_kernel(const Tio *__restrict__ pre, Tio *__restrict__ out,
-                     const float *__restrict__ x1, const float *__restrict__ x2,
-                     const float *__restrict__ A,
-                     const float *__restrict__ alpha,
-                     const float *__restrict__ beta,
-                     const float *__restrict__ edge_w,
-                     const float *__restrict__ bias_field,
-                     const float *__restrict__ sel, int T, int V, int K,
-                     int Cm, int CG, int E, int edge_k, int v_real) {
-  extern __shared__ float smem[];
-  const int ncg = Cm / CG;
-  const int n = blockIdx.z, k = blockIdx.y / ncg, c0 = (blockIdx.y % ncg) * CG;
-  const bool edge = (k == edge_k);
-  const Smem s = carve_smem(smem, V, Cm, CG, edge_k >= 0 ? E : 0);
-  const int XS = row_stride(V);
-  const int tid = threadIdx.x;
-
-  const float *q1 = x1 + ((size_t)n * K + k) * Cm * V;    // (Cm, V)
-  const float *q2 = x2 + ((size_t)n * K + k) * Cm * V;
-  for (int i = tid; i < Cm * V; i += blockDim.x) {
-    s.xs1[(i / V) * XS + i % V] = q1[i];
-    s.xs2[(i / V) * XS + i % V] = q2[i];
-  }
-  __syncthreads();
-  if (edge) edge_projections(s, edge_w, V, Cm, CG, c0, E);
-  build_ada(s.ada, s.xs1, s.xs2, Cm, V, v_real);   // syncs before reading
-
-  const int cl = tid % CG, w = tid / CG;
-  const bool active = tid < CG * V;
-  float g[VMAX];
-  if (active)
-    graph_column<Tio>(g, c0 + cl, cl, w, s, V, CG, A + (size_t)k * V * V,
-                      alpha[k], beta[k], edge, E, sel, bias_field, V * V, V);
-  const int t_begin = blockIdx.x * T_CHUNK;
-  aggregate<Tio>(g, pre, out, s.pres, n, T, V, K * Cm, k * Cm + c0, CG, cl,
-                 w, active, t_begin, min(T, t_begin + T_CHUNK));
+template <typename Tio, int VB>
+__global__ void __launch_bounds__(tiled::MAX_THREADS, 2)
+dyn_graph_fwd_kernel(const tiled::Args a) {
+  tiled::aggregate_block<Tio, VB, false>(a);
 }
 
 template <typename Tio>
-static int launch(const void *pre, void *out, const float *x1,
-                  const float *x2, const float *A, const float *alpha,
-                  const float *beta, const float *edge_w,
-                  const float *bias_field, const float *sel, int N, int T,
-                  int V, int K, int Cm, int E, int edge_k, int v_real,
-                  cudaStream_t stream) {
-  const int CG = channel_group(Cm);
-  const dim3 grid((T + T_CHUNK - 1) / T_CHUNK, K * (Cm / CG), N);
-  const int threads = (CG * V + 31) / 32 * 32;
-  const size_t smem = smem_bytes(V, Cm, CG, edge_k >= 0 ? E : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      dyn_graph_fwd_kernel<Tio>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dyn_graph_fwd_kernel<Tio><<<grid, threads, smem, stream>>>(
-      (const Tio *)pre, (Tio *)out, x1, x2, A, alpha, beta, edge_w,
-      bias_field, sel, T, V, K, Cm, CG, E, edge_k, v_real);
-  return (int)cudaGetLastError();
+static int launch(const tiled::Args &a, int N, cudaStream_t st) {
+  auto kernel = tiled::joint_bound(a.V) == 25 ? dyn_graph_fwd_kernel<Tio, 25>
+                                              : dyn_graph_fwd_kernel<Tio, 32>;
+  return tiled::launch(kernel, a, N, sizeof(Tio), st);
 }
 
 }  // namespace dsgcn
 
-// C interface, bound with ctypes (ops/kernels/_build.py).  Returns a
-// cudaError_t; the caller has checked shapes, types and devices.
+// C interface, bound with ctypes (ops/kernels/_build.py).  CG (channels a
+// block) and rows_per_block come from the wrapper's planner; p1s, p2s
+// (N*E*V*Cm floats each) and ectr (N*V*V*Cm) are the edge subset's scratch,
+// unused without one.  Returns a cudaError_t; the caller has checked
+// shapes, types and devices.
 extern "C" int dsgcn_dyn_graph_fwd(const void *pre, void *out, int bf16,
                                    const float *x1, const float *x2,
                                    const float *A, const float *alpha,
                                    const float *beta, const float *edge_w,
                                    const float *bias_field, const float *sel,
-                                   int N, int T, int V, int K, int Cm, int E,
-                                   int edge_k, int v_real, void *stream) {
+                                   float *p1s, float *p2s, float *ectr, int N,
+                                   int T, int V, int K, int Cm, int E,
+                                   int edge_k, int v_real, int CG,
+                                   int rows_per_block, void *stream) {
   using namespace dsgcn;
-  if (V < 1 || V > VMAX || E > EMAX || Cm < 1 || N > 65535 ||
-      K * (Cm / channel_group(Cm)) > 65535)
-    return (int)cudaErrorInvalidValue;
+  tiled::Args a{pre,    out,     x1,      x2,    A,    alpha, beta,
+                edge_w, nullptr, nullptr, sel,   bias_field, ectr, T,
+                V,      K,       Cm,      CG,    E,    edge_k, v_real,
+                rows_per_block, 0};
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch<__nv_bfloat16>(pre, out, x1, x2, A, alpha, beta,
-                                      edge_w, bias_field, sel, N, T, V, K, Cm,
-                                      E, edge_k, v_real, st)
-              : launch<float>(pre, out, x1, x2, A, alpha, beta, edge_w,
-                              bias_field, sel, N, T, V, K, Cm, E, edge_k,
-                              v_real, st);
+  if (tiled::refuse(a, N)) return (int)cudaErrorInvalidValue;
+  if (edge_k >= 0) {
+    // the bias field is (Cm, V, V)
+    const int err = tiled::launch_edge(a, N, p1s, p2s, V * V, V, st);
+    if (err != 0) return err;
+  }
+  return bf16 ? launch<__nv_bfloat16>(a, N, st) : launch<float>(a, N, st);
 }
 
 extern "C" const char *dsgcn_dyn_graph_fwd_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// The block K1 and K3 launch for a plan of CG channels: its threads and
+// shared-memory bytes, for pre/y elements of esize bytes.  The planner's
+// model of the block (ops/kernels/dyn_graph.py agg_block) is held to it.
+extern "C" void dsgcn_agg_block(int V, int Cm, int CG, int esize,
+                                int *threads, int *smem) {
+  *threads = dsgcn::tiled::block_threads(V, CG);
+  *smem = (int)dsgcn::tiled::smem_bytes(V, Cm, CG, (size_t)esize);
 }

@@ -1,7 +1,9 @@
-// Shared device code of the dynamic-graph aggregation kernels (bd_agg.cu,
-// bd_agg_subset.cu, dyn_graph.cu, dyn_graph_eval.cu, dggcn_block.cu, and
-// the graph build of dyn_graph_bwd.cu): the graph build and the
-// per-channel aggregation
+// Shared device code of the dynamic-graph aggregation kernels
+// (bd_agg_subset.cu, dyn_graph_eval.cu, dggcn_block.cu, and the graph
+// build of dyn_graph_bwd.cu): the graph build and the per-channel
+// aggregation.  K3 and K1's forward (bd_agg.cu, dyn_graph.cu) use the
+// tiled design of graph_agg_tiled.cuh and take only the limits, the type
+// conversions and row_stride from here.
 //
 //   ctr[c,v,w] = tanh(x1[c,v] - x2[c,w])               (diff graph)
 //   ctr[c,v,w] = tanh(sum_e sel[e,v,w] (P1[e,c,v] - P2[e,c,w]) + bias[c,v,w])

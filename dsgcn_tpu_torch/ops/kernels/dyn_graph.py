@@ -23,6 +23,7 @@ plain version :func:`reference_dyn_graph_agg_eval`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -184,6 +185,85 @@ def _graph_operands(name, pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
     return ops
 
 
+# the H100 the plan of K1 and K3's block is made for
+_SMS, _SM_SMEM, _BLOCK_SMEM = 132, 228 * 1024, 227 * 1024
+_SM_THREADS, _SM_BLOCKS, _SM_REGS, _THREAD_REGS = 2048, 32, 65536, 128
+# the planner's cost model, in one warp's row steps: a thread's graph build
+# and a block's fixed setup (query tables, ada), and the resident warps an
+# SM needs to keep issuing through the loads' latency (fitted to plan
+# sweeps on the H100: ``python3 chip_smoke.py --sweep``)
+_BUILD_ROWS, _SETUP_ROWS, _HIDE_WARPS = 13, 400, 12
+
+
+def agg_joint_bound(V: int):
+    """(VB, WN): the compile-time joint bound the kernel takes for V joints
+    and the destination joints a thread holds there
+    (``_build.AGG_JOINTS_PER_THREAD``)."""
+    VB = min(b for b in _build.AGG_JOINTS_PER_THREAD if b >= V)
+    return VB, _build.AGG_JOINTS_PER_THREAD[VB]
+
+
+def agg_block(V: int, Cm: int, CG: int, esize: int):
+    """(threads, shared-memory bytes) of a K1/K3 block of CG channels for
+    pre/y elements of ``esize`` bytes: CG x ceil(V / WN) threads rounded to
+    warps; the ring of pre tiles, the query tables and beta*ada + A.  The
+    kernels' own count (``csrc/dyn_graph.cu`` ``dsgcn_agg_block``) is held
+    to it on the card."""
+    VB, WN = agg_joint_bound(V)
+    threads = -(-CG * -(-V // WN) // 32) * 32
+    XS = V | 1
+    ring = -(-_build.AGG_STAGES * _build.AGG_ROWS * VB * CG * esize
+             // 16) * 16
+    return threads, ring + 4 * (2 * Cm * XS + V * V)
+
+
+@functools.lru_cache(maxsize=None)
+def agg_plan(N: int, T: int, V: int, K: int, Cm: int, esize: int):
+    """(CG, rows): the channels and rows of pre a K1/K3 block takes.
+
+    A block builds the graph columns of its CG channels once and streams
+    its rows through them, so splitting T repeats the build and the setup,
+    and narrower channel groups repeat the setup, while a grid of too few
+    warps leaves the SMs waiting on loads.  The cost is the blocks the
+    busiest SM runs times a block's work (its warps' build and rows, plus
+    the fixed setup), divided by the share of _HIDE_WARPS resident warps
+    the SM keeps (by threads, registers and shared memory); copies that
+    are not 16-byte aligned cost half as much again.  The cheapest plan
+    wins, ties to fewer blocks."""
+    VB, WN = agg_joint_bound(V)
+    row = VB * (WN + 2) + 2 * WN          # a warp's instructions a row
+    best = None
+    for CG in range(min(Cm, 32), 0, -1):
+        if Cm % CG:
+            continue
+        threads, smem = agg_block(V, Cm, CG, esize)
+        if threads > _build.AGG_MAX_THREADS or smem > _BLOCK_SMEM:
+            continue
+        warps = threads // 32
+        per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
+                     _SM_REGS // (threads * _THREAD_REGS),
+                     _SM_SMEM // (smem + 1024))
+        slow = 1.0 if (CG * esize) % 16 == 0 and (Cm * esize) % 16 == 0 \
+            else 1.5
+        for S in range(1, T + 1):
+            rows = -(-T // S)
+            if S > 1 and -(-T // (S - 1)) == rows:
+                continue
+            blocks = N * K * (Cm // CG) * -(-T // rows)
+            load = -(-blocks // _SMS)
+            resident = min(per_sm, load) * warps
+            work = warps * (_BUILD_ROWS + rows) + _SETUP_ROWS
+            cost = slow * row * load * work / min(1.0,
+                                                  resident / _HIDE_WARPS)
+            key = (cost, blocks)
+            if best is None or key < best[0]:
+                best = (key, CG, rows)
+    if best is None:
+        raise ValueError(f"no block plan for V={V}, Cm={Cm}: the block's "
+                         "shared memory or threads exceed the card's")
+    return best[1], best[2]
+
+
 def _forward_kernel(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel,
                     K, Cm, edge_k, E, v_real):
     """Launch K1 (``csrc/dyn_graph.cu``) on CUDA tensors."""
@@ -193,14 +273,22 @@ def _forward_kernel(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel,
     out = torch.empty_like(pre_x)
     if out.numel() == 0:
         return out
+    CG, rows = agg_plan(N, T, V, K, Cm, pre_x.element_size())
+    # the edge subset's projections and ctr, built for the whole call ahead
+    # of the blocks
+    p1s = p2s = ectr = None
+    if o["edge_k"] >= 0:
+        p1s, p2s = torch.empty(2, N * E * V * Cm, device=pre_x.device)
+        ectr = torch.empty(N * V * V * Cm, device=pre_x.device)
     ptr = _build.ptr
     with torch.cuda.device(pre_x.device):
         _build.launch(
             "dyn_graph", ptr(pre_x), ptr(out),
             int(pre_x.dtype == torch.bfloat16), ptr(o["x1"]), ptr(o["x2"]),
             ptr(o["A"]), ptr(o["alpha"]), ptr(o["beta"]), ptr(o["edge_w"]),
-            ptr(o["bias_field"]), ptr(o["sel"]), N, T, V, K, Cm, E,
-            o["edge_k"], v_real, _build.stream_of(pre_x))
+            ptr(o["bias_field"]), ptr(o["sel"]), ptr(p1s), ptr(p2s),
+            ptr(ectr), N, T, V, K, Cm, E, o["edge_k"], v_real, CG, rows,
+            _build.stream_of(pre_x))
     fused_dyn_graph_agg.launches += 1
     return out
 

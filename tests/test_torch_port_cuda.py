@@ -13,6 +13,7 @@ runs on a GPU machine without it; there, run it without the JAX-side
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 """
 import copy
+import ctypes
 
 import numpy as np
 import pytest
@@ -21,15 +22,16 @@ import torch
 from dsgcn_tpu_torch.core.train import make_optimizer, train_step
 from dsgcn_tpu_torch.models.builder import (build_model, init_weights_,
                                            model_cfg)
+from dsgcn_tpu_torch.ops.kernels import _build
 from dsgcn_tpu_torch.ops.kernels.bd_agg import (
     bd_dyn_graph_agg, bd_dyn_graph_agg_subset, reference_bd_dyn_graph_agg,
     reference_bd_dyn_graph_agg_subset)
 from dsgcn_tpu_torch.ops.kernels.dggcn_block import (
     fused_dggcn_block_eval, reference_dggcn_block_eval)
 from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
-    fused_dyn_graph_agg, fused_dyn_graph_agg_bwd, fused_dyn_graph_agg_eval,
-    reference_dyn_graph_agg, reference_dyn_graph_agg_bwd,
-    reference_dyn_graph_agg_eval)
+    agg_block, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
+    fused_dyn_graph_agg_eval, reference_dyn_graph_agg,
+    reference_dyn_graph_agg_bwd, reference_dyn_graph_agg_eval)
 from dsgcn_tpu_torch.ops.kernels.ms_tcn import (fused_dgmstcn_eval,
                                                 reference_fused_dgmstcn_eval)
 from dsgcn_tpu_torch.ops.tcn import MSTCN
@@ -53,39 +55,93 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("edge,V,v_real", CASES)
-@pytest.mark.parametrize("kernel", ["k1", "k3"])
-def test_cuda_kernel_matches_plain(cuda, kernel, edge, V, v_real, dtype):
-    """f32: 1e-4 (summation order); bf16: 2e-2 against the plain version in
-    bf16."""
-    K, Cm, edge_k = 3, 16, (1 if edge else -1)
-    d = block_inputs(seed=5, N=4, T=40, V=V, Cm=Cm, edge=edge)
-    g = {k: to_torch(v).to(cuda) for k, v in d.items()}
+# (kernel, K, Cm): DS-GCN's widths (K = 3) for both, DG-STGCN's (K = 8) for
+# K1, whose widest stage is Cm = 64; and Cm = 6, whose channel runs are not
+# 16-byte aligned (element-wise staging; K1's projections a channel a
+# thread)
+KERNEL_WIDTHS = [("k1", 3, 8), ("k1", 3, 16), ("k1", 3, 32), ("k1", 8, 16),
+                 ("k1", 8, 32), ("k1", 8, 64), ("k3", 3, 8), ("k3", 3, 16),
+                 ("k3", 3, 32), ("k1", 3, 6), ("k3", 3, 6)]
+# CASES and a graph of 18 joints (the joint bound 25 with 7 joints short)
+AGG_CASES = CASES + [(False, 18, -1)]
+
+
+def _k1_k3_call(kernel, d, K, Cm, edge_k, v_real, dtype, dev):
+    """(kernel call, plain call, launch counter) of K1 or K3 on ``d``."""
+    g = {k: to_torch(v).to(dev) for k, v in d.items()}
     g["pre"] = g["pre"].to(dtype)
     if kernel == "k1":
         args = (g["pre"], g["x1"], g["x2"], g["A"], g["alpha"], g["beta"],
                 g.get("ew"), g.get("eb"), g.get("sel"), K, Cm, edge_k, E,
                 v_real)
-        n = fused_dyn_graph_agg.launches
-        got = fused_dyn_graph_agg(*args)
-        assert fused_dyn_graph_agg.launches == n + 1
-        want = reference_dyn_graph_agg(*args)
-    else:
-        p = {k: to_torch(v).to(cuda) for k, v in
-             k3_packaging(d, K, Cm, edge_k).items()}
-        p["pre2"] = p["pre2"].to(dtype)
-        args = (p["pre2"], p["x1t"], g["x2"], g["A"], g["alpha"], g["beta"],
-                p.get("p1t"), p.get("p2"), g.get("sel"), p.get("ebias"))
-        kw = dict(K=K, Cm=Cm, edge_k=edge_k, edge_num=E, v_real=v_real)
-        n = bd_dyn_graph_agg.launches
-        got = bd_dyn_graph_agg(*args, **kw)
-        assert bd_dyn_graph_agg.launches == n + 1
-        want = reference_bd_dyn_graph_agg(*args, **kw)
+        return (lambda: fused_dyn_graph_agg(*args),
+                lambda: reference_dyn_graph_agg(*args), fused_dyn_graph_agg)
+    p = {k: to_torch(v).to(dev) for k, v in
+         k3_packaging(d, K, Cm, edge_k).items()}
+    p["pre2"] = p["pre2"].to(dtype)
+    args = (p["pre2"], p["x1t"], g["x2"], g["A"], g["alpha"], g["beta"],
+            p.get("p1t"), p.get("p2"), g.get("sel"), p.get("ebias"))
+    kw = dict(K=K, Cm=Cm, edge_k=edge_k, edge_num=E, v_real=v_real)
+    return (lambda: bd_dyn_graph_agg(*args, **kw),
+            lambda: reference_bd_dyn_graph_agg(*args, **kw), bd_dyn_graph_agg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge,V,v_real", AGG_CASES)
+@pytest.mark.parametrize("T", [1, 13, 15, 25, 100])
+@pytest.mark.parametrize("kernel,K,Cm", KERNEL_WIDTHS)
+def test_cuda_kernel_matches_plain(cuda, kernel, K, Cm, T, edge, V, v_real,
+                                   dtype):
+    """K1 and K3 under every block plan the widths and lengths give (T = 1,
+    below and across the 8-row ring stage, T = 100; N = 1 at T = 15 and
+    100): f32 within 1e-4 (summation order), bf16 within 2e-2 against the
+    plain version in bf16."""
+    edge_k = 1 if edge else -1
+    N = 1 if T in (15, 100) else 3
+    d = block_inputs(seed=5 + T + Cm, N=N, T=T, V=V, K=K, Cm=Cm, edge=edge)
+    kern, plain, wrapper = _k1_k3_call(kernel, d, K, Cm, edge_k, v_real,
+                                       dtype, cuda)
+    n = wrapper.launches
+    got = kern()
+    assert wrapper.launches == n + 1
+    want = plain()
     torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_agg_block_matches_planner(cuda):
+    """The planner's model of a K1/K3 block (threads, shared memory) is the
+    block the kernels launch."""
+    lib = ctypes.CDLL(str(_build.compile_kernel("dyn_graph")))
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    for V in (1, 18, 25, 26, 32):
+        for Cm in (1, 6, 8, 12, 16, 32, 64):
+            for CG in [g for g in range(1, min(Cm, 32) + 1) if Cm % g == 0]:
+                for esize in (2, 4):
+                    lib.dsgcn_agg_block(V, Cm, CG, esize,
+                                        ctypes.byref(threads),
+                                        ctypes.byref(smem))
+                    assert (threads.value, smem.value) == agg_block(
+                        V, Cm, CG, esize), (V, Cm, CG, esize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["k1", "k3"])
+def test_cuda_kernel_same_bits_every_call(cuda, kernel, dtype):
+    """No atomics: two calls on the same inputs give identical bits."""
+    d = block_inputs(seed=3, N=8, T=50, Cm=16, edge=True)
+    kern, _, _ = _k1_k3_call(kernel, d, 3, 16, 1, -1, dtype, cuda)
+    a, b = kern(), kern()
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16
+                              else torch.int32),
+                       b.view(torch.int16 if dtype == torch.bfloat16
+                              else torch.int32))
 
 
 @pytest.mark.cuda
