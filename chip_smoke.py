@@ -15,10 +15,11 @@ statistics taken from data), check the kernels were launched on that path,
 that the GPU answers match the same model on the CPU and that 'fused' and
 'mega' (K6) agree with 'auto', and time a batch forward; phase 6 checks K2
 and K1 at its training shapes (K2 also against autograd through the plain
-forward).  DG-STGCN (the j config with ``model_cfg('dgstgcn')``): phase 8
-checks K4, K5, K6 (and K6 at DS-GCN's shapes with edge attention) at its
-serving shapes and K2 at its training shapes, Cm = 64 included, and times
-its GCN blocks per eval path; phase 9 serves it (GPU against CPU, 7 K1 and
+forward; every case timed, with edge attention and without).  DG-STGCN
+(the j config with ``model_cfg('dgstgcn')``): phase 8 checks K4 (and K1
+at K4's blocks), K5, K6 (and K6 at DS-GCN's shapes with edge attention)
+at its serving shapes and K2 at its training shapes, Cm = 64 included, and
+times its GCN blocks per eval path; phase 9 serves it (GPU against CPU, 7 K1 and
 3 K4 launches per 'auto' forward, every ``eval_kernel`` option against
 'auto' with its own launches, clips/s and profiles).  Phase 7 trains
 DS-GCN (b128 x M2 x T60, synthetic data through the train pipeline and
@@ -325,7 +326,9 @@ def k2_bound(d, Cm, edge):
 def k2_checks(dev, rng, report):
     """K2 at the five DS-GCN training block shapes (N=256), f32 and bf16,
     with and without edge attention: against the plain backward, and in
-    f32 also against torch.autograd through the plain forward."""
+    f32 also against torch.autograd through the plain forward; every case
+    timed.  The per-step sums take the path's (edge attention on subset 1);
+    those without it go to ``report['k2_per_step_no_edge']``."""
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
         fused_dyn_graph_agg_bwd, reference_dyn_graph_agg,
         reference_dyn_graph_agg_bwd)
@@ -333,6 +336,7 @@ def k2_checks(dev, rng, report):
     worst = {"fused_dyn_graph_agg": 0.0, "fused_dyn_graph_agg_bwd": 0.0}
     per_step = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                            bound_ms=0.0, bound_by=set()) for name in worst}
+    no_edge = {name: new_sum() for name in worst}
     for Cm, T, nblocks in TRAIN_BLOCK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for edge in (True, False):
@@ -362,9 +366,8 @@ def k2_checks(dev, rng, report):
                 worst[row["kernel"]] = max(worst[row["kernel"]],
                                            row["max_abs_err"])
                 rows = [row]
-                if edge:
-                    row.update(k2_times(d, args, Cm, flush))
-                    with_ratios(row)
+                row.update(k2_times(d, args, Cm, flush))
+                with_ratios(row)
                 # K1 at the same shape, with the path's edge attention and
                 # without it
                 rows.append(k1_at_training_shape(d, Cm, dtype, flush, edge))
@@ -372,14 +375,15 @@ def k2_checks(dev, rng, report):
                     worst[rows[1]["kernel"]], rows[1]["max_abs_err"])
                 for r in rows:
                     r["blocks_per_step"] = nblocks
-                    if edge and dtype == torch.float32:
-                        acc = per_step[r["kernel"]]
-                        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                            acc[k] += nblocks * r[k]
-                        acc["bound_by"].add(r["bound_by"])
+                    if dtype == torch.float32:
+                        add_to(per_step[r["kernel"]] if edge
+                               else no_edge[r["kernel"]], r, nblocks)
                     report["k2_checks"].append(r)
                     print("kernel", json.dumps(r), flush=True)
                 del d, got, want, refs
+    report["k2_per_step_no_edge"] = no_edge
+    print("K1/K2 per DS-GCN step without edge attention: "
+          + json.dumps(no_edge, default=sorted), flush=True)
     return worst, per_step
 
 
@@ -877,6 +881,20 @@ def dg_kernel_checks(dev, rng, report):
                     record(row, kern, plain, library,
                            bound(d, names[0], Cm, False), nb)
                 done(row)
+                if g == 32 and Vp == V:
+                    # K1 at the same block, the alternative for 'auto'
+                    k1, k1_plain, k1_lib = kernel_calls(d, Cm, False)[
+                        names[3]]
+                    r1 = dict(kernel=names[3], Cm=Cm, T=T, N=N_BLOCK, K=DG_K,
+                              dtype=str(dtype).split(".")[-1],
+                              at="k4_block")
+                    compare(names[3], k1(), k1_plain(), dtype, r1,
+                            graph_flips(d, Cm, False)
+                            if dtype == torch.bfloat16 else None)
+                    record(r1, k1, k1_plain, k1_lib,
+                           bound(d, names[3], Cm, False))
+                    r1["blocks_per_forward"] = nb
+                    done(r1)
                 del d
 
     # K1 at the blocks where 'auto' takes it (mid 16 and 32), timed in both
@@ -1487,10 +1505,11 @@ def breakdown(model, x, name, out, tag=""):
 
 # the port's kernels, as the profiler names them
 PORT_KERNELS = ("bd_agg_kernel", "dyn_graph_fwd_kernel", "edge_proj_kernel",
-                "edge_ctr_kernel", "dyn_graph_bwd_kernel",
-                "sum_over_samples_kernel",
-                "bd_agg_subset_kernel", "dyn_graph_eval_kernel",
-                "dggcn_block_kernel", "ms_tcn_kernel", "joint_mean_kernel")
+                "edge_ctr_kernel", "bwd_ada_kernel", "bwd_contract_kernel",
+                "edge_dp_sum_kernel", "edge_dx_kernel", "bwd_finish_kernel",
+                "edge_dw_kernel", "sum_over_samples_kernel",
+                "dyn_graph_eval_kernel", "dggcn_block_kernel",
+                "ms_tcn_kernel", "joint_mean_kernel")
 
 
 def device_rows(prof, wall_ms, tag):
@@ -1892,7 +1911,7 @@ def main() -> int:
          train_counts, per_step),
         ("fused_dyn_graph_agg_bwd", "dyn_graph_bwd.cu", "dyn_graph.py:511",
          train_counts, per_step),
-        ("bd_dyn_graph_agg_subset", "bd_agg_subset.cu", "bd_agg.py:244",
+        ("bd_dyn_graph_agg_subset", "bd_agg.cu", "bd_agg.py:244",
          dg_auto, dg_fwd),
         ("fused_dyn_graph_agg_eval", "dyn_graph_eval.cu", "dyn_graph.py:655",
          dg_options["fusedpre"], dg_fwd),

@@ -37,7 +37,8 @@ class PoseDataset:
     """
 
     def __init__(self, ann_file: str, pipeline, split: Optional[str] = None,
-                 test_mode: bool = False):
+                 valid_ratio: Optional[float] = None,
+                 box_thr: Optional[float] = None, test_mode: bool = False):
         self.ann_file = ann_file
         self.pipeline = (pipeline if isinstance(pipeline, Compose)
                          else build_pipeline(pipeline))
@@ -51,6 +52,12 @@ class PoseDataset:
             allowed = set(data["split"][split])
             key = "frame_dir" if "frame_dir" in annos[0] else "filename"
             annos = [a for a in annos if a[key] in allowed]
+        # keep the annos whose share of valid frames at box_thr reaches
+        # valid_ratio (pose_dataset.py:101-102)
+        if valid_ratio is not None and valid_ratio > 0:
+            annos = [a for a in annos
+                     if a.get("valid", {}).get(box_thr, a.get("total_frames", 1))
+                     / a.get("total_frames", 1) >= valid_ratio]
         self.video_infos = annos
 
     def __len__(self) -> int:
@@ -226,4 +233,6 @@ def build_dataset(dcfg: Dict, test_mode: bool = False):
                                   "port has 'PoseDataset' and "
                                   "'RepeatDataset')")
     return PoseDataset(dcfg["ann_file"], dcfg["pipeline"],
-                       split=dcfg.get("split"), test_mode=test_mode)
+                       split=dcfg.get("split"),
+                       valid_ratio=dcfg.get("valid_ratio"),
+                       box_thr=dcfg.get("box_thr"), test_mode=test_mode)

@@ -31,12 +31,29 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # destination joints a thread holds (WN) at each compile-time joint bound
 AGG_MAX_THREADS, AGG_ROWS, AGG_STAGES = 256, 8, 3
 AGG_JOINTS_PER_THREAD = {25: 4, 32: 3}
+# The contraction block of K2 (csrc/dyn_graph_bwd.cu), likewise for the
+# kernel and its planner (dyn_graph.bwd_plan): most threads a block, rows
+# of pre and dy a ring stage, ring stages, and the source joints a thread
+# holds (two rows of VB floats each: G's and dG's), and the blocks an SM
+# must hold at once, which caps a thread's registers (ptxas allows 128 for
+# two 224-thread blocks).
+BWD_MAX_THREADS, BWD_ROWS, BWD_STAGES, BWD_MIN_BLOCKS = 224, 4, 3, 2
+BWD_JOINTS_PER_THREAD = {25: 2, 32: 1}
+# K2's edge product dx = edge_w dP splits its depth over this many blocks a
+# sample, whose parts the finish kernel adds
+BWD_DX_PARTS = 4
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DDSGCN_AGG_MAX_THREADS={AGG_MAX_THREADS}",
               f"-DDSGCN_AGG_ROWS={AGG_ROWS}",
               f"-DDSGCN_AGG_STAGES={AGG_STAGES}") + tuple(
-    f"-DDSGCN_AGG_WN{vb}={wn}" for vb, wn in AGG_JOINTS_PER_THREAD.items())
+    f"-DDSGCN_AGG_WN{vb}={wn}" for vb, wn in AGG_JOINTS_PER_THREAD.items()) + (
+    f"-DDSGCN_BWD_MAX_THREADS={BWD_MAX_THREADS}",
+    f"-DDSGCN_BWD_ROWS={BWD_ROWS}",
+    f"-DDSGCN_BWD_STAGES={BWD_STAGES}",
+    f"-DDSGCN_BWD_MIN_BLOCKS={BWD_MIN_BLOCKS}",
+    f"-DDSGCN_BWD_DX_PARTS={BWD_DX_PARTS}") + tuple(
+    f"-DDSGCN_BWD_WN{vb}={wn}" for vb, wn in BWD_JOINTS_PER_THREAD.items())
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (C entry point, argtypes); see the extern "C" functions in csrc
@@ -45,9 +62,7 @@ SIGNATURES = {
     "dyn_graph": ("dsgcn_dyn_graph_fwd",
                   [_P, _P, _I] + [_P] * 11 + [_I] * 10 + [_P]),
     "dyn_graph_bwd": ("dsgcn_dyn_graph_bwd",
-                      [_P, _P, _P, _I] + [_P] * 12 + [_I] * 7 + [_P]),
-    "bd_agg_subset": ("dsgcn_bd_agg_subset",
-                      [_P, _P, _I] + [_P] * 6 + [_I] * 5 + [_P]),
+                      [_P, _P, _P, _I] + [_P] * 22 + [_I] * 11 + [_P]),
     "dyn_graph_eval": ("dsgcn_dyn_graph_eval",
                        [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P]),
     "dggcn_block": ("dsgcn_dggcn_block",
@@ -170,10 +185,10 @@ def check_activation(pre: torch.Tensor, name: str) -> None:
 
 
 # what the kernels take (csrc/graph_agg.cuh VMAX, EMAX; the grid's z axis;
-# csrc/dyn_graph_bwd.cu BWD_MAX_THREADS: K2's edge-class subset keeps all
-# its Cm*V channels and joints in one block)
+# csrc/dyn_graph_bwd.cu GEMM_MAX_M: K2's edge products take the edge
+# subset's Cm channels and the bias row in one block's rows)
 MAX_JOINTS, MAX_EDGE_CLASSES, MAX_SAMPLES = 32, 16, 65535
-MAX_BWD_THREADS = 1024
+MAX_BWD_EDGE_CHANNELS = 127
 # K5's (C, 16) slice of w_pre in shared memory beside the graph build
 # (csrc/dyn_graph_eval.cu eval_smem_bytes at Cm = 64, V = 32)
 MAX_PRE_CHANNELS = 2048

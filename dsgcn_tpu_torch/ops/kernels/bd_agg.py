@@ -9,14 +9,14 @@ The ports of ``dsgcn_tpu/ops/pallas/bd_agg.py``:
   per-class projections p1t ``(N, E, V, Cm)`` and p2 ``(N, E, Cm, V)`` and
   a ``(V, Cm, V)`` bias field.
 * :func:`bd_dyn_graph_agg_subset` (K4): K3's function without edge
-  attention, in the TPU kernel's per-subset / channel-group form; its ada
-  graph is computed outside the kernel, in torch, as the Pallas wrapper
-  does.
+  attention, in the TPU kernel's per-subset / channel-group form (the TPU
+  kernel builds its ada graph outside the kernel; here the tiled block
+  builds it from each subset's full queries, as K3's does).
 
 The TPU kernels' block-diagonal densification and group-major relayouts are
 TPU mechanics and are not ported.  On a CUDA tensor each wrapper launches
-its hand-written kernel (``csrc/bd_agg.cu``, ``csrc/bd_agg_subset.cu``); on
-a CPU tensor it runs its plain version.  K3 shares K1's tiled design
+the hand-written kernel of ``csrc/bd_agg.cu`` (K4 with no edge subset); on
+a CPU tensor it runs its plain version.  K3 and K4 share K1's tiled design
 (``csrc/graph_agg_tiled.cuh``) and block planner (``dyn_graph.agg_plan``).
 """
 from __future__ import annotations
@@ -83,11 +83,21 @@ def bd_dyn_graph_agg(pre2: torch.Tensor, x1t: torch.Tensor, x2: torch.Tensor,
         return reference_bd_dyn_graph_agg(
             pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias, K=K,
             Cm=Cm, edge_k=edge_k, edge_num=edge_num, v_real=v_real)
-    name = "bd_dyn_graph_agg"
+    out = _launch("bd_dyn_graph_agg", pre2, x1t, x2, A, alpha, beta, p1t,
+                  p2, edge_sel, ebias, K, Cm, edge_k, edge_num, v_real)
+    if out.numel():
+        bd_dyn_graph_agg.launches += 1
+    return out
+
+
+def _launch(name, pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias,
+            K, Cm, edge_k, E, v_real):
+    """Check a K3 or K4 call and launch ``csrc/bd_agg.cu`` on its CUDA
+    tensors (K4: no edge subset); returns y2, empty without a launch."""
     _build.check_activation(pre2, name)
     _build.refuse_grad(name, pre2, x1t, x2, A, alpha, beta, p1t, p2, ebias)
     N, T, VKC = pre2.shape
-    V, E, dev = A.shape[-1], edge_num, pre2.device
+    V, dev = A.shape[-1], pre2.device
     _build.check_limits(name, N, V, E)
     if VKC != V * K * Cm:
         raise ValueError(f"{name}: pre2 width {VKC} != V*K*Cm = {V * K * Cm}")
@@ -120,7 +130,6 @@ def bd_dyn_graph_agg(pre2: torch.Tensor, x1t: torch.Tensor, x2: torch.Tensor,
             _build.ptr(beta), _build.ptr(p1t), _build.ptr(p2),
             _build.ptr(edge_sel), _build.ptr(ebias), _build.ptr(ectr), N, T,
             V, K, Cm, E, edge_k, v_real, CG, rows, _build.stream_of(pre2))
-    bd_dyn_graph_agg.launches += 1
     return out
 
 
@@ -155,38 +164,18 @@ def bd_dyn_graph_agg_subset(pre2: torch.Tensor, x1t: torch.Tensor,
     attention, K3's contract and layout: pre2 (N, T, V*K*Cm) float32 or
     bfloat16, x1t (N, K, V, Cm), x2 (N, K, Cm, V), A (K, V, V), alpha/beta
     (K,) effective gates.  ``g`` (default Cm) is the TPU kernel's channel
-    group; it must divide Cm and be a multiple of 8.  ``v_real`` masks
-    padded sources of the ada softmax, which is computed here, outside the
-    kernel (``bd_agg.py:275-281``)."""
+    group; it must divide Cm and be a multiple of 8, and does not change
+    the function.  ``v_real`` masks padded sources of the ada softmax,
+    which is taken over each subset's full Cm (``bd_agg.py:275-281``)."""
     if pre2.device.type == "cpu":
         return reference_bd_dyn_graph_agg_subset(
             pre2, x1t, x2, A, alpha, beta, K=K, Cm=Cm, g=g, v_real=v_real)
     name = "bd_dyn_graph_agg_subset"
     _check_group(name, Cm, g)
-    _build.check_activation(pre2, name)
-    _build.refuse_grad(name, pre2, x1t, x2, A, alpha, beta)
-    N, T, VKC = pre2.shape
-    V, dev = A.shape[-1], pre2.device
-    _build.check_limits(name, N, V, 0)
-    if VKC != V * K * Cm:
-        raise ValueError(f"{name}: pre2 width {VKC} != V*K*Cm = {V * K * Cm}")
-    op = lambda t, shape, n: _build.graph_operand(t, shape, n, dev)  # noqa: E731
-    x1t = op(x1t, (N, K, V, Cm), "x1t")
-    x2 = op(x2, (N, K, Cm, V), "x2")
-    A = op(A, (K, V, V), "A")
-    alpha, beta = op(alpha, (K,), "alpha"), op(beta, (K,), "beta")
-    ada = subset_ada(x1t, x2, v_real).contiguous()
-    out = torch.empty_like(pre2)
-    if out.numel() == 0:
-        return out
-    ptr = _build.ptr
-    with torch.cuda.device(dev):
-        _build.launch(
-            "bd_agg_subset", ptr(pre2), ptr(out),
-            int(pre2.dtype == torch.bfloat16), ptr(x1t), ptr(x2), ptr(ada),
-            ptr(A), ptr(alpha), ptr(beta), N, T, V, K, Cm,
-            _build.stream_of(pre2))
-    bd_dyn_graph_agg_subset.launches += 1
+    out = _launch(name, pre2, x1t, x2, A, alpha, beta, None, None, None,
+                  None, K, Cm, -1, 0, v_real)
+    if out.numel():
+        bd_dyn_graph_agg_subset.launches += 1
     return out
 
 

@@ -1,7 +1,6 @@
-// Shared device code of the dynamic-graph aggregation kernels
-// (bd_agg_subset.cu, dyn_graph_eval.cu, dggcn_block.cu, and the graph
-// build of dyn_graph_bwd.cu): the graph build and the per-channel
-// aggregation.  K3 and K1's forward (bd_agg.cu, dyn_graph.cu) use the
+// Shared device code of the dynamic-graph aggregation kernels K5 and K6
+// (dyn_graph_eval.cu, dggcn_block.cu): the graph build and the per-channel
+// aggregation.  K1-K4 (dyn_graph.cu, dyn_graph_bwd.cu, bd_agg.cu) use the
 // tiled design of graph_agg_tiled.cuh and take only the limits, the type
 // conversions and row_stride from here.
 //
@@ -201,29 +200,6 @@ __device__ __forceinline__ void contract_rows(const float (&g)[VMAX],
       if (v < V) acc += pr[v * CG] * g[v];
     out[(((size_t)n * T + t0 + r) * V + w) * KC + ch0 + cl] =
         from_f32<Tio>(acc);
-  }
-}
-
-// y[n, t, w, ch0 + cl] = sum_v pre[n, t, v, ch0 + cl] g[v] for the rows
-// t in [t_begin, t_end), pre/y of row width KC.  pre rows are staged
-// T_TILE at a time; every thread of the block takes part in the staging,
-// threads with active == false (padding of the last warp) compute nothing.
-template <typename Tio>
-__device__ inline void aggregate(const float (&g)[VMAX], const Tio *pre,
-                                 Tio *out, float *pres, int n, int T, int V,
-                                 int KC, int ch0, int CG, int cl, int w,
-                                 bool active, int t_begin, int t_end) {
-  for (int t0 = t_begin; t0 < t_end; t0 += T_TILE) {
-    const int rows = min(T_TILE, t_end - t0);
-    for (int i = threadIdx.x; i < rows * V * CG; i += blockDim.x) {
-      const int cc = i % CG, rv = i / CG;
-      const int v = rv % V, r = rv / V;
-      pres[i] = to_f32(pre[(((size_t)n * T + t0 + r) * V + v) * KC + ch0 + cc]);
-    }
-    __syncthreads();
-    if (active)
-      contract_rows<Tio>(g, pres, out, n, T, V, KC, ch0, CG, cl, w, t0, rows);
-    __syncthreads();
   }
 }
 

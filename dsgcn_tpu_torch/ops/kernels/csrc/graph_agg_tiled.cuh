@@ -132,6 +132,41 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// base[v, w] = beta * ada[v, w] (+ base[v, w] with ADD), ada = softmax_v(
+// sum_c xs1[c, v] xs2[c, w]) over the (Cm, row_stride(V)) query tables
+// (sources v >= v_real masked when 0 < v_real < V): one warp per
+// destination joint w, lane = source joint.  With ADD, base holds A[k] on
+// entry.  The caller syncs after it.
+template <bool ADD>
+__device__ __forceinline__ void build_base(float *base, const float *xs1,
+                                           const float *xs2, int Cm, int V,
+                                           int v_real, float beta) {
+  const int XS = row_stride(V);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int w = warp; w < V; w += nwarps) {
+    float s = -INFINITY;
+    if (lane < V) {
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+      int c = 0;
+      for (; c + 4 <= Cm; c += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          s4[u] += xs1[(c + u) * XS + lane] * xs2[(c + u) * XS + w];
+      }
+      for (; c < Cm; ++c) s4[0] += xs1[c * XS + lane] * xs2[c * XS + w];
+      s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+      if (v_real > 0 && lane >= v_real) s = -1e30f;
+    }
+    const float m = warp_max(s);
+    const float e = lane < V ? expf(s - m) : 0.f;
+    const float inv = 1.f / warp_sum(e);
+    if (lane < V)
+      base[lane * V + w] = ADD ? (e * inv) * beta + base[lane * V + w]
+                               : (e * inv) * beta;
+  }
+}
+
 // K1's projections of the edge subset k = edge_k, both in K3's p1t layout
 // (N, E, V, Cm): P1[n,e,v,c] = sum_c' edge_w[c', e*Cm + c] x1[n,k,c',v]
 // and P2 the same of x2.  One thread per (n, e, v) and CPT channels,
@@ -227,13 +262,15 @@ edge_ctr_kernel(const Args a, int N, int p2_c, int p2_w, int bias_c,
   }
 }
 
-// Copy rows [t0, t0 + nrows) of the group's channels into a ring slot laid
-// out (row, VB joints, CG channels).  16-byte cp.async where the channel
-// runs are 16-byte aligned (a.vec), else element by element.
+// Copy rows [t0, t0 + nrows) of the group's channels of ``src`` (pre's
+// layout: a.pre, or K2's dy) into a ring slot laid out (row, VB joints, CG
+// channels).  16-byte cp.async where the channel runs are 16-byte aligned
+// (a.vec), else element by element.
 template <typename Tio, int VB>
-__device__ __forceinline__ void stage_rows(const Args &a, Tio *slot, int n,
-                                           int ch0, int t0, int nrows) {
-  const Tio *pre = (const Tio *)a.pre;
+__device__ __forceinline__ void stage_rows(const Args &a, const void *src,
+                                           Tio *slot, int n, int ch0, int t0,
+                                           int nrows) {
+  const Tio *pre = (const Tio *)src;
   const int V = a.V, CG = a.CG, KC = a.K * a.Cm;
   if (a.vec) {
     constexpr int PER = 16 / sizeof(Tio);
@@ -318,8 +355,9 @@ __device__ __forceinline__ void aggregate_block(const Args &a) {
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < ntiles)
-      stage_rows<Tio, VB>(a, ring + i * slot_elems, n, ch0, t_begin + i * ROWS,
-                      min(ROWS, t_end - t_begin - i * ROWS));
+      stage_rows<Tio, VB>(a, a.pre, ring + i * slot_elems, n, ch0,
+                          t_begin + i * ROWS,
+                          min(ROWS, t_end - t_begin - i * ROWS));
     cp_async_commit();
   }
   // joints V..VB-1 of every slot stay zero (their graph rows are zero too)
@@ -333,30 +371,8 @@ __device__ __forceinline__ void aggregate_block(const Args &a) {
   cp_async_wait<STAGES - 1>();   // the small operands
   __syncthreads();
 
-  // 2. base[v, w] = beta * softmax_v(x1^T x2)[v, w] + A[k, v, w]: one warp
-  // per destination joint, lane = source joint
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  const float beta = a.beta[k];
-  for (int w = warp; w < V; w += nwarps) {
-    float s = -INFINITY;
-    if (lane < V) {
-      float s4[4] = {0.f, 0.f, 0.f, 0.f};
-      int c = 0;
-      for (; c + 4 <= Cm; c += 4) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          s4[u] += xs1[(c + u) * XS + lane] * xs2[(c + u) * XS + w];
-      }
-      for (; c < Cm; ++c) s4[0] += xs1[c * XS + lane] * xs2[c * XS + w];
-      s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-      if (a.v_real > 0 && lane >= a.v_real) s = -1e30f;
-    }
-    const float m = warp_max(s);
-    const float e = lane < V ? expf(s - m) : 0.f;
-    const float inv = 1.f / warp_sum(e);
-    if (lane < V)
-      base[lane * V + w] = (e * inv) * beta + base[lane * V + w];
-  }
+  // 2. base[v, w] = beta * softmax_v(x1^T x2)[v, w] + A[k, v, w]
+  build_base<true>(base, xs1, xs2, Cm, V, a.v_real, a.beta[k]);
   __syncthreads();
 
   // 3. this thread's graph columns
@@ -380,9 +396,9 @@ __device__ __forceinline__ void aggregate_block(const Args &a) {
     __syncthreads();
     const int nxt = i + STAGES - 1;
     if (nxt < ntiles)
-      stage_rows<Tio, VB>(a, ring + (nxt % STAGES) * slot_elems, n, ch0,
-                      t_begin + nxt * ROWS,
-                      min(ROWS, t_end - t_begin - nxt * ROWS));
+      stage_rows<Tio, VB>(a, a.pre, ring + (nxt % STAGES) * slot_elems, n,
+                          ch0, t_begin + nxt * ROWS,
+                          min(ROWS, t_end - t_begin - nxt * ROWS));
     cp_async_commit();
     if (!active) continue;
     const Tio *slot = ring + (i % STAGES) * slot_elems + cl;

@@ -293,6 +293,110 @@ def _forward_kernel(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel,
     return out
 
 
+def bwd_joint_bound(V: int):
+    """(VB, WN): K2's compile-time joint bound for V joints and the source
+    joints a contraction thread holds there
+    (``_build.BWD_JOINTS_PER_THREAD``)."""
+    VB = min(b for b in _build.BWD_JOINTS_PER_THREAD if b >= V)
+    return VB, _build.BWD_JOINTS_PER_THREAD[VB]
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def bwd_block(V: int, CG: int, esize: int, E: int):
+    """(threads, shared-memory bytes) of a K2 contraction block of CG
+    channels for pre/dy elements of ``esize`` bytes, with E edge classes
+    (0 without an edge subset): CG x ceil(V / WN) threads rounded to warps;
+    the larger of the rings of pre and dy and the post-row planes (dG / dz,
+    and dP1/dP2 on the edge subset), the block's queries and their
+    exponential tables, base, 32 floats for block sums, and each (v, w)'s
+    class mask and value at its first class.  The kernel's own count
+    (``csrc/dyn_graph_bwd.cu`` ``dsgcn_bwd_block``) is held to it on the
+    card."""
+    VB, WN = bwd_joint_bound(V)
+    threads = -(-CG * -(-V // WN) // 32) * 32
+    XS = V | 1
+    # pre's slots (rows, joints, channels); dy's (rows, channels, joints
+    # padded to 4), channels paired in bfloat16
+    dy_channels = -(-CG // 2) * 2 if esize == 2 else CG
+    ring = _build.BWD_STAGES * (
+        _align16(_build.BWD_ROWS * VB * CG * esize)
+        + _align16(_build.BWD_ROWS * dy_channels * -(-VB // 4) * 4 * esize))
+    post = 4 * (CG * (V * V | 1) + 2 * E * CG * XS)
+    smem = (_align16(max(ring, post)) + 4 * (4 * CG * XS + V * V + 32)
+            + (6 * V * V if E else 0))
+    return threads, smem
+
+
+def bwd_finish_smem(V: int, Cm: int) -> int:
+    """Shared-memory bytes of K2's finish block (``finish_smem_bytes``)."""
+    return 4 * (2 * Cm * (V | 1) + 2 * V * V + V * (V | 1) + 32)
+
+
+# K2's cost model, in one warp's row steps: a warp's graph rows and chain
+# after the rows, and a block's fixed work (tables, barriers, the partial
+# sums it writes)
+_BWD_BUILD_ROWS, _BWD_SETUP_ROWS = 8, 70
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(N: int, T: int, V: int, K: int, Cm: int, esize: int, E: int):
+    """(CG, rows): the channels and rows of pre/dy a K2 contraction block
+    takes (E: the edge classes, 0 without an edge subset).
+
+    A block builds its graph rows once and chains its partial dG after its
+    rows, so splitting T or narrowing the channel group repeats that work
+    and adds partial sums for the finish kernel to add, while a grid of too
+    few warps leaves the SMs waiting on loads.  The cost is agg_plan's:
+    the blocks the busiest SM runs times a block's work, over the share of
+    _HIDE_WARPS resident warps the SM keeps; the cheapest plan wins, ties
+    to fewer blocks."""
+    VB, WN = bwd_joint_bound(V)
+    row = VB * (2 * WN + 1) + 2 * WN      # a warp's instructions a row
+    regs = _SM_REGS // (_build.BWD_MIN_BLOCKS * _build.BWD_MAX_THREADS)
+    best = None
+    for CG in range(min(Cm, 32), 0, -1):
+        if Cm % CG:
+            continue
+        threads, smem = bwd_block(V, CG, esize, E)
+        if threads > _build.BWD_MAX_THREADS or smem > _BLOCK_SMEM:
+            continue
+        warps = threads // 32
+        per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
+                     _SM_REGS // (threads * regs),
+                     _SM_SMEM // (smem + 1024))
+        if per_sm < 1:
+            continue
+        slow = 1.0 if (CG * esize) % 16 == 0 and (Cm * esize) % 16 == 0 \
+            else 1.5
+        for S in range(1, max(T, 1) + 1):
+            rows = -(-max(T, 1) // S)
+            if S > 1 and -(-T // (S - 1)) == rows:
+                continue
+            blocks = N * K * (Cm // CG) * -(-max(T, 1) // rows)
+            load = -(-blocks // _SMS)
+            resident = min(per_sm, load) * warps
+            work = warps * (_BWD_BUILD_ROWS + rows) + _BWD_SETUP_ROWS
+            cost = slow * row * load * work / min(1.0,
+                                                  resident / _HIDE_WARPS)
+            key = (cost, blocks)
+            if best is None or key < best[0]:
+                best = (key, CG, rows)
+    if best is None:
+        raise ValueError(f"no K2 block plan for V={V}, Cm={Cm}: the block's "
+                         "shared memory or threads exceed the card's")
+    return best[1], best[2]
+
+
+def _edge_slices(N: int, F: int) -> int:
+    """Sample slices of K2's dedge_w product: enough blocks for four
+    waves of the card (``edge_dw_kernel``'s grid is ceil(F / 64) x
+    slices)."""
+    return max(1, min(N, -(-4 * _SMS // -(-F // 64))))
+
+
 def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
                             x2: torch.Tensor, A: torch.Tensor,
                             alpha: torch.Tensor, beta: torch.Tensor,
@@ -320,36 +424,67 @@ def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
         raise ValueError(f"{name}: dy must be a contiguous tensor of pre_x's "
                          "shape, dtype and device")
     N, T, V, _ = pre_x.shape
-    if o["edge_k"] >= 0 and Cm * V > _build.MAX_BWD_THREADS:
-        raise ValueError(f"{name}: edge attention with Cm*V = {Cm * V} over "
-                         f"{_build.MAX_BWD_THREADS} (the edge subset's "
-                         "channels and joints share one block)")
-    dev, f32 = pre_x.device, torch.float32
     has_edge = o["edge_k"] >= 0
+    if has_edge and Cm > _build.MAX_BWD_EDGE_CHANNELS:
+        raise ValueError(f"{name}: edge attention with Cm = {Cm} over "
+                         f"{_build.MAX_BWD_EDGE_CHANNELS} (the edge "
+                         "products take the subset's channels and the bias "
+                         "in one block)")
+    if bwd_finish_smem(V, Cm) > _BLOCK_SMEM:
+        raise ValueError(f"{name}: Cm = {Cm} channels overflow the finish "
+                         "block's shared memory")
+    Ee = E if has_edge else 0
+    CG, rows = bwd_plan(N, T, V, K, Cm, pre_x.element_size(), Ee)
+    nrr = max(1, -(-T // rows))
+    S = nrr * (Cm // CG)
+    dev, f32 = pre_x.device, torch.float32
     VV, F = V * V, E * Cm
-    W = K * VV + 2 * K + (Cm * F + F if has_edge else 0)
+    W0 = K * VV + 2 * K
     dpre = torch.empty_like(pre_x)
     dx1 = torch.empty((N, K, Cm, V), device=dev, dtype=f32)
     dx2 = torch.empty_like(dx1)
-    parts = torch.empty((N, W), device=dev, dtype=f32)   # per-sample sums
-    sums = torch.zeros(W, device=dev, dtype=f32)
-    if N > 0:
+    sums = torch.empty(W0 + ((Cm + 1) * F if has_edge else 0), device=dev,
+                       dtype=f32)
+    if N == 0:
+        sums.zero_()
+    else:
+        # per-block slices and per-sample sums, added in order by the
+        # kernels (csrc/dyn_graph_bwd.cu, the C interface's note), carved
+        # from one workspace
+        shapes = dict(parts=(N, W0), ada=(N, K, VV), sc_part=(N, K, S, VV),
+                      da_part=(N, K, S), dx_part=(N, K, nrr, 2, Cm, V))
+        ns = 0
+        if has_edge:
+            ns = _edge_slices(N, F)
+            shapes.update(p1s=(N * E * V * Cm,), p2s=(N * E * V * Cm,),
+                          ectr=(N * VV * Cm,), dp_part=(N, nrr, 2, F, V),
+                          dxe_part=(N, _build.BWD_DX_PARTS, 2, Cm, V),
+                          dw_part=(ns, Cm + 1, F))
+        # each piece on a 256-byte boundary
+        sizes = {k: -(-int(np.prod(v)) // 64) * 64 for k, v in shapes.items()}
+        work = torch.empty(sum(sizes.values()), device=dev, dtype=f32)
+        w = dict(zip(sizes, torch.split(work, list(sizes.values()))))
         ptr = _build.ptr
         with torch.cuda.device(dev):
             _build.launch(
                 "dyn_graph_bwd", ptr(pre_x), ptr(dy), ptr(dpre),
                 int(pre_x.dtype == torch.bfloat16), ptr(dx1), ptr(dx2),
-                ptr(parts), ptr(sums), ptr(o["x1"]), ptr(o["x2"]),
+                ptr(w["parts"]), ptr(sums), ptr(o["x1"]), ptr(o["x2"]),
                 ptr(o["A"]), ptr(o["alpha"]), ptr(o["beta"]),
-                ptr(o["edge_w"]), ptr(o["bias_field"]), ptr(o["sel"]), N, T,
-                V, K, Cm, E, o["edge_k"], _build.stream_of(pre_x))
+                ptr(o["edge_w"]), ptr(o["bias_field"]), ptr(o["sel"]),
+                ptr(w.get("p1s")), ptr(w.get("p2s")), ptr(w.get("ectr")),
+                ptr(w["ada"]), ptr(w["sc_part"]), ptr(w["da_part"]),
+                ptr(w["dx_part"]), ptr(w.get("dp_part")),
+                ptr(w.get("dxe_part")), ptr(w.get("dw_part")), N, T, V, K,
+                Cm, E, o["edge_k"], CG, rows, nrr, ns,
+                _build.stream_of(pre_x))
         fused_dyn_graph_agg_bwd.launches += 1
     dA = sums[:K * VV].view(K, V, V)
-    dgates = sums[K * VV:K * VV + 2 * K].view(2, K)
+    dgates = sums[K * VV:W0].view(2, K)
     dew = deb = None
     if has_edge:
-        dew = sums[K * VV + 2 * K:K * VV + 2 * K + Cm * F].view(Cm, F)
-        deb = sums[K * VV + 2 * K + Cm * F:] if edge_b is not None else None
+        dew = sums[W0:W0 + Cm * F].view(Cm, F)
+        deb = sums[W0 + Cm * F:] if edge_b is not None else None
     return dpre, dx1, dx2, dA, dgates[0], dgates[1], dew, deb
 
 

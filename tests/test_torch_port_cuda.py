@@ -28,8 +28,9 @@ from dsgcn_tpu_torch.ops.kernels.bd_agg import (
     reference_bd_dyn_graph_agg_subset)
 from dsgcn_tpu_torch.ops.kernels.dggcn_block import (
     fused_dggcn_block_eval, reference_dggcn_block_eval)
+from dsgcn_tpu_torch.ops.kernels import dyn_graph
 from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
-    agg_block, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
+    agg_block, bwd_block, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
     fused_dyn_graph_agg_eval, reference_dyn_graph_agg,
     reference_dyn_graph_agg_bwd, reference_dyn_graph_agg_eval)
 from dsgcn_tpu_torch.ops.kernels.ms_tcn import (fused_dgmstcn_eval,
@@ -202,6 +203,119 @@ def test_cuda_k2_matches_plain(cuda, Cm, T, edge, dtype):
         assert _rel(a, b) <= tol, (name, _rel(a, b))
 
 
+def _k2_call(cuda, d, K, Cm, edge_k, dtype, seed):
+    """K2's arguments on the card from K1-packaged inputs ``d``."""
+    g = {k: to_torch(v).to(cuda) for k, v in d.items()}
+    dy = torch.randn(g["pre"].shape,
+                     generator=torch.Generator().manual_seed(seed)).to(cuda)
+    return (g["pre"].to(dtype), g["x1"], g["x2"], g["A"], g["alpha"],
+            g["beta"], g.get("ew"), g.get("eb"), g.get("sel"), dy.to(dtype),
+            K, Cm, edge_k, E)
+
+
+def _k2_check(args, dtype):
+    """K2 against its plain version: every gradient within 1e-4 of its
+    largest entry, a bfloat16 dpre within 8e-3."""
+    n = fused_dyn_graph_agg_bwd.launches
+    got = fused_dyn_graph_agg_bwd(*args)
+    assert fused_dyn_graph_agg_bwd.launches == n + 1
+    want = reference_dyn_graph_agg_bwd(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype
+    for name, a, b in zip(K2_OUTS, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.shape == b.shape, name
+        tol = 8e-3 if name == "dpre" and dtype == torch.bfloat16 else 1e-4
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,Cm,T,CG,rows,edge", [
+    (3, 32, 30, 16, 7, e) for e in (False, True)] + [   # rows, channels split
+    (3, 16, 30, 16, 1, e) for e in (False, True)] + [   # a row a block
+    (3, 32, 15, 4, 15, e) for e in (False, True)] + [   # narrow groups
+    (3, 8, 60, 8, 60, e) for e in (False, True)] + [    # a subset a block
+    (8, 64, 15, 8, 4, False)])      # DG-STGCN's widest stage, both split
+def test_cuda_k2_plans_match_plain(cuda, monkeypatch, K, Cm, T, CG, rows,
+                                   edge, dtype):
+    """K2 under plans that split T and channels (the planner's choice
+    replaced): the partial sums of every block add up to the gradients."""
+    monkeypatch.setattr(dyn_graph, "bwd_plan", lambda *a: (CG, rows))
+    d = block_inputs(seed=CG + rows, N=3, T=T, K=K, Cm=Cm, edge=edge)
+    _k2_check(_k2_call(cuda, d, K, Cm, 1 if edge else -1, dtype, rows),
+              dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,Cm,edge", [(25, 6, True), (25, 6, False),
+                                       (18, 16, True), (18, 8, False),
+                                       (32, 16, True), (25, 48, True)])
+def test_cuda_k2_odd_shapes(cuda, V, Cm, edge, dtype):
+    """K2 at widths whose channel runs are not 16-byte aligned (Cm = 6), a
+    graph of 18 joints (the joint bound 25 with 7 short), joints padded to
+    32, and edge attention at Cm*V = 1200 (one block once held all the
+    edge subset's Cm*V channels and joints; no longer)."""
+    d = block_inputs(seed=V + Cm, N=4, T=21, V=max(V, 25), Cm=Cm, edge=edge)
+    if V < 25:
+        d = {k: (v[..., :V, :] if k == "pre" else v[..., :V]
+                 if k in ("x1", "x2") else v[..., :V, :V]
+                 if k in ("A", "sel") else v) for k, v in d.items()}
+    _k2_check(_k2_call(cuda, d, 3, Cm, 1 if edge else -1, dtype, V), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k2_wide_queries(cuda, dtype):
+    """Queries that spread over 40 within a channel underflow the
+    exponential tables of ctr: those blocks take tanhf, and K2 still
+    matches its plain version."""
+    d = block_inputs(seed=12, N=4, T=20, Cm=16, edge=True)
+    d["x1"] = d["x1"] * 30
+    d["x2"][:, :, 3] = d["x2"][:, :, 3] * 30
+    _k2_check(_k2_call(cuda, d, 3, 16, 1, dtype, 12), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [False, True])
+def test_cuda_k2_same_bits_every_call(cuda, monkeypatch, edge, dtype):
+    """No atomics: two calls on the same inputs give identical bits, also
+    under a plan whose blocks leave partial sums (T and channels split)."""
+    monkeypatch.setattr(dyn_graph, "bwd_plan", lambda *a: (8, 9))
+    d = block_inputs(seed=4, N=16, T=30, Cm=16, edge=edge)
+    args = _k2_call(cuda, d, 3, 16, 1 if edge else -1, dtype, 4)
+    a, b = fused_dyn_graph_agg_bwd(*args), fused_dyn_graph_agg_bwd(*args)
+    torch.cuda.synchronize()
+    for name, x, y in zip(K2_OUTS, a, b):
+        if x is None:
+            assert y is None
+            continue
+        bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(x.view(bits), y.view(bits)), name
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_block_matches_planner(cuda):
+    """The planner's model of a K2 contraction block (threads, shared
+    memory) is the block the kernel launches."""
+    lib = ctypes.CDLL(str(_build.compile_kernel("dyn_graph_bwd")))
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    for V in (1, 18, 25, 26, 32):
+        for Cm in (1, 6, 8, 16, 32, 64):
+            for CG in [g for g in range(1, min(Cm, 32) + 1) if Cm % g == 0]:
+                for esize in (2, 4):
+                    for E_ in (0, E):
+                        lib.dsgcn_bwd_block(V, CG, esize, E_,
+                                            ctypes.byref(threads),
+                                            ctypes.byref(smem))
+                        assert (threads.value, smem.value) == bwd_block(
+                            V, CG, esize, E_), (V, Cm, CG, esize, E_)
+
+
 @pytest.mark.cuda
 def test_cuda_function_backward(cuda):
     """fused_dyn_graph_agg under autograd on the card launches K1 forward
@@ -362,7 +476,7 @@ def test_cuda_k6_matches_plain(cuda, C, Cout, K, Cm, down, edge, dtype):
 @pytest.mark.parametrize("Cm,T", [(32, 30), (64, 15)])
 def test_cuda_k2_wide_matches_plain(cuda, Cm, T, dtype):
     """K2 at DG-STGCN's training widths (K = 8, no edge attention): at
-    Cm = 64 (Cm*V = 1600) the block takes the channels in two groups."""
+    Cm = 64 the planner splits each subset's channels over blocks."""
     K = 8
     d = block_inputs(seed=Cm + T, N=4, T=T, K=K, Cm=Cm, edge=False)
     pre, x1, x2, A, a, b = _on(cuda, d, "pre", "x1", "x2", "A", "alpha",
@@ -397,17 +511,20 @@ def test_cuda_eval_kernels_refuse_grad(cuda):
 @pytest.mark.cuda
 def test_cuda_new_kernels_refuse_unsupported_sizes(cuda):
     """Where the kernels cannot go, the wrappers raise before a launch: K2's
-    edge subset beyond Cm*V = 1024, a K6 frame whose tiles overflow shared
-    memory, K5 beyond its input channels, a K4 group that is no multiple
-    of 8."""
-    d = block_inputs(seed=51, N=2, T=4, Cm=48, edge=True)
+    edge subset beyond the 127 channels its edge products take, a K6 frame
+    whose tiles overflow shared memory, K5 beyond its input channels, a K4
+    group that is no multiple of 8."""
+    d = block_inputs(seed=51, N=2, T=4, Cm=128, edge=True)
     pre, x1, x2, A, a, b, ew, eb, sel = _on(
         cuda, d, "pre", "x1", "x2", "A", "alpha", "beta", "ew", "eb", "sel")
     n2 = fused_dyn_graph_agg_bwd.launches
-    with pytest.raises(ValueError, match="1024"):
+    with pytest.raises(ValueError, match="127"):
         fused_dyn_graph_agg_bwd(pre, x1, x2, A, a, b, ew, eb, sel, pre, 3,
-                                48, 1, E)
+                                128, 1, E)
     assert fused_dyn_graph_agg_bwd.launches == n2
+    d = block_inputs(seed=51, N=2, T=4, Cm=48, edge=True)
+    pre, x1, x2, A, a, b = _on(cuda, d, "pre", "x1", "x2", "A", "alpha",
+                               "beta")
     args, kw = _k6_args(cuda, torch.float32, 16, 16, 8, 128, False, False,
                         52)
     with pytest.raises(ValueError, match="shared memory"):
