@@ -19,7 +19,9 @@ forward; every case timed, with edge attention and without).  DG-STGCN
 (the j config with ``model_cfg('dgstgcn')``): phase 8 checks K4 (and K1
 at K4's blocks), K5, K6 (and K6 at DS-GCN's shapes with edge attention)
 at its serving shapes and K2 at its training shapes, Cm = 64 included, and
-times its GCN blocks per eval path; phase 9 serves it (GPU against CPU, 7 K1 and
+times its GCN blocks per eval path (and DS-GCN's, 'auto' against 'mega');
+K5 and K6 carry a second bound beside the CUDA-core one, their 1x1
+products at the tensor cores' rate; phase 9 serves it (GPU against CPU, 7 K1 and
 3 K4 launches per 'auto' forward, every ``eval_kernel`` option against
 'auto' with its own launches, clips/s and profiles).  Phase 7 trains
 DS-GCN (b128 x M2 x T60, synthetic data through the train pipeline and
@@ -40,7 +42,14 @@ steps, no kernel launched).  Phases run in the order 2-6, 8, 9, 11-13, 7,
 result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
-(``plan_sweep``) and writes ``chiprun_out/agg_sweep.json``.
+(``plan_sweep``) and writes ``chiprun_out/agg_sweep.json``;
+``--sweep-blocks`` does the same for K5 and K6 (``block_sweep``,
+``chiprun_out/block_sweep.json``), and ``--blocks`` runs phase 8's K5 and
+K6 checks and the block times alone (``chiprun_out/blocks.json``).
+``--parent DIR`` times the K5 and K6 of another checkout of the port (a
+``git archive`` of the parent commit unpacked into DIR) beside these, in
+turns, in phase 8.  Every run first counts the tensor-core instructions
+in K5's and K6's SASS (``cuobjdump -sass``) and fails without them.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it lists the kernels with their launches, errors and
@@ -784,29 +793,50 @@ def block_weights(rng, dev, C, KC, Cout, down):
     return w
 
 
+TF32_FLOP_PER_S = 495e12        # tensor cores, dense, H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12
+
+
 def block_bound(N, T, C, KC, Cout, K, Cm, down, xbytes, edge=False,
                 post=True):
     """Least time (ms) of K5 (post=False: pre 1x1 + aggregation, output
-    (N, T, V, K*Cm)) or K6 (the whole block) and what bounds it: x read
-    and the output written once, weights and queries once, against the
-    1x1 products, the aggregation and the graph build in float32 over the
-    CUDA-core rate (the kernels compute in float32)."""
-    act = N * T * V * (C + (Cout if post else KC)) * xbytes
+    (N, T, V, K*Cm)) or K6 (the whole block) and what bounds it, two ways.
+    Both count x read and the output written once, weights and queries
+    once.  ``bound_ms``: the 1x1 products, the aggregation and the graph
+    build in float32 over the CUDA-core rate.  ``bound_tc_ms``: the
+    products on tensor cores as the kernels run them (float32 operands
+    3xTF32, three terms over the TF32 rate; bfloat16 K5 one term at the
+    bf16 rate; bfloat16 K6 two terms where x is an operand, three for the
+    post product), the aggregation and the graph on CUDA cores."""
+    rows = N * T * V
+    act = rows * (C + (Cout if post else KC)) * xbytes
     wts = C * KC * (4 if post else xbytes) + 4 * KC
     if post:
         wts += 4 * (KC * Cout + Cout + ((C * Cout + Cout) if down else 0))
     small = 4 * (2 * N * K * Cm * V + K * V * V + 2 * K)
-    flops = 2 * N * T * V * C * KC + 2 * N * T * V * V * KC
-    flops += N * K * 6 * Cm * V * V
-    if post:
-        flops += 2 * N * T * V * KC * Cout
-        flops += 2 * N * T * V * C * Cout if down else 0
+    pre = 2 * rows * C * KC
+    prod_post = 2 * rows * KC * Cout if post else 0
+    prod_down = 2 * rows * C * Cout if post and down else 0
+    other = 2 * rows * V * KC + N * K * 6 * Cm * V * V
     if edge:
-        flops += N * Cm * V * V * 2 * E + N * 2 * (2 * Cm * E * Cm * V)
+        other += N * Cm * V * V * 2 * E + N * 2 * (2 * Cm * E * Cm * V)
     t_bytes = (act + wts + small) / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    t_ops = (pre + prod_post + prod_down + other) / F32_FLOP_PER_S
+    if xbytes == 4:
+        t_tc = 3 * (pre + prod_post + prod_down) / TF32_FLOP_PER_S
+    elif post:
+        t_tc = (2 * (pre + prod_down) + 3 * prod_post) / TF32_FLOP_PER_S
+    else:
+        t_tc = pre / BF16_FLOP_PER_S
+    t_tc += other / F32_FLOP_PER_S
+    # the MMAs' work as the kernels issue it (each split term counted)
+    terms = (3 * (pre + prod_post + prod_down) if xbytes == 4
+             else 2 * (pre + prod_down) + 3 * prod_post if post else pre)
+    return dict(mma_flop=terms,
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_tc_ms=1e3 * max(t_bytes, t_tc),
+                bound_tc_by="bytes" if t_bytes >= t_tc else "operations")
 
 
 def new_sum():
@@ -814,24 +844,82 @@ def new_sum():
                 bound_by=set())
 
 
+SUMMED = ("ms", "plain_ms", "bound_ms", "library_ms", "bound_tc_ms",
+          "parent_ms", "mma_flop")
+
+
 def add_to(acc, row, n):
-    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+    for k in SUMMED:
         if row.get(k) is not None:
-            acc[k] = (acc[k] or 0.0) + n * row[k]
+            acc[k] = (acc.get(k) or 0.0) + n * row[k]
     acc["bound_by"].add(row["bound_by"])
 
 
-def dg_kernel_checks(dev, rng, report):
+def parent_wrappers(root):
+    """K5's and K6's wrappers from another checkout of the port (e.g. a
+    ``git archive`` of the parent commit unpacked into ``root``), built from
+    that checkout's sources into its own build directory, to time them
+    beside this checkout's in one call: (fused_dyn_graph_agg_eval,
+    fused_dggcn_block_eval)."""
+    import importlib
+    import importlib.util
+    from concurrent.futures import ThreadPoolExecutor
+    pkg = pathlib.Path(root).resolve() / "dsgcn_tpu_torch" / "ops" / "kernels"
+    name = "parent_kernels"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    build = importlib.import_module(name + "._build")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        list(ex.map(build.compile_kernel, ("dyn_graph_eval", "dggcn_block")))
+    print(f"parent kernels from {root} built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return (importlib.import_module(name + ".dyn_graph")
+            .fused_dyn_graph_agg_eval,
+            importlib.import_module(name + ".dggcn_block")
+            .fused_dggcn_block_eval)
+
+
+def sass_mma(names=("dyn_graph_eval", "dggcn_block")):
+    """The tensor-core instructions in each built library's SASS
+    (``cuobjdump -sass``), by opcode: K5's and K6's 1x1 products must show
+    them."""
+    import re
+    import shutil
+    from dsgcn_tpu_torch.ops.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        ops = {}
+        for op in re.findall(r"\b(HMMA\.[A-Z0-9.]+|HGMMA\.[A-Z0-9.]+)",
+                             sass):
+            ops[op] = ops.get(op, 0) + 1
+        check(bool(ops), f"no tensor-core instruction in {name}'s SASS")
+        print(f"sass {name}: {json.dumps(ops)}", flush=True)
+        out[name] = ops
+    return out
+
+
+def dg_kernel_checks(dev, rng, report, parent=None, k56_only=False):
     """Phase 8: K4, K5 and K6 at DG-STGCN's serving shapes (N = 128), K6
     also at DS-GCN's with edge attention, K1 at DG-STGCN's 'auto' blocks,
     each in f32 and bf16 against its plain version; f32 times per forward
-    at b64 x M2 x T100.  Then K2 (and K1) at DG-STGCN's training shapes."""
+    at b64 x M2 x T100, K5 and K6 beside ``parent``'s (``parent_wrappers``)
+    where given, timed in turns.  Then the GCN blocks per eval path, and K2
+    (and K1) at DG-STGCN's training shapes.  ``k56_only``: K5, K6 and the
+    block times alone."""
     from dsgcn_tpu_torch.ops.kernels.bd_agg import (
         bd_dyn_graph_agg_subset, reference_bd_dyn_graph_agg_subset)
     from dsgcn_tpu_torch.ops.kernels.dggcn_block import (
-        fused_dggcn_block_eval, reference_dggcn_block_eval)
+        block_plan, fused_dggcn_block_eval, reference_dggcn_block_eval)
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
-        fused_dyn_graph_agg_eval, reference_dyn_graph_agg_eval)
+        eval_plan, fused_dyn_graph_agg_eval, reference_dyn_graph_agg_eval)
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
     names = ("bd_dyn_graph_agg_subset", "fused_dyn_graph_agg_eval",
              "fused_dggcn_block_eval", "fused_dyn_graph_agg")
@@ -839,16 +927,28 @@ def dg_kernel_checks(dev, rng, report):
     per_forward = {n: new_sum() for n in names}
     rows = report["dg_kernel_checks"] = []
 
-    def record(row, kern, plain, library=None, bound=None, nblocks=0):
-        """Time a f32 case (ms, plain ms, library ms, bound) and add it to
-        the kernel's per-forward sums."""
-        row.update(ms=cold_ms(kern, flush=flush),
-                   plain_ms=cold_ms(plain, iters=3, flush=flush),
+    def record(row, kern, plain, library=None, bound=None, nblocks=0,
+               old=None):
+        """Time a f32 case (ms, plain ms, library ms, bounds; with ``old``,
+        the parent's kernel in turns: old, new, new, old) and add it to the
+        kernel's per-forward sums."""
+        if old is not None:
+            t = [cold_ms(f, flush=flush) for f in (old, kern, kern, old)]
+            row.update(ms=(t[1] + t[2]) / 2, parent_ms=(t[0] + t[3]) / 2,
+                       ms_runs=t[1:3], parent_ms_runs=[t[0], t[3]])
+        else:
+            row.update(ms=cold_ms(kern, flush=flush))
+        row.update(plain_ms=cold_ms(plain, iters=3, flush=flush),
                    library_ms=(cold_ms(library, flush=flush)
                                if library is not None else None),
-                   bound_ms=bound[0], bound_by=bound[1],
                    blocks_per_forward=nblocks)
+        row.update(bound if isinstance(bound, dict)
+                   else dict(bound_ms=bound[0], bound_by=bound[1]))
         with_ratios(row)
+        if "bound_tc_ms" in row:
+            row["ms_over_bound_tc"] = row["ms"] / row["bound_tc_ms"]
+            # the TF32 work of the MMAs over the kernel's whole time
+            row["mma_tflop_s"] = row["mma_flop"] / row["ms"] / 1e9
         if nblocks:
             add_to(per_forward[row["kernel"]], row, nblocks)
 
@@ -860,7 +960,7 @@ def dg_kernel_checks(dev, rng, report):
     # K4 where 'auto' takes it (mid 64), g = 32 (the path's) and g = Cm,
     # and with joints padded 25 -> 32
     for (C, Cout, Cm, T), nb in distinct(DG_BLOCKS):
-        if Cm < 64:
+        if Cm < 64 or k56_only:
             continue
         for dtype in (torch.float32, torch.bfloat16):
             for g, Vp, v_real in ((32, V, -1), (None, V, -1), (32, 32, 25)):
@@ -900,7 +1000,7 @@ def dg_kernel_checks(dev, rng, report):
     # K1 at the blocks where 'auto' takes it (mid 16 and 32), timed in both
     # types; the f32 times make the per-forward sums
     for (C, Cout, Cm, T), nb in distinct(DG_BLOCKS):
-        if Cm >= 64:
+        if Cm >= 64 or k56_only:
             continue
         for dtype in (torch.float32, torch.bfloat16):
             d = block_inputs(rng, dev, Cm, T, dtype, N=N_BLOCK, K=DG_K)
@@ -929,13 +1029,17 @@ def dg_kernel_checks(dev, rng, report):
                 *args, K=DG_K, Cm=Cm)
             plain = lambda: reference_dyn_graph_agg_eval(  # noqa
                 *args, K=DG_K, Cm=Cm)
+            old = (None if parent is None else
+                   lambda: parent[0](*args, K=DG_K, Cm=Cm))  # noqa
             row = dict(kernel=names[1], C=C, Cm=Cm, T=T, N=N_BLOCK,
-                       dtype=str(dtype).split(".")[-1])
+                       dtype=str(dtype).split(".")[-1],
+                       plan=list(eval_plan(N_BLOCK, T, V, C, DG_K, Cm,
+                                           x.element_size())))
             compare(names[1], kern(), plain(), dtype, row)
             if dtype == torch.float32:
                 record(row, kern, plain, None, block_bound(
                     N_BLOCK, T, C, DG_K * Cm, Cout, DG_K, Cm, False, 4,
-                    post=False), nb)
+                    post=False), nb, old)
             done(row)
             del d, x
 
@@ -960,21 +1064,49 @@ def dg_kernel_checks(dev, rng, report):
                 kern = lambda: fused_dggcn_block_eval(*args, **kw)  # noqa
                 plain = lambda: reference_dggcn_block_eval(  # noqa
                     *args, **kw)
+                old = (None if parent is None else
+                       lambda: parent[1](*args, **kw))  # noqa
                 row = dict(kernel=names[2], C=C, Cout=Cout, Cm=Cm, K=Kb,
                            T=T, N=N_BLOCK, down=down, edge=edge,
-                           dtype=str(dtype).split(".")[-1])
+                           dtype=str(dtype).split(".")[-1],
+                           plan=list(block_plan(N_BLOCK, T, V, C, Kb, Cm,
+                                                Cout, x.element_size(),
+                                                down)))
                 compare(names[2], kern(), plain(), dtype, row)
                 if dtype == torch.float32:
                     record(row, kern, plain, None, block_bound(
                         N_BLOCK, T, C, Kb * Cm, Cout, Kb, Cm, down, 4,
-                        edge), nb if not edge else 0)
+                        edge), nb if not edge else 0, old)
                     if edge:
                         add_to(dsgcn_mega, row, nb)
                 done(row)
                 del d, x
+    if parent is not None:
+        slower = [{k: r[k] for k in ("kernel", "C", "Cm", "T", "ms",
+                                     "parent_ms")}
+                  for r in rows if r.get("parent_ms") is not None
+                  and r["ms"] > r["parent_ms"]]
+        report["slower_than_parent"] = slower
+        print("K5/K6 shapes slower than the parent's kernel: "
+              + json.dumps(slower), flush=True)
     report["dg_per_forward"] = per_forward
     report["dsgcn_mega_per_forward"] = dsgcn_mega
-    report["dg_block_ms"] = dg_block_times(dev, flush)
+    blocks = report["dg_block_ms"] = dg_block_times(dev, flush)
+    ds_blocks = report["ds_block_ms"] = ds_block_times(dev, flush)
+    # beside K5 and K6, the unfused blocks they replace ('fused': K1 between
+    # cuBLAS 1x1s; K5 takes the blocks with C >= 64)
+    per_forward[names[1]]["unfused_ms"] = blocks["fused_c64"]
+    per_forward[names[2]]["unfused_ms"] = blocks["fused"]
+    dsgcn_mega["unfused_ms"] = ds_blocks["auto"]
+    for acc in (per_forward[names[1]], per_forward[names[2]], dsgcn_mega):
+        acc["mma_tflop_s"] = acc.get("mma_flop", 0.0) / acc["ms"] / 1e9
+    for k in (names[1], names[2]):
+        print(f"{k} per forward: " + json.dumps(
+            per_forward[k], default=sorted), flush=True)
+    print("fused_dggcn_block_eval per DS-GCN forward: " + json.dumps(
+        dsgcn_mega, default=sorted), flush=True)
+    if k56_only:
+        return worst, per_forward, None, None
     worst_t, per_step = dg_k2_checks(dev, rng, report, flush)
     return worst, per_forward, worst_t, per_step
 
@@ -1001,10 +1133,50 @@ def dg_block_times(dev, flush):
             with torch.inference_mode():
                 ms = cold_ms(lambda: m(x), flush=flush)
             sums[ek] = sums.get(ek, 0.0) + nb * ms
+            if C >= 64:
+                sums[ek + "_c64"] = sums.get(ek + "_c64", 0.0) + nb * ms
             print(f"DGGCN block C={C} Cout={Cout} mid={Cm} T={T} "
                   f"{ek}: {ms:.3f} ms (x{nb} per forward)", flush=True)
         del m, x
     print("DGGCN blocks per forward, ms: " + json.dumps(sums), flush=True)
+    return sums
+
+
+def ds_block_times(dev, flush):
+    """Device time of DS-GCN's ten GCN blocks (DGPHGCN1 in eval, f32, the
+    j config at b64 x M2 x T100, each on the input a forward gives it) per
+    eval path, summed per forward: 'auto' (K3 between cuBLAS 1x1s) is the
+    unfused block that 'mega' (K6) replaces."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    from dsgcn_tpu_torch.ops.gcn import DGPHGCN1
+    gen = torch.Generator().manual_seed(10)
+    model = init_weights_(build_model(Config.fromfile(str(CONFIG))["model"]),
+                          gen)
+    nudge_gates_(model, gen)
+    model = model.to(dev).eval()
+    blocks = [m for m in model.modules() if isinstance(m, DGPHGCN1)]
+    check(len(blocks) == 10, f"DS-GCN has {len(blocks)} DGPHGCN1 blocks")
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: inputs.setdefault(id(mod), args[0]))
+        for m in blocks]
+    with torch.inference_mode():
+        model(torch.randn(*THROUGHPUT_BATCH, generator=gen).to(dev))
+    for h in hooks:
+        h.remove()
+    sums = {}
+    for i, m in enumerate(blocks):
+        x = inputs[id(m)]
+        for ek in ("auto", "mega"):
+            m.eval_kernel = ek
+            with torch.inference_mode():
+                ms = cold_ms(lambda: m(x), flush=flush)
+            sums[ek] = sums.get(ek, 0.0) + ms
+            print(f"DGPHGCN1 block {i} {tuple(x.shape)} -> "
+                  f"{m.out_channels} {ek}: {ms:.3f} ms", flush=True)
+    del inputs, model
+    print("DGPHGCN1 blocks per forward, ms: " + json.dumps(sums), flush=True)
     return sums
 
 
@@ -1110,6 +1282,83 @@ def plan_sweep(dev):
                 del d
     finally:
         dyn_graph.agg_plan = bd_agg.agg_plan = planner
+    return rows
+
+
+def block_sweep(dev):
+    """K6 at each DG-STGCN and DS-GCN serving block shape (N = 128, the
+    edge subset on DS-GCN's) and K5 at DG-STGCN's, f32, timed under the
+    planner's plan and every plan (frames a tile, chunk of 8 channels or
+    more) that fits a block.  The planned plan's time over the best one is
+    the planner's regret; the sweep calibrates its cost model
+    (``dyn_graph._MMA_FLOP_CLK``, ``_ENTRY_INSTR``, ``_PANEL_CLK``,
+    ``_CHUNK_CLK``)."""
+    from dsgcn_tpu_torch.ops.kernels import dggcn_block as db
+    from dsgcn_tpu_torch.ops.kernels import dyn_graph as dg
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    rng = np.random.default_rng(0)
+    shapes = ([(C, Cout, DG_K, Cm, T, False)
+               for (C, Cout, Cm, T), _ in distinct(DG_BLOCKS)]
+              + [(C, Cout, K, Cm, T, True)
+                 for (C, Cout, Cm, T), _ in distinct(DS_BLOCKS)])
+    planners, rows = (db.block_plan, dg.eval_plan), []
+
+    def sweep(kernel, shape, planned, smem_of, call, patch):
+        times = {}
+        for R, TT in dg._row_tiles(shape["T"], V):
+            for CH in dg.pw_chunks(shape["K"], shape["Cm"]):
+                smem = smem_of(R, CH)
+                if CH < 8 or smem == 0 or smem > dg._BLOCK_SMEM:
+                    continue
+                patch((TT, R, CH))
+                times[(TT, R, CH)] = cold_ms(call, iters=5, flush=flush)
+        best = min(times, key=times.get)
+        row = dict(kernel=kernel, **shape, plan=list(planned),
+                   ms=times[planned], best=list(best), best_ms=times[best],
+                   plan_over_best=times[planned] / times[best],
+                   sweep={"x".join(map(str, p)): ms
+                          for p, ms in times.items()})
+        rows.append(row)
+        print("sweep", json.dumps(row), flush=True)
+
+    try:
+        for C, Cout, Kk, Cm, T, edge in shapes:
+            down = C != Cout
+            d = block_inputs(rng, dev, Cm, T, torch.float32, N=N_BLOCK, K=Kk)
+            w = block_weights(rng, dev, C, Kk * Cm, Cout, down)
+            x = torch.from_numpy(rng.standard_normal(
+                (N_BLOCK, T, V, C)).astype(np.float32)).to(dev)
+            args = (x, d["x1"], d["x2"], w["w_pre"], w["b_pre"], d["A"],
+                    d["alpha"], d["beta"], w["w_post"], w["b_post"],
+                    w["w_down"], w["b_down"])
+            kw = dict(K=Kk, Cm=Cm)
+            if edge:
+                kw.update(edge_w=d["ew"], edge_b=d["eb"], edge_sel=d["sel"],
+                          edge_k=1, edge_num=E)
+            shape = dict(C=C, Cout=Cout, K=Kk, Cm=Cm, T=T, edge=edge)
+            planned = planners[0](N_BLOCK, T, V, C, Kk, Cm, Cout, 4, down)
+
+            def patch6(p):
+                db.block_plan = lambda *_, p=p: p + (0.0,)
+            sweep("fused_dggcn_block_eval", shape, tuple(planned[:3]),
+                  lambda R, CH: db.block_smem(V, C, Kk, Cm, Cout, 4, R, CH),
+                  lambda: db.fused_dggcn_block_eval(*args, **kw), patch6)
+            db.block_plan = planners[0]
+            if not edge:
+                a5 = (x, w["w_pre"], w["b_pre"], d["x1"], d["x2"], d["A"],
+                      d["alpha"], d["beta"])
+
+                def patch5(p):
+                    dg.eval_plan = lambda *_, p=p: p
+                sweep("fused_dyn_graph_agg_eval", shape,
+                      planners[1](N_BLOCK, T, V, C, Kk, Cm, 4),
+                      lambda R, CH: dg.eval_block(V, C, Kk, Cm, 4, R, CH),
+                      lambda: dg.fused_dyn_graph_agg_eval(*a5, K=Kk, Cm=Cm),
+                      patch5)
+                dg.eval_plan = planners[1]
+            del d, x
+    finally:
+        db.block_plan, dg.eval_plan = planners
     return rows
 
 
@@ -1870,7 +2119,45 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    if sys.argv[1:] == ["--sweep"]:
+    import argparse
+    ap = argparse.ArgumentParser(description="GPU smoke run of the port")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time K1 and K3 under the plans near their "
+                    "planner's, and nothing else")
+    ap.add_argument("--sweep-blocks", action="store_true",
+                    help="time K5 and K6 under every plan that fits at the "
+                    "main paths' shapes, and nothing else")
+    ap.add_argument("--blocks", action="store_true",
+                    help="phase 8's K5 and K6 checks and times and the GCN "
+                    "block times, and nothing else")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout of the port (a git archive of "
+                    "the parent commit): time its K5 and K6 beside these")
+    args = ap.parse_args()
+    sass = sass_mma()
+    parent = parent_wrappers(args.parent) if args.parent else None
+    if args.blocks:
+        report = dict(card=card, sass_mma=sass)
+        dg_kernel_checks(dev, np.random.default_rng(0), report, parent,
+                         k56_only=True)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "blocks.json").write_text(json.dumps(report, indent=1,
+                                                    default=sorted))
+        print(card)
+        return 0
+    if args.sweep_blocks:
+        rows = block_sweep(dev)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "block_sweep.json").write_text(json.dumps(
+            dict(card=card, rows=rows), indent=1))
+        regret = [r["plan_over_best"] for r in rows]
+        print(f"{card}: K5/K6 planner's plan over the best swept plan: max "
+              f"{max(regret):.4f}, mean {np.mean(regret):.4f} over "
+              f"{len(rows)} shapes")
+        return 0
+    if args.sweep:
         rows = plan_sweep(dev)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -1883,7 +2170,8 @@ def main() -> int:
         return 0
 
     report = dict(card=card, kernel_checks=[], k2_checks=[],
-                  dg_k2_checks=[], serving=[], throughput={}, profile={})
+                  dg_k2_checks=[], serving=[], throughput={}, profile={},
+                  sass_mma=sass)
     rng = np.random.default_rng(0)
     worst, per_forward = kernel_checks(dev, rng, report)          # phase 2
     model, bf16, main_counts, fused_counts = serve(dev, report)   # 3-4
@@ -1891,7 +2179,7 @@ def main() -> int:
     del model, bf16
     worst_t, per_step = k2_checks(dev, rng, report)               # 6
     dg_worst, dg_fwd, dg_worst_t, dg_step = dg_kernel_checks(     # 8
-        dev, rng, report)
+        dev, rng, report, parent)
     dg_auto, dg_options = serve_dgstgcn(dev, card, report)        # 9
     k7_worst, k7_fwd = k7_checks(dev, report)                      # 11
     stgcnpp_counts = serve_stgcnpp(dev, card, report)              # 12
@@ -1938,8 +2226,8 @@ def main() -> int:
             ms_over_library=(pf["ms"] / pf["library_ms"]
                              if pf["library_ms"] else None),
             ms_over_bound=pf["ms"] / pf["bound_ms"],
-            **({"unfused_ms": pf["unfused_ms"]} if "unfused_ms" in pf
-               else {})))
+            **{k: pf[k] for k in ("bound_tc_ms", "unfused_ms", "parent_ms")
+               if k in pf}))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -42,6 +42,20 @@ BWD_JOINTS_PER_THREAD = {25: 2, 32: 1}
 # K2's edge product dx = edge_w dP splits its depth over this many blocks a
 # sample, whose parts the finish kernel adds
 BWD_DX_PARTS = 4
+# The block of K5 and K6 (csrc/pointwise_mma.cuh), likewise for the kernels
+# and their planners (dyn_graph.eval_plan, dggcn_block.block_plan): threads
+# a block (16 warps; each holds 32 rows of a 1x1 product's tile), the least
+# depth of a weight panel, the panels in the cp.async ring and the least
+# width a ring slot holds (a narrower product's panels take more rows);
+# then each kernel's caps on the n8 accumulator tiles a warp holds (K6: the
+# out accumulator, 64 registers at 8, and a pre chunk's; K5: a pre
+# chunk's), the destination joints an aggregation thread takes and (K6)
+# the source joints of one pass, whose graph entries it holds in registers
+PW_THREADS, PW_KP, PW_STAGES, PW_WARP_ROWS = 512, 16, 2, 32
+PW_PANEL_WIDTH = 256
+K6_OUT_TILES, K6_PRE_TILES = 8, 4
+K6_JOINTS_PER_THREAD, K6_SOURCE_JOINTS = 2, 13
+K5_PRE_TILES, K5_JOINTS_PER_THREAD = 8, 2
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DDSGCN_AGG_MAX_THREADS={AGG_MAX_THREADS}",
@@ -53,7 +67,17 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
     f"-DDSGCN_BWD_STAGES={BWD_STAGES}",
     f"-DDSGCN_BWD_MIN_BLOCKS={BWD_MIN_BLOCKS}",
     f"-DDSGCN_BWD_DX_PARTS={BWD_DX_PARTS}") + tuple(
-    f"-DDSGCN_BWD_WN{vb}={wn}" for vb, wn in BWD_JOINTS_PER_THREAD.items())
+    f"-DDSGCN_BWD_WN{vb}={wn}" for vb, wn in BWD_JOINTS_PER_THREAD.items()) + (
+    f"-DDSGCN_PW_THREADS={PW_THREADS}", f"-DDSGCN_PW_KP={PW_KP}",
+    f"-DDSGCN_PW_STAGES={PW_STAGES}",
+    f"-DDSGCN_PW_PANEL_WIDTH={PW_PANEL_WIDTH}",
+    f"-DDSGCN_PW_WARP_ROWS={PW_WARP_ROWS}",
+    f"-DDSGCN_K6_OUT_NT={K6_OUT_TILES}",
+    f"-DDSGCN_K6_PRE_NT={K6_PRE_TILES}",
+    f"-DDSGCN_K6_WN={K6_JOINTS_PER_THREAD}",
+    f"-DDSGCN_K6_VC={K6_SOURCE_JOINTS}",
+    f"-DDSGCN_K5_PRE_NT={K5_PRE_TILES}",
+    f"-DDSGCN_K5_WN={K5_JOINTS_PER_THREAD}")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (C entry point, argtypes); see the extern "C" functions in csrc
@@ -64,9 +88,9 @@ SIGNATURES = {
     "dyn_graph_bwd": ("dsgcn_dyn_graph_bwd",
                       [_P, _P, _P, _I] + [_P] * 22 + [_I] * 11 + [_P]),
     "dyn_graph_eval": ("dsgcn_dyn_graph_eval",
-                       [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [_P]),
+                       [_P] * 4 + [_I] + [_P] * 5 + [_I] * 10 + [_P] * 5),
     "dggcn_block": ("dsgcn_dggcn_block",
-                    [_P, _P, _I] + [_P] * 14 + [_I] * 9 + [_P]),
+                    [_P, _P, _I] + [_P] * 21 + [_I] * 12 + [_P]),
     "ms_tcn": ("dsgcn_ms_tcn", [_P, _P, _I, _P] + [_P] * 12 + [_I] * 14
                + [_P]),
 }
@@ -189,9 +213,6 @@ def check_activation(pre: torch.Tensor, name: str) -> None:
 # subset's Cm channels and the bias row in one block's rows)
 MAX_JOINTS, MAX_EDGE_CLASSES, MAX_SAMPLES = 32, 16, 65535
 MAX_BWD_EDGE_CHANNELS = 127
-# K5's (C, 16) slice of w_pre in shared memory beside the graph build
-# (csrc/dyn_graph_eval.cu eval_smem_bytes at Cm = 64, V = 32)
-MAX_PRE_CHANNELS = 2048
 
 
 def check_limits(name: str, N: int, V: int, E: int) -> None:

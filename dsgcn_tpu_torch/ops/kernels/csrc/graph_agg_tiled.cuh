@@ -36,6 +36,11 @@
 // shared memory.  The edge subset's blocks then read their ctr in place of
 // tanh(x1 - x2), and every block has the same shared memory.
 //
+// K5 and K6 (dyn_graph_eval.cu, dggcn_block.cu) compute pre inside their
+// blocks, over a tile of whole frames staged in shared memory, and take the
+// same graph (build_base's base, the edge subset's call-wide ctr) through
+// graph_prep_kernel, stage_tables and aggregate_staged below.
+//
 // The block geometry (threads, rows a ring stage, stages, joints a thread)
 // comes from the build: ops/kernels/_build.py defines it, for these
 // kernels as -D flags and for the wrapper's planner.
@@ -421,6 +426,232 @@ __device__ __forceinline__ void aggregate_block(const Args &a) {
     }
   }
   cp_async_wait<0>();
+}
+
+// K5 and K6 (dyn_graph_eval.cu, dggcn_block.cu) aggregate a tile of whole
+// frames whose pre they computed into shared memory, over a chunk of CH
+// channels of the K*Cm axis from channel q0: a chunk lies inside one
+// subset (CH divides Cm) or covers S = CH / Cm whole subsets.  What a
+// subset's graph needs beyond its channels' queries does not depend on the
+// frames, so graph_prep_kernel builds it once a call, for every (sample,
+// subset), ahead of the blocks (each frame tile of a sample would build it
+// again): base = beta * ada + A (V x V), and the queries as exponential
+// tables where they allow it.  A block's tables then hold, from the
+// chunk's first subset k0 on, each subset's two tables (Cm rows of stride
+// row_stride(V) each in xs1 and xs2) and base (V x V).
+
+// Turn the staged queries of S subsets from k0 into exponential tables in
+// place, xs1[c, v] <- exp(2 (x1[c, v] - m_c)) and the same of xs2, m_c the
+// channel's largest query, so that tanh(x1 - x2) = (e1 - e2) / (e1 + e2)
+// takes one division a graph entry in place of tanhf (about 1e-6 from it;
+// K2 builds its ctr the same way).  Where a channel's queries spread over
+// 40 the exponentials would underflow: the tables stay queries (their
+// blocks take tanhf), and this returns false.  The edge subset's channels
+// (their ctr comes from the scratch) are not held to the spread.  A warp
+// a channel, a lane a joint; every thread of the block calls it, and it
+// ends in a barrier.
+__device__ __forceinline__ bool exp_tables(const Args &a, int k0, int S,
+                                           float *xs1, float *xs2) {
+  const int V = a.V, Cm = a.Cm, XS = row_stride(V);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  bool wide = false;
+  for (int r = warp; r < S * Cm; r += nwarps) {
+    const bool in = lane < V;
+    const float q1 = in ? xs1[r * XS + lane] : 0.f;
+    const float q2 = in ? xs2[r * XS + lane] : 0.f;
+    const float hi = warp_max(in ? fmaxf(q1, q2) : -INFINITY);
+    const float lo = -warp_max(in ? -fminf(q1, q2) : -INFINITY);
+    if (k0 + r / Cm != a.edge_k) wide |= !(hi - lo <= 40.f);
+  }
+  if (__syncthreads_or(wide)) return false;
+  for (int r = warp; r < S * Cm; r += nwarps) {
+    const bool in = lane < V;
+    const float q1 = in ? xs1[r * XS + lane] : 0.f;
+    const float q2 = in ? xs2[r * XS + lane] : 0.f;
+    const float hi = warp_max(in ? fmaxf(q1, q2) : -INFINITY);
+    if (in) {
+      xs1[r * XS + lane] = expf(2.f * (q1 - hi));
+      xs2[r * XS + lane] = expf(2.f * (q2 - hi));
+    }
+  }
+  __syncthreads();
+  return true;
+}
+
+constexpr int PREP_THREADS = 256;
+
+// Shared memory of a graph_prep_kernel block: x1, x2 and base.
+inline size_t prep_smem_bytes(int V, int Cm) {
+  return 4 * (2 * (size_t)Cm * row_stride(V) + (size_t)V * V);
+}
+
+// One block a (sample n, subset k): t1/t2 (N, K, Cm, V) get the subset's
+// exponential tables (flag[n*K + k] = 1) or its queries (0), tb
+// (N, K, V, V) base = beta_k ada + A_k.
+__global__ void __launch_bounds__(PREP_THREADS)
+graph_prep_kernel(const Args a, float *t1, float *t2, float *tb,
+                  int *flag) {
+  extern __shared__ float prep_smem[];
+  const int V = a.V, Cm = a.Cm, XS = row_stride(V);
+  const int n = blockIdx.x / a.K, k = blockIdx.x % a.K;
+  float *xs1 = prep_smem, *xs2 = xs1 + Cm * XS, *base = xs2 + Cm * XS;
+  const size_t q = ((size_t)n * a.K + k) * Cm * V;
+  for (int i = threadIdx.x; i < Cm * V; i += blockDim.x) {
+    xs1[(i / V) * XS + i % V] = __ldg(a.x1 + q + i);
+    xs2[(i / V) * XS + i % V] = __ldg(a.x2 + q + i);
+  }
+  for (int i = threadIdx.x; i < V * V; i += blockDim.x)
+    base[i] = __ldg(a.A + (size_t)k * V * V + i);
+  __syncthreads();
+  build_base<true>(base, xs1, xs2, Cm, V, a.v_real, a.beta[k]);
+  __syncthreads();
+  const bool ex = exp_tables(a, k, 1, xs1, xs2);
+  for (int i = threadIdx.x; i < Cm * V; i += blockDim.x) {
+    t1[q + i] = xs1[(i / V) * XS + i % V];
+    t2[q + i] = xs2[(i / V) * XS + i % V];
+  }
+  for (int i = threadIdx.x; i < V * V; i += blockDim.x)
+    tb[((size_t)n * a.K + k) * V * V + i] = base[i];
+  if (threadIdx.x == 0) flag[(size_t)n * a.K + k] = ex;
+}
+
+// Launch graph_prep_kernel over the N * K (sample, subset) pairs.
+inline int launch_prep(const Args &a, int N, float *t1, float *t2, float *tb,
+                       int *flag, cudaStream_t stream) {
+  const size_t smem = prep_smem_bytes(a.V, a.Cm);
+  cudaError_t err = cudaFuncSetAttribute(
+      graph_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  graph_prep_kernel<<<N * a.K, PREP_THREADS, smem, stream>>>(a, t1, t2, tb,
+                                                              flag);
+  return (int)cudaGetLastError();
+}
+
+// Copy the tables of the S subsets from k0 of sample n (graph_prep_kernel's
+// t1, t2 and tb) into a block's xs1, xs2 and base, as cp.async copies (the
+// caller commits and waits).
+__device__ __forceinline__ void stage_tables(int n, int K, int k0, int S,
+                                             int Cm, int V, const float *t1,
+                                             const float *t2, const float *tb,
+                                             float *xs1, float *xs2,
+                                             float *base) {
+  const int XS = row_stride(V);
+  const size_t q = ((size_t)n * K + k0) * Cm * V;
+  for (int i = threadIdx.x; i < S * Cm * V; i += blockDim.x) {
+    const int o = (i / V) * XS + i % V;
+    cp_async4(xs1 + o, t1 + q + i);
+    cp_async4(xs2 + o, t2 + q + i);
+  }
+  const size_t b = ((size_t)n * K + k0) * V * V;
+  for (int i = threadIdx.x; i < S * V * V; i += blockDim.x)
+    cp_async4(base + i, tb + b + i);
+}
+
+// Where a channel's ctr comes from in aggregate_staged.
+enum CtrKind { CTR_TANH, CTR_EXP, CTR_EDGE };
+
+// g[u][jj] = G[c, v0 + u, w0 + jj] (Tg-rounded), 0 outside the V x V graph:
+// one pass's graph entries of a channel, from its tables t1/t2 (tanhf of
+// the queries, or the exponential tables), or the edge subset's scratch
+// ec, with base bs and the gate alpha.  Branch-free: indices are clamped
+// into the graph and the entries outside it set to 0 after.
+template <int KIND, typename Tg, int VC, int WN>
+__device__ __forceinline__ void build_pass(float (&g)[VC][WN],
+                                           const float *t1, const float *t2,
+                                           const float *bs, const float *ec,
+                                           float alpha, int v0, int w0,
+                                           int V, int Cm) {
+#pragma unroll
+  for (int u = 0; u < VC; ++u) {
+    const int v = min(v0 + u, V - 1);
+#pragma unroll
+    for (int jj = 0; jj < WN; ++jj) {
+      const int w = min(w0 + jj, V - 1);
+      float ctr;
+      if (KIND == CTR_EDGE) {
+        ctr = __ldg(ec + (size_t)(v * V + w) * Cm);
+      } else if (KIND == CTR_EXP) {
+        const float e1 = t1[v], e2 = t2[w];
+        ctr = __fdividef(e1 - e2, e1 + e2);
+      } else {
+        ctr = tanhf(t1[v] - t2[w]);
+      }
+      const float gv = to_f32(from_f32<Tg>(ctr * alpha + bs[v * V + w]));
+      g[u][jj] = v0 + u < V && w0 + jj < V ? gv : 0.f;
+    }
+  }
+}
+
+// y[t, w, c] = sum_v pre[t, v, c] G[c, v, w] for the frames t < frames of
+// the tile: pre_s holds the chunk's channel c (of CH) in row c, its joint
+// rows t*V + v at column t*V + v, rows rp floats apart (rp odd, so lanes
+// on channels hit distinct banks; a pass may read up to 31 columns past
+// the tile's rows, which must hold finite values).  Thread (c, j) takes
+// channel c and the WN
+// destination joints from jWN.  It walks the sources in passes of VC
+// joints: it builds G[c, v, w] of the pass in registers (build_pass; Tg
+// rounds it as the forward kernels do: K5 to pre's type, K6 not; ctr from
+// the exponential tables where flag[n*K + k] says so, else tanhf, the edge
+// subset's from the scratch), then for every frame sums the pass's VC
+// terms, each staged value of pre feeding WN FMAs, and hands the sum to
+// store(t, w, c, value, first pass?).  Each graph entry is built once a
+// tile; more than one pass (VC < V) keeps the registers few where K6
+// holds its out accumulator meanwhile, and its store adds the passes in
+// order.  Lanes run over channels: the staged reads are conflict-free.
+// Each sum runs over v in a fixed order (even and odd sources apart, then
+// added), no atomics.
+template <typename Tg, int VC, int WN, typename Store>
+__device__ __forceinline__ void aggregate_staged(
+    const Args &a, const int *flag, const float *pre_s, int rp, int frames,
+    int n, int q0, int CH, const float *xs1, const float *xs2,
+    const float *base, Store store) {
+  static_assert(VC <= 32, "a pass reads at most 31 columns past the tile");
+  const int V = a.V, Cm = a.Cm, XS = row_stride(V), k0 = q0 / Cm;
+  const int groups = (V + WN - 1) / WN;
+  for (int i = threadIdx.x; i < CH * groups; i += blockDim.x) {
+    const int cc = i % CH, w0 = (i / CH) * WN;
+    const int k = (q0 + cc) / Cm, c = (q0 + cc) % Cm, s = k - k0;
+    const float *t1 = xs1 + (s * Cm + c) * XS, *t2 = xs2 + (s * Cm + c) * XS;
+    const float *bs = base + s * V * V;
+    const float alpha = __ldg(a.alpha + k);
+    const int kind = k == a.edge_k ? CTR_EDGE
+                     : __ldg(flag + (size_t)n * a.K + k) ? CTR_EXP
+                                                          : CTR_TANH;
+    const float *ec = a.ectr + (size_t)n * V * V * Cm + c;
+    for (int v0 = 0; v0 < V; v0 += VC) {
+      float g[VC][WN];
+      if (kind == CTR_EXP)
+        build_pass<CTR_EXP, Tg>(g, t1, t2, bs, ec, alpha, v0, w0, V, Cm);
+      else if (kind == CTR_EDGE)
+        build_pass<CTR_EDGE, Tg>(g, t1, t2, bs, ec, alpha, v0, w0, V, Cm);
+      else
+        build_pass<CTR_TANH, Tg>(g, t1, t2, bs, ec, alpha, v0, w0, V, Cm);
+      // sources past V read the next rows (finite) against zero entries
+      const float *pr = pre_s + (size_t)cc * rp + v0;
+      for (int t = 0; t < frames; ++t, pr += V) {
+        float even[WN], odd[WN];
+#pragma unroll
+        for (int jj = 0; jj < WN; ++jj) even[jj] = odd[jj] = 0.f;
+#pragma unroll
+        for (int u = 0; u < VC; ++u) {
+          const float p = pr[u];
+#pragma unroll
+          for (int jj = 0; jj < WN; ++jj) {
+            if (u % 2)
+              odd[jj] += p * g[u][jj];
+            else
+              even[jj] += p * g[u][jj];
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < WN; ++jj)
+          if (w0 + jj < V)
+            store(t, w0 + jj, cc, even[jj] + odd[jj], v0 == 0);
+      }
+    }
+  }
 }
 
 // Sizes the kernels do not take (the wrappers refuse them first).

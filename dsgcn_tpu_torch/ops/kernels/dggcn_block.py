@@ -12,28 +12,100 @@ The port of ``dsgcn_tpu/ops/pallas/dggcn_block.py:fused_dggcn_block_eval``:
 with every BatchNorm already folded into its 1x1 (``ops/gcn.py:
 fold_block_params``).  The T-pooled queries x1/x2 are built outside, as in
 JAX.  On a CUDA tensor :func:`fused_dggcn_block_eval` launches the
-hand-written kernel ``csrc/dggcn_block.cu``; on a CPU tensor it runs the
-plain version :func:`reference_dggcn_block_eval`.  Eval only.
+hand-written kernel ``csrc/dggcn_block.cu`` (a block a tile of whole
+frames, its 1x1 products on tensor cores; :func:`block_plan` picks the tile
+and the channel chunks); on a CPU tensor it runs the plain version
+:func:`reference_dggcn_block_eval`.  Eval only.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from . import _build
-from .dyn_graph import _ctr, _edge_operands, _graph
+from .dyn_graph import (_BLOCK_SMEM, _BYTES_CLK, _CHUNK_CLK, _PANEL_CLK, _SMS,
+                        _aggregate_clk, _ctr, _edge_operands, _graph,
+                        _product_clk, _round_up, _row_tiles, graph_tables,
+                        pitch_a, pw_chunks, pw_panels, pw_pre, pw_slot,
+                        pw_tables, pw_tiles)
 
-# csrc/dggcn_block.cu: the shared memory of a one-frame tile must fit
-_SMEM_LIMIT = 232448
+
+def block_smem(V: int, C: int, K: int, Cm: int, Cout: int, xsize: int,
+               R: int, CH: int) -> int:
+    """Shared-memory bytes of a K6 block (``block_layout``): the x tile,
+    the pre chunk (``pw_pre``), the y chunk (float32), the ring of weight
+    panels and the tables; 0 where the kernel refuses the plan (its
+    accumulator tiles).  The kernel's own count (``csrc/dggcn_block.cu``
+    ``dsgcn_dggcn_block_geometry``) is held to it on the card."""
+    if (pw_tiles(R, Cout) > _build.K6_OUT_TILES
+            or pw_tiles(R, CH) > _build.K6_PRE_TILES):
+        return 0
+    KP = _build.PW_KP
+    slot = pw_slot(max(CH, Cout), 4)
+    return (R * pitch_a(_round_up(C, KP) * xsize) + pw_pre(R, CH)
+            + R * pitch_a(_round_up(CH, KP) * 4)
+            + _build.PW_STAGES * slot + pw_tables(V, Cm, CH))
 
 
-def _frame_smem_bytes(V: int, KC: int, Cm: int, E: int) -> int:
-    """Shared memory of a block that holds one frame (block_smem_bytes at
-    TT = 1, channel groups of at most 16)."""
-    XS = V | 1
-    cg = max(d for d in range(1, min(16, Cm) + 1) if Cm % d == 0)
-    return 4 * (2 * V * KC + 2 * Cm * XS + V * V + 2 * E * cg * XS)
+@functools.lru_cache(maxsize=None)
+def block_plan(N: int, T: int, V: int, C: int, K: int, Cm: int, Cout: int,
+               xsize: int, down: bool):
+    """(TT, R, CH, build_share): the frames and rows of a K6 block, the
+    channels of its chunks, and the share of the block's clocks the graph
+    build takes under the cost model.
+
+    A block builds every graph entry of its sample once for each tile of
+    TT frames (a division an entry), so short tiles repeat the build, while
+    long tiles need more rows of the out accumulator in registers and leave
+    fewer blocks for the 132 SMs; narrow chunks cost a barrier a weight
+    panel more often and load and split the x tile's fragments for fewer
+    MMAs in the pre product.  The cost is the
+    blocks the busiest SM runs (one at a time) times a block's clocks: the
+    three products on tensor cores (3xTF32 terms; two where x is bfloat16),
+    the graph build and aggregation, the barriers, and x and out's bytes.
+    The cheapest plan wins, ties to fewer blocks.  Raises, naming the
+    limit, where no plan fits."""
+    KC = K * Cm
+    xf = xsize == 4
+    best, least = None, None
+    for R, TT in _row_tiles(T, V):
+        if pw_tiles(R, Cout) > _build.K6_OUT_TILES:
+            continue
+        for CH in pw_chunks(K, Cm):
+            smem = block_smem(V, C, K, Cm, Cout, xsize, R, CH)
+            if smem == 0 or smem > _BLOCK_SMEM:
+                if smem:
+                    least = smem if least is None else min(least, smem)
+                continue
+            agg, build = _aggregate_clk(V, TT, CH,
+                                        _build.K6_JOINTS_PER_THREAD)
+            slot = pw_slot(max(CH, Cout), 4)
+            panels = ((KC // CH) * (pw_panels(C, CH, slot, 4)
+                                    + pw_panels(CH, Cout, slot, 4))
+                      + (pw_panels(C, Cout, slot, 4) if down else 0))
+            clk = ((KC // CH) * (_product_clk(R, C, CH, xf, True) + agg
+                                 + _product_clk(R, CH, Cout, True, True)
+                                 + _CHUNK_CLK)
+                   + (_product_clk(R, C, Cout, xf, True) if down else 0.0)
+                   + panels * _PANEL_CLK
+                   + TT * V * (C + Cout) * xsize / _BYTES_CLK)
+            blocks = N * -(-T // TT)
+            key = (-(-blocks // _SMS) * clk, blocks)
+            if best is None or key < best[0]:
+                best = (key, TT, R, CH, (KC // CH) * build / clk)
+    if best is None:
+        if least is None:
+            raise ValueError(
+                f"fused_dggcn_block_eval: {Cout} output channels exceed "
+                "the out accumulator a block holds in registers")
+        raise ValueError(
+            f"fused_dggcn_block_eval: no block plan for C = {C}, K*Cm = "
+            f"{KC}, Cout = {Cout}, V = {V}: the smallest block needs "
+            f"{least} bytes of shared memory, over the {_BLOCK_SMEM} a "
+            "block has")
+    return best[1:]
 
 
 def reference_dggcn_block_eval(x, x1, x2, w_pre, b_pre, A, alpha, beta,
@@ -98,9 +170,6 @@ def fused_dggcn_block_eval(x: torch.Tensor, x1: torch.Tensor,
     if w_down is None and C != Cout:
         raise ValueError(f"{name}: without a down path C ({C}) must equal "
                          f"Cout ({Cout})")
-    if _frame_smem_bytes(V, KC, Cm, E) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: one frame's pre and y tiles (K*Cm = {KC}, "
-                         f"V = {V}) do not fit a block's shared memory")
     op = lambda t, shape, n: _build.graph_operand(t, shape, n, dev)  # noqa
     ops = dict(x1=op(x1, (N, K, Cm, V), "x1"), x2=op(x2, (N, K, Cm, V), "x2"),
                w_pre=op(w_pre, (C, KC), "w_pre"), b_pre=op(b_pre, (KC,),
@@ -121,6 +190,15 @@ def fused_dggcn_block_eval(x: torch.Tensor, x1: torch.Tensor,
     out = torch.empty((N, T, V, Cout), device=dev, dtype=x.dtype)
     if out.numel() == 0:
         return out
+    TT, R, CH, _ = block_plan(N, T, V, C, K, Cm, Cout, x.element_size(),
+                              w_down is not None)
+    tables = graph_tables(N, K, Cm, V, dev)
+    # the edge subset's projections and ctr, built for the whole call ahead
+    # of the blocks (K1's edge kernels)
+    p1s = p2s = ectr = None
+    if edge_k >= 0:
+        p1s, p2s = torch.empty(2, N * E * V * Cm, device=dev)
+        ectr = torch.empty(N * V * V * Cm, device=dev)
     ptr = _build.ptr
     with torch.cuda.device(dev):
         _build.launch(
@@ -128,7 +206,9 @@ def fused_dggcn_block_eval(x: torch.Tensor, x1: torch.Tensor,
             *(ptr(ops[k]) for k in (
                 "x1", "x2", "w_pre", "b_pre", "A", "alpha", "beta", "w_post",
                 "b_post", "w_down", "b_down", "edge_w", "bias_field", "sel")),
-            N, T, V, C, K, Cm, Cout, edge_num, edge_k, _build.stream_of(x))
+            ptr(p1s), ptr(p2s), ptr(ectr), *(ptr(t) for t in tables), N, T,
+            V, C, K, Cm, Cout, edge_num, edge_k, TT, R, CH,
+            _build.stream_of(x))
     fused_dggcn_block_eval.launches += 1
     return out
 

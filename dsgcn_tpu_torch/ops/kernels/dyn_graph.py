@@ -565,6 +565,183 @@ def fused_dyn_graph_agg(pre_x: torch.Tensor, x1: torch.Tensor,
 fused_dyn_graph_agg.launches = 0
 
 
+# K5's and K6's blocks (csrc/pointwise_mma.cuh): a tile of whole frames of
+# one sample, R rows (a multiple of the warps' 32-row tiles, the warps a
+# WR x WC grid), the 1x1 products on tensor cores.  The planners' cost
+# model, in SM clocks: the TF32 rate mma.sync reaches, in FLOP a clock an
+# SM (half the H100's dense TF32 rate), one thread's instructions to build
+# a graph entry (the exponential-table ctr, the base, the gate, the
+# rounding), a weight panel's barrier, and the bytes an SM moves a clock
+# at the card's memory rate (3.35 TB/s over 132 SMs at 1.98 GHz).  The
+# model only ranks plans; ``chip_smoke.py --sweep-blocks`` times every
+# plan that fits at the main paths' shapes beside the chosen one.
+_MMA_FLOP_CLK, _ENTRY_INSTR, _PANEL_CLK, _BYTES_CLK = 1024, 12, 60, 13
+# a K6 chunk's and a K5 block's fixed clocks (barriers, tables, epilogue)
+_CHUNK_CLK = 2000
+PW_ROWS = tuple(_build.PW_WARP_ROWS * 2 ** i for i in range(5))
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pitch_a(nbytes: int) -> int:
+    """An A tile's row pitch: the smallest >= nbytes that is 16 mod 128."""
+    return (nbytes + 111) // 128 * 128 + 16
+
+
+def pitch_b(nbytes: int) -> int:
+    """A weight panel's row pitch: the smallest >= nbytes, 32 mod 128."""
+    return (nbytes + 95) // 128 * 128 + 32
+
+
+def pw_tiles(R: int, ncols: int) -> int:
+    """n8 accumulator tiles a warp holds of an ncols-wide product over R
+    rows (``tiles_per_warp``)."""
+    WC = (_build.PW_THREADS // 32) // (R // _build.PW_WARP_ROWS)
+    return -(-(-(-ncols // 8)) // WC)
+
+
+def pw_slot(widest: int, esize: int) -> int:
+    """Bytes of a ring slot (``slot_bytes``): PW_KP rows of the widest
+    product's columns, PW_PANEL_WIDTH at least."""
+    return _build.PW_KP * pitch_b(
+        _round_up(max(widest, _build.PW_PANEL_WIDTH), 8) * esize)
+
+
+def pw_panels(depth: int, ncols: int, slot: int, esize: int) -> int:
+    """Panels of a product through a ring of ``slot``-byte slots: each as
+    many k8 steps deep as a slot holds (``Weights``)."""
+    kp = min(slot // pitch_b(_round_up(ncols, 8) * esize) // 8 * 8,
+             _round_up(depth, 8))
+    return -(-depth // kp)
+
+
+def pw_chunks(K: int, Cm: int):
+    """The channel chunks a K5/K6 block may take: divisors of K*Cm that lie
+    inside one subset or cover whole subsets."""
+    KC = K * Cm
+    return [c for c in range(1, KC + 1)
+            if KC % c == 0 and (Cm % c == 0 or c % Cm == 0)]
+
+
+def pw_pre(R: int, CH: int) -> int:
+    """Bytes of a staged pre chunk: a channel a row of R + 37 floats
+    (``pre_pitch``: the aggregation reads up to 31 past the tile's rows)."""
+    return _round_up(CH * (R + 37) * 4, 16)
+
+
+def pw_tables(V: int, Cm: int, CH: int) -> int:
+    """Bytes of a chunk's subset tables: the queries and base of each."""
+    S = CH // Cm if CH > Cm else 1
+    return 4 * (2 * S * Cm * (V | 1) + S * V * V)
+
+
+def _aggregate_clk(V: int, TT: int, CH: int, WN: int):
+    """(all, build): clocks of one chunk's aggregation over TT frames and
+    of its graph build, one thread an item, 16 warps issuing four a
+    clock."""
+    rounds = -(-CH * -(-V // WN) // _build.PW_THREADS)
+    build = V * WN * _ENTRY_INSTR
+    warp_clk = _build.PW_THREADS // 32 // 4
+    return (rounds * (build + TT * V * (1 + WN)) * warp_clk,
+            rounds * build * warp_clk)
+
+
+def _product_clk(R: int, depth: int, ncols: int, split_a: bool,
+                 split_b: bool) -> float:
+    """Clocks of an R-row product on tensor cores, the warps' padding
+    included: the larger of the MMAs at _MMA_FLOP_CLK and the warps'
+    instructions issued four a clock (a k8 step's fragment loads, their
+    hi/lo splits where an operand is float32, and the MMAs)."""
+    warps = _build.PW_THREADS // 32
+    MT = _build.PW_WARP_ROWS // 16
+    WC = warps // (R // _build.PW_WARP_ROWS)
+    nt = pw_tiles(R, ncols)
+    terms = 1 + int(split_a) + int(split_b)
+    ksteps = -(-depth // 8)
+    mma = 2.0 * R * ksteps * 8 * nt * WC * 8 * terms / _MMA_FLOP_CLK
+    per_step = (4 * MT * (1 + 3 * split_a) + 2 * nt * (1 + 3 * split_b)
+                + nt * MT * terms)
+    return max(mma, ksteps * warps * per_step / 4)
+
+
+def _row_tiles(T: int, V: int):
+    """(R, TT) candidates: each row count with the frames it holds, the
+    smallest R for each TT."""
+    out = []
+    for R in PW_ROWS:
+        TT = min(T, R // V)
+        if TT >= 1 and not (out and out[-1][1] == TT):
+            out.append((R, TT))
+    return out
+
+
+def graph_tables(N: int, K: int, Cm: int, V: int, dev):
+    """Scratch of K5's and K6's ``graph_prep_kernel``: each (sample,
+    subset)'s query tables t1, t2 (N, K, Cm, V), base (N, K, V, V) and
+    whether its tables are exponential (N, K) int32."""
+    work = torch.empty(N * K * (2 * Cm * V + V * V), device=dev)
+    t1, t2, tb = torch.split(work, [N * K * Cm * V] * 2 + [N * K * V * V])
+    return t1, t2, tb, torch.empty(N * K, device=dev, dtype=torch.int32)
+
+
+def eval_block(V: int, C: int, K: int, Cm: int, esize: int, R: int,
+               CH: int) -> int:
+    """Shared-memory bytes of a K5 block (``eval_layout``): the x tile, the
+    pre chunk (``pw_pre``), the ring of w_pre panels and the tables; 0 where
+    the kernel refuses the plan (its accumulator tiles).  The kernel's own
+    count (``csrc/dyn_graph_eval.cu`` ``dsgcn_eval_block_geometry``) is held
+    to it on the card."""
+    if pw_tiles(R, CH) > _build.K5_PRE_TILES:
+        return 0
+    KP = _build.PW_KP
+    slot = pw_slot(CH, esize)
+    return (R * pitch_a(_round_up(C, KP) * esize) + pw_pre(R, CH)
+            + _build.PW_STAGES * slot + pw_tables(V, Cm, CH))
+
+
+@functools.lru_cache(maxsize=None)
+def eval_plan(N: int, T: int, V: int, C: int, K: int, Cm: int, esize: int):
+    """(TT, R, CH): the frames, rows and channels of a K5 block.
+
+    A block reads its x tile once for CH channels, so narrow chunks read x
+    again and again, while wide chunks and long tiles leave too few blocks
+    for the card; each block also builds its chunk's graph entries.  The
+    cost is the blocks the busiest SM runs (one at a time) times a block's
+    clocks: the tensor-core product, the aggregation, a barrier a weight
+    panel, a fixed share, and x and y's bytes.  The cheapest plan
+    wins, ties to fewer blocks.  Raises, naming the limit, where no plan
+    fits."""
+    KC = K * Cm
+    best, least = None, None
+    for R, TT in _row_tiles(T, V):
+        for CH in pw_chunks(K, Cm):
+            smem = eval_block(V, C, K, Cm, esize, R, CH)
+            if smem == 0 or smem > _BLOCK_SMEM:
+                if smem:
+                    least = smem if least is None else min(least, smem)
+                continue
+            blocks = N * -(-T // TT) * (KC // CH)
+            if -(-T // TT) > 65535:
+                continue
+            agg, _ = _aggregate_clk(V, TT, CH, _build.K5_JOINTS_PER_THREAD)
+            clk = (_product_clk(R, C, CH, esize == 4, esize == 4) + agg
+                   + pw_panels(C, CH, pw_slot(CH, esize), esize) * _PANEL_CLK
+                   + _CHUNK_CLK
+                   + (R * C + TT * V * CH) * esize / _BYTES_CLK)
+            key = (-(-blocks // _SMS) * clk, blocks)
+            if best is None or key < best[0]:
+                best = (key, TT, R, CH)
+    if best is None:
+        raise ValueError(
+            f"fused_dyn_graph_agg_eval: no block plan for {C} input "
+            f"channels, K*Cm = {KC}, V = {V}: the smallest block needs "
+            f"{least} bytes of shared memory, over the {_BLOCK_SMEM} a "
+            "block has")
+    return best[1:]
+
+
 def reference_dyn_graph_agg_eval(x, w_pre, b_pre, x1, x2, A, alpha, beta, *,
                                  K, Cm, v_real=-1):
     """Plain PyTorch version of K5: pre = relu(x w_pre + b_pre), summed in
@@ -608,11 +785,10 @@ def fused_dyn_graph_agg_eval(x: torch.Tensor, w_pre: torch.Tensor,
         raise ValueError(f"{name}: b_pre must be float32 ({KC},) on "
                          f"x's device")
     _build.check_limits(name, N, V, 0)
-    # shared memory: the graph build, the staged pre rows and the (C, 16)
-    # column slice of w_pre (csrc/dyn_graph_eval.cu eval_smem_bytes)
-    if C > _build.MAX_PRE_CHANNELS:
-        raise ValueError(f"{name}: {C} input channels; the kernel takes at "
-                         f"most {_build.MAX_PRE_CHANNELS}")
+    # the block plan refuses what the kernel cannot take (input channels
+    # over the shared memory), before the operands are looked at
+    plan = (eval_plan(N, T, V, C, K, Cm, x.element_size())
+            if N * T * KC else None)
     op = lambda t, shape, n: _build.graph_operand(t, shape, n, x.device)  # noqa
     x1, x2 = op(x1, (N, K, Cm, V), "x1"), op(x2, (N, K, Cm, V), "x2")
     A = op(A, (K, V, V), "A")
@@ -621,13 +797,16 @@ def fused_dyn_graph_agg_eval(x: torch.Tensor, w_pre: torch.Tensor,
     out = torch.empty((N, T, V, KC), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
+    TT, R, CH = plan
+    tables = graph_tables(N, K, Cm, V, x.device)
     ptr = _build.ptr
     with torch.cuda.device(x.device):
         _build.launch(
             "dyn_graph_eval", ptr(x), ptr(w_pre), ptr(b_pre), ptr(out),
             int(x.dtype == torch.bfloat16),
             ptr(x1), ptr(x2), ptr(A), ptr(alpha), ptr(beta), N, T, V, C, K,
-            Cm, v_real, _build.stream_of(x))
+            Cm, v_real, TT, R, CH, *(ptr(t) for t in tables),
+            _build.stream_of(x))
     fused_dyn_graph_agg_eval.launches += 1
     return out
 

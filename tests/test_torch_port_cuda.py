@@ -26,6 +26,7 @@ from dsgcn_tpu_torch.ops.kernels import _build
 from dsgcn_tpu_torch.ops.kernels.bd_agg import (
     bd_dyn_graph_agg, bd_dyn_graph_agg_subset, reference_bd_dyn_graph_agg,
     reference_bd_dyn_graph_agg_subset)
+from dsgcn_tpu_torch.ops.kernels import dggcn_block
 from dsgcn_tpu_torch.ops.kernels.dggcn_block import (
     fused_dggcn_block_eval, reference_dggcn_block_eval)
 from dsgcn_tpu_torch.ops.kernels import dyn_graph
@@ -37,6 +38,7 @@ from dsgcn_tpu_torch.ops.kernels.ms_tcn import (fused_dgmstcn_eval,
                                                 reference_fused_dgmstcn_eval)
 from dsgcn_tpu_torch.ops.tcn import MSTCN
 from torch_port_cases import CASES, E, block_inputs, k3_packaging, to_torch
+from chip_smoke import DG_BLOCKS, DG_K, DS_BLOCKS
 
 K2_OUTS = ("dpre", "dx1", "dx2", "dA", "dalpha", "dbeta", "dedge_w",
            "dedge_b")
@@ -436,12 +438,12 @@ def test_cuda_k5_matches_plain(cuda, C, Cm, dtype):
     assert _rel(got, want) <= _tol(dtype)
 
 
-def _k6_args(cuda, dtype, C, Cout, K, Cm, down, edge, seed):
-    d = block_inputs(seed=seed, N=4, T=12, K=K, Cm=Cm, edge=edge)
+def _k6_args(cuda, dtype, C, Cout, K, Cm, down, edge, seed, N=4, T=12):
+    d = block_inputs(seed=seed, N=N, T=T, K=K, Cm=Cm, edge=edge)
     gen = torch.Generator().manual_seed(seed)
     w = lambda *s: (torch.randn(*s, generator=gen) / s[0] ** 0.5).to(  # noqa
         cuda)
-    x = torch.randn(4, 12, 25, C, generator=gen).to(cuda, dtype)
+    x = torch.randn(N, T, 25, C, generator=gen).to(cuda, dtype)
     args = [x] + _on(cuda, d, "x1", "x2") + [w(C, K * Cm), w(K * Cm)] + \
         _on(cuda, d, "A", "alpha", "beta") + [w(K * Cm, Cout), w(Cout)] + \
         ([w(C, Cout), w(Cout)] if down else [None, None])
@@ -511,9 +513,10 @@ def test_cuda_eval_kernels_refuse_grad(cuda):
 @pytest.mark.cuda
 def test_cuda_new_kernels_refuse_unsupported_sizes(cuda):
     """Where the kernels cannot go, the wrappers raise before a launch: K2's
-    edge subset beyond the 127 channels its edge products take, a K6 frame
-    whose tiles overflow shared memory, K5 beyond its input channels, a K4
-    group that is no multiple of 8."""
+    edge subset beyond the 127 channels its edge products take, a K6 whose
+    x tile overflows shared memory at the fewest rows (C = 2048 in float32;
+    K*Cm no longer limits K6, which walks it in chunks), K5 beyond its input
+    channels, a K4 group that is no multiple of 8."""
     d = block_inputs(seed=51, N=2, T=4, Cm=128, edge=True)
     pre, x1, x2, A, a, b, ew, eb, sel = _on(
         cuda, d, "pre", "x1", "x2", "A", "alpha", "beta", "ew", "eb", "sel")
@@ -525,10 +528,12 @@ def test_cuda_new_kernels_refuse_unsupported_sizes(cuda):
     d = block_inputs(seed=51, N=2, T=4, Cm=48, edge=True)
     pre, x1, x2, A, a, b = _on(cuda, d, "pre", "x1", "x2", "A", "alpha",
                                "beta")
-    args, kw = _k6_args(cuda, torch.float32, 16, 16, 8, 128, False, False,
-                        52)
+    args, kw = _k6_args(cuda, torch.float32, 2048, 64, 3, 8, True, False,
+                        52, N=1, T=2)
+    n6 = fused_dggcn_block_eval.launches
     with pytest.raises(ValueError, match="shared memory"):
         fused_dggcn_block_eval(*args, **kw)
+    assert fused_dggcn_block_eval.launches == n6
     x = torch.zeros(1, 2, 25, 4096, device=cuda)
     with pytest.raises(ValueError, match="input channels"):
         fused_dyn_graph_agg_eval(x, torch.zeros(4096, 24, device=cuda),
@@ -538,6 +543,180 @@ def test_cuda_new_kernels_refuse_unsupported_sizes(cuda):
         bd_dyn_graph_agg_subset(torch.zeros(2, 4, 25 * 3 * 48, device=cuda),
                                 x1.transpose(-1, -2).contiguous(), x2, A, a,
                                 b, K=3, Cm=48, g=12)
+
+
+# K5 and K6 at the serving shapes of chip_smoke.py (every distinct DG-STGCN
+# and DS-GCN block: C in, C out, mid, T), N = 2
+K5_SHAPES = sorted({(C, Cm, T) for C, _, Cm, T in DG_BLOCKS})
+K6_SHAPES = sorted({(C, Cout, DG_K, Cm, T, False)
+                    for C, Cout, Cm, T in DG_BLOCKS}
+                   | {(C, Cout, 3, Cm, T, True)
+                      for C, Cout, Cm, T in DS_BLOCKS})
+
+
+def _k5_args(cuda, dtype, C, K, Cm, seed, N=2, T=12, V=25):
+    d = block_inputs(seed=seed, N=N, T=T, V=V, K=K, Cm=Cm, edge=False)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(N, T, V, C, generator=gen).to(cuda, dtype)
+    w_pre = (torch.randn(C, K * Cm, generator=gen) / C ** 0.5).to(cuda,
+                                                                   dtype)
+    b_pre = (0.1 * torch.randn(K * Cm, generator=gen)).to(cuda)
+    return [x, w_pre, b_pre] + _on(cuda, d, "x1", "x2", "A", "alpha", "beta")
+
+
+def _check(fn, args, kw, plain, dtype):
+    """One launch of ``fn``, held to its plain version (``_tol``)."""
+    n = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == n + 1
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= _tol(dtype), _rel(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cm,T", K5_SHAPES)
+def test_cuda_k5_serving_shapes_match_plain(cuda, C, Cm, T, dtype):
+    """K5 at every DG-STGCN block shape (K = 8), the stem's C = 3 too,
+    under the planner's plan."""
+    args = _k5_args(cuda, dtype, C, 8, Cm, seed=C + Cm + T, T=T)
+    _check(fused_dyn_graph_agg_eval, args, dict(K=8, Cm=Cm),
+           reference_dyn_graph_agg_eval, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cout,K,Cm,T,edge", K6_SHAPES)
+def test_cuda_k6_serving_shapes_match_plain(cuda, C, Cout, K, Cm, T, edge,
+                                            dtype):
+    """K6 at every DG-STGCN block shape (K = 8) and every DS-GCN one (K = 3,
+    edge attention on subset 1), the down path where channels change."""
+    args, kw = _k6_args(cuda, dtype, C, Cout, K, Cm, C != Cout, edge,
+                        seed=C + Cout + Cm + T, N=2, T=T)
+    _check(fused_dggcn_block_eval, args, kw, reference_dggcn_block_eval,
+           dtype)
+
+
+# plans forced on K5 and K6 (frames, rows): tiles of 2, 5 and 10 frames
+# against T = 7, 12 and 25, the last tile short in all but (5, 25) and
+# (12, ...) of 2
+FORCED_TILES = [(2, 64), (5, 128), (10, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("TT,R", FORCED_TILES)
+@pytest.mark.parametrize("T", [7, 12, 25])
+def test_cuda_k5_ragged_tiles(cuda, monkeypatch, T, TT, R, dtype):
+    """K5 with frame tiles that do not divide T (and the planner's own
+    plan), chunks of one subset's channels (C 64, K 8, Cm 16)."""
+    args = _k5_args(cuda, dtype, 64, 8, 16, seed=T + TT, N=3, T=T)
+    kw = dict(K=8, Cm=16)
+    _check(fused_dyn_graph_agg_eval, args, kw, reference_dyn_graph_agg_eval,
+           dtype)
+    monkeypatch.setattr(dyn_graph, "eval_plan",
+                        lambda *a: (min(TT, T), R, 16))
+    _check(fused_dyn_graph_agg_eval, args, kw, reference_dyn_graph_agg_eval,
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("TT,R", FORCED_TILES)
+@pytest.mark.parametrize("T", [7, 12, 25])
+def test_cuda_k6_ragged_tiles(cuda, monkeypatch, T, TT, R, dtype):
+    """K6 with frame tiles that do not divide T (and the planner's own
+    plan): C 64 -> 128 with the down path, K 8, Cm 16, chunks of 16."""
+    args, kw = _k6_args(cuda, dtype, 64, 128, 8, 16, True, False,
+                        seed=T + TT, N=3, T=T)
+    _check(fused_dggcn_block_eval, args, kw, reference_dggcn_block_eval,
+           dtype)
+    monkeypatch.setattr(dggcn_block, "block_plan",
+                        lambda *a: (min(TT, T), R, 16, 0.0))
+    _check(fused_dggcn_block_eval, args, kw, reference_dggcn_block_eval,
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cout,K,Cm,edge", [
+    (3, 64, 8, 16, False), (3, 3, 8, 16, False), (3, 64, 3, 8, True),
+    (3, 3, 3, 8, True), (5, 24, 3, 6, True), (40, 40, 3, 6, False)])
+def test_cuda_k6_stem_and_odd_widths(cuda, C, Cout, K, Cm, edge, dtype):
+    """K6 at the C = 3 stem with the down path and without it (C == Cout),
+    the edge subset on K = 3, and widths that are no multiple of 8 (depth,
+    chunk and output padding), T = 7."""
+    args, kw = _k6_args(cuda, dtype, C, Cout, K, Cm, C != Cout, edge,
+                        seed=C + Cout, N=2, T=7)
+    _check(fused_dggcn_block_eval, args, kw, reference_dggcn_block_eval,
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,K,Cm,V,v_real", [
+    (3, 8, 16, 25, -1), (6, 3, 6, 25, -1), (64, 8, 16, 32, 25),
+    (64, 3, 8, 18, -1)])
+def test_cuda_k5_stem_and_odd_widths(cuda, C, K, Cm, V, v_real, dtype):
+    """K5 at the C = 3 stem, widths that are no multiple of 8, joints padded
+    25 -> 32 and masked out of the softmax (v_real), and 18 joints."""
+    args = _k5_args(cuda, dtype, C, K, Cm, seed=C + V, N=2, T=7, V=V)
+    _check(fused_dyn_graph_agg_eval, args, dict(K=K, Cm=Cm, v_real=v_real),
+           reference_dyn_graph_agg_eval, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k5_k6_same_bits_every_call(cuda, dtype):
+    """No atomics: two calls of K5 and of K6 (with the edge subset) on the
+    same inputs give identical bits."""
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    args = _k5_args(cuda, dtype, 128, 8, 32, seed=1, N=4, T=25)
+    a = fused_dyn_graph_agg_eval(*args, K=8, Cm=32)
+    b = fused_dyn_graph_agg_eval(*args, K=8, Cm=32)
+    args, kw = _k6_args(cuda, dtype, 128, 256, 3, 32, True, True, seed=2,
+                        N=4, T=25)
+    c = fused_dggcn_block_eval(*args, **kw)
+    d = fused_dggcn_block_eval(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(view), b.view(view))
+    assert torch.equal(c.view(view), d.view(view))
+
+
+@pytest.mark.cuda
+def test_cuda_k5_k6_blocks_match_planner(cuda):
+    """The planners' model of a K5 and a K6 block (shared memory, and the
+    plans the kernels refuse) is the block the kernels launch."""
+    k6 = ctypes.CDLL(str(_build.compile_kernel("dggcn_block")))
+    k5 = ctypes.CDLL(str(_build.compile_kernel("dyn_graph_eval")))
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    for V in (18, 25, 32):
+        for R in dyn_graph.PW_ROWS:
+            TT = max(1, R // V)
+            for C, Cout, K, Cm in ((3, 64, 8, 16), (64, 128, 8, 32),
+                                   (256, 256, 8, 64), (128, 128, 3, 16),
+                                   (40, 24, 3, 6), (1024, 64, 3, 8)):
+                for CH in dyn_graph.pw_chunks(K, Cm):
+                    for xsize in (2, 4):
+                        k6.dsgcn_dggcn_block_geometry(
+                            V, C, K, Cm, Cout, xsize, TT, R, CH,
+                            int(C != Cout), ctypes.byref(threads),
+                            ctypes.byref(smem))
+                        assert threads.value == _build.PW_THREADS
+                        assert smem.value == dggcn_block.block_smem(
+                            V, C, K, Cm, Cout, xsize, R, CH), (
+                            V, R, C, Cout, K, Cm, CH, xsize)
+                        k5.dsgcn_eval_block_geometry(
+                            V, C, K, Cm, xsize, TT, R, CH,
+                            ctypes.byref(threads), ctypes.byref(smem))
+                        assert threads.value == _build.PW_THREADS
+                        assert smem.value == dyn_graph.eval_block(
+                            V, C, K, Cm, xsize, R, CH), (
+                            V, R, C, K, Cm, CH, xsize)
 
 
 @pytest.mark.cuda
