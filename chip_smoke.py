@@ -32,7 +32,8 @@ resume; phase 10 takes the same batches through DG-STGCN's steps.
 STGCN++ (the j config ``configs/stgcnpp/ntu60_xsub_3dkp/j.py`` with
 ``tcn_use_pallas=True``): phase 11 checks K7 at every temporal unit shape
 of STGCN++ and DG-STGCN serving (with and without the pseudo-joint, stride
-1 and 2) and times it beside the unfused region; phase 12 serves STGCN++
+1 and 2) and times it beside the unfused region, with a second bound for
+its products on tensor cores; phase 12 serves STGCN++
 (10 K7 launches per forward, GPU against CPU, against the same weights
 without K7, request latency, clips/s with and without K7); phase 13 serves
 DG-STGCN and DS-GCN with K7 beside their GCN kernels; phase 14 trains
@@ -43,13 +44,16 @@ result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
 (``plan_sweep``) and writes ``chiprun_out/agg_sweep.json``;
-``--sweep-blocks`` does the same for K5 and K6 (``block_sweep``,
-``chiprun_out/block_sweep.json``), and ``--blocks`` runs phase 8's K5 and
-K6 checks and the block times alone (``chiprun_out/blocks.json``).
-``--parent DIR`` times the K5 and K6 of another checkout of the port (a
-``git archive`` of the parent commit unpacked into DIR) beside these, in
-turns, in phase 8.  Every run first counts the tensor-core instructions
-in K5's and K6's SASS (``cuobjdump -sass``) and fails without them.
+``--sweep-blocks`` does the same for K5 and K6 (``block_sweep``) and K7
+(``k7_sweep``: the plans its cost model ranks next to the planner's), into
+``chiprun_out/block_sweep.json``; ``--blocks`` runs phase 8's K5 and K6
+checks, the block times and phase 11's K7 checks and times alone
+(``chiprun_out/blocks.json``).  ``--parent DIR`` times
+the K5, K6 and K7 of another checkout of the port (a ``git archive`` of
+the parent commit unpacked into DIR) beside these, in turns, in phases 8
+and 11 (and checks that K5's and K6's outputs have the parent's bits).
+Every run first counts the tensor-core instructions in K5's, K6's and
+K7's SASS (``cuobjdump -sass``) and fails without them.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it lists the kernels with their launches, errors and
@@ -856,11 +860,11 @@ def add_to(acc, row, n):
 
 
 def parent_wrappers(root):
-    """K5's and K6's wrappers from another checkout of the port (e.g. a
-    ``git archive`` of the parent commit unpacked into ``root``), built from
-    that checkout's sources into its own build directory, to time them
-    beside this checkout's in one call: (fused_dyn_graph_agg_eval,
-    fused_dggcn_block_eval)."""
+    """K5's, K6's and K7's wrappers from another checkout of the port (e.g.
+    a ``git archive`` of the parent commit unpacked into ``root``), built
+    from that checkout's sources into its own build directory, to time
+    them beside this checkout's in one call: (fused_dyn_graph_agg_eval,
+    fused_dggcn_block_eval, fused_dgmstcn_eval)."""
     import importlib
     import importlib.util
     from concurrent.futures import ThreadPoolExecutor
@@ -873,20 +877,22 @@ def parent_wrappers(root):
     spec.loader.exec_module(mod)
     build = importlib.import_module(name + "._build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        list(ex.map(build.compile_kernel, ("dyn_graph_eval", "dggcn_block")))
+    kernels = ("dyn_graph_eval", "dggcn_block", "ms_tcn")
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        list(ex.map(build.compile_kernel, kernels))
     print(f"parent kernels from {root} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return (importlib.import_module(name + ".dyn_graph")
             .fused_dyn_graph_agg_eval,
             importlib.import_module(name + ".dggcn_block")
-            .fused_dggcn_block_eval)
+            .fused_dggcn_block_eval,
+            importlib.import_module(name + ".ms_tcn").fused_dgmstcn_eval)
 
 
-def sass_mma(names=("dyn_graph_eval", "dggcn_block")):
+def sass_mma(names=("dyn_graph_eval", "dggcn_block", "ms_tcn")):
     """The tensor-core instructions in each built library's SASS
-    (``cuobjdump -sass``), by opcode: K5's and K6's 1x1 products must show
-    them."""
+    (``cuobjdump -sass``), by opcode: K5's, K6's and K7's products must
+    show them."""
     import re
     import shutil
     from dsgcn_tpu_torch.ops.kernels import _build
@@ -935,7 +941,8 @@ def dg_kernel_checks(dev, rng, report, parent=None, k56_only=False):
         if old is not None:
             t = [cold_ms(f, flush=flush) for f in (old, kern, kern, old)]
             row.update(ms=(t[1] + t[2]) / 2, parent_ms=(t[0] + t[3]) / 2,
-                       ms_runs=t[1:3], parent_ms_runs=[t[0], t[3]])
+                       ms_runs=t[1:3], parent_ms_runs=[t[0], t[3]],
+                       same_bits_as_parent=bool(torch.equal(old(), kern())))
         else:
             row.update(ms=cold_ms(kern, flush=flush))
         row.update(plain_ms=cold_ms(plain, iters=3, flush=flush),
@@ -1082,6 +1089,12 @@ def dg_kernel_checks(dev, rng, report, parent=None, k56_only=False):
                 done(row)
                 del d, x
     if parent is not None:
+        report["k56_bits_differ_from_parent"] = [
+            {k: r[k] for k in ("kernel", "C", "Cm", "T")} for r in rows
+            if r.get("same_bits_as_parent") is False]
+        print("K5/K6 shapes whose outputs differ from the parent's in any "
+              "bit: " + json.dumps(report["k56_bits_differ_from_parent"]),
+              flush=True)
         slower = [{k: r[k] for k in ("kernel", "C", "Cm", "T", "ms",
                                      "parent_ms")}
                   for r in rows if r.get("parent_ms") is not None
@@ -1291,8 +1304,9 @@ def block_sweep(dev):
     planner's plan and every plan (frames a tile, chunk of 8 channels or
     more) that fits a block.  The planned plan's time over the best one is
     the planner's regret; the sweep calibrates its cost model
-    (``dyn_graph._MMA_FLOP_CLK``, ``_ENTRY_INSTR``, ``_PANEL_CLK``,
-    ``_CHUNK_CLK``)."""
+    (``_build.MMA_FLOP_CLK``, ``ENTRY_INSTR``, ``PANEL_CLK``,
+    ``CHUNK_CLK``)."""
+    from dsgcn_tpu_torch.ops.kernels import _build
     from dsgcn_tpu_torch.ops.kernels import dggcn_block as db
     from dsgcn_tpu_torch.ops.kernels import dyn_graph as dg
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
@@ -1308,7 +1322,7 @@ def block_sweep(dev):
         for R, TT in dg._row_tiles(shape["T"], V):
             for CH in dg.pw_chunks(shape["K"], shape["Cm"]):
                 smem = smem_of(R, CH)
-                if CH < 8 or smem == 0 or smem > dg._BLOCK_SMEM:
+                if CH < 8 or smem == 0 or smem > _build.BLOCK_SMEM:
                     continue
                 patch((TT, R, CH))
                 times[(TT, R, CH)] = cold_ms(call, iters=5, flush=flush)
@@ -1758,7 +1772,7 @@ PORT_KERNELS = ("bd_agg_kernel", "dyn_graph_fwd_kernel", "edge_proj_kernel",
                 "edge_dp_sum_kernel", "edge_dx_kernel", "bwd_finish_kernel",
                 "edge_dw_kernel", "sum_over_samples_kernel",
                 "dyn_graph_eval_kernel", "dggcn_block_kernel",
-                "ms_tcn_kernel", "joint_mean_kernel")
+                "ms_tcn_kernel")
 
 
 def device_rows(prof, wall_ms, tag):
@@ -1826,11 +1840,15 @@ def k7_inputs(gen, dev, C, T, dtype, coeff):
 
 
 def k7_bound(args, stride):
-    """Least time (ms) of K7's work and what bounds it: x read and the
-    output written once, the weights once, against the region's float32
-    operations (pre 1x1, taps, maxpool, strided 1x1, pseudo-joint mean and
-    broadcast, the BN affines and ReLUs, the transform 1x1) over the
-    CUDA-core rate (the kernel computes in float32)."""
+    """Least time (ms) of K7's work and what bounds it, two ways.  Both
+    count x read and the output written once, the weights once.
+    ``bound_ms``: the region's float32 operations (pre 1x1, taps, maxpool,
+    strided 1x1, pseudo-joint mean and broadcast, the BN affines and
+    ReLUs, the transform 1x1) over the CUDA-core rate.  ``bound_tc_ms``:
+    the products (pre, taps, strided and transform 1x1s) on tensor cores
+    as the kernel runs them (float32 operands 3xTF32, three terms over the
+    TF32 rate; a bfloat16 x two terms in the pre and strided 1x1), the
+    rest on CUDA cores, as ``block_bound`` counts K5's and K6's."""
     x, w11, coeff = args[0], args[5], args[-1]
     N, T, Vx, C = x.shape
     rem, mid = args[3][0].shape[-1], w11.shape[-1]
@@ -1842,28 +1860,47 @@ def k7_bound(args, stride):
     nbytes = (N * T * Vx * C + N * Tp * Vx * Cp) * x.element_size() \
         + 4 * weights
     rows_in, rows_out = N * T * R, N * Tp * R
-    flops = rows_in * (2 * C * P + 2 * P)                     # pre
-    flops += rows_out * (6 * (rem * rem + 3 * mid * mid)      # taps
-                         + rem + 3 * mid + 2 * mid            # bias, max
-                         + 2 * C * mid + mid)                 # 1x1
-    flops += N * Tp * Vx * (2 * Cp * Cp + 8 * Cp)             # transform
+    prod_x = rows_in * 2 * C * P + rows_out * 2 * C * mid     # pre, 1x1
+    prod_f = (rows_out * 6 * (rem * rem + 3 * mid * mid)      # taps
+              + N * Tp * Vx * 2 * Cp * Cp)                    # transform
+    other = (rows_in * 2 * P                                  # pre bias
+             + rows_out * (rem + 3 * mid + 2 * mid + mid)     # bias, max
+             + N * Tp * Vx * 8 * Cp)                          # affines
     if coeff is not None:
-        flops += N * T * Vx * C                               # mean
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+        other += N * T * Vx * C                               # mean
+    terms_x = 3 if x.element_size() == 4 else 2
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (prod_x + prod_f + other) / F32_FLOP_PER_S
+    mma = terms_x * prod_x + 3 * prod_f
+    t_tc = mma / TF32_FLOP_PER_S + other / F32_FLOP_PER_S
+    return dict(mma_flop=mma,
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_tc_ms=1e3 * max(t_bytes, t_tc),
+                bound_tc_by="bytes" if t_bytes >= t_tc else "operations")
 
 
-def k7_checks(dev, report):
+def k7_plans(C, T, stride, xsize, coeff):
+    """The planner's (TO, JR) for K7's blocks at a TCN_SHAPES shape, and
+    the pseudo-joint blocks' TO with ``coeff``."""
+    from dsgcn_tpu_torch.ops.kernels.ms_tcn import tile_plan
+    mid = C // 6
+    shape = (N_BLOCK, T, V, C, C - 5 * mid, mid, stride, 4)
+    plan = list(tile_plan(*shape, xsize))
+    return plan + ([tile_plan(*shape, 4, mean=True)[0]] if coeff else [])
+
+
+def k7_checks(dev, report, parent=None):
     """Phase 11: K7 at every temporal unit shape of STGCN++ serving (no
     pseudo-joint) and of DG-STGCN / DS-GCN serving (with it), stride 1 and
     2, f32 and bf16, against its plain version; in f32 its time, the plain
-    version's, the bound and the unfused region's (the MSTCN / DGMSTCN
-    module in eval without K7: cuBLAS 1x1s, cuDNN convs), summed per
-    forward at b64 x M2 x T100.  Returns the worst max abs error and the
-    sums per forward by model."""
+    version's, both bounds (``k7_bound``), the MMAs' rate and the unfused
+    region's (the MSTCN / DGMSTCN module in eval without K7: cuBLAS 1x1s,
+    cuDNN convs), and ``parent``'s K7 (``parent_wrappers``) timed in turns
+    where given, summed per forward at b64 x M2 x T100.  Returns the worst
+    max abs error and the sums per forward by model."""
     from dsgcn_tpu_torch.ops.kernels.ms_tcn import (
-        fused_dgmstcn_eval, reference_fused_dgmstcn_eval, tile_plan)
+        fused_dgmstcn_eval, reference_fused_dgmstcn_eval)
     from dsgcn_tpu_torch.ops.tcn import DGMSTCN, MSTCN
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
     gen = torch.Generator().manual_seed(11)
@@ -1879,12 +1916,11 @@ def k7_checks(dev, report):
                     *args, stride=stride)
                 plain = lambda: reference_fused_dgmstcn_eval(  # noqa: E731
                     *args, stride=stride)
-                mid = C // 6
                 row = dict(kernel="fused_dgmstcn_eval", C=C, T=T,
                            stride=stride, N=N_BLOCK, coeff=coeff,
                            dtype=str(dtype).split(".")[-1],
-                           tile=tile_plan(N_BLOCK, T, V, C, C - 5 * mid, mid,
-                                          stride, 4, coeff))
+                           plan=k7_plans(C, T, stride, args[0].element_size(),
+                                         coeff))
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
@@ -1905,12 +1941,22 @@ def k7_checks(dev, report):
                     with torch.inference_mode():
                         unfused = cold_ms(lambda: module(args[0]),
                                           flush=flush)
-                    bound_ms, bound_by = k7_bound(args, stride)
-                    row.update(ms=cold_ms(kern, flush=flush),
-                               plain_ms=cold_ms(plain, iters=3, flush=flush),
+                    if parent is not None:
+                        old = lambda: parent[2](  # noqa: E731
+                            *args, stride=stride)
+                        t = [cold_ms(f, flush=flush)
+                             for f in (old, kern, kern, old)]
+                        row.update(ms=(t[1] + t[2]) / 2,
+                                   parent_ms=(t[0] + t[3]) / 2,
+                                   ms_runs=t[1:3],
+                                   parent_ms_runs=[t[0], t[3]])
+                    else:
+                        row.update(ms=cold_ms(kern, flush=flush))
+                    row.update(plain_ms=cold_ms(plain, iters=3, flush=flush),
                                unfused_ms=unfused, library_ms=None,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               blocks_per_forward=nb)
+                               blocks_per_forward=nb, **k7_bound(args, stride))
+                    row.update(ms_over_bound_tc=row["ms"] / row["bound_tc_ms"],
+                               mma_tflop_s=row["mma_flop"] / row["ms"] / 1e9)
                     acc = per_forward["dgstgcn" if coeff else "stgcnpp"]
                     add_to(acc, row, nb)
                     acc["unfused_ms"] += nb * unfused
@@ -1918,10 +1964,61 @@ def k7_checks(dev, report):
                 rows.append(row)
                 print("kernel", json.dumps(row), flush=True)
                 del args
-    print("K7 per forward, ms: " + json.dumps(per_forward, default=str),
+    for acc in per_forward.values():
+        acc["mma_tflop_s"] = acc["mma_flop"] / acc["ms"] / 1e9
+    if parent is not None:
+        slower = [{k: r[k] for k in ("C", "T", "stride", "coeff", "ms",
+                                     "parent_ms")}
+                  for r in rows if r.get("parent_ms") is not None
+                  and r["ms"] > r["parent_ms"]]
+        report["k7_slower_than_parent"] = slower
+        print("K7 shapes slower than the parent's kernel: "
+              + json.dumps(slower), flush=True)
+    print("K7 per forward, ms: " + json.dumps(per_forward, default=sorted),
           flush=True)
     report["k7_per_forward"] = per_forward
     return worst, per_forward
+
+
+def k7_sweep(dev):
+    """K7 at each TCN_SHAPES shape, with and without the pseudo-joint, f32,
+    timed under the planner's plan and the plans next to it: the eight
+    that its cost model ranks cheapest after it (``ms_tcn.tile_plans``).
+    The planned plan's time over the best one is the planner's regret."""
+    from dsgcn_tpu_torch.ops.kernels import ms_tcn as mt
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    gen = torch.Generator().manual_seed(12)
+    planner, rows = mt.tile_plan, []
+    try:
+        for C, T, stride, _ in TCN_SHAPES:
+            mid = C // 6
+            rem = C - 5 * mid
+            plans = mt.tile_plans(N_BLOCK, T, V, C, rem, mid, stride, 4, 4)[:9]
+            planned = plans[0]
+            for coeff in (False, True):
+                args = k7_inputs(gen, dev, C, T, torch.float32, coeff)
+                times = {}
+                for plan in plans:
+                    mt.tile_plan = (lambda *a, plan=plan, **k:
+                                    planner(*a, **k) if k.get("mean")
+                                    else plan)
+                    times[plan] = cold_ms(lambda: mt.fused_dgmstcn_eval(
+                        *args, stride=stride), iters=5, flush=flush)
+                mt.tile_plan = planner
+                best = min(times, key=times.get)
+                row = dict(kernel="fused_dgmstcn_eval", C=C, T=T,
+                           stride=stride, coeff=coeff, plan=list(planned),
+                           ms=times[planned], best=list(best),
+                           best_ms=times[best],
+                           plan_over_best=times[planned] / times[best],
+                           sweep={"x".join(map(str, p)): ms
+                                  for p, ms in times.items()})
+                rows.append(row)
+                print("sweep", json.dumps(row), flush=True)
+                del args
+    finally:
+        mt.tile_plan = planner
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2126,13 +2223,16 @@ def main() -> int:
                     "planner's, and nothing else")
     ap.add_argument("--sweep-blocks", action="store_true",
                     help="time K5 and K6 under every plan that fits at the "
-                    "main paths' shapes, and nothing else")
+                    "main paths' shapes, and K7 under the plans next to its "
+                    "planner's, and nothing else")
     ap.add_argument("--blocks", action="store_true",
-                    help="phase 8's K5 and K6 checks and times and the GCN "
-                    "block times, and nothing else")
+                    help="phase 8's K5 and K6 checks and times, the GCN "
+                    "block times and phase 11's K7 checks and times, and "
+                    "nothing else")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the port (a git archive of "
-                    "the parent commit): time its K5 and K6 beside these")
+                    "the parent commit): time its K5, K6 and K7 beside "
+                    "these")
     args = ap.parse_args()
     sass = sass_mma()
     parent = parent_wrappers(args.parent) if args.parent else None
@@ -2140,6 +2240,7 @@ def main() -> int:
         report = dict(card=card, sass_mma=sass)
         dg_kernel_checks(dev, np.random.default_rng(0), report, parent,
                          k56_only=True)
+        k7_checks(dev, report, parent)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "blocks.json").write_text(json.dumps(report, indent=1,
@@ -2148,14 +2249,16 @@ def main() -> int:
         return 0
     if args.sweep_blocks:
         rows = block_sweep(dev)
+        k7_rows = k7_sweep(dev)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "block_sweep.json").write_text(json.dumps(
-            dict(card=card, rows=rows), indent=1))
-        regret = [r["plan_over_best"] for r in rows]
-        print(f"{card}: K5/K6 planner's plan over the best swept plan: max "
-              f"{max(regret):.4f}, mean {np.mean(regret):.4f} over "
-              f"{len(rows)} shapes")
+            dict(card=card, rows=rows, k7_rows=k7_rows), indent=1))
+        for what, rs in (("K5/K6", rows), ("K7", k7_rows)):
+            regret = [r["plan_over_best"] for r in rs]
+            print(f"{card}: {what} planner's plan over the best swept plan: "
+                  f"max {max(regret):.4f}, mean {np.mean(regret):.4f} over "
+                  f"{len(rs)} shapes")
         return 0
     if args.sweep:
         rows = plan_sweep(dev)
@@ -2181,7 +2284,7 @@ def main() -> int:
     dg_worst, dg_fwd, dg_worst_t, dg_step = dg_kernel_checks(     # 8
         dev, rng, report, parent)
     dg_auto, dg_options = serve_dgstgcn(dev, card, report)        # 9
-    k7_worst, k7_fwd = k7_checks(dev, report)                      # 11
+    k7_worst, k7_fwd = k7_checks(dev, report, parent)              # 11
     stgcnpp_counts = serve_stgcnpp(dev, card, report)              # 12
     serve_with_k7(dev, card, report)                               # 13
     train_counts = train(dev, card, report)                        # 7, 10
@@ -2226,8 +2329,7 @@ def main() -> int:
             ms_over_library=(pf["ms"] / pf["library_ms"]
                              if pf["library_ms"] else None),
             ms_over_bound=pf["ms"] / pf["bound_ms"],
-            **{k: pf[k] for k in ("bound_tc_ms", "unfused_ms", "parent_ms")
-               if k in pf}))
+            **{k: pf[k] for k in ("unfused_ms", "parent_ms") if k in pf}))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -56,6 +56,24 @@ PW_PANEL_WIDTH = 256
 K6_OUT_TILES, K6_PRE_TILES = 8, 4
 K6_JOINTS_PER_THREAD, K6_SOURCE_JOINTS = 2, 13
 K5_PRE_TILES, K5_JOINTS_PER_THREAD = 8, 2
+# K7 (csrc/ms_tcn.cu) runs on the same block, x panels of PW_KP channels
+# beside the weight panels in its ring; a warp holds up to K7_TILES n8
+# accumulator tiles of a product in one pass
+K7_TILES = 8
+# The card the planners plan for (an H100): SMs, shared memory an SM and
+# the most a block may take.  The pointwise planners' cost model (K5, K6
+# and K7), in SM clocks: the TF32 rate mma.sync reaches, in FLOP a clock an
+# SM (half the H100's dense TF32 rate), one thread's instructions to build
+# a graph entry (the exponential-table ctr, the base, the gate, the
+# rounding), a weight panel's barrier, the bytes an SM moves a clock at the
+# card's memory rate (3.35 TB/s over 132 SMs at 1.98 GHz), and a K6
+# chunk's, a K5 block's or a K7 product's fixed clocks (barriers, tables,
+# epilogue).  The model only ranks plans; ``chip_smoke.py --sweep-blocks``
+# times every plan that fits at the main paths' shapes beside the chosen
+# one.
+SMS, SM_SMEM, BLOCK_SMEM = 132, 228 * 1024, 227 * 1024
+MMA_FLOP_CLK, ENTRY_INSTR, PANEL_CLK, BYTES_CLK = 1024, 12, 60, 13
+CHUNK_CLK = 2000
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DDSGCN_AGG_MAX_THREADS={AGG_MAX_THREADS}",
@@ -77,7 +95,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
     f"-DDSGCN_K6_WN={K6_JOINTS_PER_THREAD}",
     f"-DDSGCN_K6_VC={K6_SOURCE_JOINTS}",
     f"-DDSGCN_K5_PRE_NT={K5_PRE_TILES}",
-    f"-DDSGCN_K5_WN={K5_JOINTS_PER_THREAD}")
+    f"-DDSGCN_K5_WN={K5_JOINTS_PER_THREAD}",
+    f"-DDSGCN_K7_NT={K7_TILES}")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (C entry point, argtypes); see the extern "C" functions in csrc
@@ -91,7 +110,7 @@ SIGNATURES = {
                        [_P] * 4 + [_I] + [_P] * 5 + [_I] * 10 + [_P] * 5),
     "dggcn_block": ("dsgcn_dggcn_block",
                     [_P, _P, _I] + [_P] * 21 + [_I] * 12 + [_P]),
-    "ms_tcn": ("dsgcn_ms_tcn", [_P, _P, _I, _P] + [_P] * 12 + [_I] * 14
+    "ms_tcn": ("dsgcn_ms_tcn", [_P, _P, _I, _P] + [_P] * 5 + [_I] * 15
                + [_P]),
 }
 

@@ -105,14 +105,6 @@ __host__ __device__ inline Layout block_layout(int R, int C, int CH, int Cout,
   return L;
 }
 
-__device__ __forceinline__ void store_pair(float *p, float a, float b) {
-  *(float2 *)p = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16 *p, float a,
-                                           float b) {
-  *(__nv_bfloat162 *)p = __floats2bfloat162_rn(a, b);
-}
-
 template <typename Tio>
 __global__ void __launch_bounds__(pw::THREADS, 1)
 dggcn_block_kernel(const __grid_constant__ Block b) {
@@ -154,8 +146,8 @@ dggcn_block_kernel(const __grid_constant__ Block b) {
   if (b.w_down != nullptr) {
     const Weights<float> W(b.w_down, Cout, 0, C, 0, Cout, L.slot);
     ring_begin(ring, L.slot, W);
-    block_product<OUT_NT, XF, true, Tio, float>(acc, xs, L.px, ring, L.slot,
-                                                W, wo);
+    block_product<OUT_NT, XF, true>(acc, Tile<Tio>(xs, L.px), ring, L.slot,
+                                    W, wo);
   }
 
   for (int q0 = 0; q0 < KC; q0 += CH) {
@@ -170,9 +162,9 @@ dggcn_block_kernel(const __grid_constant__ Block b) {
       cp_async_commit();
       float pacc[MT][PRE_NT][4];
       zero(pacc);
-      block_product<PRE_NT, XF, true, Tio, float>(pacc, xs, L.px, ring,
-                                                  L.slot, W, wp);
-      for_each(pacc, wp, [&](int r, int c, float v0, float v1) {
+      block_product<PRE_NT, XF, true>(pacc, Tile<Tio>(xs, L.px), ring,
+                                      L.slot, W, wp);
+      for_each(pacc, wp, [&](int, int r, int c, float v0, float v1) {
         if (c < CH)
           pre_s[c * L.rp + r] = fmaxf(v0 + __ldg(b.b_pre + q0 + c), 0.f);
         if (c + 1 < CH)
@@ -193,9 +185,9 @@ dggcn_block_kernel(const __grid_constant__ Block b) {
           y = first ? v : y + v;
         });
     __syncthreads();
-    block_product<OUT_NT, true, true, float, float>(acc, (const unsigned char *)
-                                                    y_s, L.pp, ring, L.slot,
-                                                    W, wo);
+    block_product<OUT_NT, true, true>(
+        acc, Tile<float>((const unsigned char *)y_s, L.pp), ring, L.slot, W,
+        wo);
   }
 
   // out = relu(acc + b_post + res), res = b_down (the down product is in
@@ -203,7 +195,7 @@ dggcn_block_kernel(const __grid_constant__ Block b) {
   // lane: a warp's store is 8 rows of 32 contiguous bytes (float32)
   Tio *out = (Tio *)b.out + row0 * Cout;
   const bool pairs = Cout % 2 == 0 && (uintptr_t)b.out % (2 * sizeof(Tio)) == 0;
-  for_each(acc, wo, [&](int r, int c, float v0, float v1) {
+  for_each(acc, wo, [&](int, int r, int c, float v0, float v1) {
     if (r >= rows || c >= Cout) return;
     float v[2] = {v0, v1};
 #pragma unroll

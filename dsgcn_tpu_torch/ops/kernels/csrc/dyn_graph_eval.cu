@@ -124,9 +124,9 @@ dyn_graph_eval_kernel(const __grid_constant__ Eval e) {
   const WarpTile wp = warp_tile(R, CH);
   float acc[MT][PRE_NT][4];
   zero(acc);
-  block_product<PRE_NT, F32, F32, Tio, Tio>(acc, xs, L.px, ring, L.slot, W,
-                                            wp);
-  for_each(acc, wp, [&](int r, int c, float v0, float v1) {
+  block_product<PRE_NT, F32, F32>(acc, Tile<Tio>(xs, L.px), ring, L.slot, W,
+                                  wp);
+  for_each(acc, wp, [&](int, int r, int c, float v0, float v1) {
     if (c < CH)
       pre_s[c * L.rp + r] = to_f32(from_f32<Tio>(
           fmaxf(v0 + __ldg(e.b_pre + q0 + c), 0.f)));

@@ -1,11 +1,15 @@
 // Pointwise (1x1) products over a tile of joint rows on Hopper's tensor
-// cores, shared by K5 (dyn_graph_eval.cu) and K6 (dggcn_block.cu):
+// cores, shared by K5 (dyn_graph_eval.cu), K6 (dggcn_block.cu) and K7
+// (ms_tcn.cu):
 //
 //   acc[r, n] += sum_k A[r, k] W[k0 + k, n0 + n]
 //
-// A is a tile of whole frames of one sample staged once in shared memory
-// (the x tile, or K6's y chunk), its rows padded to the warps' 32-row
-// tiles; W is a row-major weight matrix in device memory whose panels
+// A comes from a source (Tile below, or K7's own): K5's and K6's is a tile
+// of whole frames of one sample staged once in shared memory (the x tile,
+// or K6's y chunk), its rows padded to the warps' 32-row tiles; a source
+// gives a warp's A rows by address, so a strided or shifted view of a
+// staged tile needs no copy, and may stream its own part of each ring
+// slot.  W is a row-major weight matrix in device memory whose panels
 // stream through a STAGES-deep ring of 16-byte cp.async copies.  A ring
 // slot holds KP rows of PANEL_WIDTH columns or more; a narrower product
 // takes as many more rows a panel as fit, so that each barrier of the
@@ -88,12 +92,22 @@ struct WarpTile {
   int row0, col0, nt;
 };
 
+// The warps form a WR x WC grid over R rows (WR = R / 32).  IDLE: WR
+// need not divide the warps, and those past WR * WC idle (nt = 0); K5's
+// and K6's R is 32 times a power of two.
+template <bool IDLE = false>
 __device__ __forceinline__ WarpTile warp_tile(int R, int ncols) {
   const int warp = threadIdx.x >> 5, WR = R / WARP_ROWS, WC = WARPS / WR;
   const int wr = warp / WC, wc = warp % WC;
   const int tiles = (ncols + 7) / 8, per = (tiles + WC - 1) / WC;
-  const int nt = min(per, max(0, tiles - wc * per));
+  const int nt = !IDLE || wr < WR ? min(per, max(0, tiles - wc * per)) : 0;
   return {wr * WARP_ROWS, wc * per * 8, nt};
+}
+
+// The row of the warp's tile whose entries this lane holds in fragment
+// slot ri = 2 i + h: row0 + 16 i + g + 8 h (g = lane / 4).
+__device__ __forceinline__ int slot_row(const WarpTile &wt, int ri) {
+  return wt.row0 + (ri >> 1) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (ri & 1);
 }
 
 // n8 tiles a warp holds for an ncols-wide product over R rows (the
@@ -251,38 +265,24 @@ __device__ __forceinline__ void stage_panel(unsigned char *slot,
         from_f32<T>(0.f);
 }
 
-// Put the first STAGES - 1 panels of a product in flight (one cp.async
-// group each).  The ring must be free: the last product ended in a
-// barrier.  Work that touches neither the ring nor cp.async groups may run
-// between this and block_product.
-template <typename T>
-__device__ __forceinline__ void ring_begin(unsigned char *ring, int slot,
-                                           const Weights<T> &W) {
-  const int np = W.panels();
-#pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) {
-    if (p < np) stage_panel(ring + p * slot, W, p);
-    cp_async_commit();
-  }
-}
-
-// ksteps k8 steps of the warp's tile: A rows from the tile at A (pitch pa
-// bytes) from column kcol, B from the ring slot.
+// ksteps k8 steps of the warp's tile.  A rows by address: a[i] is the
+// panel's first column in row slot_row(wt, 2 i), and row slot_row(wt,
+// 2 i + 1) lies d[i] bytes from it (8 rows' pitch in a plain tile; any
+// offset in a row map).  B from the weight panel at B (pb bytes a row).
 template <int NT, bool SA, bool SB, typename TA, typename TB>
 __device__ __forceinline__ void warp_panel(float (&acc)[MT][NT][4],
-                                           const unsigned char *A, int pa,
-                                           int kcol, const unsigned char *B,
-                                           int pb, int ksteps,
-                                           const WarpTile &wt) {
+                                           const TA *const (&a)[MT],
+                                           const int (&d)[MT],
+                                           const unsigned char *B, int pb,
+                                           int ksteps, const WarpTile &wt) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll 1
   for (int ks = 0; ks < ksteps; ++ks) {
     uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      const TA *r0 = (const TA *)(A + (size_t)(wt.row0 + i * 16 + g) * pa) +
-                     kcol + ks * 8 + t;
-      const TA *r1 = (const TA *)((const unsigned char *)r0 + 8 * pa);
+      const TA *r0 = a[i] + ks * 8 + t;
+      const TA *r1 = (const TA *)((const unsigned char *)r0 + d[i]);
       split<SA>(to_f32(r0[0]), ah[i][0], al[i][0]);
       split<SA>(to_f32(r1[0]), ah[i][1], al[i][1]);
       split<SA>(to_f32(r0[4]), ah[i][2], al[i][2]);
@@ -308,13 +308,67 @@ __device__ __forceinline__ void warp_panel(float (&acc)[MT][NT][4],
   }
 }
 
+// Where a product's A comes from.  A source may stream its own part of
+// each ring slot: stage(slot, kp, p) puts panel p's (kp rows of depth,
+// uncommitted cp.async copies) at the slot's start, and the weight panel
+// follows boff bytes on.  panel<NT, SA, SB, TB>(acc, slot, k0, ksteps,
+// pb, wt) runs warp_panel over the depth [k0, k0 + 8 ksteps) of the
+// product with the weight panel in that slot.  Resident: A held in shared
+// memory, nothing streamed.
+struct Resident {
+  static constexpr int boff = 0;
+  __device__ void stage(unsigned char *, int, int) const {}
+};
+
+// A tile in shared memory, row r at A + r pa bytes (K5's and K6's x tile,
+// K6's y chunk).
+template <typename TA> struct Tile : Resident {
+  const unsigned char *A;
+  int pa;
+  __device__ Tile(const unsigned char *A_, int pa_) : A(A_), pa(pa_) {}
+
+  template <int NT, bool SA, bool SB, typename TB>
+  __device__ void panel(float (&acc)[MT][NT][4], const unsigned char *slot,
+                        int k0, int ksteps, int pb,
+                        const WarpTile &wt) const {
+    const TA *a[MT];
+    int d[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      a[i] = (const TA *)(A + (size_t)slot_row(wt, 2 * i) * pa) + k0;
+      d[i] = 8 * pa;
+    }
+    warp_panel<NT, SA, SB, TA, TB>(acc, a, d, slot, pb, ksteps, wt);
+  }
+};
+
+// Put the first STAGES - 1 panels of a product in flight (one cp.async
+// group each), A's part of each slot first.  The ring must be free: the
+// last product ended in a barrier.  Work that touches neither the ring nor
+// cp.async groups may run between this and block_product.
+template <typename T, class Src = Resident>
+__device__ __forceinline__ void ring_begin(unsigned char *ring, int slot,
+                                           const Weights<T> &W,
+                                           const Src &A = Src()) {
+  const int np = W.panels();
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < np) {
+      A.stage(ring + p * slot, W.kp, p);
+      stage_panel(ring + p * slot + A.boff, W, p);
+    }
+    cp_async_commit();
+  }
+}
+
 // acc += A W over the product's depth, its panels through the ring (the
-// first STAGES - 1 already in flight from ring_begin).  A must hold the
-// depth rounded up to 8 columns, zero past the depth where the weights'
-// zero rows meet it.  Ends in a barrier: A and the ring are free again.
-template <int NT, bool SA, bool SB, typename TA, typename TB>
+// first STAGES - 1 already in flight from ring_begin with the same A).  A
+// must hold the depth rounded up to 8 columns, zero past the depth where
+// the weights' zero rows meet it.  Ends in a barrier: A and the ring are
+// free again.
+template <int NT, bool SA, bool SB, class Src, typename TB>
 __device__ __forceinline__ void block_product(float (&acc)[MT][NT][4],
-                                              const unsigned char *A, int pa,
+                                              const Src &A,
                                               unsigned char *ring, int slot,
                                               const Weights<TB> &W,
                                               const WarpTile &wt) {
@@ -323,18 +377,23 @@ __device__ __forceinline__ void block_product(float (&acc)[MT][NT][4],
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     const int nx = p + STAGES - 1;
-    if (nx < np) stage_panel(ring + (nx % STAGES) * slot, W, nx);
+    if (nx < np) {
+      unsigned char *s = ring + (nx % STAGES) * slot;
+      A.stage(s, W.kp, nx);
+      stage_panel(s + A.boff, W, nx);
+    }
     cp_async_commit();
     if (wt.nt > 0)
-      warp_panel<NT, SA, SB, TA, TB>(
-          acc, A, pa, p * W.kp, ring + (p % STAGES) * slot, W.pitch,
-          min(W.kp, W.k_end - W.k0 - p * W.kp + 7) / 8, wt);
+      A.template panel<NT, SA, SB, TB>(
+          acc, ring + (p % STAGES) * slot, p * W.kp,
+          min(W.kp, W.k_end - W.k0 - p * W.kp + 7) / 8, W.pitch, wt);
   }
   __syncthreads();
 }
 
 // Visit the accumulator entries of a warp's tile in pairs of columns:
-// f(row, column, value at column, value at column + 1).
+// f(slot ri, row slot_row(wt, ri), column, value at column, value at
+// column + 1).
 template <int NT, typename F>
 __device__ __forceinline__ void for_each(const float (&acc)[MT][NT][4],
                                          const WarpTile &wt, F f) {
@@ -346,8 +405,17 @@ __device__ __forceinline__ void for_each(const float (&acc)[MT][NT][4],
       if (j < wt.nt)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          f(wt.row0 + i * 16 + g + 8 * h, wt.col0 + j * 8 + 2 * t,
+          f(2 * i + h, wt.row0 + i * 16 + g + 8 * h, wt.col0 + j * 8 + 2 * t,
             acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+}
+
+// Two adjacent output columns in one store.
+__device__ __forceinline__ void store_pair(float *p, float a, float b) {
+  *(float2 *)p = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16 *p, float a,
+                                           float b) {
+  *(__nv_bfloat162 *)p = __floats2bfloat162_rn(a, b);
 }
 
 }  // namespace pw

@@ -25,8 +25,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .dyn_graph import (_BLOCK_SMEM, _BYTES_CLK, _CHUNK_CLK, _PANEL_CLK, _SMS,
-                        _aggregate_clk, _ctr, _edge_operands, _graph,
+from .dyn_graph import (_aggregate_clk, _ctr, _edge_operands, _graph,
                         _product_clk, _round_up, _row_tiles, graph_tables,
                         pitch_a, pw_chunks, pw_panels, pw_pre, pw_slot,
                         pw_tables, pw_tiles)
@@ -75,7 +74,7 @@ def block_plan(N: int, T: int, V: int, C: int, K: int, Cm: int, Cout: int,
             continue
         for CH in pw_chunks(K, Cm):
             smem = block_smem(V, C, K, Cm, Cout, xsize, R, CH)
-            if smem == 0 or smem > _BLOCK_SMEM:
+            if smem == 0 or smem > _build.BLOCK_SMEM:
                 if smem:
                     least = smem if least is None else min(least, smem)
                 continue
@@ -87,12 +86,12 @@ def block_plan(N: int, T: int, V: int, C: int, K: int, Cm: int, Cout: int,
                       + (pw_panels(C, Cout, slot, 4) if down else 0))
             clk = ((KC // CH) * (_product_clk(R, C, CH, xf, True) + agg
                                  + _product_clk(R, CH, Cout, True, True)
-                                 + _CHUNK_CLK)
+                                 + _build.CHUNK_CLK)
                    + (_product_clk(R, C, Cout, xf, True) if down else 0.0)
-                   + panels * _PANEL_CLK
-                   + TT * V * (C + Cout) * xsize / _BYTES_CLK)
+                   + panels * _build.PANEL_CLK
+                   + TT * V * (C + Cout) * xsize / _build.BYTES_CLK)
             blocks = N * -(-T // TT)
-            key = (-(-blocks // _SMS) * clk, blocks)
+            key = (-(-blocks // _build.SMS) * clk, blocks)
             if best is None or key < best[0]:
                 best = (key, TT, R, CH, (KC // CH) * build / clk)
     if best is None:
@@ -103,7 +102,7 @@ def block_plan(N: int, T: int, V: int, C: int, K: int, Cm: int, Cout: int,
         raise ValueError(
             f"fused_dggcn_block_eval: no block plan for C = {C}, K*Cm = "
             f"{KC}, Cout = {Cout}, V = {V}: the smallest block needs "
-            f"{least} bytes of shared memory, over the {_BLOCK_SMEM} a "
+            f"{least} bytes of shared memory, over the {_build.BLOCK_SMEM} a "
             "block has")
     return best[1:]
 

@@ -185,8 +185,8 @@ def _graph_operands(name, pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
     return ops
 
 
-# the H100 the plan of K1 and K3's block is made for
-_SMS, _SM_SMEM, _BLOCK_SMEM = 132, 228 * 1024, 227 * 1024
+# the H100 the plan of K1 and K3's block is made for (its SMs and shared
+# memory: _build.SMS, SM_SMEM, BLOCK_SMEM)
 _SM_THREADS, _SM_BLOCKS, _SM_REGS, _THREAD_REGS = 2048, 32, 65536, 128
 # the planner's cost model, in one warp's row steps: a thread's graph build
 # and a block's fixed setup (query tables, ada), and the resident warps an
@@ -237,12 +237,12 @@ def agg_plan(N: int, T: int, V: int, K: int, Cm: int, esize: int):
         if Cm % CG:
             continue
         threads, smem = agg_block(V, Cm, CG, esize)
-        if threads > _build.AGG_MAX_THREADS or smem > _BLOCK_SMEM:
+        if threads > _build.AGG_MAX_THREADS or smem > _build.BLOCK_SMEM:
             continue
         warps = threads // 32
         per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
                      _SM_REGS // (threads * _THREAD_REGS),
-                     _SM_SMEM // (smem + 1024))
+                     _build.SM_SMEM // (smem + 1024))
         slow = 1.0 if (CG * esize) % 16 == 0 and (Cm * esize) % 16 == 0 \
             else 1.5
         for S in range(1, T + 1):
@@ -250,7 +250,7 @@ def agg_plan(N: int, T: int, V: int, K: int, Cm: int, esize: int):
             if S > 1 and -(-T // (S - 1)) == rows:
                 continue
             blocks = N * K * (Cm // CG) * -(-T // rows)
-            load = -(-blocks // _SMS)
+            load = -(-blocks // _build.SMS)
             resident = min(per_sm, load) * warps
             work = warps * (_BUILD_ROWS + rows) + _SETUP_ROWS
             cost = slow * row * load * work / min(1.0,
@@ -361,12 +361,12 @@ def bwd_plan(N: int, T: int, V: int, K: int, Cm: int, esize: int, E: int):
         if Cm % CG:
             continue
         threads, smem = bwd_block(V, CG, esize, E)
-        if threads > _build.BWD_MAX_THREADS or smem > _BLOCK_SMEM:
+        if threads > _build.BWD_MAX_THREADS or smem > _build.BLOCK_SMEM:
             continue
         warps = threads // 32
         per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
                      _SM_REGS // (threads * regs),
-                     _SM_SMEM // (smem + 1024))
+                     _build.SM_SMEM // (smem + 1024))
         if per_sm < 1:
             continue
         slow = 1.0 if (CG * esize) % 16 == 0 and (Cm * esize) % 16 == 0 \
@@ -376,7 +376,7 @@ def bwd_plan(N: int, T: int, V: int, K: int, Cm: int, esize: int, E: int):
             if S > 1 and -(-T // (S - 1)) == rows:
                 continue
             blocks = N * K * (Cm // CG) * -(-max(T, 1) // rows)
-            load = -(-blocks // _SMS)
+            load = -(-blocks // _build.SMS)
             resident = min(per_sm, load) * warps
             work = warps * (_BWD_BUILD_ROWS + rows) + _BWD_SETUP_ROWS
             cost = slow * row * load * work / min(1.0,
@@ -394,7 +394,7 @@ def _edge_slices(N: int, F: int) -> int:
     """Sample slices of K2's dedge_w product: enough blocks for four
     waves of the card (``edge_dw_kernel``'s grid is ceil(F / 64) x
     slices)."""
-    return max(1, min(N, -(-4 * _SMS // -(-F // 64))))
+    return max(1, min(N, -(-4 * _build.SMS // -(-F // 64))))
 
 
 def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
@@ -430,7 +430,7 @@ def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
                          f"{_build.MAX_BWD_EDGE_CHANNELS} (the edge "
                          "products take the subset's channels and the bias "
                          "in one block)")
-    if bwd_finish_smem(V, Cm) > _BLOCK_SMEM:
+    if bwd_finish_smem(V, Cm) > _build.BLOCK_SMEM:
         raise ValueError(f"{name}: Cm = {Cm} channels overflow the finish "
                          "block's shared memory")
     Ee = E if has_edge else 0
@@ -567,17 +567,8 @@ fused_dyn_graph_agg.launches = 0
 
 # K5's and K6's blocks (csrc/pointwise_mma.cuh): a tile of whole frames of
 # one sample, R rows (a multiple of the warps' 32-row tiles, the warps a
-# WR x WC grid), the 1x1 products on tensor cores.  The planners' cost
-# model, in SM clocks: the TF32 rate mma.sync reaches, in FLOP a clock an
-# SM (half the H100's dense TF32 rate), one thread's instructions to build
-# a graph entry (the exponential-table ctr, the base, the gate, the
-# rounding), a weight panel's barrier, and the bytes an SM moves a clock
-# at the card's memory rate (3.35 TB/s over 132 SMs at 1.98 GHz).  The
-# model only ranks plans; ``chip_smoke.py --sweep-blocks`` times every
-# plan that fits at the main paths' shapes beside the chosen one.
-_MMA_FLOP_CLK, _ENTRY_INSTR, _PANEL_CLK, _BYTES_CLK = 1024, 12, 60, 13
-# a K6 chunk's and a K5 block's fixed clocks (barriers, tables, epilogue)
-_CHUNK_CLK = 2000
+# WR x WC grid), the 1x1 products on tensor cores; the planners' cost
+# model is _build's (MMA_FLOP_CLK, ...).
 PW_ROWS = tuple(_build.PW_WARP_ROWS * 2 ** i for i in range(5))
 
 
@@ -642,7 +633,7 @@ def _aggregate_clk(V: int, TT: int, CH: int, WN: int):
     of its graph build, one thread an item, 16 warps issuing four a
     clock."""
     rounds = -(-CH * -(-V // WN) // _build.PW_THREADS)
-    build = V * WN * _ENTRY_INSTR
+    build = V * WN * _build.ENTRY_INSTR
     warp_clk = _build.PW_THREADS // 32 // 4
     return (rounds * (build + TT * V * (1 + WN)) * warp_clk,
             rounds * build * warp_clk)
@@ -651,7 +642,7 @@ def _aggregate_clk(V: int, TT: int, CH: int, WN: int):
 def _product_clk(R: int, depth: int, ncols: int, split_a: bool,
                  split_b: bool) -> float:
     """Clocks of an R-row product on tensor cores, the warps' padding
-    included: the larger of the MMAs at _MMA_FLOP_CLK and the warps'
+    included: the larger of the MMAs at _build.MMA_FLOP_CLK and the warps'
     instructions issued four a clock (a k8 step's fragment loads, their
     hi/lo splits where an operand is float32, and the MMAs)."""
     warps = _build.PW_THREADS // 32
@@ -660,7 +651,7 @@ def _product_clk(R: int, depth: int, ncols: int, split_a: bool,
     nt = pw_tiles(R, ncols)
     terms = 1 + int(split_a) + int(split_b)
     ksteps = -(-depth // 8)
-    mma = 2.0 * R * ksteps * 8 * nt * WC * 8 * terms / _MMA_FLOP_CLK
+    mma = 2.0 * R * ksteps * 8 * nt * WC * 8 * terms / _build.MMA_FLOP_CLK
     per_step = (4 * MT * (1 + 3 * split_a) + 2 * nt * (1 + 3 * split_b)
                 + nt * MT * terms)
     return max(mma, ksteps * warps * per_step / 4)
@@ -718,7 +709,7 @@ def eval_plan(N: int, T: int, V: int, C: int, K: int, Cm: int, esize: int):
     for R, TT in _row_tiles(T, V):
         for CH in pw_chunks(K, Cm):
             smem = eval_block(V, C, K, Cm, esize, R, CH)
-            if smem == 0 or smem > _BLOCK_SMEM:
+            if smem == 0 or smem > _build.BLOCK_SMEM:
                 if smem:
                     least = smem if least is None else min(least, smem)
                 continue
@@ -726,18 +717,18 @@ def eval_plan(N: int, T: int, V: int, C: int, K: int, Cm: int, esize: int):
             if -(-T // TT) > 65535:
                 continue
             agg, _ = _aggregate_clk(V, TT, CH, _build.K5_JOINTS_PER_THREAD)
+            panels = pw_panels(C, CH, pw_slot(CH, esize), esize)
             clk = (_product_clk(R, C, CH, esize == 4, esize == 4) + agg
-                   + pw_panels(C, CH, pw_slot(CH, esize), esize) * _PANEL_CLK
-                   + _CHUNK_CLK
-                   + (R * C + TT * V * CH) * esize / _BYTES_CLK)
-            key = (-(-blocks // _SMS) * clk, blocks)
+                   + panels * _build.PANEL_CLK + _build.CHUNK_CLK
+                   + (R * C + TT * V * CH) * esize / _build.BYTES_CLK)
+            key = (-(-blocks // _build.SMS) * clk, blocks)
             if best is None or key < best[0]:
                 best = (key, TT, R, CH)
     if best is None:
         raise ValueError(
             f"fused_dyn_graph_agg_eval: no block plan for {C} input "
             f"channels, K*Cm = {KC}, V = {V}: the smallest block needs "
-            f"{least} bytes of shared memory, over the {_BLOCK_SMEM} a "
+            f"{least} bytes of shared memory, over the {_build.BLOCK_SMEM} a "
             "block has")
     return best[1:]
 

@@ -34,11 +34,12 @@ from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
     agg_block, bwd_block, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
     fused_dyn_graph_agg_eval, reference_dyn_graph_agg,
     reference_dyn_graph_agg_bwd, reference_dyn_graph_agg_eval)
+from dsgcn_tpu_torch.ops.kernels import ms_tcn
 from dsgcn_tpu_torch.ops.kernels.ms_tcn import (fused_dgmstcn_eval,
                                                 reference_fused_dgmstcn_eval)
 from dsgcn_tpu_torch.ops.tcn import MSTCN
 from torch_port_cases import CASES, E, block_inputs, k3_packaging, to_torch
-from chip_smoke import DG_BLOCKS, DG_K, DS_BLOCKS
+from chip_smoke import DG_BLOCKS, DG_K, DS_BLOCKS, TCN_SHAPES
 
 K2_OUTS = ("dpre", "dx1", "dx2", "dA", "dalpha", "dbeta", "dedge_w",
            "dedge_b")
@@ -762,10 +763,12 @@ def test_cuda_dgstgcn_eval_options_match_cpu(cuda):
 # K7: the fused multi-branch temporal conv
 # ---------------------------------------------------------------------------
 
-def _k7_args(cuda, dtype, C, T, coeff, seed, N=4):
-    """x and the folded weights of a C -> C region (mid C // 6)."""
+def _k7_args(cuda, dtype, C, T, coeff, seed, N=4, Cin=None, mid=None):
+    """x and the folded weights of a Cin -> C region (Cin = C, mid C // 6
+    unless given; rem = C - 5 mid)."""
     gen = torch.Generator().manual_seed(seed)
-    mid = C // 6
+    Cin = C if Cin is None else Cin
+    mid = C // 6 if mid is None else mid
     rem = C - 5 * mid
     P = rem + 4 * mid
 
@@ -778,12 +781,30 @@ def _k7_args(cuda, dtype, C, T, coeff, seed, N=4):
     def a(n):
         return (0.5 + torch.rand(n, generator=gen)).to(cuda)
     widths = (rem, mid, mid, mid)
-    x = torch.randn(N, T, 25, C, generator=gen).to(cuda, dtype)
-    args = [x, w(C, P), b(P), [w(3, cb, cb) for cb in widths],
-            [b(cb) for cb in widths], w(C, mid), b(mid), a(C), b(C),
+    x = torch.randn(N, T, 25, Cin, generator=gen).to(cuda, dtype)
+    args = [x, w(Cin, P), b(P), [w(3, cb, cb) for cb in widths],
+            [b(cb) for cb in widths], w(Cin, mid), b(mid), a(C), b(C),
             w(C, C), b(C), a(C), b(C)]
     c = (torch.rand(25, generator=gen) - 0.5).to(cuda) if coeff else None
     return args + [c]
+
+
+# of the largest output: float32, the same sums in another order (the
+# products 3xTF32); bfloat16, the output is rounded to bf16 once on both
+# sides, and a sum in another order may round the other way
+K7_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _k7_check(args, stride, dtype):
+    n = fused_dgmstcn_eval.launches
+    got = fused_dgmstcn_eval(*args, stride=stride)
+    assert fused_dgmstcn_eval.launches == n + 1
+    want = reference_fused_dgmstcn_eval(*args, stride=stride)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) <= K7_TOL[dtype], _rel(got, want)
+    return got
 
 
 @pytest.mark.cuda
@@ -792,24 +813,75 @@ def _k7_args(cuda, dtype, C, T, coeff, seed, N=4):
     (64, 100, 1, True), (128, 51, 2, False), (256, 25, 2, True)])
 def test_cuda_k7_matches_plain(cuda, C, T, stride, coeff, dtype):
     """K7 at STGCN++ / DG-STGCN widths, with and without the pseudo-joint,
-    stride 1 and 2 (odd T): f32 within 1e-5 of the largest output (the same
-    float32 sums in another order); bf16 within 2e-2 (the output is rounded
-    to bf16 once on both sides, and a sum in another order may round the
-    other way)."""
-    args = _k7_args(cuda, dtype, C, T, coeff, seed=C + T)
-    n = fused_dgmstcn_eval.launches
-    got = fused_dgmstcn_eval(*args, stride=stride)
-    assert fused_dgmstcn_eval.launches == n + 1
-    want = reference_fused_dgmstcn_eval(*args, stride=stride)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == want.shape
-    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+    stride 1 and 2 (odd T): f32 within 1e-5 of the largest output, bf16
+    within 2e-2 (``K7_TOL``)."""
+    _k7_check(_k7_args(cuda, dtype, C, T, coeff, seed=C + T), stride, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("coeff", [False, True])
+@pytest.mark.parametrize("C,T,stride", [s[:3] for s in TCN_SHAPES])
+def test_cuda_k7_serving_shapes_match_plain(cuda, monkeypatch, C, T, stride,
+                                            coeff, dtype):
+    """K7 at every temporal unit shape of chip_smoke.py (STGCN++ without
+    the pseudo-joint, DG-STGCN / DS-GCN with it) under the plans the
+    planner makes for N = 128, on N = 3 samples."""
+    plan = ms_tcn.tile_plan
+    monkeypatch.setattr(ms_tcn, "tile_plan",
+                        lambda N, *a, **k: plan(128, *a, **k))
+    _k7_check(_k7_args(cuda, dtype, C, T, coeff, seed=C + T + stride, N=3),
+              stride, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,stride,TO,JR", [
+    (23, 1, 7, 3), (23, 2, 5, 4), (37, 1, 13, 12), (37, 2, 19, 2),
+    (9, 1, 1, 1), (12, 2, 6, 7)])
+def test_cuda_k7_ragged_tiles(cuda, monkeypatch, T, stride, TO, JR, dtype):
+    """K7 with frame tiles that do not divide the output frames and joint
+    groups that do not divide 25 (the last tile and group short), halos
+    that cross the sequence's ends, and one frame a tile, with and without
+    the pseudo-joint (C 64)."""
+    monkeypatch.setattr(ms_tcn, "tile_plan",
+                        lambda *a, **k: (1, 1) if k.get("mean") else (TO, JR))
+    for coeff in (False, True):
+        _k7_check(_k7_args(cuda, dtype, 64, T, coeff, seed=T + TO, N=2),
+                  stride, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Cin,C,mid,stride", [
+    (30, 30, 5, 1), (45, 45, 7, 2), (66, 66, 11, 1), (30, 64, 10, 2),
+    (130, 93, 15, 1)])
+def test_cuda_k7_odd_widths(cuda, Cin, C, mid, stride, dtype):
+    """Branch widths (mid, rem) and C' that are no multiple of 8, input
+    channels that are no multiple of 4 (x read element by element) and
+    Cin != C', with the pseudo-joint and without."""
+    for coeff in (False, True):
+        _k7_check(_k7_args(cuda, dtype, C, 17, coeff, seed=Cin + C, N=2,
+                           Cin=Cin, mid=mid), stride, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k7_same_bits_every_call(cuda, dtype):
+    """No atomics: two calls on the same inputs give identical bits."""
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for C, T, stride, coeff in ((64, 40, 1, True), (256, 25, 2, False)):
+        args = _k7_args(cuda, dtype, C, T, coeff, seed=5, N=4)
+        a = fused_dgmstcn_eval(*args, stride=stride)
+        b = fused_dgmstcn_eval(*args, stride=stride)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(view), b.view(view))
 
 
 @pytest.mark.cuda
 def test_cuda_k7_refuses(cuda):
-    """A wrong shape or type and inputs that need a gradient raise before a
-    launch."""
+    """A wrong shape or type, inputs that need a gradient, and a width no
+    block fits (the planner's refusal) raise before a launch."""
     args = _k7_args(cuda, torch.float32, 64, 8, True, seed=1)
     n = fused_dgmstcn_eval.launches
     bad = list(args)
@@ -820,10 +892,35 @@ def test_cuda_k7_refuses(cuda):
     bad[0] = args[0].double()
     with pytest.raises(TypeError):
         fused_dgmstcn_eval(*bad)
+    wide = _k7_args(cuda, torch.float32, 3000, 4, False, seed=2, N=1, Cin=8,
+                    mid=300)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_dgmstcn_eval(*wide)
     args[1].requires_grad_(True)
     with pytest.raises(NotImplementedError, match="eval-only"):
         fused_dgmstcn_eval(*args)
     assert fused_dgmstcn_eval.launches == n
+
+
+@pytest.mark.cuda
+def test_cuda_k7_block_matches_planner(cuda):
+    """The planner's model of a K7 block (shared memory, and the plans the
+    kernel refuses) is the block the kernel launches."""
+    lib = ctypes.CDLL(str(_build.compile_kernel("ms_tcn")))
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    for C, mid, T, stride in ((64, 10, 100, 1), (128, 21, 100, 2),
+                              (256, 42, 25, 1), (45, 7, 17, 2)):
+        rem = C - 5 * mid
+        for TO in (1, 3, 13, 25, 50):
+            for JR in (1, 2, 5, 25):
+                for xsize in (2, 4):
+                    lib.dsgcn_ms_tcn_geometry(
+                        T, C, rem, mid, stride, 4, TO, JR, xsize,
+                        ctypes.byref(threads), ctypes.byref(smem))
+                    assert threads.value == _build.PW_THREADS
+                    assert smem.value == ms_tcn.tile_smem(
+                        T, C, rem, mid, stride, 4, TO, JR, xsize), (
+                        C, T, stride, TO, JR, xsize)
 
 
 @pytest.mark.cuda

@@ -120,17 +120,20 @@ def test_k7_plain_matches_jax_interpret(coeff, stride, T):
 
 def test_k7_tile_plan_fits_the_block():
     """The wrapper's tiling at STGCN++'s serving shapes (N = 128): each
-    block's shared memory under the H100's 227 KB, the pseudo-joint row
-    counted with coeff."""
-    from dsgcn_tpu_torch.ops.kernels.ms_tcn import smem_bytes
+    block's shared memory under the H100's 227 KB, the joints' blocks in f32 and bf16 and, with coeff, the pseudo-joint's blocks (one
+    row a frame)."""
+    from dsgcn_tpu_torch.ops.kernels.ms_tcn import tile_smem
     for C, T, s in ((64, 100, 1), (128, 100, 2), (128, 50, 1), (256, 50, 2),
                     (256, 25, 1), (16, 3, 1)):
         mid = C // 6
         rem = C - 5 * mid
         for g in (False, True):
-            TO, JR = tile_plan(128, T, 25, C, rem, mid, s, 4, g)
-            assert 1 <= TO <= -(-T // s) and 1 <= JR <= 25
-            assert smem_bytes(TO, JR + g, s, 4, C, rem) <= 232448
+            for xsize in (4, 2):
+                TO, JR = tile_plan(128, T, 25, C, rem, mid, s, 4, xsize,
+                                   mean=g)
+                assert 1 <= TO <= -(-T // s) and 1 <= JR <= (1 if g else 25)
+                assert 0 < tile_smem(T, C, rem, mid, s, 4, TO, JR,
+                                     4 if g else xsize) <= 232448
 
 
 # ---------------------------------------------------------------------------
