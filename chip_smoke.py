@@ -38,8 +38,17 @@ its products on tensor cores; phase 12 serves STGCN++
 without K7, request latency, clips/s with and without K7); phase 13 serves
 DG-STGCN and DS-GCN with K7 beside their GCN kernels; phase 14 trains
 STGCN++ from its RepeatDataset train set (GPU step against CPU, timed
-steps, no kernel launched).  Phases run in the order 2-6, 8, 9, 11-13, 7,
-10, 14.  Any failed check raises, and the script exits non-zero without a
+steps, no kernel launched).  Phase 15 takes every committed DS-GCN
+config: K3, K1 and K2 on the COCO graph (V = 17 inside the joint bound 25)
+at the hrnet block shapes, N = 64 and 160 (fight detection's 5 bodies),
+against their plain versions; the j, b, jm and bm NTU configs through the
+train (``--test-last``), test and fuse CLIs (10 K3 launches a forward,
+scores against the CPU, the fusion against numpy); hrnet COCO serving
+(kinetics400 j and b, fight detection j: DecompressPose, PoseCompact,
+GPU against CPU, request latency, clips/s); and a COCO b training step
+against the CPU with timed steps (K1 and K2 at V = 17).  Phases run in
+the order 2-6, 8, 9, 11-13, 7, 10, 14, 15; ``--every-config`` runs 15
+alone.  Any failed check raises, and the script exits non-zero without a
 result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
@@ -63,6 +72,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import pickle
 import subprocess
 import sys
 import time
@@ -137,9 +147,10 @@ def with_ratios(row):
 # phase 2: kernels against their plain versions at the block shapes
 # ---------------------------------------------------------------------------
 
-def block_inputs(rng, dev, Cm, T, dtype, Vp=V, v_real=-1, N=N_BLOCK, K=K):
+def block_inputs(rng, dev, Cm, T, dtype, Vp=V, v_real=-1, N=N_BLOCK, K=K,
+                 layout="nturgb+d"):
     """K1 and K3 inputs of one DS-GCN (K = 3) or DG-STGCN (K = 8) block's
-    aggregation (random, with the NTU edge classes)."""
+    aggregation (random, with the layout's edge classes, padded to Vp)."""
     from dsgcn_tpu_torch.graph import Graph
     from dsgcn_tpu_torch.ops.kernels.dyn_graph import edge_onehot
     f = lambda *s: torch.from_numpy(  # noqa: E731
@@ -148,8 +159,9 @@ def block_inputs(rng, dev, Cm, T, dtype, Vp=V, v_real=-1, N=N_BLOCK, K=K):
              x2=f(N, K, Cm, Vp), A=f(K, Vp, Vp) * 0.04,
              alpha=f(K).clamp(-1, 1), beta=f(K).clamp(-1, 1),
              ew=f(Cm, E * Cm) * 0.2, eb=f(E * Cm) * 0.1)
-    sel = edge_onehot(Graph(layout="nturgb+d", mode="spatial").edge_type, E)
-    sel = np.pad(sel, ((0, 0), (0, Vp - V), (0, Vp - V)))
+    sel = edge_onehot(Graph(layout=layout, mode="spatial").edge_type, E)
+    pad = Vp - sel.shape[-1]
+    sel = np.pad(sel, ((0, 0), (0, pad), (0, pad)))
     d["sel"] = torch.from_numpy(sel).to(dev)
     if v_real > 0:   # padded joints: zero values, as the model pads them
         d["pre"][:, :, v_real:] = 0
@@ -312,6 +324,26 @@ def k2_args(d, Cm, edge):
             + (d["dy"], d["A"].shape[0], Cm, ek, E))
 
 
+def k2_refs(d, args, Cm, edge, dtype):
+    """K2's references: its plain version and, in float32, torch.autograd
+    through the plain forward (phase 6's)."""
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
+        reference_dyn_graph_agg, reference_dyn_graph_agg_bwd)
+    refs = {"plain": reference_dyn_graph_agg_bwd(*args)}
+    if dtype == torch.float32:
+        ins = [a.detach().requires_grad_() for a in args[:8]
+               if a is not None]
+        full = ins[:6] + (ins[6:] + [d["sel"]] if edge
+                          else [None, None, None])
+        with torch.enable_grad():
+            y = reference_dyn_graph_agg(*full, K=d["A"].shape[0], Cm=Cm,
+                                        edge_k=1 if edge else -1, edge_num=E)
+            auto = torch.autograd.grad(y, ins, d["dy"])
+        refs["autograd"] = list(auto[:6]) + (list(auto[6:]) if edge
+                                             else [None, None])
+    return refs
+
+
 def k2_bound(d, Cm, edge):
     """Least time of K2's work (ms) and what bounds it: pre and dy read and
     dpre written once, plus the small operands and gradients, over the
@@ -342,9 +374,7 @@ def k2_checks(dev, rng, report):
     f32 also against torch.autograd through the plain forward; every case
     timed.  The per-step sums take the path's (edge attention on subset 1);
     those without it go to ``report['k2_per_step_no_edge']``."""
-    from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
-        fused_dyn_graph_agg_bwd, reference_dyn_graph_agg,
-        reference_dyn_graph_agg_bwd)
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import fused_dyn_graph_agg_bwd
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
     worst = {"fused_dyn_graph_agg": 0.0, "fused_dyn_graph_agg_bwd": 0.0}
     per_step = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
@@ -358,20 +388,7 @@ def k2_checks(dev, rng, report):
                     d["pre"].shape).astype(np.float32)).to(dev).to(dtype)
                 args = k2_args(d, Cm, edge)
                 got = fused_dyn_graph_agg_bwd(*args)
-                want = reference_dyn_graph_agg_bwd(*args)
-                refs = {"plain": want}
-                if dtype == torch.float32:
-                    ins = [a for a in args[:8] if a is not None]
-                    ins = [a.detach().requires_grad_() for a in ins]
-                    full = ins[:6] + (ins[6:] + [d["sel"]] if edge
-                                      else [None, None, None])
-                    with torch.enable_grad():
-                        y = reference_dyn_graph_agg(
-                            *full, K=K, Cm=Cm, edge_k=1 if edge else -1,
-                            edge_num=E)
-                        auto = torch.autograd.grad(y, ins, d["dy"])
-                    refs["autograd"] = list(auto[:6]) + (
-                        list(auto[6:]) if edge else [None, None])
+                refs = k2_refs(d, args, Cm, edge, dtype)
                 row = dict(kernel="fused_dyn_graph_agg_bwd", Cm=Cm, T=T,
                            N=N_TRAIN, dtype=str(dtype).split(".")[-1],
                            edge=edge)
@@ -393,7 +410,7 @@ def k2_checks(dev, rng, report):
                                else no_edge[r["kernel"]], r, nblocks)
                     report["k2_checks"].append(r)
                     print("kernel", json.dumps(r), flush=True)
-                del d, got, want, refs
+                del d, got, refs
     report["k2_per_step_no_edge"] = no_edge
     print("K1/K2 per DS-GCN step without edge attention: "
           + json.dumps(no_edge, default=sorted), flush=True)
@@ -1575,27 +1592,15 @@ def synthetic_annos(seed, n=4):
     return annos
 
 
-def _wrappers():
-    from dsgcn_tpu_torch.ops.kernels.bd_agg import (bd_dyn_graph_agg,
-                                                    bd_dyn_graph_agg_subset)
-    from dsgcn_tpu_torch.ops.kernels.dggcn_block import (
-        fused_dggcn_block_eval)
-    from dsgcn_tpu_torch.ops.kernels.dyn_graph import (
-        fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
-        fused_dyn_graph_agg_eval)
-    from dsgcn_tpu_torch.ops.kernels.ms_tcn import fused_dgmstcn_eval
-    return (bd_dyn_graph_agg, fused_dyn_graph_agg, fused_dyn_graph_agg_bwd,
-            bd_dyn_graph_agg_subset, fused_dyn_graph_agg_eval,
-            fused_dggcn_block_eval, fused_dgmstcn_eval)
-
-
 def reset_counts():
-    for w in _wrappers():
+    from dsgcn_tpu_torch.ops.kernels import wrappers
+    for w in wrappers():
         w.launches = 0
 
 
 def read_counts():
-    return {w.__name__: w.launches for w in _wrappers()}
+    from dsgcn_tpu_torch.ops.kernels import launch_counts
+    return launch_counts()
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1719,12 +1724,14 @@ def serve(dev, report):
     return model, bf16, main_counts, fused_counts
 
 
-def throughput(model, bf16, dev, card, out, tag=""):
-    """Phases 5 (DS-GCN), 9 (DG-STGCN), 12 (STGCN++) and 13 (K7 in
-    DG-STGCN and DS-GCN): clips/s of a batch forward in f32 and bf16, each
-    with a profiler breakdown; into ``out``."""
+def throughput(model, bf16, dev, card, out, tag="", shape=THROUGHPUT_BATCH,
+               classes=60):
+    """Phases 5 (DS-GCN), 9 (DG-STGCN), 12 (STGCN++), 13 (K7 in DG-STGCN
+    and DS-GCN) and 15 (DS-GCN on COCO): clips/s of a batch forward of
+    ``shape`` in f32 and bf16, each with a profiler breakdown; into
+    ``out``."""
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        THROUGHPUT_BATCH).astype(np.float32)).to(dev)
+        shape).astype(np.float32)).to(dev)
     for name, m in (("f32", model), ("bf16", bf16)):
         with torch.inference_mode():
             for _ in range(2):
@@ -1736,11 +1743,11 @@ def throughput(model, bf16, dev, card, out, tag=""):
                 y = m(x)
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / iters
-        n = THROUGHPUT_BATCH[0]
-        check(y.shape == (n, 60) and bool(torch.isfinite(y).all()),
+        n = shape[0]
+        check(y.shape == (n, classes) and bool(torch.isfinite(y).all()),
               f"{name} batch forward gave {tuple(y.shape)} / non-finite")
         clips = n / dt
-        print(f"throughput {tag}{name}: batch {THROUGHPUT_BATCH} "
+        print(f"throughput {tag}{name}: batch {shape} "
               f"{dt * 1e3:.3f} ms/forward, {clips:.1f} clips/s on {card}",
               flush=True)
         out.setdefault("throughput", {})[name] = dict(
@@ -2192,6 +2199,321 @@ def train_stgcnpp(dev, card, report):
     timed_steps(model, batches, "f32", card, out, {})
 
 
+# ---------------------------------------------------------------------------
+# phase 15: every committed DS-GCN config: K1-K3 at V = 17, the four NTU
+# streams through the CLIs, COCO serving and a COCO training step
+# ---------------------------------------------------------------------------
+
+DSGCN_DIR = ROOT / "configs" / "dsgcn"
+COCO_V = 17
+# skeletons a call: b32 x M2 (the hrnet configs' videos_per_gpu) and fight
+# detection's b32 x M5; the per-forward and per-step sums take the first
+COCO_N = (64, 160)
+COCO_THROUGHPUT_BATCH = (64, 2, 100, COCO_V, 3)
+STREAMS = ("j", "b", "jm", "bm")
+FUSE_WEIGHTS = (2.0, 2.0, 1.0, 1.0)
+
+
+def coco_kernel_checks(dev, rng, report):
+    """Phase 15(a): K3, K1 and K2 on the COCO graph (17 joints inside the
+    compile-time bound 25, no v_real) at the hrnet DS-GCN blocks (T 100 at
+    the first GCN, 10 blocks), N = 64 and 160, f32 and bf16, edge attention
+    on subset 1 with COCO's classes: phase 2's rules for K3 and K1 (K1's
+    bf16 outputs with ``graph_flips``), phase 6's for K2.  f32 cases timed
+    (ms, plain, library, bound) and summed over the blocks per N: K3 per
+    forward, K1 and K2 per step."""
+    from dsgcn_tpu_torch.ops.kernels.dyn_graph import fused_dyn_graph_agg_bwd
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    names = ("bd_dyn_graph_agg", "fused_dyn_graph_agg",
+             "fused_dyn_graph_agg_bwd")
+    worst = dict.fromkeys(names, 0.0)
+    sums = {N: {n: new_sum() for n in names} for N in COCO_N}
+    rows = report["coco_kernel_checks"] = []
+    for N in COCO_N:
+        for Cm, T, nblocks in BLOCK_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                d = block_inputs(rng, dev, Cm, T, dtype, Vp=COCO_V, N=N,
+                                 layout="coco")
+                d["dy"] = torch.from_numpy(rng.standard_normal(
+                    d["pre"].shape).astype(np.float32)).to(dev).to(dtype)
+                base = dict(Cm=Cm, T=T, N=N, V=COCO_V, edge=True,
+                            dtype=str(dtype).split(".")[-1],
+                            blocks=nblocks)
+                calls = kernel_calls(d, Cm, True)
+                for name in names[:2]:
+                    kern, plain, library = calls[name]
+                    row = dict(base, kernel=name)
+                    flips = (graph_flips(d, Cm, True) if dtype ==
+                             torch.bfloat16 and name == names[1] else None)
+                    compare(name, kern(), plain(), dtype, row, flips)
+                    if dtype == torch.float32:
+                        bound_ms, bound_by = bound(d, name, Cm, True)
+                        row.update(ms=cold_ms(kern, flush=flush),
+                                   plain_ms=cold_ms(plain, iters=3,
+                                                    flush=flush),
+                                   library_ms=cold_ms(library, flush=flush),
+                                   bound_ms=bound_ms, bound_by=bound_by)
+                        with_ratios(row)
+                    rows.append(row)
+                args = k2_args(d, Cm, True)
+                row = dict(base, kernel=names[2])
+                compare_k2(fused_dyn_graph_agg_bwd(*args),
+                           k2_refs(d, args, Cm, True, dtype), dtype, row)
+                if dtype == torch.float32:
+                    row.update(k2_times(d, args, Cm, flush))
+                    with_ratios(row)
+                rows.append(row)
+                for r in rows[-3:]:
+                    worst[r["kernel"]] = max(worst[r["kernel"]],
+                                             r["max_abs_err"])
+                    if "ms" in r:
+                        add_to(sums[N][r["kernel"]], r, nblocks)
+                    print("kernel", json.dumps(r), flush=True)
+                del d
+    for N in COCO_N:
+        print(f"V = 17, N = {N}, per forward (K3) / per step (K1, K2): "
+              + json.dumps(sums[N], default=sorted), flush=True)
+    report["coco_per_forward"] = sums
+    return worst, sums
+
+
+def run_module(args, what, timeout=600):
+    """``python -m`` one of the port's CLIs from the repository root; its
+    standard output (checked: exit code 0)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *map(str, args)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    print(f"{what}: rc {out.returncode}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in out.stdout.splitlines()[-5:]:
+        print(f"  cli: {line}", flush=True)
+    check(out.returncode == 0, f"{what} failed:\n{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def load_pickle(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def printed_value(stdout, key):
+    return next(line.split(": ", 1)[1] for line in stdout.splitlines()
+                if line.startswith(f"{key}: "))
+
+
+def scores_on_cpu(cfg_path, work_dir, n):
+    """The first ``n`` test samples' clip-averaged scores of the latest
+    checkpoint in ``work_dir``, on the CPU (the plain versions)."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.core.checkpoint import CheckpointManager
+    from dsgcn_tpu_torch.data.dataset import Loader, build_dataset
+    from dsgcn_tpu_torch.models.builder import build_model
+    from dsgcn_tpu_torch.core.trainer import clip_scores
+    cfg = Config.fromfile(str(cfg_path))
+    model = build_model(cfg["model"])
+    CheckpointManager(str(work_dir)).restore(model)
+    ds = build_dataset(cfg["data"]["test"], test_mode=True)
+    ds.video_infos = ds.video_infos[:n]
+    loader = Loader(ds, batch_size=n, shuffle=False, num_workers=4)
+    return clip_scores(model.eval(), loader)[0]
+
+
+def four_streams(tmp, report):
+    """Phase 15(b): the j, b, jm and bm NTU configs
+    (``configs/dsgcn/ntu60_xsub_3dkp``, full width) on a synthetic pickle
+    through the CLIs on the card: one short training epoch with
+    ``--test-last``, the test CLI (10 K3 launches a forward; its first
+    batch's scores within 1e-3 of the same checkpoint on the CPU), then
+    the fusion at 2:2:1:1, equal to the numpy sum of the four pickles and
+    printing its metrics."""
+    from dsgcn_tpu_torch.core.metrics import evaluate
+    from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
+    ann = tmp / "ntu4.pkl"
+    make_synthetic_pose_dataset(num_samples=64, num_classes=60, t=100,
+                                seed=15, path=str(ann))
+    test_batch = 4
+    out = report["four_streams"] = {}
+    pkls = []
+    for s in STREAMS:
+        cfg = tmp / f"ntu_{s}.py"
+        cfg.write_text(
+            f"_base_ = [{str(DSGCN_DIR / 'ntu60_xsub_3dkp' / f'{s}.py')!r}]\n"
+            "data = dict(videos_per_gpu=16, workers_per_gpu=4,\n"
+            f"    test_dataloader=dict(videos_per_gpu={test_batch}),\n"
+            f"    train=dict(ann_file={str(ann)!r}, split='train'),\n"
+            f"    val=dict(ann_file={str(ann)!r}, split='val'),\n"
+            f"    test=dict(ann_file={str(ann)!r}, split='val'))\n")
+        wd = tmp / f"wd_{s}"
+        stdout = run_module(["dsgcn_tpu_torch.tools.train", cfg,
+                             "--work-dir", wd, "--total-epochs", "1",
+                             "--test-last"], f"train CLI, stream {s}")
+        check("final: {" in stdout, f"stream {s}: no 'final:' line")
+        pkl = tmp / f"s_{s}.pkl"
+        pkls.append(pkl)
+        stdout = run_module(["dsgcn_tpu_torch.tools.test", cfg, wd, "--out",
+                             pkl], f"test CLI, stream {s}")
+        line = printed_value(stdout, "forwards")
+        forwards = int(line.split(",")[0])
+        launches = json.loads(line.split("kernel launches: ", 1)[1])
+        expect_counts(launches, {"bd_dyn_graph_agg": 10}, forwards,
+                      f"the {s} stream's test CLI")
+        got = load_pickle(pkl)
+        check(got["scores"].shape == (16, 60)
+              and bool(np.isfinite(got["scores"]).all()),
+              f"stream {s} scores {got['scores'].shape}")
+        cpu = scores_on_cpu(cfg, wd, test_batch)
+        err = float(np.abs(got["scores"][:test_batch] - cpu).max()
+                    / np.abs(cpu).max())
+        print(f"stream {s}: {forwards} forwards, launches "
+              f"{json.dumps(launches)}, first batch's scores vs CPU rel err "
+              f"{err:.3e}", flush=True)
+        check(err <= 1e-3, f"stream {s} scores off the CPU's by {err:.3e}")
+        out[s] = dict(forwards=forwards, launches=launches, cpu_rel_err=err,
+                      top1=float(printed_value(stdout, "top1_acc")))
+    fused_pkl = tmp / "fused.pkl"
+    stdout = run_module(["dsgcn_tpu_torch.tools.fuse_scores", *pkls,
+                         "--weights", *FUSE_WEIGHTS, "--out", fused_pkl],
+                        "fuse CLI, 2:2:1:1")
+    parts = [load_pickle(p) for p in pkls]
+    want = None
+    for w, p in zip(FUSE_WEIGHTS, parts):
+        want = p["scores"] * w if want is None else want + p["scores"] * w
+    fused = load_pickle(fused_pkl)
+    check(np.array_equal(fused["scores"], want),
+          "fused scores differ from the numpy sum of the four pickles")
+    metrics = evaluate(want, parts[0]["labels"],
+                       ("top_k_accuracy", "mean_class_accuracy"))
+    for k, v in metrics.items():
+        check(printed_value(stdout, k) == f"{float(v):.4f}",
+              f"fuse CLI printed {k} {printed_value(stdout, k)}, numpy "
+              f"{v:.4f}")
+    print(f"four-stream fusion equals the numpy sum; {json.dumps(metrics)}",
+          flush=True)
+    out["fused"] = metrics
+
+
+def coco_serving(dev, card, report):
+    """Phase 15(c): the hrnet configs kinetics400_hrnet/{j,b}.py and
+    fight_detection/j.py (M = 5) at full width on synthetic compressed
+    annos (DecompressPose, PoseCompact, COCO GenSkeFeat) through
+    init_recognizer / inference_recognizer: 10 K3 launches a request, GPU
+    top-1 equal to the CPU's, logits within 1e-3; request latency; for
+    kinetics j, clips/s and profiles of a (64, 2, 100, 17, 3) batch in
+    f32 and bf16.  Returns the launch counts of all requests."""
+    from dsgcn_tpu_torch.apis import (inference_recognizer, init_recognizer,
+                                      to_bf16_inference)
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.data.dataset import make_compressed_pose_anno
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    from dsgcn_tpu_torch.models.recognizer import average_clip
+    out = report["coco_serving"] = {}
+    total = {}
+    for name in ("kinetics400_hrnet/j.py", "kinetics400_hrnet/b.py",
+                 "fight_detection/j.py"):
+        cfg = Config.fromfile(str(DSGCN_DIR / name))
+        torch.manual_seed(15)
+        model = init_recognizer(cfg, device=dev)
+        pipeline = build_pipeline(cfg["data"]["test"]["pipeline"])
+        calibrate_(model, torch.from_numpy(pipeline(make_compressed_pose_anno(
+            seed=0, t=150))["keypoint"]).to(dev), seed=15)
+        classes = cfg["model"]["cls_head"]["num_classes"]
+        annos = [make_compressed_pose_anno(seed=s, t=t, frame_dir=f"H{s}")
+                 for s, t in ((1, 150), (2, 90))]
+        reset_counts()
+        answers, request_ms = [], []
+        for a in annos:
+            t0 = time.perf_counter()
+            answers.append(inference_recognizer(model, a))
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        expect_counts(counts, {"bd_dyn_graph_agg": 10}, len(annos),
+                      f"{name} serving")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        cpu = init_recognizer(cfg, device="cpu")
+        cpu.load_state_dict(model.state_dict(), strict=True)
+        rows = []
+        for a, ans in zip(annos, answers):
+            g, c = logits_of(model, pipeline, a), logits_of(cpu, pipeline, a)
+            check(g.shape == (10, classes) and bool(torch.isfinite(g).all()),
+                  f"{name} logits of shape {tuple(g.shape)} or not finite")
+            err = rel_err(g, c)
+            cpu_top1 = int(average_clip(c[None], "prob")[0].argmax())
+            print(f"{name} request {a['frame_dir']}: gpu top-5 {ans}; cpu "
+                  f"top-1 {cpu_top1}; logits rel err {err:.3e}", flush=True)
+            check(ans[0][0] == cpu_top1,
+                  f"{name} GPU top-1 {ans[0]} != CPU top-1 {cpu_top1}")
+            check(err <= 1e-3, f"{name} GPU logits off the CPU's by {err:.3e}")
+            rows.append(dict(request=a["frame_dir"], top5=ans,
+                             cpu_top1=cpu_top1, logits_rel_err=err))
+        print(f"{name} request latency ms (f32): "
+              + ", ".join(f"{ms:.3f}" for ms in request_ms), flush=True)
+        out[name] = dict(requests=rows, request_ms=request_ms, counts=counts,
+                         bodies=pipeline(dict(annos[0]))["keypoint"].shape[1])
+        if name == "kinetics400_hrnet/j.py":
+            throughput(model, to_bf16_inference(model), dev, card, out[name],
+                       "coco ", COCO_THROUGHPUT_BATCH, classes)
+        del model, cpu
+    check(out["fight_detection/j.py"]["bodies"] == 5,
+          "fight detection does not serve 5 bodies")
+    return total
+
+
+def coco_train(dev, card, report, tmp):
+    """Phase 15(d): the hrnet b config (kinetics400_hrnet/b.py) at its
+    batch, b32 x M2 x T100 x V17, from synthetic compressed annos through
+    its train pipeline and the Loader: one step on the card against the
+    same step on the CPU (phase 7's criteria), then timed f32 steps, each
+    launching K1 and K2 once a block.  Returns the launch counts of the
+    timed steps."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.data.dataset import (Loader, build_dataset,
+                                              make_compressed_pose_anno)
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    cfg = Config.fromfile(str(DSGCN_DIR / "kinetics400_hrnet" / "b.py"))
+    batch = cfg["data"]["videos_per_gpu"]
+    check(batch == 32 and cfg["clip_len"] == 100,
+          "the hrnet b config is not b32 x T100")
+    annos = [make_compressed_pose_anno(seed=100 + i, t=120, label=i % 400,
+                                       frame_dir=f"C{i:04d}")
+             for i in range((1 + TRAIN_STEPS) * batch)]
+    path = tmp / "coco_train.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(dict(split={"train": [a["frame_dir"] for a in annos]},
+                         annotations=annos), f)
+    loader = Loader(build_dataset(dict(cfg["data"]["train"],
+                                       ann_file=str(path))),
+                    batch_size=batch, seed=15, drop_last=True, num_workers=8)
+    batches = [as_batch(b) for b in loader.epoch(0)]
+    check(len(batches) == 1 + TRAIN_STEPS
+          and batches[0]["keypoint"].shape == (batch, 2, 100, COCO_V, 3),
+          f"coco batches {batches[0]['keypoint'].shape}")
+    cpu_batch = as_batch(next(loader.epoch(1)), CPU_CHECK_CLIPS)
+    gen = torch.Generator().manual_seed(15)
+    model = init_weights_(build_model(cfg["model"]), gen)
+    nudge_gates_(model, gen)
+    model = model.to(dev)
+    out = report["coco_train"] = dict(steps=[])
+    gpu_vs_cpu_step(model, cpu_batch, out)
+    reset_counts()
+    timed_steps(model, batches, "f32", card, out,
+                {"fused_dyn_graph_agg": 10, "fused_dyn_graph_agg_bwd": 10})
+    return read_counts()
+
+
+def every_config(dev, card, rng, report):
+    """Phase 15.  Returns (worst errors, per-forward/step sums by N, launch
+    counts of COCO serving, launch counts of COCO training)."""
+    import tempfile
+    worst, sums = coco_kernel_checks(dev, rng, report)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        four_streams(tmp, report)
+        serve_counts = coco_serving(dev, card, report)
+        train_counts = coco_train(dev, card, report, tmp)
+    return worst, sums, serve_counts, train_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2229,6 +2551,9 @@ def main() -> int:
                     help="phase 8's K5 and K6 checks and times, the GCN "
                     "block times and phase 11's K7 checks and times, and "
                     "nothing else")
+    ap.add_argument("--every-config", action="store_true",
+                    help="phase 15 alone: K1-K3 at V = 17, the four NTU "
+                    "streams through the CLIs, COCO serving and training")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the port (a git archive of "
                     "the parent commit): time its K5, K6 and K7 beside "
@@ -2276,19 +2601,41 @@ def main() -> int:
                   dg_k2_checks=[], serving=[], throughput={}, profile={},
                   sass_mma=sass)
     rng = np.random.default_rng(0)
+    t_run = time.perf_counter()
+
+    def done(phase):
+        print(f"phase {phase} done at {time.perf_counter() - t_run:.1f} s",
+              flush=True)
+    if args.every_config:
+        every_config(dev, card, rng, report)
+        done(15)
+        print(card)
+        return 0
     worst, per_forward = kernel_checks(dev, rng, report)          # phase 2
+    done(2)
     model, bf16, main_counts, fused_counts = serve(dev, report)   # 3-4
     throughput(model, bf16, dev, card, report)                     # 5
     del model, bf16
+    done("3-5")
     worst_t, per_step = k2_checks(dev, rng, report)               # 6
+    done(6)
     dg_worst, dg_fwd, dg_worst_t, dg_step = dg_kernel_checks(     # 8
         dev, rng, report, parent)
+    done(8)
     dg_auto, dg_options = serve_dgstgcn(dev, card, report)        # 9
+    done(9)
     k7_worst, k7_fwd = k7_checks(dev, report, parent)              # 11
+    done(11)
     stgcnpp_counts = serve_stgcnpp(dev, card, report)              # 12
     serve_with_k7(dev, card, report)                               # 13
+    done("12-13")
     train_counts = train(dev, card, report)                        # 7, 10
+    done("7, 10")
     train_stgcnpp(dev, card, report)                               # 14
+    done(14)
+    v17_worst, v17_sums, coco_serve_counts, coco_train_counts = \
+        every_config(dev, card, rng, report)                      # 15
+    done(15)
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per
@@ -2312,7 +2659,12 @@ def main() -> int:
          {"fused_dgmstcn_eval": k7_fwd["stgcnpp"]}),
     ]
     worst_all = (worst, worst_t, dg_worst, dg_worst_t,
-                 {"fused_dgmstcn_eval": k7_worst})
+                 {"fused_dgmstcn_eval": k7_worst}, v17_worst)
+    # K3 per COCO forward and K1, K2 per COCO step at b32 x M2 x T100 (V =
+    # 17), with their launches on phase 15's serving and training paths
+    v17_counts = {"bd_dyn_graph_agg": coco_serve_counts,
+                  "fused_dyn_graph_agg": coco_train_counts,
+                  "fused_dyn_graph_agg_bwd": coco_train_counts}
     kernels = []
     for name, src, replaces, counts, times in sources:
         pf = times[name]
@@ -2330,6 +2682,15 @@ def main() -> int:
                              if pf["library_ms"] else None),
             ms_over_bound=pf["ms"] / pf["bound_ms"],
             **{k: pf[k] for k in ("unfused_ms", "parent_ms") if k in pf}))
+        if name in v17_counts:
+            check(v17_counts[name][name] > 0,
+                  f"{name} was never launched on the COCO path")
+            v = v17_sums[COCO_N[0]][name]
+            kernels[-1]["v17"] = dict(
+                N=COCO_N[0], launches=v17_counts[name][name], ms=v["ms"],
+                plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                bound_by="/".join(sorted(v["bound_by"])),
+                library_ms=v["library_ms"], max_abs_err=v17_worst[name])
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -53,13 +53,17 @@ class CheckpointManager:
                     os.remove(p)
         return path
 
-    def restore(self, model, opt=None,
-                sched=None) -> Optional[Dict[str, Any]]:
-        """Load the latest checkpoint into the given objects; returns its
-        meta, or None when there is none."""
-        step = self.latest_step()
+    def restore(self, model, opt=None, sched=None,
+                step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """Load checkpoint ``step`` (default: the latest) into the given
+        objects; returns its meta, or None when there is none."""
         if step is None:
-            return None
+            step = self.latest_step()
+            if step is None:
+                return None
+        elif step not in self.steps():
+            raise FileNotFoundError(f"no checkpoint of step {step} in "
+                                    f"{self.dir} (it has {self.steps()})")
         state = torch.load(self.path(step), map_location="cpu",
                            weights_only=True)
         model.load_state_dict(state["model"], strict=True)

@@ -147,19 +147,29 @@ class Trainer:
                                    best_epoch=self.best[1]))
         return self.model
 
-    def validate(self) -> Dict[str, float]:
-        """Eval-mode scores of the validation set, clips averaged per
-        sample (``average_clips``), then the named metrics."""
-        scores, labels = [], []
-        for batch in prefetch(self.val_loader.epoch(0),
-                              depth=self.prefetch_depth):
-            kp = batch["keypoint"]                     # (N, nc, M, T, V, C)
-            n, nc = kp.shape[:2]
-            logits = eval_step(self.model, kp.reshape((n * nc,) + kp.shape[2:]))
-            avg = average_clip(logits.float().reshape(n, nc, -1),
-                               self.average_clips)
-            scores.append(avg.cpu().numpy())
-            labels.extend(batch["label"].tolist())
+    def validate(self, loader: Optional[Loader] = None) -> Dict[str, float]:
+        """Eval-mode scores of the validation set (or of ``loader``), clips
+        averaged per sample (``average_clips``), then the named metrics."""
+        scores, labels = clip_scores(
+            self.model, self.val_loader if loader is None else loader,
+            self.average_clips, self.prefetch_depth)
         return {k: float(v) for k, v in evaluate(
-            np.concatenate(scores, axis=0), labels,
-            self.eval_metrics).items()}
+            scores, labels, self.eval_metrics).items()}
+
+
+def clip_scores(model, loader: Loader, average_clips: Optional[str] = "prob",
+                prefetch_depth: int = 2):
+    """(scores, labels) of every sample ``loader`` yields: each batch's
+    clips folded into the batch for one eval forward, then averaged per
+    sample (``average_clips``; None keeps (N, nc, classes))."""
+    scores, labels = [], []
+    for batch in prefetch(loader.epoch(0), depth=prefetch_depth):
+        kp = batch["keypoint"]                         # (N, nc, M, T, V, C)
+        n, nc = kp.shape[:2]
+        logits = eval_step(model, kp.reshape((n * nc,) + kp.shape[2:]))
+        avg = average_clip(logits.float().reshape(n, nc, -1), average_clips)
+        scores.append(avg.cpu().numpy())
+        labels.extend(batch["label"].tolist())
+    if not scores:
+        raise ValueError("the loader yields no batch")
+    return np.concatenate(scores, axis=0), labels

@@ -197,19 +197,33 @@ def _collate(samples: List[Dict]) -> Dict[str, np.ndarray]:
 
 
 def make_synthetic_pose_dataset(num_samples=64, num_classes=10, m=2, t=80,
-                                v=25, c=3, seed=0, path=None):
+                                v=25, c=3, seed=0, path=None,
+                                layout="nturgb+d"):
     """Synthetic NTU-like annotations (no real data needed), the same draws
     as the JAX package's: a per-sample scale carries the class, so it
-    survives centering and random rotations.  Splits 'train' (the first
-    3/4) and 'val'.  Written to ``path`` as a pickle when given."""
+    survives centering and random rotations.  ``layout='coco'`` gives
+    hrnet-style 2D annos instead: pixel keypoints (m, t, 17, 2) about the
+    centre of a 1080 x 1920 ``img_shape`` and scores (m, t, 17) in [0.3,
+    1).  Splits 'train' (the first 3/4) and 'val'.  Written to ``path`` as
+    a pickle when given."""
     rng = np.random.default_rng(seed)
+    coco = layout == "coco"
+    if coco:
+        v, c = 17, 2
     annos = []
     for i in range(num_samples):
         label = int(rng.integers(num_classes))
         kp = (rng.standard_normal((m, t, v, c)) * (1.0 + 0.75 * label)
               ).astype(np.float32)
-        annos.append(dict(frame_dir=f"S{i:05d}", label=label, keypoint=kp,
-                          total_frames=t))
+        a = dict(frame_dir=f"S{i:05d}", label=label, keypoint=kp,
+                 total_frames=t)
+        if coco:
+            a["keypoint"] = (kp * 80.0 + np.float32([960, 540])
+                             ).astype(np.float32)
+            a["keypoint_score"] = rng.uniform(
+                0.3, 1.0, size=(m, t, v)).astype(np.float32)
+            a["img_shape"] = (1080, 1920)
+        annos.append(a)
     cut = num_samples * 3 // 4
     data = dict(split={"train": [a["frame_dir"] for a in annos[:cut]],
                        "val": [a["frame_dir"] for a in annos[cut:]]},
@@ -218,6 +232,26 @@ def make_synthetic_pose_dataset(num_samples=64, num_classes=10, m=2, t=80,
         with open(path, "wb") as f:
             pickle.dump(data, f)
     return data
+
+
+def make_compressed_pose_anno(seed=0, t=120, v=17, max_per_frame=3,
+                              label=0, img_shape=(1080, 1920),
+                              frame_dir="X"):
+    """One synthetic anno in the compressed storage of the hrnet pickles
+    (what ``DecompressPose`` expands): each of ``t`` frames holds 0 to
+    ``max_per_frame`` poses, stored flat as ``keypoint`` (n_annos, v, 3) =
+    pixel x, y about the image centre and a score in [0.3, 1), with each
+    pose's ``frame_inds``."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, max_per_frame + 1, size=t)
+    frame_inds = np.repeat(np.arange(t), counts)
+    h, w = img_shape
+    xy = rng.standard_normal((len(frame_inds), v, 2)) * [w / 12, h / 12] \
+        + [w / 2, h / 2]
+    score = rng.uniform(0.3, 1.0, size=(len(frame_inds), v, 1))
+    return dict(frame_dir=frame_dir, label=label, total_frames=t,
+                frame_inds=frame_inds, img_shape=tuple(img_shape),
+                keypoint=np.concatenate([xy, score], -1).astype(np.float32))
 
 
 def build_dataset(dcfg: Dict, test_mode: bool = False):

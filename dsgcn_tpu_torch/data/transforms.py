@@ -1,10 +1,11 @@
 """Skeleton pipeline transforms (host-side NumPy).
 
-The port's copy of the transforms that the DS-GCN train and test pipelines
-(``configs/dsgcn/ntu60_xsub_3dkp/j.py``) use, from
-``dsgcn_tpu/data/transforms.py``: pre-normalization, random rotation,
-joint-stream feature generation, clip sampling, decode, format and
-collect.  Behavioral parity with the reference pipelines (pyskl
+The port's copy of the transforms that the committed DS-GCN pipelines
+(``configs/dsgcn/*/{j,b,jm,bm}.py``, NTU 3D and hrnet COCO 2D) use, from
+``dsgcn_tpu/data/transforms.py``: pre-normalization (3D and 2D), random
+rotation, compressed-pose expansion, the joint, bone and motion stream
+features, clip sampling, decode, format and collect (``PoseCompact`` is in
+``pose_aug.py``).  Behavioral parity with the reference pipelines (pyskl
 ``pose_related.py``, ``sampling.py``, ``formatting.py``).  Randomized
 transforms draw from the ``RandomState`` that ``Compose`` passes them, so
 a loader that seeds it as the JAX ``Loader`` does gets the same clips;
@@ -16,10 +17,13 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from .pose_aug import PoseCompact
+
 __all__ = [
-    "Compose", "PreNormalize3D", "RandomRot", "MergeSkeFeat", "GenSkeFeat",
-    "UniformSampleFrames", "UniformSample", "PoseDecode", "FormatGCNInput",
-    "Collect", "Rename", "build_pipeline",
+    "Compose", "PreNormalize3D", "PreNormalize2D", "RandomRot", "BONE_PAIRS",
+    "JointToBone", "ToMotion", "MergeSkeFeat", "GenSkeFeat",
+    "UniformSampleFrames", "UniformSample", "PoseDecode", "DecompressPose",
+    "FormatGCNInput", "Collect", "Rename", "build_pipeline",
 ]
 
 
@@ -138,6 +142,43 @@ class PreNormalize3D:
         return results
 
 
+class PreNormalize2D:
+    """2D keypoints to [-1, 1] (pose_related.py:130), in place.
+
+    ``mode='fix'``: by the anno's ``img_shape`` (else ``img_shape`` here),
+    x by the width and y by the height.  ``mode='auto'``: centred on the
+    extent of the keypoints whose larger coordinate magnitude exceeds
+    ``threshold`` and scaled by its larger half-side (for coordinates that
+    are already normalized); without such keypoints nothing changes.
+    """
+    randomized = False
+
+    def __init__(self, img_shape=(1080, 1920), threshold=0.01, mode="fix"):
+        if mode not in ("fix", "auto"):
+            raise ValueError(f"mode must be 'fix' or 'auto', got {mode!r}")
+        self.img_shape = img_shape
+        self.threshold = threshold
+        self.mode = mode
+
+    def __call__(self, results: Dict) -> Dict:
+        kp = results["keypoint"]
+        if self.mode == "auto":
+            xy = kp[..., :2]
+            mask = np.abs(xy).max(axis=-1) > self.threshold
+            if mask.any():
+                pts = xy[mask]
+                lo, hi = pts.min(axis=0), pts.max(axis=0)
+                center = (lo + hi) / 2
+                scale = np.maximum((hi - lo) / 2, 1e-4).max()
+                kp[..., 0] = (kp[..., 0] - center[0]) / scale
+                kp[..., 1] = (kp[..., 1] - center[1]) / scale
+            return results
+        h, w = results.get("img_shape", self.img_shape)
+        kp[..., 0] = (kp[..., 0] - w / 2) / (w / 2)
+        kp[..., 1] = (kp[..., 1] - h / 2) / (h / 2)
+        return results
+
+
 class RandomRot:
     """Random xyz Euler rotation (pose_related.py:144-179); 2D keypoints
     rotate in the plane."""
@@ -200,22 +241,103 @@ class Rename:
         return results
 
 
+# each layout's kinematic pairs (v, parent of v): the bone of joint v is
+# v minus its parent; a root pairs with itself
+BONE_PAIRS = {
+    "nturgb+d": [(0, 1), (1, 20), (2, 20), (3, 2), (4, 20), (5, 4), (6, 5),
+                 (7, 6), (8, 20), (9, 8), (10, 9), (11, 10), (12, 0), (13, 12),
+                 (14, 13), (15, 14), (16, 0), (17, 16), (18, 17), (19, 18),
+                 (21, 22), (20, 20), (22, 7), (23, 24), (24, 11)],
+    "openpose": [(0, 0), (1, 0), (2, 1), (3, 2), (4, 3), (5, 1), (6, 5),
+                 (7, 6), (8, 2), (9, 8), (10, 9), (11, 5), (12, 11), (13, 12),
+                 (14, 0), (15, 0), (16, 14), (17, 15)],
+    "coco": [(0, 0), (1, 0), (2, 0), (3, 1), (4, 2), (5, 0), (6, 0), (7, 5),
+             (8, 6), (9, 7), (10, 8), (11, 0), (12, 0), (13, 11), (14, 12),
+             (15, 13), (16, 14)],
+}
+# 2D layouts whose third channel is a detection score, not a coordinate
+SCORED = ("openpose", "coco")
+
+
+def _xy_or_xyz(C: int, what: str) -> None:
+    if C not in (2, 3):
+        raise ValueError(f"{what} takes 2 or 3 channels, got {C}")
+
+
+class JointToBone:
+    """Joint -> bone vectors over the layout's kinematic pairs
+    (pose_related.py:340-373), float32.  On a scored 2D layout with C = 3
+    the third channel is the mean of the two joints' scores."""
+    randomized = False
+
+    def __init__(self, dataset="nturgb+d", target="keypoint"):
+        self.dataset = dataset
+        self.target = target
+        self.pairs = BONE_PAIRS[dataset]
+
+    def __call__(self, results: Dict) -> Dict:
+        keypoint = results["keypoint"]
+        C = keypoint.shape[-1]
+        _xy_or_xyz(C, "JointToBone")
+        bone = np.zeros(keypoint.shape, dtype=np.float32)
+        scored = C == 3 and self.dataset in SCORED
+        for v1, v2 in self.pairs:
+            bone[..., v1, :] = keypoint[..., v1, :] - keypoint[..., v2, :]
+            if scored:
+                bone[..., v1, 2] = (keypoint[..., v1, 2]
+                                    + keypoint[..., v2, 2]) / 2
+        results[self.target] = bone
+        return results
+
+
+class ToMotion:
+    """Temporal difference (pose_related.py:377-397) in the source's dtype:
+    motion[t] = x[t + 1] - x[t], the last frame zero.  On a scored 2D
+    layout with C = 3 the third channel is the mean of consecutive
+    scores."""
+    randomized = False
+
+    def __init__(self, dataset="nturgb+d", source="keypoint", target="motion"):
+        self.dataset = dataset
+        self.source = source
+        self.target = target
+
+    def __call__(self, results: Dict) -> Dict:
+        data = results[self.source]
+        T, C = data.shape[1], data.shape[-1]
+        _xy_or_xyz(C, "ToMotion")
+        motion = np.zeros_like(data)
+        motion[:, :T - 1] = np.diff(data, axis=1)
+        if C == 3 and self.dataset in SCORED:
+            motion[:, :T - 1, :, 2] = (data[:, :T - 1, :, 2]
+                                       + data[:, 1:, :, 2]) / 2
+        results[self.target] = motion
+        return results
+
+
 class GenSkeFeat:
-    """Compose stream features (pose_related.py:419-442).  The port has the
-    joint stream ``'j'``; the bone and motion streams come with their
-    transforms (JointToBone, ToMotion) in a later slice."""
+    """Compose the stream features ``feats`` (any of 'j', 'b', 'jm', 'bm',
+    concatenated on ``axis`` in the order given; pose_related.py:419-442).  A
+    2D anno's ``keypoint_score`` joins its keypoints as a third channel
+    first."""
     randomized = False
 
     def __init__(self, dataset="nturgb+d", feats=("j",), axis=-1):
         self.dataset = dataset
         self.feats = list(feats)
-        unported = [f for f in self.feats if f != "j"]
-        if unported:
-            raise NotImplementedError(
-                f"GenSkeFeat streams {unported} need JointToBone/ToMotion, "
-                "which are not ported yet")
-        self.ops = Compose([Rename({"keypoint": "j"}),
-                            MergeSkeFeat(feat_list=self.feats, axis=axis)])
+        unknown = [f for f in self.feats if f not in ("j", "b", "jm", "bm")]
+        if unknown:
+            raise ValueError(f"GenSkeFeat: unknown streams {unknown}")
+        ops = []
+        if "b" in self.feats or "bm" in self.feats:
+            ops.append(JointToBone(dataset=dataset, target="b"))
+        ops.append(Rename({"keypoint": "j"}))
+        if "jm" in self.feats:
+            ops.append(ToMotion(dataset=dataset, source="j", target="jm"))
+        if "bm" in self.feats:
+            ops.append(ToMotion(dataset=dataset, source="b", target="bm"))
+        ops.append(MergeSkeFeat(feat_list=self.feats, axis=axis))
+        self.ops = Compose(ops)
 
     def __call__(self, results: Dict) -> Dict:
         if "keypoint_score" in results and "keypoint" in results:
@@ -311,6 +433,70 @@ class PoseDecode:
         return results
 
 
+class DecompressPose:
+    """Expand a compressed 2D pose anno (pose_related.py:521-609), the
+    storage of the public hrnet skeleton pickles: a flat (n_annos, V, 3)
+    ``keypoint`` array (x, y, score) with each anno's ``frame_inds`` (and
+    an optional ``anno_inds`` selection) becomes dense float16 keypoints
+    (M, total_frames, V, 2) and scores (M, total_frames, V), M the most
+    annos any frame has.
+
+    ``squeeze`` drops the frames without an anno and renumbers the rest
+    densely; above ``max_person`` bodies each frame's are ordered by their
+    summed score (a stable sort) and the first ``max_person`` kept.  Not
+    randomized: it takes ``rng`` only to share the randomized transforms'
+    signature.
+    """
+    randomized = False
+
+    def __init__(self, squeeze: bool = True, max_person: int = 10):
+        self.squeeze = squeeze
+        self.max_person = max_person
+
+    def __call__(self, results: Dict, rng=None) -> Dict:
+        missing = [k for k in ("total_frames", "frame_inds", "keypoint")
+                   if k not in results]
+        if missing:
+            raise KeyError(f"DecompressPose needs {missing}")
+        total_frames = results["total_frames"]
+        frame_inds = results.pop("frame_inds")
+        keypoint = results["keypoint"]
+        if "anno_inds" in results:
+            frame_inds = frame_inds[results["anno_inds"]]
+            keypoint = keypoint[results["anno_inds"]]
+        if np.any(np.diff(frame_inds) < 0):
+            raise ValueError("frame_inds must not decrease")
+        if self.squeeze:
+            _, frame_inds = np.unique(frame_inds, return_inverse=True)
+            frame_inds = frame_inds.astype(np.int16)
+            total_frames = int(frame_inds.max()) + 1
+        results["total_frames"] = total_frames
+
+        V = keypoint.shape[1]
+        num_person = int(np.bincount(frame_inds,
+                                     minlength=total_frames).max())
+        new_kp = np.zeros((num_person, total_frames, V, 2), dtype=np.float16)
+        new_score = np.zeros((num_person, total_frames, V), dtype=np.float16)
+        nperson = np.zeros(total_frames, dtype=np.int16)
+        for f, kp in zip(frame_inds, keypoint):
+            p = nperson[f]
+            new_kp[p, f] = kp[:, :2]
+            new_score[p, f] = kp[:, 2]
+            nperson[f] += 1
+
+        if num_person > self.max_person:
+            for f in range(total_frames):
+                n_f = nperson[f]
+                order = np.argsort(-new_score[:n_f, f].sum(-1), kind="stable")
+                new_score[:n_f, f] = new_score[order, f]
+                new_kp[:n_f, f] = new_kp[order, f]
+            num_person = self.max_person
+            results["num_person"] = num_person
+        results["keypoint"] = new_kp[:num_person]
+        results["keypoint_score"] = new_score[:num_person]
+        return results
+
+
 class FormatGCNInput:
     """Pad/trim persons and split clips: (M, T, V, C) -> (nc, M, T/nc, V, C)
     (pose_related.py:468-514)."""
@@ -360,9 +546,10 @@ class Collect:
 
 
 TRANSFORMS = {c.__name__: c for c in
-              [PreNormalize3D, RandomRot, MergeSkeFeat, GenSkeFeat,
-               UniformSampleFrames,
-               UniformSample, PoseDecode, FormatGCNInput, Collect, Rename]}
+              [PreNormalize3D, PreNormalize2D, RandomRot, JointToBone,
+               ToMotion, MergeSkeFeat, GenSkeFeat, UniformSampleFrames,
+               UniformSample, PoseDecode, DecompressPose, PoseCompact,
+               FormatGCNInput, Collect, Rename]}
 
 
 def build_pipeline(cfgs: Sequence[Dict]) -> Compose:

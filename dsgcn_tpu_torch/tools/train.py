@@ -2,7 +2,8 @@
 ``tools/train.py``).
 
     python -m dsgcn_tpu_torch.tools.train CONFIG --work-dir D [--validate]
-        [--total-epochs N] [--seed S] [--device cpu] [--no-auto-resume]
+        [--test-last] [--total-epochs N] [--seed S] [--device cpu]
+        [--no-auto-resume]
 
 It trains on the CUDA device unless ``--device`` names another (without a
 GPU it stops and says so).  From the config it reads the model, the data
@@ -11,7 +12,8 @@ weight_decay, paramwise_cfg), ``optimizer_config.grad_clip``,
 ``total_epochs``, ``checkpoint_config``, ``evaluation`` and the top-level
 ``compute_dtype`` ('bfloat16' trains in bfloat16 over float32 master
 weights).  It resumes from the latest checkpoint in the work dir unless
-told not to.
+told not to.  ``--test-last`` scores the val split with the final weights
+after training and prints ``final: {metrics}``.
 """
 from __future__ import annotations
 
@@ -30,10 +32,14 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device)")
     p.add_argument("--no-auto-resume", action="store_true")
+    p.add_argument("--test-last", action="store_true",
+                   help="after training, print the val split's metrics")
     return p.parse_args(argv)
 
 
 def build_loaders(cfg, seed, validate):
+    """(train, val) loaders; val (None without ``validate`` or a val
+    split) takes the test batch size, in order."""
     from ..data.dataset import Loader, build_dataset
 
     data = cfg["data"]
@@ -62,10 +68,12 @@ def main(argv=None):
     cfg.dump(os.path.join(work_dir, "config.json"))
 
     model = build_model(cfg["model"])
-    train_loader, val_loader = build_loaders(cfg, args.seed, args.validate)
+    train_loader, val_loader = build_loaders(
+        cfg, args.seed, args.validate or args.test_last)
     opt = cfg.get("optimizer", {})
     trainer = Trainer(
-        model, work_dir, train_loader, val_loader,
+        model, work_dir, train_loader,
+        val_loader if args.validate else None,
         total_epochs=args.total_epochs or cfg.get("total_epochs", 80),
         lr=opt.get("lr", 0.1), momentum=opt.get("momentum", 0.9),
         weight_decay=opt.get("weight_decay", 5e-4),
@@ -85,6 +93,8 @@ def main(argv=None):
     if not args.no_auto_resume:
         trainer.resume_if_possible()
     trainer.fit()
+    if args.test_last and val_loader is not None:
+        print("final:", trainer.validate(val_loader), flush=True)
     return trainer
 
 

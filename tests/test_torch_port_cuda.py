@@ -66,8 +66,9 @@ def cuda():
 KERNEL_WIDTHS = [("k1", 3, 8), ("k1", 3, 16), ("k1", 3, 32), ("k1", 8, 16),
                  ("k1", 8, 32), ("k1", 8, 64), ("k3", 3, 8), ("k3", 3, 16),
                  ("k3", 3, 32), ("k1", 3, 6), ("k3", 3, 6)]
-# CASES and a graph of 18 joints (the joint bound 25 with 7 joints short)
-AGG_CASES = CASES + [(False, 18, -1)]
+# CASES, a graph of 18 joints (the joint bound 25 with 7 joints short) and
+# COCO's 17 joints with its edge classes and without
+AGG_CASES = CASES + [(False, 18, -1), (True, 17, -1), (False, 17, -1)]
 
 
 def _k1_k3_call(kernel, d, K, Cm, edge_k, v_real, dtype, dev):
@@ -268,6 +269,35 @@ def test_cuda_k2_odd_shapes(cuda, V, Cm, edge, dtype):
                  if k in ("x1", "x2") else v[..., :V, :V]
                  if k in ("A", "sel") else v) for k, v in d.items()}
     _k2_check(_k2_call(cuda, d, 3, Cm, 1 if edge else -1, dtype, V), dtype)
+
+
+# the COCO DS-GCN blocks (V = 17): (Cm, T at the GCN) of its three stages
+COCO_BLOCKS = [(8, 100), (16, 50), (32, 25)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [True, False])
+@pytest.mark.parametrize("N", [4, 10])
+@pytest.mark.parametrize("Cm,T", COCO_BLOCKS)
+def test_cuda_coco_blocks_match_plain(cuda, Cm, T, N, edge, dtype):
+    """K1, K3 and K2 on the COCO graph (17 joints inside the compile-time
+    bound 25, no v_real) at the hrnet DS-GCN block widths, with 2 bodies a
+    clip (N = 4) and fight detection's 5 (N = 10), edge attention on
+    subset 1 (COCO's 15 classes) and off: K1 and K3 within 1e-4 (f32) and
+    2e-2 (bf16), K2 as in ``_k2_check``."""
+    K, edge_k = 3, (1 if edge else -1)
+    d = block_inputs(seed=N + Cm, N=N, T=T, V=17, K=K, Cm=Cm, edge=edge)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for kernel in ("k1", "k3"):
+        kern, plain, wrapper = _k1_k3_call(kernel, d, K, Cm, edge_k, -1,
+                                           dtype, cuda)
+        n = wrapper.launches
+        got = kern()
+        assert wrapper.launches == n + 1
+        torch.testing.assert_close(got.float(), plain().float(), rtol=tol,
+                                   atol=tol)
+    _k2_check(_k2_call(cuda, d, K, Cm, edge_k, dtype, N), dtype)
 
 
 @pytest.mark.cuda

@@ -58,7 +58,7 @@ def test_unported_transforms_raise():
     with pytest.raises(NotImplementedError):
         T.build_pipeline([dict(type="RandomScale", scale=0.2)])
     with pytest.raises(NotImplementedError):
-        T.GenSkeFeat(feats=["b"])
+        T.build_pipeline([dict(type="GaussAug")])
 
 
 @pytest.mark.parametrize("c", [3, 2])

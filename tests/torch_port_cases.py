@@ -11,7 +11,8 @@ E = 15
 
 
 def block_inputs(seed=0, N=2, T=6, V=25, K=3, Cm=8, edge=True):
-    """K1-packaged inputs as numpy arrays."""
+    """K1-packaged inputs as numpy arrays; the edge classes are COCO's at
+    V = 17, else NTU's (padded past 25 joints)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     d = dict(pre=f(N, T, V, K * Cm), x1=f(N, K, Cm, V), x2=f(N, K, Cm, V),
@@ -19,7 +20,8 @@ def block_inputs(seed=0, N=2, T=6, V=25, K=3, Cm=8, edge=True):
              alpha=rng.uniform(-1, 1, K).astype(np.float32),
              beta=rng.uniform(-1, 1, K).astype(np.float32))
     if edge:
-        et = Graph(layout="nturgb+d", mode="spatial").edge_type
+        et = Graph(layout="coco" if V == 17 else "nturgb+d",
+                   mode="spatial").edge_type
         sel = edge_onehot(et, E)
         if V > et.shape[0]:    # padded joints select no class
             pad = V - et.shape[0]
