@@ -46,10 +46,17 @@ train (``--test-last``), test and fuse CLIs (10 K3 launches a forward,
 scores against the CPU, the fusion against numpy); hrnet COCO serving
 (kinetics400 j and b, fight detection j: DecompressPose, PoseCompact,
 GPU against CPU, request latency, clips/s); and a COCO b training step
-against the CPU with timed steps (K1 and K2 at V = 17).  Phases run in
-the order 2-6, 8, 9, 11-13, 7, 10, 14, 15; ``--every-config`` runs 15
-alone.  Any failed check raises, and the script exits non-zero without a
-result line.
+against the CPU with timed steps (K1 and K2 at V = 17).  Phase 16 takes
+AAGCN and CTR-GCN (``configs/{aagcn,ctrgcn}/ntu60_xsub_3dkp/j.py`` and the
+hrnet ``ntu60_xsub_hrnet/j.py``, V = 17), which have no kernel: serving
+through init_recognizer / inference_recognizer (GPU against CPU, request
+latency, clips/s of a batch in f32 and bf16 with profiles), a training
+step against the CPU and timed steps at the config's b16 x M2 x T100,
+and CTR-GCN's j and b streams through the train, test and fuse CLIs; no
+kernel of the port may launch on any of it.  Phases run in the order
+2-6, 8, 9, 11-13, 7, 10, 14, 15, 16; ``--every-config`` runs 15 alone,
+``--families`` 16 alone (``chiprun_out/families.json``).  Any failed
+check raises, and the script exits non-zero without a result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
 (``plan_sweep``) and writes ``chiprun_out/agg_sweep.json``;
@@ -70,6 +77,7 @@ times.  Per-shape kernel numbers also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import copy
 import json
 import pathlib
 import pickle
@@ -477,6 +485,20 @@ def nudge_gates_(model, gen):
                 t.uniform_(-0.3, 0.3, generator=gen)
 
 
+def nudge_units_(model, gen):
+    """AAGCN's and CTR-GCN's units off their initial values: the
+    attention's zero-initialised convs (``conv_ta``, ``fc2c``) and each
+    unit's closing BN scale (1e-6), at which the units' inner gradients
+    are rounding noise (a float32 step on the CPU is as far from a
+    float64 one there as from the card's)."""
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            if name.endswith(("conv_ta.weight", "fc2c.weight")):
+                t.uniform_(-0.1, 0.1, generator=gen)
+            elif name.endswith("gcn.bn.weight"):
+                t.uniform_(0.2, 0.4, generator=gen)
+
+
 def train_data(tmp, cfg, seed=0):
     """Synthetic NTU-shaped annotations (T=100 raw frames, 60 classes)
     through the config's train and val pipelines and the port's Loader."""
@@ -511,7 +533,6 @@ def gpu_vs_cpu_step(model, batch, out):
     logits within 1e-3 relative, each parameter's update with cosine >
     0.995 and norm within 5% (float32 rounding grows through the untrained
     BatchNorm stacks; tests/test_training_dynamics_parity.py)."""
-    import copy
     from dsgcn_tpu_torch.core.train import make_optimizer, train_step
     model = copy.deepcopy(model)          # the caller's model stays as it is
     cpu = copy.deepcopy(model).cpu()
@@ -1609,7 +1630,8 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def logits_of(model, pipeline, anno):
-    kp = torch.from_numpy(pipeline(dict(anno))["keypoint"])
+    # a deep copy: PreNormalize2D normalizes the anno's keypoints in place
+    kp = torch.from_numpy(pipeline(copy.deepcopy(anno))["keypoint"])
     dev = next(model.parameters()).device
     with torch.inference_mode():
         return model(kp.to(dev)).cpu()
@@ -2168,35 +2190,45 @@ def train_stgcnpp(dev, card, report):
     T100) from its RepeatDataset train set on a synthetic pickle: one GPU
     step against the CPU's (phase 7's criteria), then timed f32 steps with
     their peak memory, launching no kernel of the port at all."""
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    cfg = stgcnpp_config(True)
+    check(cfg["data"]["videos_per_gpu"] == 16 and cfg["clip_len"] == 100,
+          "the STGCN++ j config is not b16 x T100")
+    out = report["stgcnpp_train"] = dict(steps=[])
+    batches, cpu_batch = repeat_batches(cfg, seed=14)
+    model = init_weights_(build_model(cfg["model"]),
+                          torch.Generator().manual_seed(14)).to(dev)
+    gpu_vs_cpu_step(model, cpu_batch, out)
+    timed_steps(model, batches, "f32", card, out, {})
+
+
+def repeat_batches(cfg, seed):
+    """The host batches of a config whose train set is NTU's
+    ``RepeatDataset(times=5)``, at the config's batch, from 32 synthetic
+    annos (24 in the train split) through its train pipeline and the
+    Loader: 1 + TRAIN_STEPS batches of epoch 0, and CPU_CHECK_CLIPS clips
+    of epoch 1 for the CPU check."""
     import itertools
     import tempfile
     from dsgcn_tpu_torch.data.dataset import (Loader, RepeatDataset,
                                               build_dataset,
                                               make_synthetic_pose_dataset)
-    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
-    cfg = stgcnpp_config(True)
-    batch = cfg["data"]["videos_per_gpu"]
-    check(batch == 16 and cfg["clip_len"] == 100,
-          "the STGCN++ j config is not b16 x T100")
-    out = report["stgcnpp_train"] = dict(steps=[])
     with tempfile.TemporaryDirectory() as tmp:
         path = str(pathlib.Path(tmp) / "synth.pkl")
         make_synthetic_pose_dataset(num_samples=32, num_classes=60, t=100,
-                                    seed=14, path=path)
+                                    seed=seed, path=path)
         train = dict(cfg["data"]["train"])
         train["dataset"] = dict(train["dataset"], ann_file=path,
                                 split="train")
-        loader = Loader(build_dataset(train), batch_size=batch, seed=14,
+        loader = Loader(build_dataset(train),
+                        batch_size=cfg["data"]["videos_per_gpu"], seed=seed,
                         drop_last=True, num_workers=8)
         check(isinstance(loader.dataset, RepeatDataset)
               and len(loader.dataset) == 5 * 24, "not RepeatDataset(5)")
         batches = [as_batch(b) for b in itertools.islice(
             loader.epoch(0), 1 + TRAIN_STEPS)]
         cpu_batch = as_batch(next(loader.epoch(1)), CPU_CHECK_CLIPS)
-    model = init_weights_(build_model(cfg["model"]),
-                          torch.Generator().manual_seed(14)).to(dev)
-    gpu_vs_cpu_step(model, cpu_batch, out)
-    timed_steps(model, batches, "f32", card, out, {})
+    return batches, cpu_batch
 
 
 # ---------------------------------------------------------------------------
@@ -2318,44 +2350,55 @@ def scores_on_cpu(cfg_path, work_dir, n):
     return clip_scores(model.eval(), loader)[0]
 
 
-def four_streams(tmp, report):
+def four_streams(tmp, report, cfg_dir=DSGCN_DIR / "ntu60_xsub_3dkp",
+                 streams=STREAMS, weights=FUSE_WEIGHTS,
+                 per_forward=(("bd_dyn_graph_agg", 10),),
+                 key="four_streams"):
     """Phase 15(b): the j, b, jm and bm NTU configs
     (``configs/dsgcn/ntu60_xsub_3dkp``, full width) on a synthetic pickle
-    through the CLIs on the card: one short training epoch with
-    ``--test-last``, the test CLI (10 K3 launches a forward; its first
+    through the CLIs on the card: one short training epoch (3 steps of 16)
+    with ``--test-last``, the test CLI (10 K3 launches a forward; its first
     batch's scores within 1e-3 of the same checkpoint on the CPU), then
     the fusion at 2:2:1:1, equal to the numpy sum of the four pickles and
-    printing its metrics."""
+    printing its metrics.  Phase 16 takes the ``streams`` of another
+    ``cfg_dir`` with other ``weights`` and kernel launches
+    (``per_forward``: (wrapper, launches a forward) pairs)."""
+    from dsgcn_tpu_torch.configs.config import Config
     from dsgcn_tpu_torch.core.metrics import evaluate
     from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
-    ann = tmp / "ntu4.pkl"
+    ann = tmp / f"{key}.pkl"
     make_synthetic_pose_dataset(num_samples=64, num_classes=60, t=100,
                                 seed=15, path=str(ann))
     test_batch = 4
-    out = report["four_streams"] = {}
+    out = report[key] = {}
     pkls = []
-    for s in STREAMS:
-        cfg = tmp / f"ntu_{s}.py"
+    for s in streams:
+        base = cfg_dir / f"{s}.py"
+        train = f"dict(ann_file={str(ann)!r}, split='train')"
+        if Config.fromfile(str(base))["data"]["train"]["type"] == \
+                "RepeatDataset":
+            train = f"dict(times=1, dataset={train})"
+        cfg = tmp / f"{key}_{s}.py"
         cfg.write_text(
-            f"_base_ = [{str(DSGCN_DIR / 'ntu60_xsub_3dkp' / f'{s}.py')!r}]\n"
+            f"_base_ = [{str(base)!r}]\n"
             "data = dict(videos_per_gpu=16, workers_per_gpu=4,\n"
             f"    test_dataloader=dict(videos_per_gpu={test_batch}),\n"
-            f"    train=dict(ann_file={str(ann)!r}, split='train'),\n"
+            f"    train={train},\n"
             f"    val=dict(ann_file={str(ann)!r}, split='val'),\n"
             f"    test=dict(ann_file={str(ann)!r}, split='val'))\n")
-        wd = tmp / f"wd_{s}"
+        wd = tmp / f"wd_{key}_{s}"
         stdout = run_module(["dsgcn_tpu_torch.tools.train", cfg,
                              "--work-dir", wd, "--total-epochs", "1",
                              "--test-last"], f"train CLI, stream {s}")
         check("final: {" in stdout, f"stream {s}: no 'final:' line")
-        pkl = tmp / f"s_{s}.pkl"
+        pkl = tmp / f"s_{key}_{s}.pkl"
         pkls.append(pkl)
         stdout = run_module(["dsgcn_tpu_torch.tools.test", cfg, wd, "--out",
                              pkl], f"test CLI, stream {s}")
         line = printed_value(stdout, "forwards")
         forwards = int(line.split(",")[0])
         launches = json.loads(line.split("kernel launches: ", 1)[1])
-        expect_counts(launches, {"bd_dyn_graph_agg": 10}, forwards,
+        expect_counts(launches, dict(per_forward), forwards,
                       f"the {s} stream's test CLI")
         got = load_pickle(pkl)
         check(got["scores"].shape == (16, 60)
@@ -2370,13 +2413,13 @@ def four_streams(tmp, report):
         check(err <= 1e-3, f"stream {s} scores off the CPU's by {err:.3e}")
         out[s] = dict(forwards=forwards, launches=launches, cpu_rel_err=err,
                       top1=float(printed_value(stdout, "top1_acc")))
-    fused_pkl = tmp / "fused.pkl"
+    fused_pkl = tmp / f"fused_{key}.pkl"
     stdout = run_module(["dsgcn_tpu_torch.tools.fuse_scores", *pkls,
-                         "--weights", *FUSE_WEIGHTS, "--out", fused_pkl],
-                        "fuse CLI, 2:2:1:1")
+                         "--weights", *weights, "--out", fused_pkl],
+                        "fuse CLI, " + ":".join(f"{w:g}" for w in weights))
     parts = [load_pickle(p) for p in pkls]
     want = None
-    for w, p in zip(FUSE_WEIGHTS, parts):
+    for w, p in zip(weights, parts):
         want = p["scores"] * w if want is None else want + p["scores"] * w
     fused = load_pickle(fused_pkl)
     check(np.array_equal(fused["scores"], want),
@@ -2387,8 +2430,8 @@ def four_streams(tmp, report):
         check(printed_value(stdout, k) == f"{float(v):.4f}",
               f"fuse CLI printed {k} {printed_value(stdout, k)}, numpy "
               f"{v:.4f}")
-    print(f"four-stream fusion equals the numpy sum; {json.dumps(metrics)}",
-          flush=True)
+    print(f"{len(streams)}-stream fusion equals the numpy sum; "
+          f"{json.dumps(metrics)}", flush=True)
     out["fused"] = metrics
 
 
@@ -2514,6 +2557,136 @@ def every_config(dev, card, rng, report):
     return worst, sums, serve_counts, train_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: AAGCN and CTR-GCN, the committed j configs: serving (NTU and
+# hrnet), training, and the train, test and fuse CLIs
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("aagcn", "ctrgcn")
+
+
+def family_config(family, data="ntu60_xsub_3dkp", stream="j"):
+    return ROOT / "configs" / family / data / f"{stream}.py"
+
+
+def family_serving(dev, card, family, data, annos, calib, seed, tmp, out,
+                   shape=None):
+    """A committed config of a family through init_recognizer (a
+    checkpoint of seeded ``init_weights_`` weights, then BN statistics from
+    data, ``calibrate_``) and inference_recognizer: no kernel of the port
+    launched, GPU top-1 equal to the CPU's and logits within 1e-3 of them,
+    each request's wall ms; with ``shape``, clips/s of a batch forward in
+    f32 and bf16 with profiles."""
+    from dsgcn_tpu_torch.apis import (inference_recognizer, init_recognizer,
+                                      to_bf16_inference)
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    from dsgcn_tpu_torch.models.recognizer import average_clip
+    name = f"{family} {data}"
+    cfg = Config.fromfile(str(family_config(family, data)))
+    ckpt = tmp / f"{family}_{data}.pt"
+    torch.save(init_weights_(build_model(cfg["model"]),
+                             torch.Generator().manual_seed(seed))
+               .state_dict(), ckpt)
+    model = init_recognizer(cfg, checkpoint=str(ckpt), device=dev)
+    check(type(model.backbone).__name__ == family.upper()
+          and model.backbone.num_blocks == 10,
+          f"{name}: not a 10-block {family.upper()}")
+    pipeline = build_pipeline(cfg["data"]["test"]["pipeline"])
+    calibrate_(model, torch.from_numpy(pipeline(copy.deepcopy(calib))[
+        "keypoint"]).to(dev), seed=seed)
+    classes = cfg["model"]["cls_head"]["num_classes"]
+    before = read_counts()
+    answers, request_ms = [], []
+    for a in annos:
+        t0 = time.perf_counter()
+        answers.append(inference_recognizer(model, a))
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: n - before[k] for k, n in read_counts().items()}
+    expect_counts(counts, {}, len(annos), f"{name} serving")
+    cpu = init_recognizer(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict(), strict=True)
+    rows = []
+    for a, ans in zip(annos, answers):
+        g, c = logits_of(model, pipeline, a), logits_of(cpu, pipeline, a)
+        check(g.shape == (10, classes) and bool(torch.isfinite(g).all()),
+              f"{name} logits of shape {tuple(g.shape)} or not finite")
+        err = rel_err(g, c)
+        cpu_top1 = int(average_clip(c[None], "prob")[0].argmax())
+        print(f"{name} request {a['frame_dir']}: gpu top-5 {ans}; cpu top-1 "
+              f"{cpu_top1}; logits rel err {err:.3e} (max |logit| "
+              f"{c.abs().max().item():.3f})", flush=True)
+        check(ans[0][0] == cpu_top1,
+              f"{name} GPU top-1 {ans[0]} != CPU top-1 {cpu_top1}")
+        check(err <= 1e-3, f"{name} GPU logits off the CPU's by {err:.3e}")
+        rows.append(dict(request=a["frame_dir"], top5=ans, cpu_top1=cpu_top1,
+                         logits_rel_err=err))
+    print(f"{name} request latency ms (f32, 10 clips x 2 bodies x 100 "
+          f"frames): " + ", ".join(f"{ms:.3f}" for ms in request_ms)
+          + f" on {card}", flush=True)
+    out[data] = dict(requests=rows, request_ms=request_ms, counts=counts)
+    if shape is not None:
+        throughput(model, to_bf16_inference(model), dev, card, out[data],
+                   f"{family} ", shape, classes)
+    del model, cpu
+
+
+def family_train(dev, card, family, out):
+    """The family's NTU j config at its batch, b16 x M2 x T100, from its
+    RepeatDataset train set, gates and units nudged (``nudge_gates_``,
+    ``nudge_units_``): one GPU step against the CPU's (phase 7's
+    criteria), then timed f32 steps with their peak device memory, no
+    kernel of the port launched."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    cfg = Config.fromfile(str(family_config(family)))
+    check(cfg["data"]["videos_per_gpu"] == 16 and cfg["clip_len"] == 100,
+          f"the {family} j config is not b16 x T100")
+    batches, cpu_batch = repeat_batches(cfg, seed=16)
+    gen = torch.Generator().manual_seed(16)
+    model = init_weights_(build_model(cfg["model"]), gen)
+    nudge_gates_(model, gen)
+    nudge_units_(model, gen)
+    model = model.to(dev)
+    out["train"] = dict(steps=[])
+    gpu_vs_cpu_step(model, cpu_batch, out["train"])
+    timed_steps(model, batches, "f32", card, out["train"], {})
+
+
+def families(dev, card, report):
+    """Phase 16: for AAGCN and CTR-GCN, the NTU j config serving four
+    requests (10 clips x M2 x T100, GPU against CPU) and a (64, 2, 100,
+    25, 3) batch in f32 and bf16, the hrnet j config (V = 17, the COCO
+    graph) serving two synthetic hrnet annos, and training steps at the
+    config's batch; then CTR-GCN's j and b streams through the train
+    (--test-last), test and fuse CLIs.  No kernel of the port is on these
+    paths (nor a Pallas kernel on JAX's)."""
+    import tempfile
+    from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
+    hrnet = make_synthetic_pose_dataset(num_samples=3, num_classes=60,
+                                        t=120, seed=16,
+                                        layout="coco")["annotations"]
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for family in FAMILIES:
+            out = report.setdefault("families", {})[family] = {}
+            family_serving(dev, card, family, "ntu60_xsub_3dkp",
+                           synthetic_annos(seed=2), synthetic_annos(seed=1)[0],
+                           16, tmp, out, THROUGHPUT_BATCH)
+            family_serving(dev, card, family, "ntu60_xsub_hrnet", hrnet[1:],
+                           hrnet[0], 16, tmp, out)
+            family_train(dev, card, family, out)
+        counts = read_counts()
+        expect_counts(counts, {}, 1, "phase 16's serving and training")
+        four_streams(tmp, report, family_config("ctrgcn").parent,
+                     streams=("j", "b"), weights=(1.0, 1.0), per_forward=(),
+                     key="ctrgcn_streams")
+    print("phase 16: every AAGCN and CTR-GCN forward and step launched no "
+          f"kernel of the port (K1-K7): {json.dumps(counts)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2554,6 +2727,9 @@ def main() -> int:
     ap.add_argument("--every-config", action="store_true",
                     help="phase 15 alone: K1-K3 at V = 17, the four NTU "
                     "streams through the CLIs, COCO serving and training")
+    ap.add_argument("--families", action="store_true",
+                    help="phase 16 alone: AAGCN and CTR-GCN serving (NTU "
+                    "and hrnet), training and the CLIs")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the port (a git archive of "
                     "the parent commit): time its K5, K6 and K7 beside "
@@ -2611,6 +2787,15 @@ def main() -> int:
         done(15)
         print(card)
         return 0
+    if args.families:
+        families(dev, card, report)
+        done(16)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "families.json").write_text(json.dumps(report, indent=1,
+                                                      default=str))
+        print(card)
+        return 0
     worst, per_forward = kernel_checks(dev, rng, report)          # phase 2
     done(2)
     model, bf16, main_counts, fused_counts = serve(dev, report)   # 3-4
@@ -2636,6 +2821,8 @@ def main() -> int:
     v17_worst, v17_sums, coco_serve_counts, coco_train_counts = \
         every_config(dev, card, rng, report)                      # 15
     done(15)
+    families(dev, card, report)                                    # 16
+    done(16)
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per

@@ -71,12 +71,15 @@ def inference_recognizer(model: torch.nn.Module, anno: Dict,
                          ) -> List[Tuple[int, float]]:
     """Run one annotation dict through the test pipeline (default: the
     model config's ``data.test.pipeline``) and the model; returns the top-k
-    (label, score) pairs of the clip-averaged scores."""
+    (label, score) pairs of the clip-averaged scores.  The pipeline gets a
+    deep copy of ``anno``: ``PreNormalize2D`` normalizes the keypoints in
+    place (as JAX's and pyskl's do), and the caller's anno must come back
+    as it went in, so that the same anno twice gives the same answer."""
     if test_pipeline is None:
         test_pipeline = model.cfg["data"]["test"]["pipeline"]
     if not callable(test_pipeline):
         test_pipeline = build_pipeline(test_pipeline)
-    results = test_pipeline(dict(anno))
+    results = test_pipeline(copy.deepcopy(anno))
     device = next(model.parameters()).device
     kp = torch.from_numpy(results["keypoint"]).to(device)   # (nc,M,T,V,C)
     logits = model(kp)                                      # (nc, classes)

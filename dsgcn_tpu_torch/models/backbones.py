@@ -1,14 +1,17 @@
-"""STGCN (ST-GCN, STGCN++) and DGSTGCN (DG-STGCN, DS-GCN) backbones, train
-and eval.
+"""STGCN (ST-GCN, STGCN++), AAGCN, CTRGCN and DGSTGCN (DG-STGCN, DS-GCN)
+backbones, train and eval.
 
 The port of ``split_stage_kwargs``, ``route_prefix``, ``DataBN``,
-``_make_tcn``, ``ResidualTCN``, ``STGCNBlock``, ``DGBlock``,
-``stage_plan``, ``_BackboneBase``, ``STGCN`` and ``DGSTGCN`` from
+``_make_tcn``, ``ResidualTCN``, ``STGCNBlock``, ``AAGCNBlock``,
+``CTRGCNBlock``, ``DGBlock``, ``stage_plan``, ``_BackboneBase``,
+``STGCN``, ``AAGCN``, ``CTRGCN`` and ``DGSTGCN`` from
 ``dsgcn_tpu/models/backbones.py``: the 10-stage template of the reference
 (stgcn.py:100-128), channel inflation x2 and temporal stride 2 at stages 5
-and 8, block = spatial GCN (``unit_gcn`` for STGCN, ``dggcn`` for
-DG-STGCN, ``dgphgcn1`` for DS-GCN) -> temporal conv (``unit_tcn``,
-``mstcn`` or ``dgmstcn``) (+ residual, ReLU).  Input ``(N, M, T, V, C)``
+and 8, block = spatial GCN (``unit_gcn`` for STGCN, ``unit_aagcn`` or
+``unit_aahgcn`` for AAGCN, ``unit_ctrgcn`` or ``unit_ctrhgcn`` for
+CTRGCN, ``dggcn`` for DG-STGCN, ``dgphgcn1`` for DS-GCN) -> temporal conv
+(``unit_tcn``, ``mstcn``, CTR-GCN's ``CTRMSTCN`` or ``dgmstcn``)
+(+ residual, ReLU).  Input ``(N, M, T, V, C)``
 channels-last, output ``(N, M, T/4, V, C_out)``.  Blocks are named
 ``block{i}`` as the flax scopes are.
 """
@@ -23,8 +26,9 @@ from torch import nn
 
 from ..graph import Graph, GraphConfig
 from ..ops.common import BatchNorm
-from ..ops.gcn import DGGCN, DGPHGCN1, UnitGCN
-from ..ops.tcn import DGMSTCN, MSTCN, UnitTCN
+from ..ops.gcn import (DGGCN, DGPHGCN1, UnitAAGCN, UnitAAHGCN, UnitCTRGCN,
+                       UnitCTRHGCN, UnitGCN)
+from ..ops.tcn import CTRMSTCN, DGMSTCN, MSTCN, UnitTCN
 
 EPS = 1e-4
 
@@ -84,10 +88,19 @@ def _make_tcn(tcn_type: str, in_channels: int, out_channels: int,
 
 class DataBN(BatchNorm):
     """Input batchnorm over the flattened joint-channel features of each
-    frame (reference stgcn.py:93-98, BatchNorm1d over V*C), kind 'VC'."""
+    frame (reference stgcn.py:93-98, BatchNorm1d): kind 'VC' normalizes
+    the V*C features of each body, 'MVC' the M*V*C features of all bodies
+    of a frame (JAX ``backbones.py:DataBN``)."""
+
+    def __init__(self, num_features: int, kind: str = "VC"):
+        super().__init__(num_features)
+        self.kind = kind
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, m, t, v, c = x.shape
+        if self.kind == "MVC":
+            y = super().forward(x.transpose(1, 2).reshape(n, t, m * v * c))
+            return y.reshape(n, t, m, v, c).transpose(1, 2)
         return super().forward(x.reshape(n * m, t, v * c)).reshape(
             n, m, t, v, c)
 
@@ -202,11 +215,13 @@ class _BackboneBase(nn.Module):
         super().__init__()
         graph = Graph.from_config(graph_cfg)
         A = graph.A.astype(np.float32)
-        if data_bn_type not in ("VC", None):
-            raise NotImplementedError(
-                f"data_bn_type={data_bn_type!r} is not ported yet")
-        self.data_bn = (DataBN(graph.num_node * in_channels)
-                        if data_bn_type == "VC" else None)
+        if data_bn_type not in ("VC", "MVC", None):
+            raise ValueError(f"unknown data_bn_type {data_bn_type!r}")
+        self.data_bn = None
+        if data_bn_type is not None:
+            bodies = num_person if data_bn_type == "MVC" else 1
+            self.data_bn = DataBN(bodies * graph.num_node * in_channels,
+                                  data_bn_type)
         lw = split_stage_kwargs(dict(block_args or {}), num_stages)
         lw[0].pop("tcn_dropout", None)
         lw[0].pop("g1x1", None)
@@ -232,6 +247,72 @@ class _BackboneBase(nn.Module):
         for i in range(self.num_blocks):
             x = getattr(self, f"block{i}")(x)
         return x.reshape((n, m) + x.shape[1:])
+
+
+class AAGCNBlock(nn.Module):
+    """unit_aagcn | unit_aahgcn + temporal unit + residual (reference
+    aagcn.py:12-55); the edge and node types go to unit_aahgcn only."""
+
+    def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
+                 stride: int = 1, residual: bool = True,
+                 gcn_type: str = "unit_aagcn",
+                 edge_type: Optional[np.ndarray] = None,
+                 node_type: Optional[np.ndarray] = None,
+                 gcn_kwargs: Optional[Dict[str, Any]] = None,
+                 tcn_type: str = "unit_tcn",
+                 tcn_kwargs: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        if gcn_type not in ("unit_aagcn", "unit_aahgcn"):
+            raise ValueError(f"unknown AAGCN gcn_type {gcn_type!r}")
+        self.residual = ResidualTCN(in_channels, out_channels, stride,
+                                    residual)
+        if gcn_type == "unit_aahgcn":
+            self.gcn = UnitAAHGCN(in_channels, out_channels, A_init=A,
+                                  edge_type=edge_type, node_type=node_type,
+                                  **(gcn_kwargs or {}))
+        else:
+            self.gcn = UnitAAGCN(in_channels, out_channels, A_init=A,
+                                 **(gcn_kwargs or {}))
+        self.tcn = _make_tcn(tcn_type, out_channels, out_channels, stride,
+                             tcn_kwargs or {})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = self.residual(x)
+        return F.relu(self.tcn(self.gcn(x)) + res)
+
+
+class CTRGCNBlock(nn.Module):
+    """unit_ctrgcn | unit_ctrhgcn + CTRMSTCN (k = 5, dilations (1, 2), its
+    own residual off) + the block residual (reference ctrgcn.py:9-61)."""
+
+    def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
+                 stride: int = 1, residual: bool = True, kernel_size: int = 5,
+                 dilations: Sequence[int] = (1, 2), tcn_dropout: float = 0.0,
+                 gcn_type: str = "unit_ctrgcn", semantic_index: bool = False,
+                 edge_type: Optional[np.ndarray] = None,
+                 node_type: Optional[np.ndarray] = None,
+                 gcn_kwargs: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        if gcn_type not in ("unit_ctrgcn", "unit_ctrhgcn"):
+            raise ValueError(f"unknown CTRGCN gcn_type {gcn_type!r}")
+        self.residual = ResidualTCN(in_channels, out_channels, stride,
+                                    residual)
+        if gcn_type == "unit_ctrhgcn":
+            self.gcn = UnitCTRHGCN(in_channels, out_channels, A_init=A,
+                                   edge_type=edge_type, node_type=node_type,
+                                   semantic_index=semantic_index,
+                                   **(gcn_kwargs or {}))
+        else:
+            self.gcn = UnitCTRGCN(in_channels, out_channels, A_init=A,
+                                  **(gcn_kwargs or {}))
+        self.tcn = CTRMSTCN(out_channels, out_channels,
+                            kernel_size=kernel_size, stride=stride,
+                            dilations=dilations, residual=False,
+                            tcn_dropout=tcn_dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = self.residual(x)
+        return F.relu(self.tcn(self.gcn(x)) + res)
 
 
 class DGSTGCN(_BackboneBase):
@@ -276,3 +357,58 @@ class STGCN(_BackboneBase):
         return STGCNBlock(in_c, out_c, A=A, stride=stride, residual=residual,
                           gcn_kwargs=gcn_kwargs, tcn_type=tcn_type,
                           tcn_kwargs=tcn_kwargs)
+
+
+def _types(graph):
+    nt = np.array(graph.node_type) if graph.node_type is not None else None
+    return graph.edge_type, nt
+
+
+class AAGCN(_BackboneBase):
+    """2s-AGCN / AAGCN (reference aagcn.py:57-142): blocks of unit_aagcn
+    (the default) or unit_aahgcn and tcn_type 'unit_tcn' (the default);
+    data_bn_type 'MVC' by default."""
+
+    def __init__(self, data_bn_type: Optional[str] = "MVC", **kwargs):
+        super().__init__(data_bn_type=data_bn_type, **kwargs)
+
+    def make_block(self, i, graph, A, in_c, out_c, stride, residual, kwargs):
+        kwargs = dict(kwargs)
+        kwargs.pop("_lw_index", None)
+        gcn_kwargs, tcn_kwargs = route_prefix(kwargs)
+        tcn_type = tcn_kwargs.pop("type", "unit_tcn")
+        gcn_type = gcn_kwargs.pop("type", "unit_aagcn")
+        edge_type, node_type = _types(graph)
+        return AAGCNBlock(in_c, out_c, A=A, stride=stride, residual=residual,
+                          gcn_type=gcn_type, edge_type=edge_type,
+                          node_type=node_type, gcn_kwargs=gcn_kwargs,
+                          tcn_type=tcn_type, tcn_kwargs=tcn_kwargs)
+
+
+class CTRGCN(_BackboneBase):
+    """CTR-GCN (reference ctrgcn.py:69-123): blocks of unit_ctrgcn (the
+    default) or unit_ctrhgcn, each with a CTRMSTCN; data_bn_type 'MVC' by
+    default.  A block's ``semantic_index`` is set where its stage number
+    (1-based, the stem's included, so one more than the block index when
+    the stem is dropped) is in ``semantic_stage``."""
+
+    def __init__(self, data_bn_type: Optional[str] = "MVC",
+                 semantic_stage: Sequence[int] = tuple(range(1, 11)),
+                 **kwargs):
+        # make_block reads it while the base class builds the blocks
+        self.semantic_stage = tuple(semantic_stage)
+        super().__init__(data_bn_type=data_bn_type, **kwargs)
+
+    def make_block(self, i, graph, A, in_c, out_c, stride, residual, kwargs):
+        kwargs = dict(kwargs)
+        lw_index = kwargs.pop("_lw_index", i)
+        gcn_kwargs, tcn_kwargs = route_prefix(kwargs)
+        gcn_type = gcn_kwargs.pop("type", "unit_ctrgcn")
+        tcn_kwargs.pop("type", None)
+        extra = {k: tuple_ify(v) for k, v in tcn_kwargs.items()}
+        edge_type, node_type = _types(graph)
+        semantic = (lw_index + 1) in self.semantic_stage
+        return CTRGCNBlock(in_c, out_c, A=A, stride=stride, residual=residual,
+                           gcn_type=gcn_type, semantic_index=semantic,
+                           edge_type=edge_type, node_type=node_type,
+                           gcn_kwargs=gcn_kwargs, **extra)

@@ -1,9 +1,9 @@
 """Model factory: config dict -> RecognizerGCN module.
 
 The port of ``dsgcn_tpu/models/builder.py`` for what the port has: the
-``STGCN`` backbone (ST-GCN, STGCN++; alias ``MEGASTGCN``), the ``DGSTGCN``
-backbone in its DG-STGCN and DS-GCN forms and the ``GCNHead``.  Config keys
-are the JAX package's.
+``STGCN`` backbone (ST-GCN, STGCN++; alias ``MEGASTGCN``), ``AAGCN``,
+``CTRGCN``, the ``DGSTGCN`` backbone in its DG-STGCN and DS-GCN forms and
+the ``GCNHead``.  Config keys are the JAX package's.
 """
 from __future__ import annotations
 
@@ -15,17 +15,21 @@ import torch
 from torch import nn
 
 from ..graph import GraphConfig
-from ..ops.gcn import UnitGCN
-from .backbones import DGSTGCN, STGCN
+from ..ops.common import (branch_normal_, kaiming_normal_fan_out_,
+                          trunc_normal_scaled_)
+from ..ops.gcn import CTRGC, CTRHGC, AttentionChain, UnitAAHGCN, UnitGCN
+from ..ops.tcn import CTRMSTCN
+from .backbones import AAGCN, CTRGCN, DGSTGCN, STGCN
 from .heads import GCNHead
 from .recognizer import RecognizerGCN
 
-BACKBONES = {"STGCN": STGCN, "MEGASTGCN": STGCN, "DGSTGCN": DGSTGCN}
+BACKBONES = {"STGCN": STGCN, "MEGASTGCN": STGCN, "AAGCN": AAGCN,
+             "CTRGCN": CTRGCN, "DGSTGCN": DGSTGCN}
 HEADS = {"GCNHead": GCNHead}
 
 _BACKBONE_FIELDS = {
     "in_channels", "base_channels", "ch_ratio", "num_person", "num_stages",
-    "inflate_stages", "down_stages", "data_bn_type",
+    "inflate_stages", "down_stages", "data_bn_type", "semantic_stage",
 }
 
 
@@ -49,7 +53,7 @@ def build_backbone(cfg: Dict[str, Any]):
         # defaults them on where Pallas runs, for DGSTGCN only)
         cfg.setdefault("gcn_use_pallas", True)
     fields = {k: v for k, v in cfg.items() if k in _BACKBONE_FIELDS}
-    for k in ("inflate_stages", "down_stages"):
+    for k in ("inflate_stages", "down_stages", "semantic_stage"):
         if k in fields:
             fields[k] = tuple(fields[k])
     block_args = {k: (tuple(v) if isinstance(v, list) else v)
@@ -86,6 +90,9 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
     * stgcn: plain ST-GCN (stgcn_spatial graph, unit_tcn)
     * stgcn++: gcn_adaptive='init', gcn_with_res, mstcn
       (configs/stgcnpp/STGCNPP_60_model.py)
+    * aagcn: unit_aagcn defaults (configs/aagcn/AAGCN_60_model.py)
+    * ctrgcn: unit_ctrgcn + CTRMSTCN k=5 dil(1,2)
+      (configs/ctrgcn/CTRGCN_60_model.py)
     * dgstgcn: dggcn+dgmstcn, random graph (DG-STGCN, configs/dgstgcn
       upstream)
     * dsgcn: dgphgcn1 with semantic node+edge attention, decompose,
@@ -105,6 +112,12 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
         bb = dict(type="STGCN", gcn_adaptive="init", gcn_with_res=True,
                   tcn_type="mstcn",
                   graph_cfg=dict(layout=layout, mode="spatial"))
+    elif name == "aagcn":
+        bb = dict(type="AAGCN",
+                  graph_cfg=dict(layout=layout, mode="spatial"))
+    elif name == "ctrgcn":
+        bb = dict(type="CTRGCN", gcn_type="unit_ctrgcn",
+                  graph_cfg=dict(layout=layout, mode="spatial"))
     elif name == "dgstgcn":
         bb = dict(type="DGSTGCN", gcn_type="dggcn", gcn_ratio=0.25,
                   gcn_ctr="T", gcn_ada="T", tcn_type="dgmstcn",
@@ -117,8 +130,8 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
                   graph_cfg=dict(graph, num_filter=3))
     else:
         raise NotImplementedError(f"model {name!r} is not ported yet (the "
-                                  "port has 'stgcn', 'stgcn++', 'dgstgcn' "
-                                  "and 'dsgcn')")
+                                  "port has 'stgcn', 'stgcn++', 'aagcn', "
+                                  "'ctrgcn', 'dgstgcn' and 'dsgcn')")
     if use_pallas is not None and bb["type"] == "DGSTGCN":
         bb["gcn_use_pallas"] = use_pallas
         bb["tcn_use_pallas"] = use_pallas
@@ -133,13 +146,16 @@ def build_named_model(name: str, **kw) -> RecognizerGCN:
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw the model's random weights from ``generator`` with the JAX
-    package's initializers (``dsgcn_tpu/ops/common.py``): every 1x1 and
-    temporal conv kernel and bias U(+-1/sqrt(fan_in)) (torch's defaults,
-    fan_in = in_channels * kernel size), the classifier N(0, init_std) with
-    a zero bias, a UnitGCN's 'offset' PA U(0, 2e-6).  Graphs, gates, joint
-    coefficients and BatchNorms keep their deterministic initial values.
-    The generator lives on the CPU; call this before moving the model to
-    its device."""
+    package's initializers (``dsgcn_tpu/ops/common.py``; the same
+    distributions, not the same bits).  By default every 1x1 and temporal
+    conv kernel and bias is U(+-1/sqrt(fan_in)) (torch's defaults, fan_in =
+    in_channels * kernel size), the classifier N(0, init_std) with a zero
+    bias, a UnitGCN's 'offset' PA U(0, 2e-6).  Then the per-module rules
+    of :func:`_module_rules` (AAGCN's and CTR-GCN's units and TCN).
+    Graphs, gates, joint coefficients and BatchNorms keep their
+    deterministic initial values (the 1e-6 scale of a unit's closing
+    ``bn`` included).  The generator lives on the CPU; call this before
+    moving the model to its device."""
     heads = {id(m.fc_cls) for m in model.modules() if isinstance(m, GCNHead)}
     for m in model.modules():
         if isinstance(m, UnitGCN) and m.adaptive == "offset":
@@ -147,13 +163,50 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, GCNHead):
             m.fc_cls.weight.normal_(0.0, m.init_std, generator=generator)
             m.fc_cls.bias.zero_()
-        elif isinstance(m, (nn.Linear, nn.Conv2d)) and id(m) not in heads:
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)) \
+                and id(m) not in heads:
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.uniform_(-bound, bound, generator=generator)
+    for m in model.modules():
+        _module_rules(m, generator)
     return model
+
+
+def _module_rules(m: nn.Module, gen: torch.Generator) -> None:
+    """The JAX modules' own initializers where they differ from the
+    default: ``kaiming_normal_fan_out`` (N(0, 2/fan_out)) with zero biases
+    for the graph embeddings, ``branch_init(K)`` for AAGCN's ``conv_d``,
+    flax's ``xavier_normal``/``kaiming_normal`` (truncated normals) and
+    zeros in :class:`AttentionChain`, ``kaiming_normal_fan_out`` kernels
+    (default biases) for the residual 1x1s and CTRMSTCN's branch 1x1s."""
+    if isinstance(m, UnitAAHGCN):
+        for name, sub in m.named_children():
+            if name.startswith(("conv_a", "conv_b", "conv_edge")):
+                kaiming_normal_fan_out_(sub.weight, gen)
+                sub.bias.zero_()
+            elif name.startswith("conv_d"):
+                branch_normal_(sub.weight, m.K, gen)
+            elif name == "down_conv":
+                kaiming_normal_fan_out_(sub.weight, gen)
+    elif isinstance(m, AttentionChain):
+        k = m.conv_sa.weight.shape[-1]
+        fan_in, fan_out = m.conv_sa.weight.shape[1] * k, k
+        trunc_normal_scaled_(m.conv_sa.weight, 2.0 / (fan_in + fan_out), gen)
+        trunc_normal_scaled_(m.fc1c.weight, 2.0 / m.fc1c.in_features, gen)
+        m.zero_init_()
+    elif isinstance(m, (CTRGC, CTRHGC)):
+        for sub in m.children():
+            kaiming_normal_fan_out_(sub.weight, gen)
+            sub.bias.zero_()
+    elif isinstance(m, CTRMSTCN):
+        for name, sub in m.named_children():
+            if name.endswith("_pre"):
+                kaiming_normal_fan_out_(sub.weight, gen)
+            elif name.endswith("_conv"):
+                kaiming_normal_fan_out_(sub.conv.weight, gen)
 
 
 def set_dropout_generator(model: nn.Module,

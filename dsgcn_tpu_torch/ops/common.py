@@ -54,6 +54,38 @@ class TemporalConv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+def _fans(w: torch.Tensor):
+    """(fan_in, fan_out) of a torch (O, I, *kernel) weight."""
+    receptive = w[0, 0].numel()
+    return w.shape[1] * receptive, w.shape[0] * receptive
+
+
+def kaiming_normal_fan_out_(w: torch.Tensor, generator: torch.Generator):
+    """N(0, 2 / fan_out) (JAX ``ops/common.py:kaiming_normal_fan_out``,
+    reference conv_init)."""
+    return w.normal_(0.0, (2.0 / _fans(w)[1]) ** 0.5, generator=generator)
+
+
+def branch_normal_(w: torch.Tensor, branches: int,
+                   generator: torch.Generator):
+    """N(0, 2 / (O I k branches)) (JAX ``ops/common.py:branch_init``,
+    reference conv_branch_init)."""
+    k = w.shape[2] if w.dim() > 2 else 1
+    std = (2.0 / (w.shape[0] * w.shape[1] * k * branches)) ** 0.5
+    return w.normal_(0.0, std, generator=generator)
+
+
+def trunc_normal_scaled_(w: torch.Tensor, variance: float,
+                         generator: torch.Generator):
+    """flax's ``variance_scaling(..., 'truncated_normal')``: a standard
+    normal truncated to [-2, 2], scaled to ``variance``
+    (``xavier_normal``: 2 / (fan_in + fan_out); ``kaiming_normal``: 2 /
+    fan_in)."""
+    std = variance ** 0.5 / .87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
     """Statistics and accumulation type: at least float32 (bf16 inputs
     accumulate in float32), float64 inputs keep float64 (JAX

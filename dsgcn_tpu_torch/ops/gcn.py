@@ -1,8 +1,11 @@
-"""Spatial graph convolutions of STGCN++, DG-STGCN and DS-GCN
-(channels-last ``(N, T, V, C)``).
+"""Spatial graph convolutions of STGCN++, AAGCN, CTR-GCN, DG-STGCN and
+DS-GCN (channels-last ``(N, T, V, C)``).
 
 The ports of ``dsgcn_tpu/ops/gcn.py:UnitGCN`` (ST-GCN, STGCN++: a static
 graph, contracted with ``torch.einsum`` as JAX leaves it to XLA),
+``UnitAAGCN``/``UnitAAHGCN`` with ``AttentionChain`` (AAGCN),
+``UnitCTRGCN``/``UnitCTRHGCN`` with ``CTRGC``/``CTRHGC`` (CTR-GCN; these
+units, like UnitGCN, run no kernel: JAX computes them in XLA einsums too),
 ``DGGCN`` (DG-STGCN) and ``DGPHGCN1`` (DS-GCN), train and eval, with the
 helpers they use.  DGGCN and DGPHGCN1 have two aggregation paths, chosen
 as in the JAX modules:
@@ -25,6 +28,7 @@ as in the JAX modules:
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -349,19 +353,31 @@ class DGPHGCN1(nn.Module):
     names follow the JAX module's flax scopes.  ``eval_kernel='mega'`` runs
     the whole eval block in K6, the edge-class attention included, as the
     JAX module does where ``target_specific`` is off (the port has no
-    ``target_specific``).  The JAX module's ``ada_attention`` and
-    ``target_specific`` options and per-frame graphs (``ctr``/``ada`` 'NA')
-    are not ported yet.
+    ``target_specific``).  The JAX module's ``ada_attention``,
+    ``target_specific`` and ``add_type`` options, its joint-partitioned
+    mesh mode (``graph_axis``), joint padding (``v_pad``) and per-frame
+    graphs (``ctr``/``ada`` 'NA') are not ported yet: each raises, naming
+    the option, when set off its default.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  A_init: np.ndarray, edge_type: np.ndarray,
                  node_type: np.ndarray, ratio=0.125, decompose=False,
                  ctr="T", ada="T", node_attention=False, edge_attention=False,
+                 ada_attention=False, target_specific=False, add_type=False,
                  sub_att=True, stage=True, num_types=5, edge_num=15,
                  subset_wise=True, ada_act="softmax", ctr_act="tanh",
-                 use_pallas=False, eval_kernel="auto"):
+                 use_pallas=False, eval_kernel="auto", graph_axis=None,
+                 v_pad=0):
         super().__init__()
+        for name, value, default in (
+                ("ada_attention", ada_attention, False),
+                ("target_specific", target_specific, False),
+                ("add_type", add_type, False),
+                ("graph_axis", graph_axis, None), ("v_pad", v_pad, 0)):
+            if value != default:
+                raise NotImplementedError(
+                    f"DGPHGCN1 {name}={value!r} is not ported yet")
         if ctr not in (None, "T") or ada not in (None, "T"):
             raise NotImplementedError(
                 f"DGPHGCN1 ctr={ctr!r}/ada={ada!r}: only T-pooled graphs "
@@ -546,3 +562,362 @@ class DGPHGCN1(nn.Module):
             G = g * _gate(self.beta, K, sem, norm, self.subset_wise,
                           3).to(dt) + G
         return _dispatch_contract(pre_x, G, self.ctr, self.ada)
+
+
+# ---------------------------------------------------------------------------
+# AAGCN and CTR-GCN units (no kernel: JAX computes them in XLA einsums)
+# ---------------------------------------------------------------------------
+
+def _conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` over the middle axis of channels-last (N, L, C) -> (N, L,
+    out), in x's dtype."""
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype), b,
+                 padding=conv.padding)
+    return y.transpose(1, 2)
+
+
+class AttentionChain(nn.Module):
+    """Spatial -> temporal -> channel SE attention of AAGCN (reference
+    unit_aagcn, gcn.py:445-458; JAX ``dsgcn_tpu/ops/gcn.py:AttentionChain``),
+    each applied as ``y * sigmoid(s) + y``: a conv over the joints of the
+    T-mean (an odd kernel of V or V - 1 joints), a k = 9 conv over the
+    frames of the V-mean, and a C -> C/2 -> C bottleneck of the global
+    mean.  ``conv_sa``/``conv_ta`` hold (1, C, k) ``Conv1d`` weights."""
+
+    def __init__(self, channels: int, num_joints: int):
+        super().__init__()
+        ker = num_joints if num_joints % 2 else num_joints - 1
+        self.conv_sa = nn.Conv1d(channels, 1, ker, padding=(ker - 1) // 2)
+        self.conv_ta = nn.Conv1d(channels, 1, 9, padding=4)
+        self.fc1c = PointConv(channels, channels // 2)
+        self.fc2c = PointConv(channels // 2, channels)
+        self.zero_init_()
+
+    @torch.no_grad()
+    def zero_init_(self):
+        """JAX's zero initializers: both biases of the convs, fc1c's bias,
+        and all of ``conv_ta`` and ``fc2c`` (the temporal and channel
+        attention start at sigmoid(0) everywhere)."""
+        for t in (self.conv_sa.bias, self.conv_ta.weight, self.conv_ta.bias,
+                  self.fc1c.bias, self.fc2c.weight, self.fc2c.bias):
+            t.zero_()
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        s = torch.sigmoid(_conv1d(self.conv_sa, y.mean(dim=1)))  # (n, v, 1)
+        y = y * s[:, None] + y
+        s = torch.sigmoid(_conv1d(self.conv_ta, y.mean(dim=2)))  # (n, t, 1)
+        y = y * s[:, :, None] + y
+        s = torch.sigmoid(self.fc2c(F.relu(self.fc1c(y.mean(dim=(1, 2))))))
+        return y * s[:, None, None, :] + y
+
+
+class UnitAAHGCN(nn.Module):
+    """AAGCN's unit in its semantic form (reference unit_aahgcn,
+    gcn.py:462-632; JAX ``dsgcn_tpu/ops/gcn.py:UnitAAHGCN``), and with
+    ``node_att`` and ``edge_att`` off the plain one (:class:`UnitAAGCN`),
+    x (N, T, V, C_in) -> (N, T, V, C_out).
+
+    Per subset i: with ``adaptive`` the data graph tanh(a^T b / (R T)) of
+    two 1x1 embeddings ``conv_a{i}``/``conv_b{i}`` (R = C_out //
+    coff_embedding) gated by ``alpha`` is added to the trained ``A[i]``;
+    the aggregation runs in :func:`accum_dtype` and rounds to x's type, as
+    JAX's einsum does; ``conv_d{i}`` maps each aggregate to C_out and the
+    subsets are summed.  Then ``bn`` (initial scale 1e-6), the residual
+    (``down_conv``/``down_bn`` where the width changes), ReLU and, with
+    ``attention``, :class:`AttentionChain`.
+
+    The semantic options: ``node_att`` gives the embeddings ``num_types``
+    channel groups and each joint keeps its body part's; ``edge_att`` maps
+    the data graph through a 1 -> E 1x1 (``conv_edge{i}``) and each joint
+    pair keeps its edge class's map.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, edge_type: Optional[np.ndarray] = None,
+                 node_type: Optional[np.ndarray] = None,
+                 node_att: bool = False, edge_att: bool = False,
+                 num_types: int = 5, edge_num: int = 15,
+                 coff_embedding: int = 4, adaptive: bool = True,
+                 attention: bool = True):
+        super().__init__()
+        K, V, _ = A_init.shape
+        self.K, self.out_channels = K, out_channels
+        self.inter = out_channels // coff_embedding
+        self.adaptive, self.attention = adaptive, attention
+        self.P = num_types
+        self.node_att = node_att and adaptive
+        self.edge_att = edge_att and adaptive
+        # a copy: blocks are built from one numpy graph and must not share it
+        A = torch.tensor(np.asarray(A_init), dtype=torch.float32)
+        if adaptive:
+            self.A = nn.Parameter(A)
+            self.alpha = nn.Parameter(torch.zeros(1))
+        else:                      # a constant, as in JAX: not in the state
+            self.register_buffer("A", A, persistent=False)
+        qk = self.inter * (num_types if self.node_att else 1)
+        for i in range(K):
+            if adaptive:
+                self.add_module(f"conv_a{i}", PointConv(in_channels, qk))
+                self.add_module(f"conv_b{i}", PointConv(in_channels, qk))
+                if self.edge_att:
+                    self.add_module(f"conv_edge{i}", PointConv(1, edge_num))
+            self.add_module(f"conv_d{i}", PointConv(in_channels,
+                                                    out_channels))
+        if in_channels != out_channels:
+            self.down_conv = PointConv(in_channels, out_channels)
+            self.down_bn = BatchNorm(out_channels)
+        self.bn = BatchNorm(out_channels)
+        with torch.no_grad():
+            self.bn.weight.fill_(1e-6)
+        if attention:
+            self.att = AttentionChain(out_channels, V)
+        if self.node_att:
+            self.register_buffer("node_type", torch.as_tensor(
+                np.asarray(node_type), dtype=torch.long), persistent=False)
+        if self.edge_att:
+            self.register_buffer("edge_type", torch.as_tensor(
+                np.asarray(edge_type), dtype=torch.long), persistent=False)
+
+    def _embed(self, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """(N, T, V, R): a 1x1 embedding, per joint of its type's group
+        with ``node_att``."""
+        e = conv(x)
+        if not self.node_att:
+            return e
+        n, t, v, _ = x.shape
+        e = e.reshape(n, t, v, self.inter, self.P).movedim(2, -1)
+        return _type_gather(e, self.node_type, type_axis=3).movedim(-1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, t, v, c = x.shape
+        acc = accum_dtype(x.dtype)
+        A = self.A.to(acc)
+        y = None
+        for i in range(self.K):
+            Ai = A[i]
+            if self.adaptive:
+                a = self._embed(getattr(self, f"conv_a{i}"), x)
+                b = self._embed(getattr(self, f"conv_b{i}"), x)
+                g = torch.tanh(torch.einsum("ntvc,ntwc->nvw", a.to(acc),
+                                            b.to(acc))
+                               / (self.inter * t)).to(x.dtype)
+                if self.edge_att:
+                    es = getattr(self, f"conv_edge{i}")(g[..., None])
+                    g = _edge_class_select(es.movedim(-1, 1), self.edge_type)
+                Ai = Ai + g.to(acc) * self.alpha[0].to(acc)
+                z = torch.einsum("ntvc,nvw->ntwc", x.to(acc), Ai)
+            else:
+                z = torch.einsum("ntvc,vw->ntwc", x.to(acc), Ai)
+            z = getattr(self, f"conv_d{i}")(z.to(x.dtype))
+            y = z if y is None else y + z
+        res = (self.down_bn(self.down_conv(x))
+               if c != self.out_channels else x)
+        y = F.relu(self.bn(y) + res)
+        return self.att(y) if self.attention else y
+
+
+class UnitAAGCN(UnitAAHGCN):
+    """2s-AGCN's adaptive unit (reference unit_aagcn, gcn.py:349-461; JAX
+    ``dsgcn_tpu/ops/gcn.py:UnitAAGCN``): :class:`UnitAAHGCN` without the
+    semantic options."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, coff_embedding: int = 4,
+                 adaptive: bool = True, attention: bool = True):
+        super().__init__(in_channels, out_channels, A_init,
+                         coff_embedding=coff_embedding, adaptive=adaptive,
+                         attention=attention)
+
+
+class CTRGC(nn.Module):
+    """Channel-wise topology refinement (reference CTRGC, gcn.py:634-659;
+    JAX ``dsgcn_tpu/ops/gcn.py:CTRGC``): the T-mean embeddings x1, x2 (R =
+    8 channels at C_in <= 16, else C_in // rel_reduction), the per-channel
+    graph ``conv4(tanh(x1_u - x2_w)) * alpha + A`` (N, U, W, C_out), and
+    the aggregation of ``conv3(x)`` over it, in :func:`accum_dtype`."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 rel_reduction: int = 8):
+        super().__init__()
+        rel = 8 if in_channels <= 16 else in_channels // rel_reduction
+        self.conv1 = PointConv(in_channels, rel)
+        self.conv2 = PointConv(in_channels, rel)
+        self.conv3 = PointConv(in_channels, out_channels)
+        self.conv4 = PointConv(rel, out_channels)
+
+    def forward(self, x: torch.Tensor, A: torch.Tensor,
+                alpha: torch.Tensor) -> torch.Tensor:
+        acc = accum_dtype(x.dtype)
+        x1 = self.conv1(x).mean(dim=1)                          # (n, v, r)
+        x2 = self.conv2(x).mean(dim=1)
+        x3 = self.conv3(x)
+        g = self.conv4(torch.tanh(x1[:, :, None] - x2[:, None]))  # (n,u,w,c)
+        g = g.to(acc) * alpha.to(acc) + A.to(acc)[None, :, :, None]
+        return torch.einsum("nuwc,ntuc->ntwc", g, x3.to(acc)).to(x.dtype)
+
+
+class CTRHGC(nn.Module):
+    """The semantic CTR-GC (reference CTRHGC, gcn.py:668-776; JAX
+    ``dsgcn_tpu/ops/gcn.py:CTRHGC``).  Where ``semantic_index`` is set:
+    ``node_attention`` gives x1/x2 a channel group per body part, each
+    joint keeping its own; ``edge_attention`` maps the diff topology to E
+    edge classes (``edge_att_conv``, R or, with ``full_channels``, C_out
+    channels a class) and keeps each pair's class, then ``conv4`` unless
+    ``full_channels``, plus ``conv4`` of the plain diff with ``add_type``
+    (one ``conv4`` for both); ``target_specific`` adds a per-part value
+    1x1 (``nodeconv``).  ``ada`` adds the graph x1^T x2 gated by ``beta``.
+    Graph and aggregation in :func:`accum_dtype`."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 edge_type: Optional[np.ndarray] = None,
+                 node_type: Optional[np.ndarray] = None,
+                 rel_reduction: int = 8, node_attention: bool = True,
+                 edge_attention: bool = False, target_specific: bool = False,
+                 full_channels: bool = False, add_type: bool = False,
+                 ada: bool = False, num_types: int = 5, edge_num: int = 15,
+                 semantic_index: bool = False):
+        super().__init__()
+        self.rel = rel = (8 if in_channels <= 16
+                          else in_channels // rel_reduction)
+        self.out_channels, self.P, self.E = out_channels, num_types, edge_num
+        self.node_att = node_attention and semantic_index
+        self.edge_att = edge_attention and semantic_index
+        self.tgt = target_specific and semantic_index
+        self.full_channels, self.add_type, self.ada = (full_channels,
+                                                       add_type, ada)
+        qk = rel * (num_types if self.node_att else 1)
+        self.conv1 = PointConv(in_channels, qk)
+        self.conv2 = PointConv(in_channels, qk)
+        self.conv3 = PointConv(in_channels, out_channels)
+        # flax makes conv4 only where it is called
+        if not self.edge_att or not full_channels or add_type:
+            self.conv4 = PointConv(rel, out_channels)
+        if self.edge_att:
+            self.out_f = out_channels if full_channels else rel
+            self.edge_att_conv = PointConv(rel, edge_num * self.out_f)
+            self.register_buffer("edge_type", torch.as_tensor(
+                np.asarray(edge_type), dtype=torch.long), persistent=False)
+        if ada:
+            self.beta = nn.Parameter(torch.zeros(1))
+        if self.tgt:
+            self.nodeconv = PointConv(in_channels, num_types * out_channels)
+        if self.node_att or self.tgt:
+            self.register_buffer("node_type", torch.as_tensor(
+                np.asarray(node_type), dtype=torch.long), persistent=False)
+
+    def _query(self, q: torch.Tensor) -> torch.Tensor:
+        """(N, T, V, qk) -> the T-mean (N, R, V)."""
+        n, t, v, _ = q.shape
+        if self.node_att:
+            q = q.reshape(n, t, v, self.rel, self.P).movedim(2, -1)
+            return _type_gather(q, self.node_type, type_axis=3).mean(dim=1)
+        return q.mean(dim=1).transpose(1, 2)
+
+    def _conv4(self, g: torch.Tensor) -> torch.Tensor:
+        """conv4 over the channel axis 1 of (N, R, V, V)."""
+        return self.conv4(g.movedim(1, -1)).movedim(-1, 1)
+
+    def forward(self, x: torch.Tensor, A: torch.Tensor,
+                alpha: torch.Tensor) -> torch.Tensor:
+        n, t, v, _ = x.shape
+        acc = accum_dtype(x.dtype)
+        x1, x2 = self._query(self.conv1(x)), self._query(self.conv2(x))
+        x3 = self.conv3(x)
+        diff = torch.tanh(x1[..., :, None] - x2[..., None, :])  # (n,r,v,v)
+        if self.edge_att:
+            es = self.edge_att_conv(diff.movedim(1, -1))
+            es = es.reshape(n, v, v, self.E, self.out_f).permute(0, 4, 3, 1,
+                                                                 2)
+            graph = _edge_class_select(es, self.edge_type)    # (n,f,v,v)
+            if not self.full_channels:
+                graph = self._conv4(graph)
+            if self.add_type:
+                graph = graph + self._conv4(diff)
+        else:
+            graph = self._conv4(diff)                          # (n,c,v,v)
+        G = graph.to(acc) * alpha.to(acc) + A.to(acc)[None, None]
+        if self.ada:
+            ada = torch.einsum("ncv,ncw->nvw", x1, x2)[:, None]
+            G = ada.to(acc) * self.beta[0].to(acc) + G
+        if self.tgt:
+            xn = self.nodeconv(x).reshape(n, t, v, self.P,
+                                          self.out_channels).movedim(2, -1)
+            xn = _type_gather(xn, self.node_type, type_axis=2)  # (n,t,c,v)
+            x3 = x3 + xn.movedim(2, -1)
+        return torch.einsum("ncuw,ntuc->ntwc", G, x3.to(acc)).to(x.dtype)
+
+
+class _UnitCTR(nn.Module):
+    """The K-subset wrapper of CTR-GCN's units: ``convs{i}`` on ``A[i]``
+    with its gate, summed, ``bn`` (initial scale 1e-6), the residual
+    (``down_conv``/``down_bn`` where the width changes) and ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, n_gates: int, make_conv):
+        super().__init__()
+        K = A_init.shape[0]
+        self.K, self.in_channels, self.out_channels = (K, in_channels,
+                                                       out_channels)
+        # a copy: blocks are built from one numpy graph and must not share it
+        self.A = nn.Parameter(torch.tensor(np.asarray(A_init),
+                                           dtype=torch.float32))
+        self.alpha = nn.Parameter(torch.zeros(n_gates))
+        for i in range(K):
+            self.add_module(f"convs{i}", make_conv(i))
+        self.bn = BatchNorm(out_channels)
+        with torch.no_grad():
+            self.bn.weight.fill_(1e-6)
+        if in_channels != out_channels:
+            self.down_conv = PointConv(in_channels, out_channels)
+            self.down_bn = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = None
+        for i in range(self.K):
+            gate = self.alpha[i if self.alpha.shape[0] > 1 else 0]
+            z = getattr(self, f"convs{i}")(x, self.A[i], gate)
+            y = z if y is None else y + z
+        y = self.bn(y)
+        res = (self.down_bn(self.down_conv(x))
+               if self.in_channels != self.out_channels else x)
+        return F.relu(y + res)
+
+
+class UnitCTRGCN(_UnitCTR):
+    """CTR-GCN's unit (reference unit_ctrgcn, gcn.py:882-929; JAX
+    ``dsgcn_tpu/ops/gcn.py:UnitCTRGCN``): a :class:`CTRGC` per subset, one
+    gate ``alpha`` of shape (1,) shared by all."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray):
+        super().__init__(in_channels, out_channels, A_init, 1,
+                         lambda i: CTRGC(in_channels, out_channels))
+
+
+class UnitCTRHGCN(_UnitCTR):
+    """The semantic CTR-GCN unit (reference unit_ctrhgcn, gcn.py:778-880;
+    JAX ``dsgcn_tpu/ops/gcn.py:UnitCTRHGCN``): a :class:`CTRHGC` per subset
+    with its own gate (``alpha`` of shape (K,)).  It keeps the reference's
+    branch-toggle quirk: node attention is off in every subset whatever
+    ``node_attention`` says, and edge attention is on in subset 0 only."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, edge_type: Optional[np.ndarray] = None,
+                 node_type: Optional[np.ndarray] = None,
+                 semantic_index: bool = False, rel_reduction: int = 8,
+                 node_attention: bool = False, edge_attention: bool = False,
+                 target_specific: bool = False, full_channels: bool = False,
+                 add_type: bool = False, ada: bool = False,
+                 num_types: int = 5, edge_num: int = 15):
+        def make_conv(i):
+            return CTRHGC(in_channels, out_channels, edge_type=edge_type,
+                          node_type=node_type, rel_reduction=rel_reduction,
+                          node_attention=False,
+                          edge_attention=edge_attention and i == 0,
+                          target_specific=target_specific,
+                          full_channels=full_channels, add_type=add_type,
+                          ada=ada, num_types=num_types, edge_num=edge_num,
+                          semantic_index=semantic_index)
+        super().__init__(in_channels, out_channels, A_init, A_init.shape[0],
+                         make_conv)

@@ -1,13 +1,14 @@
 """Temporal convolution ops (channels-last ``(N, T, V, C)``).
 
-The port of ``UnitTCN``, ``_MSBranches``, ``MSTCN`` (STGCN++) and
-``DGMSTCN`` (DG-STGCN, DS-GCN) from ``dsgcn_tpu/ops/tcn.py``, train and
-eval.  DGMSTCN runs the reference ``concat`` layout, which is also the
-layout JAX trains with: the mean joint is appended as an extra joint row,
-the branch stack runs once (so in training the branch BatchNorms see the
-26th joint), and the global row is scaled back onto every joint
-(tcn.py:428-460).  With ``use_pallas=True`` both take the fused eval kernel
-K7 (``ops/kernels/ms_tcn.py``) in eval where JAX does (``DEFAULT_MS_CFG``,
+The port of ``UnitTCN``, ``_MSBranches``, ``MSTCN`` (STGCN++),
+``DGMSTCN`` (DG-STGCN, DS-GCN) and ``CTRMSTCN`` (CTR-GCN) from
+``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN runs the reference
+``concat`` layout, which is also the layout JAX trains with: the mean
+joint is appended as an extra joint row, the branch stack runs once (so
+in training the branch BatchNorms see the 26th joint), and the global row
+is scaled back onto every joint (tcn.py:428-460).  With
+``use_pallas=True`` both take the fused eval kernel K7
+(``ops/kernels/ms_tcn.py``) in eval where JAX does (``DEFAULT_MS_CFG``,
 default widths); training keeps the module path.  Submodule names follow
 the JAX modules' flax scopes.
 """
@@ -213,4 +214,65 @@ class DGMSTCN(nn.Module):
         feat = out[:, :, :v] + out[:, :, v:] * coeff[None, None, :, None]
         feat = self.transform_conv(F.relu(self.transform_bn(feat)))
         return dropout(self.bn(feat), self.dropout, self.training,
+                       self.generator)
+
+
+class CTRMSTCN(nn.Module):
+    """CTR-GCN's multi-scale TCN (reference MSTCN, msg3d_utils.py:64-142;
+    JAX ``dsgcn_tpu/ops/tcn.py:CTRMSTCN``).  Unlike :class:`MSTCN`: branch
+    i < len(dilations) is 1x1 -> BN -> ReLU -> a k x 1 dilated
+    ``UnitTCN`` with its own BN; then a max-pool branch with a second BN
+    (``bn2``) and a strided 1x1 + BN branch that takes the remainder
+    channels (the last branch, not the first); the residual (a strided
+    1x1 ``UnitTCN``, or x) is added before the ReLU; ``tcn_dropout`` acts
+    in training only, its mask drawn from ``self.generator``.  It runs no
+    kernel: the fused eval kernel K7 computes MSTCN's region, not this
+    one, and JAX takes no kernel here either."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Union[int, Sequence[int]] = 3, stride: int = 1,
+                 dilations: Sequence[int] = (1, 2, 3, 4),
+                 residual: bool = True, tcn_dropout: float = 0.0):
+        super().__init__()
+        self.dilations = tuple(dilations)
+        nb = len(self.dilations) + 2
+        bc = out_channels // nb
+        rem = out_channels - bc * (nb - 1)
+        ks = (list(kernel_size) if isinstance(kernel_size, (list, tuple))
+              else [kernel_size] * len(self.dilations))
+        self.stride, self.tcn_dropout = stride, tcn_dropout
+        self.use_residual = residual
+        self.identity = in_channels == out_channels and stride == 1
+        if residual and not self.identity:
+            self.residual = UnitTCN(in_channels, out_channels, kernel_size=1,
+                                    stride=stride)
+        for i, (k, d) in enumerate(zip(ks, self.dilations)):
+            self.add_module(f"branch{i}_pre", PointConv(in_channels, bc))
+            self.add_module(f"branch{i}_bn", BatchNorm(bc))
+            self.add_module(f"branch{i}_tcn", UnitTCN(
+                bc, bc, kernel_size=k, stride=stride, dilation=d))
+        i = len(self.dilations)
+        self.add_module(f"branch{i}_pre", PointConv(in_channels, bc))
+        self.add_module(f"branch{i}_bn", BatchNorm(bc))
+        self.add_module(f"branch{i}_bn2", BatchNorm(bc))
+        self.add_module(f"branch{i + 1}_conv", TemporalConv(
+            in_channels, rem, kernel_size=1, stride=stride))
+        self.add_module(f"branch{i + 1}_bn", BatchNorm(rem))
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def pre(i):
+            b = getattr(self, f"branch{i}_pre")(x)
+            return F.relu(getattr(self, f"branch{i}_bn")(b))
+        outs = [getattr(self, f"branch{i}_tcn")(pre(i))
+                for i in range(len(self.dilations))]
+        i = len(self.dilations)
+        b = max_pool_t(pre(i), window=3, stride=self.stride, padding=1)
+        outs.append(getattr(self, f"branch{i}_bn2")(b))
+        b = getattr(self, f"branch{i + 1}_conv")(x)
+        outs.append(getattr(self, f"branch{i + 1}_bn")(b))
+        out = torch.cat(outs, dim=-1)
+        if self.use_residual:
+            out = out + (x if self.identity else self.residual(x))
+        return dropout(F.relu(out), self.tcn_dropout, self.training,
                        self.generator)

@@ -5,7 +5,8 @@ The port names its submodules after the JAX package's flax scopes
 ``head.fc_cls``, ...), so a conversion only rewrites leaf names and
 re-orients kernels:
 
-* ``kernel`` -> ``weight``: a dense (I, O) kernel becomes (O, I); a conv
+* ``kernel`` -> ``weight``: a dense (I, O) kernel becomes (O, I); a 1-D
+  conv (k, I, O) kernel becomes (O, I, k) (``nn.Conv1d``); a conv
   (k, 1, I, O) kernel becomes (O, I, k, 1);
 * a BatchNorm's ``<name>/bn/{scale,bias}`` params and ``<name>/bn/{mean,var}``
   statistics become ``<name>.{weight,bias,running_mean,running_var}``;
@@ -54,6 +55,8 @@ def _convert_leaf(collection: str, path: Tuple[str, ...],
     if leaf == "kernel":
         if a.ndim == 2:
             a = a.T
+        elif a.ndim == 3:              # a flax 1-D conv: (k, I, O)
+            a = a.transpose(2, 1, 0)
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         else:

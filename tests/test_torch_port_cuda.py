@@ -3,8 +3,9 @@ backward), K3 (bd_dyn_graph_agg), K4 (bd_dyn_graph_agg_subset), K5
 (fused_dyn_graph_agg_eval), K6 (fused_dggcn_block_eval) and K7
 (fused_dgmstcn_eval) against their plain PyTorch versions on the card, the
 K1+K2 autograd Function, a narrow DG-STGCN's eval options on the card
-against the CPU, MSTCN through K7, and one DS-GCN train step on the card
-against the same step on the CPU.
+against the CPU, MSTCN through K7, one DS-GCN train step on the card
+against the same step on the CPU, and narrow AAGCN and CTR-GCN forwards and
+train steps on the card against the CPU.
 
 Marked ``cuda``: they skip without a GPU.  The file imports no JAX, so it
 runs on a GPU machine without it; there, run it without the JAX-side
@@ -398,6 +399,59 @@ def test_cuda_train_step_matches_cpu(cuda):
     for model in (gpu, cpu):
         opt, sched = make_optimizer(model, total_steps=10)
         losses.append(train_step(model, opt, sched, batch)["loss"].item())
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    got = gpu.state_dict()
+    for name, p in cpu.named_parameters():
+        du_want = (p.detach() - init[name]).ravel()
+        du_got = (got[name].cpu() - init[name]).ravel()
+        cos = (du_got @ du_want / (du_got.norm() * du_want.norm())).item()
+        assert cos > 0.995, (name, cos)
+        assert abs(du_got.norm() / du_want.norm() - 1) < 5e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["aagcn", "ctrgcn"])
+def test_cuda_family_matches_cpu(cuda, family):
+    """A narrow AAGCN or CTR-GCN (three blocks: 3 -> 16, 16 -> 16, 16 -> 32
+    at stride 2) on the card against the CPU from the same weights: eval
+    logits within 1e-4 of the largest, no kernel of the port launched (the
+    families have none), and one train step as in
+    test_cuda_train_step_matches_cpu.  The gates, the attention's
+    zero-initialised convs and the units' closing BN scales (1e-6) are
+    moved off their initial values first: at them, the gradients of the
+    units' inner parameters are rounding noise (a float32 step on the CPU
+    is as far from a float64 one there as from the card's)."""
+    from dsgcn_tpu_torch.ops.kernels import launch_counts
+    cfg = model_cfg(family, num_classes=11)
+    cfg["backbone"].update(num_stages=3, base_channels=16,
+                           inflate_stages=(3,), down_stages=(3,))
+    cfg["cls_head"]["in_channels"] = 32
+    gen = torch.Generator().manual_seed(1)
+    cpu = init_weights_(build_model(cfg), gen)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith("alpha"):
+                p.uniform_(-0.3, 0.3, generator=gen)
+            elif name.endswith(("conv_ta.weight", "fc2c.weight")):
+                p.uniform_(-0.1, 0.1, generator=gen)
+            elif name.endswith("gcn.bn.weight"):
+                p.uniform_(0.2, 0.4, generator=gen)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    rng = np.random.default_rng(1)
+    batch = dict(keypoint=rng.standard_normal((4, 2, 16, 25, 3)).astype(
+        np.float32), label=rng.integers(0, 11, 4))
+    x = torch.from_numpy(batch["keypoint"])
+    before = launch_counts()
+    with torch.no_grad():
+        got = gpu.eval()(x.to(cuda)).cpu()
+        want = cpu.eval()(x)
+    assert _rel(got, want) <= 1e-4
+    losses = []
+    for model in (gpu, cpu):
+        opt, sched = make_optimizer(model.train(), total_steps=10)
+        losses.append(train_step(model, opt, sched, batch)["loss"].item())
+    assert launch_counts() == before
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
     got = gpu.state_dict()
     for name, p in cpu.named_parameters():

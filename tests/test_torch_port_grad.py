@@ -168,10 +168,12 @@ def test_batchnorm_train_matches_jax(shape):
     assert_rel(y_eval.numpy(), y_j_eval, 1e-5, "eval after the update")
 
 
-def _train_parity(jmod, port, v, x, out_shape, seed):
+def _train_parity(jmod, port, v, x, out_shape, seed, jit=False):
     """One train-mode forward and backward of a JAX module and its port from
     the same variables: outputs, updated statistics, parameter and input
-    gradients (the loss is <y, g> for a fixed random g)."""
+    gradients (the loss is <y, g> for a fixed random g).  ``jit`` compiles
+    JAX's forward and backward as one program (far cheaper on the CPU than
+    op by op for modules of many small ops)."""
     g = np.random.default_rng(seed).standard_normal(out_shape).astype(
         np.float32)
 
@@ -180,8 +182,9 @@ def _train_parity(jmod, port, v, x, out_shape, seed):
                              "batch_stats": v["batch_stats"]}, xx,
                             train=True, mutable=["batch_stats"])
         return jnp.sum(y * g), (y, mut)
-    (_, (y_j, mut)), (gp, gx) = jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True)(v["params"], jnp.asarray(x))
+    grad = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)
+    (_, (y_j, mut)), (gp, gx) = (jax.jit(grad) if jit else grad)(
+        v["params"], jnp.asarray(x))
 
     port.load_state_dict(convert_jax_variables(v), strict=True)
     port.train()
