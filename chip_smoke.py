@@ -53,10 +53,24 @@ through init_recognizer / inference_recognizer (GPU against CPU, request
 latency, clips/s of a batch in f32 and bf16 with profiles), a training
 step against the CPU and timed steps at the config's b16 x M2 x T100,
 and CTR-GCN's j and b streams through the train, test and fuse CLIs; no
-kernel of the port may launch on any of it.  Phases run in the order
-2-6, 8, 9, 11-13, 7, 10, 14, 15, 16; ``--every-config`` runs 15 alone,
-``--families`` 16 alone (``chiprun_out/families.json``).  Any failed
-check raises, and the script exits non-zero without a result line.
+kernel of the port may launch on any of it.  Phase 17 takes the gesture
+config (``configs/gesture/stgcnpp_hand.py``: STGCN++ on the 21-joint hand,
+clip 10) serving with K7 (6 launches a forward) and without, GPU against
+CPU, a b64 step against the CPU's, and K7 at V = 21 (T 10 and 5); the
+ST-GCN and STGCN++ hrnet j configs (V = 17) serving, STGCN++ with K7 (10
+a forward) and without, and K7 at V = 17; the train CLI without
+``--validate`` on a config with ``data.val`` (a val record and a best
+checkpoint, as JAX's CLI validates); DS-GCN's ``DGMSTCN`` eval layouts
+(concat, which every layout runs, and K7) at b16 and b64 with busy and
+idle time; DS-GCN and DG-STGCN steps at b128 under ``remat`` False, 'tcn' and True (loss and BN
+statistics equal, K1 twice a block under True, peak memory); DS-GCN with
+``target_specific`` (K3 and K1 serving, a K1 + K2 step),
+``ada_attention`` and per-frame graphs ('NA', dense, at b16 with peak
+memory).  Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16,
+17; ``--every-config`` runs 15 alone, ``--families`` 16 alone
+(``chiprun_out/families.json``), ``--options`` 17 alone
+(``chiprun_out/options.json``).  Any failed check raises, and the script
+exits non-zero without a result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
 (``plan_sweep``) and writes ``chiprun_out/agg_sweep.json``;
@@ -1845,9 +1859,9 @@ TCN_SHAPES = [(64, 100, 1, 4), (128, 100, 2, 1), (128, 50, 1, 2),
 K7_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def k7_inputs(gen, dev, C, T, dtype, coeff):
-    """x (N_BLOCK, T, V, C) and random folded weights of a C -> C region
-    (mid C // 6), as fused_dgmstcn_eval takes them."""
+def k7_inputs(gen, dev, C, T, dtype, coeff, Vx=V, N=N_BLOCK):
+    """x (N, T, Vx, C) and random folded weights of a C -> C region (mid
+    C // 6), as fused_dgmstcn_eval takes them."""
     mid = C // 6
     rem = C - 5 * mid
     P = rem + 4 * mid
@@ -1861,11 +1875,11 @@ def k7_inputs(gen, dev, C, T, dtype, coeff):
     def a(n):
         return (0.5 + torch.rand(n, generator=gen)).to(dev)
     widths = (rem, mid, mid, mid)
-    x = torch.randn(N_BLOCK, T, V, C, generator=gen).to(dev, dtype)
+    x = torch.randn(N, T, Vx, C, generator=gen).to(dev, dtype)
     return [x, w(C, P), b(P), [w(3, cb, cb) for cb in widths],
             [b(cb) for cb in widths], w(C, mid), b(mid), a(C), b(C),
             w(C, C), b(C), a(C), b(C),
-            (torch.rand(V, generator=gen) - 0.5).to(dev) if coeff else None]
+            (torch.rand(Vx, generator=gen) - 0.5).to(dev) if coeff else None]
 
 
 def k7_bound(args, stride):
@@ -1909,102 +1923,118 @@ def k7_bound(args, stride):
                 bound_tc_by="bytes" if t_bytes >= t_tc else "operations")
 
 
-def k7_plans(C, T, stride, xsize, coeff):
+def k7_plans(C, T, stride, xsize, coeff, Vx=V, N=N_BLOCK):
     """The planner's (TO, JR) for K7's blocks at a TCN_SHAPES shape, and
     the pseudo-joint blocks' TO with ``coeff``."""
     from dsgcn_tpu_torch.ops.kernels.ms_tcn import tile_plan
     mid = C // 6
-    shape = (N_BLOCK, T, V, C, C - 5 * mid, mid, stride, 4)
+    shape = (N, T, Vx, C, C - 5 * mid, mid, stride, 4)
     plan = list(tile_plan(*shape, xsize))
     return plan + ([tile_plan(*shape, 4, mean=True)[0]] if coeff else [])
+
+
+def k7_case(dev, gen, flush, C, T, stride, coeff, dtype, Vx=V, N=N_BLOCK,
+            parent=None):
+    """K7 at one shape against its plain version (``K7_TOL``); in f32 also
+    its time, the plain version's, both bounds (``k7_bound``), the MMAs'
+    rate and the unfused region's (the MSTCN / DGMSTCN module in eval
+    without K7: cuBLAS 1x1s, cuDNN convs), and ``parent``'s K7 timed in
+    turns where given.  Returns the row (printed)."""
+    from dsgcn_tpu_torch.ops.kernels.ms_tcn import (
+        fused_dgmstcn_eval, reference_fused_dgmstcn_eval)
+    from dsgcn_tpu_torch.ops.tcn import DGMSTCN, MSTCN
+    args = k7_inputs(gen, dev, C, T, dtype, coeff, Vx, N)
+    kern = lambda: fused_dgmstcn_eval(*args, stride=stride)  # noqa: E731
+    plain = lambda: reference_fused_dgmstcn_eval(  # noqa: E731
+        *args, stride=stride)
+    row = dict(kernel="fused_dgmstcn_eval", V=Vx, C=C, T=T, stride=stride,
+               N=N, coeff=coeff, dtype=str(dtype).split(".")[-1],
+               plan=k7_plans(C, T, stride, args[0].element_size(), coeff, Vx,
+                             N))
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    row.update(max_abs_err=err, max_abs_ref=ref, rel_err=err / ref,
+               tol=K7_TOL[dtype])
+    check(bool(torch.isfinite(got.float()).all()),
+          f"K7 non-finite output at {row}")
+    check(got.dtype == dtype and got.shape == want.shape,
+          f"K7 returned {got.dtype} {tuple(got.shape)}")
+    check(err <= K7_TOL[dtype] * ref,
+          f"K7 disagrees with its plain version: {row}")
+    del got, want
+    if dtype == torch.float32:
+        module = (DGMSTCN(C, C, stride=stride, num_joints=Vx) if coeff
+                  else MSTCN(C, C, stride=stride)).to(dev).eval()
+        with torch.inference_mode():
+            unfused = cold_ms(lambda: module(args[0]), flush=flush)
+        if parent is not None:
+            old = lambda: parent[2](*args, stride=stride)  # noqa: E731
+            t = [cold_ms(f, flush=flush) for f in (old, kern, kern, old)]
+            row.update(ms=(t[1] + t[2]) / 2, parent_ms=(t[0] + t[3]) / 2,
+                       ms_runs=t[1:3], parent_ms_runs=[t[0], t[3]])
+        else:
+            row.update(ms=cold_ms(kern, flush=flush))
+        row.update(plain_ms=cold_ms(plain, iters=3, flush=flush),
+                   unfused_ms=unfused, library_ms=None,
+                   **k7_bound(args, stride))
+        row.update(ms_over_bound_tc=row["ms"] / row["bound_tc_ms"],
+                   mma_tflop_s=row["mma_flop"] / row["ms"] / 1e9)
+        del module
+    print("kernel", json.dumps(row), flush=True)
+    return row
+
+
+def k7_path_checks(dev, report, key, shapes, Vx, N, coeff, parent=None):
+    """K7 at the temporal unit ``shapes`` (C, T, stride, blocks) of one
+    path, joint count ``Vx`` and ``N`` skeletons, f32 and bf16 against its
+    plain version (``k7_case``); f32 times (and ``parent``'s) summed per
+    forward.  Returns the worst max abs error and the sums."""
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    gen = torch.Generator().manual_seed(17 + Vx)
+    rows = report.setdefault("k7_checks", [])
+    worst, acc = 0.0, dict(new_sum(), unfused_ms=0.0)
+    for C, T, stride, nb in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = k7_case(dev, gen, flush, C, T, stride, coeff, dtype, Vx, N,
+                          parent)
+            worst = max(worst, row["max_abs_err"])
+            if dtype == torch.float32 and nb:
+                row["blocks_per_forward"] = nb
+                add_to(acc, row, nb)
+                acc["unfused_ms"] += nb * row["unfused_ms"]
+            rows.append(dict(row, path=key))
+    print(f"K7 per {key} forward (V = {Vx}, N = {N}), ms: "
+          + json.dumps(acc, default=sorted), flush=True)
+    report[f"k7_per_forward_{key}"] = acc
+    return worst, acc
 
 
 def k7_checks(dev, report, parent=None):
     """Phase 11: K7 at every temporal unit shape of STGCN++ serving (no
     pseudo-joint) and of DG-STGCN / DS-GCN serving (with it), stride 1 and
-    2, f32 and bf16, against its plain version; in f32 its time, the plain
-    version's, both bounds (``k7_bound``), the MMAs' rate and the unfused
-    region's (the MSTCN / DGMSTCN module in eval without K7: cuBLAS 1x1s,
-    cuDNN convs), and ``parent``'s K7 (``parent_wrappers``) timed in turns
-    where given, summed per forward at b64 x M2 x T100.  Returns the worst
-    max abs error and the sums per forward by model."""
-    from dsgcn_tpu_torch.ops.kernels.ms_tcn import (
-        fused_dgmstcn_eval, reference_fused_dgmstcn_eval)
-    from dsgcn_tpu_torch.ops.tcn import DGMSTCN, MSTCN
-    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
-    gen = torch.Generator().manual_seed(11)
-    rows = report["k7_checks"] = []
-    worst = 0.0
-    per_forward = {m: dict(new_sum(), unfused_ms=0.0)
-                   for m in ("stgcnpp", "dgstgcn")}
-    for C, T, stride, nb in TCN_SHAPES:
-        for coeff in (False, True):
-            for dtype in (torch.float32, torch.bfloat16):
-                args = k7_inputs(gen, dev, C, T, dtype, coeff)
-                kern = lambda: fused_dgmstcn_eval(  # noqa: E731
-                    *args, stride=stride)
-                plain = lambda: reference_fused_dgmstcn_eval(  # noqa: E731
-                    *args, stride=stride)
-                row = dict(kernel="fused_dgmstcn_eval", C=C, T=T,
-                           stride=stride, N=N_BLOCK, coeff=coeff,
-                           dtype=str(dtype).split(".")[-1],
-                           plan=k7_plans(C, T, stride, args[0].element_size(),
-                                         coeff))
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ref = want.float().abs().max().item()
-                row.update(max_abs_err=err, max_abs_ref=ref,
-                           rel_err=err / ref, tol=K7_TOL[dtype])
-                check(bool(torch.isfinite(got.float()).all()),
-                      f"K7 non-finite output at {row}")
-                check(got.dtype == dtype and got.shape == want.shape,
-                      f"K7 returned {got.dtype} {tuple(got.shape)}")
-                check(err <= K7_TOL[dtype] * ref,
-                      f"K7 disagrees with its plain version: {row}")
-                worst = max(worst, err)
-                del got, want
-                if dtype == torch.float32:
-                    module = (DGMSTCN if coeff else MSTCN)(
-                        C, C, stride=stride).to(dev).eval()
-                    with torch.inference_mode():
-                        unfused = cold_ms(lambda: module(args[0]),
-                                          flush=flush)
-                    if parent is not None:
-                        old = lambda: parent[2](  # noqa: E731
-                            *args, stride=stride)
-                        t = [cold_ms(f, flush=flush)
-                             for f in (old, kern, kern, old)]
-                        row.update(ms=(t[1] + t[2]) / 2,
-                                   parent_ms=(t[0] + t[3]) / 2,
-                                   ms_runs=t[1:3],
-                                   parent_ms_runs=[t[0], t[3]])
-                    else:
-                        row.update(ms=cold_ms(kern, flush=flush))
-                    row.update(plain_ms=cold_ms(plain, iters=3, flush=flush),
-                               unfused_ms=unfused, library_ms=None,
-                               blocks_per_forward=nb, **k7_bound(args, stride))
-                    row.update(ms_over_bound_tc=row["ms"] / row["bound_tc_ms"],
-                               mma_tflop_s=row["mma_flop"] / row["ms"] / 1e9)
-                    acc = per_forward["dgstgcn" if coeff else "stgcnpp"]
-                    add_to(acc, row, nb)
-                    acc["unfused_ms"] += nb * unfused
-                    del module
-                rows.append(row)
-                print("kernel", json.dumps(row), flush=True)
-                del args
-    for acc in per_forward.values():
-        acc["mma_tflop_s"] = acc["mma_flop"] / acc["ms"] / 1e9
+    2, f32 and bf16, against its plain version (``k7_path_checks``, which
+    times the f32 cases beside the unfused region), and ``parent``'s K7
+    (``parent_wrappers``) timed in turns where given, summed per forward
+    at b64 x M2 x T100.  Returns the worst max abs error and the sums per
+    forward by model."""
+    worst, per_forward = 0.0, {}
+    for key, coeff in (("stgcnpp", False), ("dgstgcn", True)):
+        err, per_forward[key] = k7_path_checks(
+            dev, report, key, TCN_SHAPES, V, N_BLOCK, coeff, parent)
+        worst = max(worst, err)
+        per_forward[key]["mma_tflop_s"] = (per_forward[key]["mma_flop"]
+                                           / per_forward[key]["ms"] / 1e9)
     if parent is not None:
         slower = [{k: r[k] for k in ("C", "T", "stride", "coeff", "ms",
                                      "parent_ms")}
-                  for r in rows if r.get("parent_ms") is not None
+                  for r in report["k7_checks"]
+                  if r.get("parent_ms") is not None
                   and r["ms"] > r["parent_ms"]]
         report["k7_slower_than_parent"] = slower
         print("K7 shapes slower than the parent's kernel: "
               + json.dumps(slower), flush=True)
-    print("K7 per forward, ms: " + json.dumps(per_forward, default=sorted),
-          flush=True)
     report["k7_per_forward"] = per_forward
     return worst, per_forward
 
@@ -2065,41 +2095,41 @@ def stgcnpp_config(k7):
     return with_k7(Config.fromfile(str(STGCNPP_CONFIG)), k7)
 
 
-def k7_model_pair(dev, cfg_of, seed):
+def k7_model_pair(dev, cfg_of, seed, calib=None):
     """The model of ``cfg_of(False)`` (module-path temporal units, so that
     every BatchNorm sees its input) with seeded random weights and BN
-    statistics from data (``calibrate_``), and ``cfg_of(True)``'s model
-    (K7) with the same weights; and the test pipeline."""
+    statistics from data (``calibrate_`` on ``calib``, an NTU-shaped anno
+    unless given), and ``cfg_of(True)``'s model (K7) with the same
+    weights; and the test pipeline."""
     from dsgcn_tpu_torch.apis import init_recognizer
     from dsgcn_tpu_torch.data.transforms import build_pipeline
     torch.manual_seed(seed)
     base = init_recognizer(cfg_of(False), device=dev)
     pipeline = build_pipeline(base.cfg["data"]["test"]["pipeline"])
-    calibrate_(base, torch.from_numpy(pipeline(
-        synthetic_annos(seed=1)[0])["keypoint"]).to(dev), seed=seed)
+    calib = synthetic_annos(seed=1)[0] if calib is None else calib
+    calibrate_(base, torch.from_numpy(pipeline(copy.deepcopy(calib))[
+        "keypoint"]).to(dev), seed=seed)
     k7 = init_recognizer(cfg_of(True), device=dev)
     k7.load_state_dict(base.state_dict(), strict=True)
     return base, k7, pipeline
 
 
-def serve_stgcnpp(dev, card, report):
-    """Phase 12: STGCN++ (the j config with tcn_use_pallas=True) through
-    init_recognizer / inference_recognizer: 10 K7 launches per forward and
-    no other kernel, GPU top-1 equal to the CPU's with logits within 1e-3,
+def serve_pair(dev, card, out, name, cfg_of, annos, calib, seed,
+               logits_shape, shape, per_forward, has_k7=True):
+    """A config through init_recognizer / inference_recognizer: the
+    ``cfg_of(True)`` model (K7 where ``has_k7``) on ``annos``, its launches
+    ``per_forward``, each request's logits of ``logits_shape`` (clips,
+    classes) and finite, GPU top-1 equal to the CPU's with logits within 1e-3,
     logits within 1e-4 of the same weights without K7, request latency,
-    clips/s of a batch forward in f32 and bf16 with and without K7, each
-    with a profile.  Returns the launch counts of the four requests."""
+    clips/s of a ``shape`` batch in f32 and bf16 with and without K7.
+    Returns the launch counts of the requests."""
     from dsgcn_tpu_torch.apis import (inference_recognizer, init_recognizer,
                                       to_bf16_inference)
-    from dsgcn_tpu_torch.ops.tcn import MSTCN
-    out = report["stgcnpp_serving"] = dict(requests=[])
-    base, model, pipeline = k7_model_pair(dev, stgcnpp_config, seed=12)
-    tcns = [getattr(model.backbone, f"block{i}").tcn
-            for i in range(model.backbone.num_blocks)]
-    check(len(tcns) == 10 and all(isinstance(t, MSTCN) and t.use_pallas
-                                  for t in tcns),
-          "STGCN++ has not ten MSTCN blocks with K7")
-    annos = synthetic_annos(seed=2)
+    from dsgcn_tpu_torch.models.recognizer import average_clip
+    base, model, pipeline = k7_model_pair(dev, cfg_of, seed, calib)
+    if not has_k7:                  # cfg_of(True) is cfg_of(False)
+        base = None
+    out.update(requests=[])
     reset_counts()
     answers, request_ms = [], []
     for a in annos:
@@ -2107,40 +2137,61 @@ def serve_stgcnpp(dev, card, report):
         answers.append(inference_recognizer(model, a))
         request_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
-    print("STGCN++ main path launches", json.dumps(counts), flush=True)
-    print("STGCN++ request latency ms (f32, 10 clips x 2 bodies x 100 "
-          "frames): " + ", ".join(f"{ms:.3f}" for ms in request_ms),
-          flush=True)
-    expect_counts(counts, {"fused_dgmstcn_eval": 10}, len(annos),
-                  "STGCN++ with K7")
-    out["request_ms"] = request_ms
-    cpu = init_recognizer(stgcnpp_config(True), device="cpu")
+    expect_counts(counts, per_forward, len(annos), name)
+    cpu = init_recognizer(cfg_of(has_k7), device="cpu")
     cpu.load_state_dict(model.state_dict(), strict=True)
     for a, ans in zip(annos, answers):
-        cpu_ans = inference_recognizer(cpu, a)
         g, c = logits_of(model, pipeline, a), logits_of(cpu, pipeline, a)
-        err, err_module = rel_err(g, c), rel_err(g, logits_of(base, pipeline,
-                                                               a))
-        print(f"STGCN++ request {a['frame_dir']}: gpu top-5 {ans}; cpu "
-              f"top-5 {cpu_ans}; logits rel err vs cpu {err:.3e}, vs no K7 "
-              f"{err_module:.3e} (max |logit| {c.abs().max().item():.3f})",
-              flush=True)
-        check(g.shape == (10, 60) and bool(torch.isfinite(g).all()),
-              f"logits of shape {tuple(g.shape)} or not finite")
-        check(ans[0][0] == cpu_ans[0][0],
-              f"STGCN++ GPU top-1 {ans[0]} != CPU top-1 {cpu_ans[0]}")
-        check(err <= 1e-3, f"STGCN++ GPU logits off the CPU's by {err:.3e}")
-        check(err_module <= 1e-4,
-              f"STGCN++ K7 logits off the module path's by {err_module:.3e}")
-        out["requests"].append(dict(request=a["frame_dir"], top5=ans,
-                                    cpu_top5=cpu_ans, logits_rel_err=err,
-                                    vs_module_rel_err=err_module))
+        err = rel_err(g, c)
+        cpu_top1 = int(average_clip(c[None], "prob")[0].argmax())
+        row = dict(request=a["frame_dir"], top5=ans, cpu_top1=cpu_top1,
+                   logits_rel_err=err)
+        check(g.shape == logits_shape and bool(torch.isfinite(g).all()),
+              f"{name} logits of shape {tuple(g.shape)} or not finite")
+        check(ans[0][0] == cpu_top1,
+              f"{name} GPU top-1 {ans[0]} != CPU top-1 {cpu_top1}")
+        check(err <= 1e-3, f"{name} GPU logits off the CPU's by {err:.3e}")
+        if base is not None:
+            row["vs_module_rel_err"] = rel_err(g, logits_of(base, pipeline,
+                                                            a))
+            check(row["vs_module_rel_err"] <= 1e-4,
+                  f"{name} K7 logits off the module path's by "
+                  f"{row['vs_module_rel_err']:.3e}")
+        print(f"{name} request", json.dumps(row), flush=True)
+        out["requests"].append(row)
+    print(f"{name} request latency ms: " + ", ".join(
+        f"{ms:.3f}" for ms in request_ms) + f" on {card}", flush=True)
+    out.update(request_ms=request_ms, counts=counts)
     del cpu
-    for name, m in (("k7", model), ("module", base)):
-        out[name] = {}
-        throughput(m, to_bf16_inference(m), dev, card, out[name],
-                   tag=f"STGCN++ {name} ")
+    for tag, m in (("k7" if has_k7 else "module", model), ("module", base)):
+        if m is not None:
+            out[tag] = {}
+            throughput(m, to_bf16_inference(m), dev, card, out[tag],
+                       f"{name} {tag} ", shape, logits_shape[1])
     return counts
+
+
+def serve_stgcnpp(dev, card, report):
+    """Phase 12: STGCN++ (the j config with tcn_use_pallas=True) through
+    init_recognizer / inference_recognizer (``serve_pair``): 10 K7
+    launches per forward and no other kernel, GPU top-1 equal to the CPU's
+    with logits within 1e-3, logits within 1e-4 of the same weights
+    without K7, request latency, clips/s of a batch forward in f32 and
+    bf16 with and without K7, each with a profile.  Returns the launch
+    counts of the four requests."""
+    from dsgcn_tpu_torch.models.builder import build_model
+    from dsgcn_tpu_torch.ops.tcn import MSTCN
+    backbone = build_model(stgcnpp_config(True)["model"]).backbone
+    tcns = [getattr(backbone, f"block{i}").tcn
+            for i in range(backbone.num_blocks)]
+    check(len(tcns) == 10 and all(isinstance(t, MSTCN) and t.use_pallas
+                                  for t in tcns),
+          "STGCN++ has not ten MSTCN blocks with K7")
+    out = report["stgcnpp_serving"] = {}
+    return serve_pair(dev, card, out, "STGCN++", stgcnpp_config,
+                      synthetic_annos(seed=2), synthetic_annos(seed=1)[0],
+                      12, (10, 60), THROUGHPUT_BATCH,
+                      {"fused_dgmstcn_eval": 10})
 
 
 def serve_with_k7(dev, card, report):
@@ -2312,15 +2363,35 @@ def coco_kernel_checks(dev, rng, report):
 def run_module(args, what, timeout=600):
     """``python -m`` one of the port's CLIs from the repository root; its
     standard output (checked: exit code 0)."""
+    return run_modules([(args, what)], timeout)[0]
+
+
+def run_modules(jobs, timeout=600):
+    """``run_module`` for each (args, what) of ``jobs``, all started
+    together (each is mostly process start-up; the card holds them all);
+    their standard outputs, in order."""
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", *map(str, args)], cwd=ROOT,
-                         capture_output=True, text=True, timeout=timeout)
-    print(f"{what}: rc {out.returncode}, {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for line in out.stdout.splitlines()[-5:]:
-        print(f"  cli: {line}", flush=True)
-    check(out.returncode == 0, f"{what} failed:\n{out.stderr[-3000:]}")
-    return out.stdout
+    procs = [(subprocess.Popen([sys.executable, "-m", *map(str, args)],
+                               cwd=ROOT, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True), what)
+             for args, what in jobs]
+    outs = []
+    try:
+        for proc, what in procs:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            print(f"{what}: rc {proc.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for line in stdout.splitlines()[-5:]:
+                print(f"  cli: {line}", flush=True)
+            check(proc.returncode == 0, f"{what} failed:\n{stderr[-3000:]}")
+            outs.append(stdout)
+    finally:                        # a failed check stops the others too
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
 
 
 def load_pickle(path):
@@ -2356,8 +2427,8 @@ def four_streams(tmp, report, cfg_dir=DSGCN_DIR / "ntu60_xsub_3dkp",
                  key="four_streams"):
     """Phase 15(b): the j, b, jm and bm NTU configs
     (``configs/dsgcn/ntu60_xsub_3dkp``, full width) on a synthetic pickle
-    through the CLIs on the card: one short training epoch (3 steps of 16)
-    with ``--test-last``, the test CLI (10 K3 launches a forward; its first
+    through the CLIs on the card, the streams side by side: one short
+    training epoch (3 steps of 16) with ``--test-last``, the test CLI (10 K3 launches a forward; its first
     batch's scores within 1e-3 of the same checkpoint on the CPU), then
     the fusion at 2:2:1:1, equal to the numpy sum of the four pickles and
     printing its metrics.  Phase 16 takes the ``streams`` of another
@@ -2371,30 +2442,34 @@ def four_streams(tmp, report, cfg_dir=DSGCN_DIR / "ntu60_xsub_3dkp",
                                 seed=15, path=str(ann))
     test_batch = 4
     out = report[key] = {}
-    pkls = []
+    cfgs, wds, pkls = {}, {}, []
     for s in streams:
         base = cfg_dir / f"{s}.py"
         train = f"dict(ann_file={str(ann)!r}, split='train')"
         if Config.fromfile(str(base))["data"]["train"]["type"] == \
                 "RepeatDataset":
             train = f"dict(times=1, dataset={train})"
-        cfg = tmp / f"{key}_{s}.py"
-        cfg.write_text(
+        cfgs[s] = tmp / f"{key}_{s}.py"
+        cfgs[s].write_text(
             f"_base_ = [{str(base)!r}]\n"
             "data = dict(videos_per_gpu=16, workers_per_gpu=4,\n"
             f"    test_dataloader=dict(videos_per_gpu={test_batch}),\n"
             f"    train={train},\n"
             f"    val=dict(ann_file={str(ann)!r}, split='val'),\n"
             f"    test=dict(ann_file={str(ann)!r}, split='val'))\n")
-        wd = tmp / f"wd_{key}_{s}"
-        stdout = run_module(["dsgcn_tpu_torch.tools.train", cfg,
-                             "--work-dir", wd, "--total-epochs", "1",
+        wds[s] = tmp / f"wd_{key}_{s}"
+        pkls.append(tmp / f"s_{key}_{s}.pkl")
+    # the streams' CLIs run side by side: each trains its own work dir
+    trained = run_modules([(["dsgcn_tpu_torch.tools.train", cfgs[s],
+                             "--work-dir", wds[s], "--total-epochs", "1",
                              "--test-last"], f"train CLI, stream {s}")
+                           for s in streams])
+    for s, stdout in zip(streams, trained):
         check("final: {" in stdout, f"stream {s}: no 'final:' line")
-        pkl = tmp / f"s_{key}_{s}.pkl"
-        pkls.append(pkl)
-        stdout = run_module(["dsgcn_tpu_torch.tools.test", cfg, wd, "--out",
-                             pkl], f"test CLI, stream {s}")
+    tested = run_modules([(["dsgcn_tpu_torch.tools.test", cfgs[s], wds[s],
+                            "--out", pkl], f"test CLI, stream {s}")
+                          for s, pkl in zip(streams, pkls)])
+    for s, pkl, stdout in zip(streams, pkls, tested):
         line = printed_value(stdout, "forwards")
         forwards = int(line.split(",")[0])
         launches = json.loads(line.split("kernel launches: ", 1)[1])
@@ -2404,7 +2479,7 @@ def four_streams(tmp, report, cfg_dir=DSGCN_DIR / "ntu60_xsub_3dkp",
         check(got["scores"].shape == (16, 60)
               and bool(np.isfinite(got["scores"]).all()),
               f"stream {s} scores {got['scores'].shape}")
-        cpu = scores_on_cpu(cfg, wd, test_batch)
+        cpu = scores_on_cpu(cfgs[s], wds[s], test_batch)
         err = float(np.abs(got["scores"][:test_batch] - cpu).max()
                     / np.abs(cpu).max())
         print(f"stream {s}: {forwards} forwards, launches "
@@ -2687,6 +2762,420 @@ def families(dev, card, report):
           f"kernel of the port (K1-K7): {json.dumps(counts)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the gesture config and the STGCN family's hrnet configs (K7 at
+# V = 21 and 17), validation by default in the train CLI, and the main path's
+# options: DGMSTCN's eval layouts, remat, target_specific, ada_attention
+# and per-frame graphs
+# ---------------------------------------------------------------------------
+
+GESTURE_CONFIG = ROOT / "configs" / "gesture" / "stgcnpp_hand.py"
+HAND_V = 21
+GESTURE_BATCH = (64, 1, 10, HAND_V, 2)    # clips, hands, frames, joints, xy
+# the gesture model's temporal units at b64 x M1 x T10 (N = 64 skeletons):
+# (C, T in, stride, blocks); the stride-2 unit's output has T = 5, and a
+# T = 5 unit is checked besides (no block of the path has one)
+HAND_TCN_SHAPES = [(64, 10, 1, 5), (128, 10, 2, 1), (128, 5, 1, 0)]
+HRNET_N = 128                             # b64 x M2 serving
+LAYOUT_BATCHES = (16, 64)                 # clips; x M2 skeletons
+OPTION_BATCH = 16
+
+
+def hand_annos(seed, n=4):
+    """One-hand MediaPipe annotations as ``GestureDataset`` leaves them:
+    2D keypoints (1, T, 21, 2) in normalized image coordinates, a hand
+    pose moving along a smooth per-request path, 12 to 30 frames."""
+    rng = np.random.default_rng(seed)
+    annos = []
+    for i in range(n):
+        t = int(rng.integers(12, 31))
+        pose = 0.5 + 0.1 * rng.standard_normal((1, 1, HAND_V, 2))
+        phase = np.linspace(0, (1 + i) * np.pi, t)[None, :, None, None]
+        kp = (pose + 0.05 * np.sin(phase + rng.uniform(0, np.pi, pose.shape))
+              + 0.005 * rng.standard_normal((1, t, HAND_V, 2)))
+        annos.append(dict(frame_dir=f"H{i:04d}", label=int(i % 40),
+                          keypoint=kp.astype(np.float32), total_frames=t))
+    return annos
+
+
+def gesture_batches(cfg, tmp, batch):
+    """Synthetic hand annotations in a gesture pickle (split 'train'; the
+    config trains on 'train+val'), through the config's train pipeline,
+    GestureDataset and the Loader at ``batch``: 1 + TRAIN_STEPS batches."""
+    from dsgcn_tpu_torch.data.dataset import (GestureDataset, Loader,
+                                              build_dataset)
+    annos = hand_annos(seed=170, n=(1 + TRAIN_STEPS) * batch)
+    for a in annos:                  # x, y, score as the pickle holds them
+        kp = a["keypoint"]
+        a["keypoint"] = np.concatenate([kp, np.ones_like(kp[..., :1])], -1)
+    path = tmp / "gesture.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(dict(split=dict(train=[a["frame_dir"] for a in annos],
+                                    val=[], test=[]), annotations=annos), f)
+    loader = Loader(build_dataset(dict(cfg["data"]["train"],
+                                       ann_file=str(path))),
+                    batch_size=batch, seed=17, drop_last=True, num_workers=8)
+    check(isinstance(loader.dataset, GestureDataset), "not GestureDataset")
+    batches = [as_batch(b) for b in loader.epoch(0)]
+    check(len(batches) == 1 + TRAIN_STEPS
+          and batches[0]["keypoint"].shape == (batch, 1, 10, HAND_V, 2),
+          f"gesture batches {batches[0]['keypoint'].shape}")
+    return batches
+
+
+def gesture(dev, card, report, tmp):
+    """Phase 17(a): configs/gesture/stgcnpp_hand.py at full width (STGCN++
+    on the MediaPipe hand, V = 21, 2D, clip 10, 40 classes): serving with
+    K7 (6 launches a forward), GPU against CPU, against the module path,
+    clips/s of a (64, 1, 10, 21, 2) batch with and without K7 in f32 and
+    bf16; K7 at the hand shapes against its plain version; a b64 step on
+    the card against the CPU's, then timed steps (no kernel)."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    cfg_of = lambda k7: with_k7(Config.fromfile(str(GESTURE_CONFIG)),  # noqa
+                                k7)
+    cfg = cfg_of(False)
+    model = build_model(cfg["model"])
+    check(model.backbone.num_blocks == 6
+          and sum(p.numel() for p in model.parameters()) == 197_478,
+          "the gesture model is not the 6-block, 197,478-parameter STGCN++")
+    out = report["gesture"] = {}
+    annos = hand_annos(seed=17, n=5)
+    counts = serve_pair(dev, card, out, "gesture", cfg_of, annos[1:],
+                        annos[0], 17, (1, 40), GESTURE_BATCH,
+                        {"fused_dgmstcn_eval": 6})
+    worst, per_forward = k7_path_checks(dev, report, "gesture",
+                                        HAND_TCN_SHAPES, HAND_V,
+                                        GESTURE_BATCH[0], coeff=False)
+    batch = cfg["data"]["videos_per_gpu"]
+    check(batch == 64, f"the gesture config's batch is {batch}, not 64")
+    batches = gesture_batches(cfg, tmp, batch)
+    model = init_weights_(model, torch.Generator().manual_seed(17)).to(dev)
+    out["train"] = dict(steps=[])
+    gpu_vs_cpu_step(model, batches[0], out["train"])
+    timed_steps(model, batches, "f32", card, out["train"], {})
+    return worst, per_forward, counts
+
+
+def hrnet_family(dev, card, report):
+    """Phase 17(b): the ST-GCN and STGCN++ hrnet j configs
+    (configs/{stgcn,stgcnpp}/ntu60_xsub_hrnet/j.py, COCO V = 17) serving
+    two synthetic hrnet annos (GPU against CPU) and a (64, 2, 100, 17, 3)
+    batch: STGCN++ with K7 (10 launches a forward) and without; ST-GCN's
+    temporal unit is ``unit_tcn``, which no kernel computes (in JAX or the
+    port), so it serves without K7 and launches nothing.  Then K7 at
+    STGCN++'s temporal unit shapes at V = 17 against its plain version.
+    Returns the worst K7 error, its sums per forward and the STGCN++
+    launch counts."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
+    hrnet = make_synthetic_pose_dataset(num_samples=3, num_classes=60,
+                                        t=120, seed=17,
+                                        layout="coco")["annotations"]
+    counts = {}
+    for family, has_k7 in (("stgcnpp", True), ("stgcn", False)):
+        path = ROOT / "configs" / family / "ntu60_xsub_hrnet" / "j.py"
+        def cfg_of(k7, path=path, has_k7=has_k7):
+            cfg = Config.fromfile(str(path))
+            return with_k7(cfg, k7) if has_k7 else cfg
+        out = report.setdefault("hrnet", {})[family] = {}
+        counts[family] = serve_pair(
+            dev, card, out, f"{family} hrnet", cfg_of, hrnet[1:], hrnet[0],
+            17, (10, 60), COCO_THROUGHPUT_BATCH,
+            {"fused_dgmstcn_eval": 10} if has_k7 else {}, has_k7)
+    worst, per_forward = k7_path_checks(dev, report, "stgcnpp_hrnet",
+                                        TCN_SHAPES, COCO_V, HRNET_N,
+                                        coeff=False)
+    return worst, per_forward, counts["stgcnpp"]
+
+
+def validate_by_default(tmp, report):
+    """Phase 17(c), validation by default: the train CLI on the DS-GCN j
+    config (which has data.val) without ``--validate``, one epoch of 3
+    steps of 16: the log holds a ``mode: val`` record and the checkpoint
+    is marked best."""
+    from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
+    ann = tmp / "val_default.pkl"
+    make_synthetic_pose_dataset(num_samples=64, num_classes=60, t=100,
+                                seed=17, path=str(ann))
+    cfg = tmp / "val_default.py"
+    cfg.write_text(f"_base_ = [{str(CONFIG)!r}]\n"
+                   "data = dict(videos_per_gpu=16, workers_per_gpu=4,\n"
+                   "    test_dataloader=dict(videos_per_gpu=16),\n"
+                   f"    train=dict(ann_file={str(ann)!r}, split='train'),\n"
+                   f"    val=dict(ann_file={str(ann)!r}, split='val'))\n")
+    wd = tmp / "wd_val_default"
+    run_module(["dsgcn_tpu_torch.tools.train", cfg, "--work-dir", wd,
+                "--total-epochs", "1"], "train CLI without --validate")
+    records = [json.loads(line) for f in sorted(wd.glob("*.log.jsonl"))
+               for line in f.read_text().splitlines()]
+    vals = [r for r in records if r.get("mode") == "val"]
+    steps = [r["step"] for r in records if r.get("mode") == "train"]
+    meta = json.loads((wd / "ckpt" / "3.json").read_text())
+    print(f"CLI without --validate: val records {json.dumps(vals)}; "
+          f"checkpoint meta {json.dumps(meta)}", flush=True)
+    check(len(vals) == 1 and 0 <= vals[0]["top1_acc"] <= 1,
+          f"the train CLI did not validate without --validate: {vals}")
+    check(meta["best"] and meta["score"] == vals[0]["top1_acc"],
+          f"no best checkpoint: {meta}")
+    report["validate_by_default"] = dict(val=vals, checkpoint=meta,
+                                         train_steps=steps)
+
+
+def set_layout(model, layout):
+    """Every DGMSTCN of ``model`` in the concat layout ('concat') or in K7
+    ('k7': ``use_pallas``)."""
+    from dsgcn_tpu_torch.ops.tcn import DGMSTCN
+    for m in model.modules():
+        if isinstance(m, DGMSTCN):
+            m.use_pallas = layout == "k7"
+
+
+def eval_layouts(dev, card, report):
+    """Phase 17(d): DS-GCN (the j config, calibrated weights) at b16 and
+    b64 x M2 x T100 with every DGMSTCN in the concat layout (which every
+    ``eval_layout`` runs) and in K7: ms a forward (5 after 2 warm-ups),
+    the profile's busy time and the device's idle share; K7's logits
+    within 1e-5 of concat's."""
+    from dsgcn_tpu_torch.apis import init_recognizer
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    torch.manual_seed(17)
+    model = init_recognizer(str(CONFIG), device=dev)
+    pipeline = build_pipeline(model.cfg["data"]["test"]["pipeline"])
+    calibrate_(model, torch.from_numpy(pipeline(synthetic_annos(seed=1)[0])[
+        "keypoint"]).to(dev), seed=17)
+    out = report["eval_layouts"] = {}
+    rng = np.random.default_rng(17)
+    for b in LAYOUT_BATCHES:
+        x = torch.from_numpy(rng.standard_normal((b, 2, 100, V, 3)).astype(
+            np.float32)).to(dev)
+        rows, logits = {}, {}
+        for layout in ("concat", "k7"):
+            set_layout(model, layout)
+            with torch.inference_mode():
+                for _ in range(2):
+                    y = model(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    y = model(x)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / 5 * 1e3
+            logits[layout] = y.float().cpu()
+            prof = {}
+            breakdown(model, x, layout, prof, f"DS-GCN b{b} ")
+            p = prof["profile"][layout]
+            rows[layout] = dict(ms_per_forward=ms, clips_per_s=b / ms * 1e3,
+                                busy_ms=p.get("busy_ms"),
+                                profiled_wall_ms=p.get("wall_ms"),
+                                idle_share=(1 - p["busy_ms"] / p["wall_ms"]
+                                            if p else None))
+        err = rel_err(logits["k7"], logits["concat"])
+        rows["k7"]["logits_rel_err_vs_concat"] = err
+        check(err <= 1e-5, f"DS-GCN b{b} k7 logits off concat's by "
+              f"{err:.3e}")
+        out[f"b{b}"] = rows
+        print(f"DS-GCN b{b} eval layouts: {json.dumps(rows)} on {card}",
+              flush=True)
+    del model
+
+
+def set_remat(model, remat):
+    model.backbone.remat = remat
+    for m in model.backbone.modules():
+        if hasattr(m, "remat_tcn"):
+            m.remat_tcn = remat == "tcn"
+
+
+def bn_stats(model):
+    from dsgcn_tpu_torch.ops.common import BatchNorm
+    return [t.detach().clone() for m in model.modules()
+            if isinstance(m, BatchNorm)
+            for t in (m.running_mean, m.running_var)]
+
+
+def remat_steps(dev, card, report, batches):
+    """Phase 17(e): DS-GCN and DG-STGCN train steps at b128 x M2 x T60
+    with ``remat`` False, 'tcn' and True from the same weights: the first
+    step's loss within 1e-5 of the no-remat loss and the running
+    statistics it leaves within 1e-6, K1 launched twice a block under
+    whole-block remat (20 a step, K2 10), then timed steps with their peak
+    device memory."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+    from dsgcn_tpu_torch.models.builder import (build_model, init_weights_,
+                                                set_dropout_generator)
+    builds = (("dsgcn", lambda: build_model(Config.fromfile(str(CONFIG))[
+        "model"])), ("dgstgcn", build_dgstgcn))
+    for key, build in builds:
+        gen = torch.Generator().manual_seed(17)
+        base = init_weights_(build(), gen)
+        nudge_gates_(base, gen)
+        base = base.to(dev)
+        first = None
+        for remat in (False, "tcn", True):
+            model = copy.deepcopy(base)
+            set_remat(model, remat)
+            set_dropout_generator(model, torch.Generator(
+                device=dev).manual_seed(17))
+            opt, sched = make_optimizer(model, 100)
+            reset_counts()
+            loss = train_step(model, opt, sched, batches[0])["loss"].item()
+            counts = read_counts()
+            k1 = 20 if remat is True else 10
+            expect_counts(counts, {"fused_dyn_graph_agg": k1,
+                                   "fused_dyn_graph_agg_bwd": 10}, 1,
+                          f"{key} remat={remat!r} step")
+            stats = bn_stats(model)
+            row = dict(first_loss=loss, launches=counts)
+            if first is None:
+                first = (loss, stats)
+            else:
+                row["loss_rel_err"] = abs(loss - first[0]) / abs(first[0])
+                row["stats_max_abs_err"] = max(
+                    (a - b).abs().max().item()
+                    for a, b in zip(stats, first[1]))
+                check(row["loss_rel_err"] <= 1e-5,
+                      f"{key} remat={remat!r} loss off by "
+                      f"{row['loss_rel_err']:.3e}")
+                check(row["stats_max_abs_err"] <= 1e-6,
+                      f"{key} remat={remat!r} BN statistics off by "
+                      f"{row['stats_max_abs_err']:.3e}")
+            out = report.setdefault("remat", {}).setdefault(key, {})
+            out[str(remat)] = dict(row, steps=[])
+            print(f"{key} remat={remat!r}: {json.dumps(row)}", flush=True)
+            timed_steps(model, batches, "f32", card, out[str(remat)],
+                        {"fused_dyn_graph_agg": k1,
+                         "fused_dyn_graph_agg_bwd": 10})
+            del model, opt
+        del base
+
+
+def option_config(**backbone):
+    from dsgcn_tpu_torch.configs.config import Config
+    cfg = Config.fromfile(str(CONFIG))
+    cfg["model"]["backbone"].update(backbone)
+    return cfg
+
+
+def serve_option(dev, card, out, name, cfg, per_forward, annos, calib,
+                 seed):
+    """A DS-GCN variant through init_recognizer / inference_recognizer
+    (calibrated weights): its launches ``per_forward``, GPU top-1 equal to
+    the CPU's and logits within 1e-3 (phase 3's criteria); then a
+    (16, 2, 100, 25, 3) batch forward's ms and peak device memory."""
+    from dsgcn_tpu_torch.apis import inference_recognizer, init_recognizer
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    from dsgcn_tpu_torch.models.recognizer import average_clip
+    torch.manual_seed(seed)
+    model = init_recognizer(cfg, device=dev)
+    pipeline = build_pipeline(cfg["data"]["test"]["pipeline"])
+    calibrate_(model, torch.from_numpy(pipeline(copy.deepcopy(calib))[
+        "keypoint"]).to(dev), seed=seed)
+    reset_counts()
+    answers = [inference_recognizer(model, a) for a in annos]
+    counts = read_counts()
+    expect_counts(counts, per_forward, len(annos), f"{name} serving")
+    cpu = init_recognizer(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict(), strict=True)
+    rows = []
+    for a, ans in zip(annos, answers):
+        g, c = logits_of(model, pipeline, a), logits_of(cpu, pipeline, a)
+        err = rel_err(g, c)
+        cpu_top1 = int(average_clip(c[None], "prob")[0].argmax())
+        check(bool(torch.isfinite(g).all()), f"{name} non-finite logits")
+        check(ans[0][0] == cpu_top1,
+              f"{name} GPU top-1 {ans[0]} != CPU top-1 {cpu_top1}")
+        check(err <= 1e-3, f"{name} GPU logits off the CPU's by {err:.3e}")
+        rows.append(dict(request=a["frame_dir"], top5=ans, cpu_top1=cpu_top1,
+                         logits_rel_err=err))
+    del cpu
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (OPTION_BATCH, 2, 100, V, 3)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            y = model(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+    check(bool(torch.isfinite(y).all()), f"{name} b16 forward non-finite")
+    serving = dict(requests=rows, counts=counts, b16_ms=ms,
+                   b16_clips_per_s=OPTION_BATCH / ms * 1e3,
+                   b16_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"{name} serving: {json.dumps(serving)} on {card}", flush=True)
+    out["serving"] = serving
+    return model, counts
+
+
+def options(dev, card, report, batches, cpu_batch):
+    """Phase 17(f, g): DS-GCN with ``target_specific`` (the per-node-type
+    values) served through K3 ('auto', 10 a forward) and K1 ('fused'),
+    and trained (a step against the CPU's, timed b128 steps with K1 and K2
+    10 each); DS-GCN with ``ada_attention``, and with per-frame graphs
+    (ctr = ada = 'NA', edge attention off: it needs T-pooled graphs), on
+    the dense path with no kernel, served and trained at b16 with the peak
+    device memory."""
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    annos, calib = synthetic_annos(seed=2)[:2], synthetic_annos(seed=1)[0]
+    out = report.setdefault("options", {})
+    ts = dict(gcn_target_specific=True)
+    for ek, per in (("auto", {"bd_dyn_graph_agg": 10}),
+                    ("fused", {"fused_dyn_graph_agg": 10})):
+        key = f"target_specific_{ek}"
+        out[key] = {}
+        serve_option(dev, card, out[key], key,
+                     option_config(gcn_eval_kernel=ek, **ts), per, annos,
+                     calib, 17)
+    k1k2 = {"fused_dyn_graph_agg": 10, "fused_dyn_graph_agg_bwd": 10}
+    dense = {"ada_attention": dict(gcn_ada_attention=True),
+             "NA": dict(gcn_ctr="NA", gcn_ada="NA",
+                        gcn_edge_attention=False)}
+    b16 = [dict(keypoint=b["keypoint"][:OPTION_BATCH],
+                label=b["label"][:OPTION_BATCH]) for b in batches[:2]]
+    for key, bb, per_step, steps in (
+            ("target_specific", ts, k1k2, batches),
+            ("ada_attention", dense["ada_attention"], {}, b16),
+            ("NA", dense["NA"], {}, b16)):
+        out.setdefault(key, {})
+        if key != "target_specific":
+            serve_option(dev, card, out[key], key, option_config(**bb), {},
+                         annos, calib, 17)
+        gen = torch.Generator().manual_seed(17)
+        model = init_weights_(build_model(option_config(**bb)["model"]), gen)
+        nudge_gates_(model, gen)
+        model = model.to(dev)
+        out[key]["train"] = dict(steps=[])
+        gpu_vs_cpu_step(model, cpu_batch, out[key]["train"])
+        timed_steps(model, steps, "f32", card, out[key]["train"], per_step)
+        del model
+
+
+def options_phase(dev, card, report):
+    """Phase 17.  Returns the K7 errors and per-forward sums at V = 21
+    (gesture) and V = 17 (STGCN++ hrnet) with their launch counts."""
+    import tempfile
+    from dsgcn_tpu_torch.configs.config import Config
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        g_worst, g_fwd, g_counts = gesture(dev, card, report, tmp)
+        h_worst, h_fwd, h_counts = hrnet_family(dev, card, report)
+        validate_by_default(tmp, report)
+        eval_layouts(dev, card, report)
+        train_loader, _ = train_data(tmp, Config.fromfile(str(CONFIG)),
+                                     seed=17)
+        batches = [as_batch(b) for b in train_loader.epoch(0)]
+        cpu_batch = as_batch(next(train_loader.epoch(1)), CPU_CHECK_CLIPS)
+        remat_steps(dev, card, report, batches)
+        options(dev, card, report, batches, cpu_batch)
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(v21=(g_worst, g_fwd, g_counts, GESTURE_BATCH[0]),
+                v17=(h_worst, h_fwd, h_counts, HRNET_N))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2730,6 +3219,11 @@ def main() -> int:
     ap.add_argument("--families", action="store_true",
                     help="phase 16 alone: AAGCN and CTR-GCN serving (NTU "
                     "and hrnet), training and the CLIs")
+    ap.add_argument("--options", action="store_true",
+                    help="phase 17 alone: the gesture and STGCN-family "
+                    "hrnet configs (K7 at V = 21 and 17), the train CLI "
+                    "without --validate, DGMSTCN's eval layouts, remat, "
+                    "target_specific, ada_attention and per-frame graphs")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the port (a git archive of "
                     "the parent commit): time its K5, K6 and K7 beside "
@@ -2787,6 +3281,15 @@ def main() -> int:
         done(15)
         print(card)
         return 0
+    if args.options:
+        options_phase(dev, card, report)
+        done(17)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "options.json").write_text(json.dumps(report, indent=1,
+                                                     default=str))
+        print(card)
+        return 0
     if args.families:
         families(dev, card, report)
         done(16)
@@ -2823,6 +3326,8 @@ def main() -> int:
     done(15)
     families(dev, card, report)                                    # 16
     done(16)
+    k7_joints = options_phase(dev, card, report)                   # 17
+    done(17)
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per
@@ -2846,7 +3351,9 @@ def main() -> int:
          {"fused_dgmstcn_eval": k7_fwd["stgcnpp"]}),
     ]
     worst_all = (worst, worst_t, dg_worst, dg_worst_t,
-                 {"fused_dgmstcn_eval": k7_worst}, v17_worst)
+                 {"fused_dgmstcn_eval": max(
+                     [k7_worst] + [v[0] for v in k7_joints.values()])},
+                 v17_worst)
     # K3 per COCO forward and K1, K2 per COCO step at b32 x M2 x T100 (V =
     # 17), with their launches on phase 15's serving and training paths
     v17_counts = {"bd_dyn_graph_agg": coco_serve_counts,
@@ -2878,6 +3385,19 @@ def main() -> int:
                 plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                 bound_by="/".join(sorted(v["bound_by"])),
                 library_ms=v["library_ms"], max_abs_err=v17_worst[name])
+        if name == "fused_dgmstcn_eval":
+            # K7 per forward of the gesture model (V = 21, b64 x M1 x T10)
+            # and of STGCN++ on hrnet (V = 17, b64 x M2 x T100), with the
+            # launches of their serving paths
+            for key, (err, v, counts, n) in k7_joints.items():
+                check(counts[name] > 0,
+                      f"{name} was never launched on the {key} path")
+                kernels[-1][key] = dict(
+                    N=n, launches=counts[name], ms=v["ms"],
+                    plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                    bound_by="/".join(sorted(v["bound_by"])),
+                    library_ms=None, unfused_ms=v["unfused_ms"],
+                    max_abs_err=err)
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

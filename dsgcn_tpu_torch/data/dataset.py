@@ -1,7 +1,7 @@
 """Skeleton datasets and batch loading (port of
-``dsgcn_tpu/data/dataset.py``: ``PoseDataset``, ``RepeatDataset``,
-``epoch_indices``, ``Loader``, ``prefetch``, ``make_synthetic_pose_dataset``,
-``build_dataset``).
+``dsgcn_tpu/data/dataset.py``: ``PoseDataset``, ``GestureDataset``,
+``RepeatDataset``, ``ConcatDataset``, ``epoch_indices``, ``Loader``,
+``prefetch``, ``make_synthetic_pose_dataset``, ``build_dataset``).
 
 Reference parity targets: PoseDataset (datasets/pose_dataset.py:12-125)
 and the deterministic per-epoch sampler (samplers/distributed_sampler.py).
@@ -77,6 +77,90 @@ class PoseDataset:
         return np.array([a["label"] for a in self.video_infos])
 
 
+GESTURE_LABEL_NAMES = [
+    "Doing other things", "Drumming Fingers", "No gesture",
+    "Pulling Hand In", "Pulling Two Fingers In", "Pushing Hand Away",
+    "Pushing Two Fingers Away", "Rolling Hand Backward",
+    "Rolling Hand Forward", "Shaking Hand", "Sliding Two Fingers Down",
+    "Sliding Two Fingers Left", "Sliding Two Fingers Right",
+    "Sliding Two Fingers Up", "Stop Sign", "Swiping Down", "Swiping Left",
+    "Swiping Right", "Swiping Up", "Dislike", "Like",
+    "Turning Hand Clockwise", "Turning Hand Counterclockwise",
+    "Zooming In With Full Hand", "Zooming In With Two Fingers",
+    "Zooming Out With Full Hand", "Zooming Out With Two Fingers",
+    "Call", "Fist", "Four", "Mute", "OK", "One", "Palm", "Peace", "Rock",
+    "Three-Middle", "Three-Left", "Two Up", "No Gesture",
+]
+
+
+class GestureDataset(PoseDataset):
+    """Hand-gesture pose dataset (reference datasets/gesture_dataset.py:
+    14-155; JAX ``data/dataset.py:GestureDataset``): the 'train+val' split
+    is the union of both; splits with 'train' in the name keep the annos
+    with at least ``valid_frames_thr`` valid frames; ``squeeze`` drops the
+    frames whose keypoint scores are all <= 0 (``total_frames``,
+    ``hand_score`` and ``hand_lr`` follow); ``mode='2D'`` keeps x, y;
+    ``subset`` keeps those labels.  :meth:`evaluate` gives top-1, top-5
+    and top-1 per class of the 40 jester/hagrid gestures."""
+
+    label_names = GESTURE_LABEL_NAMES
+
+    def __init__(self, ann_file: str, pipeline, split: str,
+                 valid_frames_thr: int = 0, squeeze: bool = True,
+                 mode: str = "2D", subset=None, test_mode: bool = False):
+        self.valid_frames_thr, self.squeeze, self.mode = (
+            valid_frames_thr, squeeze, mode)
+        data = load_annotations(ann_file)
+        annos, splits = data["annotations"], data["split"]
+        allowed = (set(splits["train"] + splits["val"])
+                   if split == "train+val" else set(splits[split]))
+        key = "filename" if "filename" in annos[0] else "frame_dir"
+        annos = [a for a in annos if a[key] in allowed]
+        if "train" in split and "valid_frames" in annos[0]:
+            annos = [a for a in annos
+                     if a["valid_frames"] >= valid_frames_thr]
+        out = []
+        for item in annos:
+            item = dict(item)
+            kp = np.asarray(item["keypoint"])
+            if kp.ndim == 2:
+                kp = kp[None, None]
+            elif squeeze and kp.ndim == 4:
+                if kp.shape[0] != 1:
+                    raise ValueError(f"gesture anno {item[key]}: {kp.shape[0]}"
+                                     " hands, one expected")
+                flag = (kp[0, ..., 2] > 0).sum(axis=1) > 0
+                item["total_frames"] = int(flag.sum())
+                kp = kp[:, flag]
+                for extra in ("hand_score", "hand_lr"):
+                    if extra in item:
+                        item[extra] = np.asarray(item[extra])[:, flag]
+            if mode == "2D":
+                kp = kp[..., :2]
+            item["keypoint"] = kp
+            if subset is None or item["label"] in subset:
+                out.append(item)
+        self.ann_file = ann_file
+        self.pipeline = (pipeline if isinstance(pipeline, Compose)
+                         else build_pipeline(pipeline))
+        self.test_mode = test_mode
+        self.video_infos = out
+
+    def evaluate(self, scores: np.ndarray) -> Dict:
+        """Top-1, top-5 and per-class top-1 (gesture_dataset.py:105-155)."""
+        gt = self.labels
+        order = np.argsort(-np.asarray(scores), axis=1)
+        hit1 = order[:, 0] == gt
+        hit5 = (order[:, :5] == gt[:, None]).any(axis=1)
+        res = {"top1_acc": float(hit1.mean()), "top5_acc": float(hit5.mean()),
+               "per_class": {}}
+        for i, name in enumerate(self.label_names):
+            mask = gt == i
+            if mask.any():
+                res["per_class"][name] = float(hit1[mask].mean())
+        return res
+
+
 class RepeatDataset:
     """A dataset repeated ``times`` times (dataset_wrappers.py:8-38): the
     reference's way of scaling an epoch (the STGCN++ configs train on
@@ -97,6 +181,27 @@ class RepeatDataset:
     @property
     def labels(self) -> np.ndarray:
         return np.tile(self.dataset.labels, self.times)
+
+
+class ConcatDataset:
+    """Datasets one after another (dataset_wrappers.py:42-73)."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def prepare(self, idx: int, rng: Optional[np.random.RandomState] = None):
+        d = int(np.searchsorted(self._offsets, idx, side="right") - 1)
+        return self.datasets[d].prepare(idx - self._offsets[d], rng=rng)
+
+    __getitem__ = prepare
+
+    @property
+    def labels(self) -> np.ndarray:
+        return np.concatenate([d.labels for d in self.datasets])
 
 
 def epoch_indices(n: int, epoch: int, shuffle: bool = True,
@@ -256,16 +361,27 @@ def make_compressed_pose_anno(seed=0, t=120, v=17, max_per_frame=3,
 
 def build_dataset(dcfg: Dict, test_mode: bool = False):
     """Config-dict dataset factory (reference datasets/builder.py:42); the
-    port has ``PoseDataset`` and the ``RepeatDataset`` wrapper."""
+    port has ``PoseDataset``, ``GestureDataset`` and the ``RepeatDataset``
+    and ``ConcatDataset`` wrappers."""
     dcfg = dict(dcfg)
     typ = dcfg.pop("type", "PoseDataset")
     if typ == "RepeatDataset":
         return RepeatDataset(build_dataset(dcfg["dataset"], test_mode),
                              dcfg.get("times", 1))
+    if typ == "ConcatDataset":
+        return ConcatDataset([build_dataset(d, test_mode)
+                              for d in dcfg["datasets"]])
+    if typ == "GestureDataset":
+        return GestureDataset(
+            dcfg["ann_file"], dcfg["pipeline"], split=dcfg["split"],
+            valid_frames_thr=dcfg.get("valid_frames_thr", 0),
+            squeeze=dcfg.get("squeeze", True), mode=dcfg.get("mode", "2D"),
+            subset=dcfg.get("subset"), test_mode=test_mode)
     if typ != "PoseDataset":
         raise NotImplementedError(f"dataset {typ!r} is not ported yet (the "
-                                  "port has 'PoseDataset' and "
-                                  "'RepeatDataset')")
+                                  "port has 'PoseDataset', "
+                                  "'GestureDataset', 'RepeatDataset' and "
+                                  "'ConcatDataset')")
     return PoseDataset(dcfg["ann_file"], dcfg["pipeline"],
                        split=dcfg.get("split"),
                        valid_ratio=dcfg.get("valid_ratio"),

@@ -13,7 +13,10 @@ CTRGCN, ``dggcn`` for DG-STGCN, ``dgphgcn1`` for DS-GCN) -> temporal conv
 (``unit_tcn``, ``mstcn``, CTR-GCN's ``CTRMSTCN`` or ``dgmstcn``)
 (+ residual, ReLU).  Input ``(N, M, T, V, C)``
 channels-last, output ``(N, M, T/4, V, C_out)``.  Blocks are named
-``block{i}`` as the flax scopes are.
+``block{i}`` as the flax scopes are.  ``remat`` (training only, JAX
+``_BackboneBase.remat``): True recomputes each whole block in the backward,
+'tcn' each DGBlock's temporal unit only (``ops/common.py:remat_call``);
+the state dict is the same either way.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graph import Graph, GraphConfig
-from ..ops.common import BatchNorm
+from ..ops.common import BatchNorm, remat_call
 from ..ops.gcn import (DGGCN, DGPHGCN1, UnitAAGCN, UnitAAHGCN, UnitCTRGCN,
                        UnitCTRHGCN, UnitGCN)
 from ..ops.tcn import CTRMSTCN, DGMSTCN, MSTCN, UnitTCN
@@ -155,8 +158,10 @@ class DGBlock(nn.Module):
                  residual: bool = True, gcn_type: str = "dggcn",
                  gcn_kwargs: Optional[Dict[str, Any]] = None,
                  tcn_type: str = "dgmstcn",
-                 tcn_kwargs: Optional[Dict[str, Any]] = None):
+                 tcn_kwargs: Optional[Dict[str, Any]] = None,
+                 remat_tcn: bool = False):
         super().__init__()
+        self.remat_tcn = remat_tcn
         if gcn_type not in ("dggcn", "dgphgcn1"):
             raise NotImplementedError(
                 f"gcn_type={gcn_type!r} is not ported yet (the port has "
@@ -175,7 +180,10 @@ class DGBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         res = self.residual(x)
-        return F.relu(self.tcn(self.gcn(x)) + res)
+        y = self.gcn(x)
+        y = (remat_call(self.tcn, y) if self.remat_tcn and self.training
+             else self.tcn(y))
+        return F.relu(y + res)
 
 
 def stage_plan(in_channels: int, base_channels: int, ch_ratio: float,
@@ -210,9 +218,13 @@ class _BackboneBase(nn.Module):
                  num_stages: int = 10,
                  inflate_stages: Sequence[int] = (5, 8),
                  down_stages: Sequence[int] = (5, 8),
-                 data_bn_type: Optional[str] = "VC",
+                 data_bn_type: Optional[str] = "VC", remat: Any = False,
                  block_args: Optional[Mapping[str, Any]] = None):
         super().__init__()
+        if remat not in (False, True, "tcn"):
+            raise ValueError(f"remat must be False, True or 'tcn'; got "
+                             f"{remat!r}")
+        self.remat = remat
         graph = Graph.from_config(graph_cfg)
         A = graph.A.astype(np.float32)
         if data_bn_type not in ("VC", "MVC", None):
@@ -245,7 +257,9 @@ class _BackboneBase(nn.Module):
             x = self.data_bn(x)
         x = x.reshape(n * m, t, v, c)
         for i in range(self.num_blocks):
-            x = getattr(self, f"block{i}")(x)
+            blk = getattr(self, f"block{i}")
+            x = (remat_call(blk, x) if self.remat is True and self.training
+                 else blk(x))
         return x.reshape((n, m) + x.shape[1:])
 
 
@@ -340,7 +354,8 @@ class DGSTGCN(_BackboneBase):
         return DGBlock(in_c, out_c, A=A, edge_type=graph.edge_type,
                        node_type=nt, stride=stride, residual=residual,
                        gcn_type=gcn_type, gcn_kwargs=gcn_kwargs,
-                       tcn_type=tcn_type, tcn_kwargs=tcn_kwargs)
+                       tcn_type=tcn_type, tcn_kwargs=tcn_kwargs,
+                       remat_tcn=self.remat == "tcn")
 
 
 class STGCN(_BackboneBase):

@@ -8,11 +8,13 @@ JAX checkpoints.
 """
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-5
 
@@ -110,6 +112,8 @@ class BatchNorm(nn.Module):
     :func:`accum_dtype`, the variance as ``E[x^2] - E[x]^2`` and biased in
     the normalization, as JAX computes it; the running statistics move with
     momentum 0.1, the variance with Bessel's correction n/(n-1) (torch).
+    Under :func:`remat_call` the recompute in the backward leaves the
+    running statistics alone, so a step moves them once.
     Eval applies the folded affine ``x * a + b`` with
     ``a = rsqrt(var + 1e-5) * weight`` and ``b = bias - mean * a``, computed
     in :func:`accum_dtype` and applied in the activation dtype.
@@ -139,12 +143,13 @@ class BatchNorm(nn.Module):
         mean = xm.mean(dim=axes)
         var = (xm * xm).mean(dim=axes) - mean * mean
         n = xm.numel() // self.num_features
-        with torch.no_grad():
-            bessel = n / max(n - 1, 1)
-            self.running_mean.mul_(0.9).add_(
-                0.1 * mean.to(self.running_mean.dtype))
-            self.running_var.mul_(0.9).add_(
-                0.1 * (var * bessel).to(self.running_var.dtype))
+        if not recomputing():
+            with torch.no_grad():
+                bessel = n / max(n - 1, 1)
+                self.running_mean.mul_(0.9).add_(
+                    0.1 * mean.to(self.running_mean.dtype))
+                self.running_var.mul_(0.9).add_(
+                    0.1 * (var * bessel).to(self.running_var.dtype))
         mul = torch.rsqrt(var + BN_EPS) * self.weight.to(acc)
         return ((xm - mean) * mul + self.bias.to(acc)).to(x.dtype)
 
@@ -164,6 +169,83 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     keep = torch.empty(x.shape, device=x.device).bernoulli_(
         1 - p, generator=generator)
     return x * (keep / (1 - p)).to(x.dtype)
+
+
+class _RematState(threading.local):
+    recomputing = False
+
+
+# per thread: the backward's recompute runs on the autograd engine's thread
+_REMAT = _RematState()
+
+
+def recomputing() -> bool:
+    """True inside the backward's recompute of a :func:`remat_call`."""
+    return _REMAT.recomputing
+
+
+def _generators(fn) -> list:
+    """The distinct ``torch.Generator``s that ``fn``'s modules draw
+    dropout masks from."""
+    mods = fn.modules() if isinstance(fn, nn.Module) else ()
+    gens = {id(g): g for g in (getattr(m, "generator", None) for m in mods)
+            if isinstance(g, torch.Generator)}
+    return list(gens.values())
+
+
+class _RematForward:
+    """The forward of one :func:`remat_call`: notes the state of each
+    generator its dropouts draw from."""
+
+    def __init__(self, gens: list):
+        self.gens, self.states = gens, []
+
+    def __enter__(self):
+        self.states = [g.get_state() for g in self.gens]
+
+    def __exit__(self, *exc):
+        pass
+
+
+class _RematRecompute:
+    """The backward's recompute of one :func:`remat_call` (each time it
+    runs): sets the forward's generator states, so dropout draws the same
+    masks (torch's ``preserve_rng_state`` restores its default generators
+    only), holds :func:`recomputing` true, and afterwards puts back the
+    states the generators had."""
+
+    def __init__(self, forward: _RematForward):
+        self.forward = forward
+
+    def __enter__(self):
+        gens = self.forward.gens
+        self.now = [g.get_state() for g in gens]
+        self.outer, _REMAT.recomputing = _REMAT.recomputing, True
+        for g, state in zip(gens, self.forward.states):
+            g.set_state(state)
+
+    def __exit__(self, *exc):
+        _REMAT.recomputing = self.outer
+        for g, state in zip(self.forward.gens, self.now):
+            g.set_state(state)
+
+
+def _remat_contexts(fn):
+    forward = _RematForward(_generators(fn))
+    return forward, _RematRecompute(forward)
+
+
+def remat_call(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+    """``fn(*args)`` rematerialized (JAX ``nn.remat``): the activations
+    inside are freed after the forward and recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  Two effects of ``fn`` that
+    a plain recompute would repeat are held to one: a :class:`BatchNorm`
+    moves its running statistics in the forward only, and a
+    :func:`dropout` draws the forward's mask again from its generator's
+    state at the forward, so loss, gradients and statistics equal those
+    without remat."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: _remat_contexts(fn))
 
 
 def max_pool_t(x: torch.Tensor, window: int, stride: int,

@@ -157,16 +157,46 @@ def _gate(gates: torch.Tensor, K: int, sem: int, norm: int,
 
 def _dispatch_contract(pre_x: torch.Tensor, G: torch.Tensor, ctr,
                        ada) -> torch.Tensor:
-    """The reference einsum dispatch on graph dims (gcn.py:1560-1580) for
-    T-pooled graphs.  pre_x: (N, T, V, K, C); G: (K, V, V) when neither
-    dynamic graph is on, else (N, K, Cq, V, V) with Cq in {1, C}.
-    Returns (N, T, W, K, C)."""
+    """The reference four-way einsum dispatch on graph dims (gcn.py:1560-
+    1580; JAX ``ops/gcn.py:_dispatch_contract``).  pre_x: (N, T, V, K, C);
+    G: (K, V, V) when neither dynamic graph is on, else (N, K, Cq, V, V)
+    for T-pooled graphs or (N, K, Cq, T, V, V) for per-frame ('NA') ones,
+    with Cq in {1, C}.  Returns (N, T, W, K, C)."""
+    G = G.to(pre_x.dtype)
     if ctr is None and ada is None:
-        return torch.einsum("ntvkc,kvw->ntwkc", pre_x, G.to(pre_x.dtype))
+        return torch.einsum("ntvkc,kvw->ntwkc", pre_x, G)
+    per_frame = G.dim() == 6
     if G.shape[2] == 1:
-        return torch.einsum("ntvkc,nkvw->ntwkc", pre_x,
-                            G[:, :, 0].to(pre_x.dtype))
-    return torch.einsum("ntvkc,nkcvw->ntwkc", pre_x, G.to(pre_x.dtype))
+        return torch.einsum("ntvkc,nktvw->ntwkc" if per_frame
+                            else "ntvkc,nkvw->ntwkc", pre_x, G[:, :, 0])
+    return torch.einsum("ntvkc,nkctvw->ntwkc" if per_frame
+                        else "ntvkc,nkcvw->ntwkc", pre_x, G)
+
+
+def _graph_mode(ctr, ada) -> bool:
+    """Checks ``ctr``/``ada`` (None, 'T' or 'NA') and says whether the
+    graphs are per frame: 'NA' on either makes both unpooled, Tq = T (JAX
+    gcn.py:605, :1089)."""
+    for name, value in (("ctr", ctr), ("ada", ada)):
+        if value not in (None, "T", "NA"):
+            raise ValueError(f"unknown {name} {value!r} (None, 'T' or "
+                             "'NA')")
+    return "NA" in (ctr, ada)
+
+
+def _graph_init(A: torch.Tensor, dt: torch.dtype,
+                per_frame: bool) -> torch.Tensor:
+    """The trained graph as the dynamic graphs' accumulator: (1, K, 1, V,
+    V), or (1, K, 1, 1, V, V) for per-frame graphs."""
+    G = A.to(dt)[None, :, None]
+    return G[:, :, :, None] if per_frame else G
+
+
+def _ada_graph(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """The outer-product graph sum_c x1 x2 of (N, K, C, [T,] V) queries:
+    (N, K, [T,] V, W)."""
+    eq = ("nkctv,nkctw->nktvw" if x1.dim() == 5 else "nkcv,nkcw->nkvw")
+    return torch.einsum(eq, x1, x2)
 
 
 def _fold(conv: PointConv, bn: BatchNorm):
@@ -204,13 +234,14 @@ class DGGCN(nn.Module):
     gcn.py:1445-1584; JAX ``dsgcn_tpu/ops/gcn.py:DGGCN``).
 
     ctr: the channel-wise diff graph act(x1 - x2); ada: the outer-product
-    graph act(x1^T x2); both T-pooled and added to the trained A with the
-    gates alpha/beta (per subset with ``subset_wise``, else alpha[0] and
-    beta[0] for every subset; the parameters keep shape (K,)).  Submodule
-    names follow the JAX module's flax scopes.  The JAX module's
-    joint-partitioned mesh mode (``graph_axis``), joint padding
-    (``v_pad``) and per-frame graphs (``ctr``/``ada`` 'NA') are not ported
-    and raise.
+    graph act(x1^T x2); both T-pooled ('T') or, with 'NA' on either, per
+    frame (queries not pooled over T: the dense path only, as in JAX), and
+    added to the trained A with the gates alpha/beta (per subset with
+    ``subset_wise``, else alpha[0] and beta[0] for every subset; the
+    parameters keep shape (K,)).  Submodule names follow the JAX module's
+    flax scopes.  The JAX module's joint-partitioned mesh mode
+    (``graph_axis``) and joint padding (``v_pad``) are not ported and
+    raise.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -226,10 +257,7 @@ class DGGCN(nn.Module):
         if v_pad:
             raise NotImplementedError(
                 "DGGCN v_pad (joint-padded eval) is not ported")
-        if ctr not in (None, "T") or ada not in (None, "T"):
-            raise NotImplementedError(
-                f"DGGCN ctr={ctr!r}/ada={ada!r}: only T-pooled graphs "
-                "('T' or None) are ported")
+        self.per_frame = _graph_mode(ctr, ada)
         if eval_kernel not in DGGCN_EVAL_KERNELS:
             raise ValueError(f"unknown eval_kernel {eval_kernel!r}")
         K = A_init.shape[0]
@@ -277,9 +305,17 @@ class DGGCN(nn.Module):
         n, t, v, c = x.shape
         x1 = x2 = None
         if self.ctr is not None or self.ada is not None:
-            tmp = x.mean(dim=1)                                 # (n, v, c)
-            x1 = self.conv1(tmp).reshape(n, v, K, mid).permute(0, 2, 3, 1)
-            x2 = self.conv2(tmp).reshape(n, v, K, mid).permute(0, 2, 3, 1)
+            if self.per_frame:                          # (n, K, mid, t, v)
+                x1 = self.conv1(x).reshape(n, t, v, K, mid).permute(
+                    0, 3, 4, 1, 2)
+                x2 = self.conv2(x).reshape(n, t, v, K, mid).permute(
+                    0, 3, 4, 1, 2)
+            else:
+                tmp = x.mean(dim=1)                             # (n, v, c)
+                x1 = self.conv1(tmp).reshape(n, v, K, mid).permute(
+                    0, 2, 3, 1)
+                x2 = self.conv2(tmp).reshape(n, v, K, mid).permute(
+                    0, 2, 3, 1)
         kernel = self.use_pallas and _graph_acts_ok(self)
         ek = "fused" if self.training else self.eval_path(c)
         a_vec = _gate_vec(self.alpha, K, 0, K, self.subset_wise)
@@ -323,21 +359,21 @@ class DGGCN(nn.Module):
                                    K=K, Cm=mid)
 
     def _dense_aggregate(self, pre_x, x1, x2):
-        """Materialized graph + einsum (JAX gcn.py:710-732)."""
+        """Materialized graph + einsum (JAX gcn.py:710-732); graphs are
+        (N, K, Cq, [T,] V, V)."""
         K = self.K
         dt = pre_x.dtype
         G = self.A.to(dt)                                       # (K, V, V)
         if self.ctr is not None or self.ada is not None:
-            G = G[None, :, None]                                # (1,K,1,V,V)
+            G = _graph_init(self.A, dt, self.per_frame)
         if self.ctr is not None:
             g = ACTS[self.ctr_act](x1[..., :, None] - x2[..., None, :])
             G = g * _gate(self.alpha, K, 0, K, self.subset_wise,
-                          3).to(dt) + G
+                          g.dim() - 2).to(dt) + G
         if self.ada is not None:
-            g = torch.einsum("nkcv,nkcw->nkvw", x1, x2)[:, :, None]
-            g = ACTS[self.ada_act](g)                           # (n,K,1,V,V)
+            g = ACTS[self.ada_act](_ada_graph(x1, x2)[:, :, None])
             G = g * _gate(self.beta, K, 0, K, self.subset_wise,
-                          3).to(dt) + G
+                          g.dim() - 2).to(dt) + G
         return _dispatch_contract(pre_x, G, self.ctr, self.ada)
 
 
@@ -350,14 +386,24 @@ class DGPHGCN1(nn.Module):
     reference quirks the JAX module keeps: x2 of the semantic subset is the
     ``conv1_se`` query x1 (gcn.py:2253-2254, 2272), and the edge-attention
     diff uses the subset slice [norm-sem : norm] (gcn.py:2279).  Submodule
-    names follow the JAX module's flax scopes.  ``eval_kernel='mega'`` runs
-    the whole eval block in K6, the edge-class attention included, as the
-    JAX module does where ``target_specific`` is off (the port has no
-    ``target_specific``).  The JAX module's ``ada_attention``,
-    ``target_specific`` and ``add_type`` options, its joint-partitioned
-    mesh mode (``graph_axis``), joint padding (``v_pad``) and per-frame
-    graphs (``ctr``/``ada`` 'NA') are not ported yet: each raises, naming
-    the option, when set off its default.
+    names follow the JAX module's flax scopes.
+
+    ``target_specific`` (with ``decompose``): the semantic subsets' values
+    come from a per-node-type 1x1 (``nodeconv_conv``/``nodeconv_bn``,
+    gathered by node type), the normal ones' from ``pre_conv``, semantic
+    first (gcn.py:2228-2234); these values take the same kernels, 'mega'
+    excepted (JAX gcn.py:1154-1155): there K1 serves.  ``ada_attention``:
+    the outer-product graph through ``ada_linears`` (K -> E K) and the edge
+    class select (gcn.py:1241-1250), on the dense path only, as in JAX.
+    ``ctr``/``ada`` 'NA' on either makes the graphs per frame (the queries
+    not T-pooled; dense path only); edge and ada attention need T-pooled
+    graphs and refuse 'NA' (JAX asserts it).  ``add_type`` is accepted
+    with JAX's (lack of) effect: JAX's DGPHGCN1 declares it and never
+    reads it.
+    ``eval_kernel='mega'`` runs the whole eval block in K6, the
+    edge-class attention included.  The JAX module's joint-partitioned
+    mesh mode (``graph_axis``) and joint padding (``v_pad``) are not
+    ported yet and raise, naming the option, when set.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -370,23 +416,17 @@ class DGPHGCN1(nn.Module):
                  use_pallas=False, eval_kernel="auto", graph_axis=None,
                  v_pad=0):
         super().__init__()
-        for name, value, default in (
-                ("ada_attention", ada_attention, False),
-                ("target_specific", target_specific, False),
-                ("add_type", add_type, False),
-                ("graph_axis", graph_axis, None), ("v_pad", v_pad, 0)):
+        for name, value, default in (("graph_axis", graph_axis, None),
+                                     ("v_pad", v_pad, 0)):
             if value != default:
                 raise NotImplementedError(
                     f"DGPHGCN1 {name}={value!r} is not ported yet")
-        if ctr not in (None, "T") or ada not in (None, "T"):
-            raise NotImplementedError(
-                f"DGPHGCN1 ctr={ctr!r}/ada={ada!r}: only T-pooled graphs "
-                "('T' or None) are ported")
+        self.per_frame = _graph_mode(ctr, ada)
         if eval_kernel not in ("auto", "bd", "fused", "mega"):
             raise ValueError(f"unknown eval_kernel {eval_kernel!r}")
         if not stage:   # gcn.py:2122-2127
             node_attention = edge_attention = decompose = False
-            subset_wise = False
+            target_specific = subset_wise = False
         K = A_init.shape[0]
         self.in_channels, self.out_channels = in_channels, out_channels
         self.K = K
@@ -398,6 +438,13 @@ class DGPHGCN1(nn.Module):
         self.decompose, self.subset_wise = decompose, subset_wise
         self.node_attention, self.edge_attention = node_attention, \
             edge_attention
+        self.target_specific = target_specific and decompose
+        self.ada_attention = ada_attention and ada is not None
+        if self.per_frame:      # JAX asserts these at its first call
+            if ctr is not None and decompose and edge_attention:
+                raise ValueError("edge attention requires T-pooled graphs")
+            if self.ada_attention:
+                raise ValueError("ada attention requires T-pooled graphs")
         self.ctr, self.ada = ctr, ada
         self.ctr_act, self.ada_act = ctr_act, ada_act
         self.use_pallas, self.eval_kernel = use_pallas, eval_kernel
@@ -412,8 +459,12 @@ class DGPHGCN1(nn.Module):
         n_gates = K if sub_att else 3
         self.alpha = nn.Parameter(torch.zeros(n_gates))
         self.beta = nn.Parameter(torch.zeros(n_gates))
-        self.pre_conv = PointConv(in_channels, mid * K)
-        self.pre_bn = BatchNorm(mid * K)
+        if self.target_specific:
+            self.nodeconv_conv = PointConv(in_channels, sem * num_types * mid)
+            self.nodeconv_bn = BatchNorm(sem * num_types * mid)
+        values = norm if self.target_specific else K
+        self.pre_conv = PointConv(in_channels, mid * values)
+        self.pre_bn = BatchNorm(mid * values)
         if ctr is not None or ada is not None:
             self.conv1 = PointConv(in_channels, norm * mid)
             self.conv2 = PointConv(in_channels, norm * mid)
@@ -424,6 +475,8 @@ class DGPHGCN1(nn.Module):
                 if ctr is not None and edge_attention:
                     self.edge_linears = PointConv(sem * mid,
                                                   edge_num * sem * mid)
+        if self.ada_attention:
+            self.ada_linears = PointConv(K, edge_num * K)
         self.post_conv = PointConv(K * mid, out_channels)
         self.bn = BatchNorm(out_channels)
         # static graph structure: buffers that move with the module but are
@@ -436,22 +489,40 @@ class DGPHGCN1(nn.Module):
             edge_onehot(np.asarray(edge_type), edge_num)), persistent=False)
 
     def _queries(self, x: torch.Tensor):
-        """T-pooled queries x1, x2: (N, K, mid, V)."""
-        n, _, v, _ = x.shape
+        """The queries x1, x2: (N, K, mid, V) T-pooled, (N, K, mid, T, V)
+        per frame."""
         mid, sem, norm = self.mid, self.sem, self.norm
-        tmp = x.mean(dim=1)                                     # (n, v, c)
-        x1 = self.conv1(tmp).reshape(n, v, norm, mid).permute(0, 2, 3, 1)
-        x2 = self.conv2(tmp).reshape(n, v, norm, mid).permute(0, 2, 3, 1)
+        tmp = x if self.per_frame else x.mean(dim=1, keepdim=True)
+        n, tq, v, _ = tmp.shape
+
+        def heads(y, k, *extra):          # (n, tq, v, k*mid*...) -> k first
+            y = y.reshape(n, tq, v, k, mid, *extra)
+            y = y.permute(0, 3, 4, *range(5, 5 + len(extra)), 1, 2)
+            return y if self.per_frame else y[..., 0, :]
+        x1, x2 = heads(self.conv1(tmp), norm), heads(self.conv2(tmp), norm)
         if not self.decompose:
             return x1, x2
         s = self.conv1_se(tmp)
         if self.node_attention:
-            s = s.reshape(n, v, sem, mid, self.P).permute(0, 2, 3, 4, 1)
-            s = _type_gather(s, self.node_type, type_axis=3)   # (n,sem,mid,v)
+            s = heads(s, sem, self.P)         # (n, sem, mid, P, [tq,] v)
+            s = _type_gather(s, self.node_type, type_axis=3)
         else:
-            s = s.reshape(n, v, sem, mid).permute(0, 2, 3, 1)
+            s = heads(s, sem)
         # the reference concatenates x1_sem into x2 too (gcn.py:2272)
         return torch.cat([x1, s], dim=1), torch.cat([x2, s], dim=1)
+
+    def _values(self, x: torch.Tensor) -> torch.Tensor:
+        """pre_x (N, T, V, K*mid); with ``target_specific`` the semantic
+        subsets' per-node-type values first (gcn.py:2228-2234)."""
+        pre = F.relu(self.pre_bn(self.pre_conv(x)))
+        if not self.target_specific:
+            return pre
+        n, t, v, _ = x.shape
+        xn = F.relu(self.nodeconv_bn(self.nodeconv_conv(x)))
+        xn = xn.reshape(n, t, v, self.sem, self.P, self.mid).movedim(2, -1)
+        xn = _type_gather(xn, self.node_type, type_axis=3)  # (n,t,sem,mid,v)
+        xn = xn.movedim(-1, 2).reshape(n, t, v, self.sem * self.mid)
+        return torch.cat([xn, pre], dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         K, mid, sem = self.K, self.mid, self.sem
@@ -461,12 +532,14 @@ class DGPHGCN1(nn.Module):
             x1, x2 = self._queries(x)
         active_edge = self.edge_attention and self.decompose
         kernel = (self.use_pallas and _graph_acts_ok(self)
+                  and not self.ada_attention
                   and (not active_edge or sem == 1))
-        if kernel and not self.training and self.eval_kernel == "mega":
+        if (kernel and not self.training and self.eval_kernel == "mega"
+                and not self.target_specific):
             return self._mega(x, x1, x2, active_edge)
         res = (self.down_bn(self.down_conv(x))
                if self.in_channels != self.out_channels else x)
-        pre_x = F.relu(self.pre_bn(self.pre_conv(x)))          # (n,t,v,K*mid)
+        pre_x = self._values(x)                                # (n,t,v,K*mid)
         if kernel:
             y = self._kernel_aggregate(pre_x, x1, x2, active_edge)
         else:
@@ -529,16 +602,17 @@ class DGPHGCN1(nn.Module):
             K=K, Cm=mid, **kw)
 
     def _dense_aggregate(self, pre_x, x1, x2):
-        """Materialized graph + einsum (JAX gcn.py:1206-1259)."""
+        """Materialized graph + einsum (JAX gcn.py:1206-1259); graphs are
+        (N, K, Cq, [T,] V, V)."""
         K, mid, sem, norm, E = self.K, self.mid, self.sem, self.norm, self.E
         n, _, V = pre_x.shape[:3]
         dt = pre_x.dtype
         G = self.A.to(dt)                                       # (K, V, V)
         if self.ctr is not None or self.ada is not None:
-            G = G[None, :, None]                                # (1,K,1,V,V)
+            G = _graph_init(self.A, dt, self.per_frame)
         if self.ctr is not None:
             def diff(lo, hi):
-                return x1[:, lo:hi, :, :, None] - x2[:, lo:hi, :, None, :]
+                return x1[:, lo:hi, ..., :, None] - x2[:, lo:hi, ..., None, :]
             if self.decompose:
                 if self.edge_attention:
                     # slice [norm-sem : norm] per reference gcn.py:2279
@@ -553,14 +627,18 @@ class DGPHGCN1(nn.Module):
                               dim=1)
             else:
                 g = diff(0, K)
-            g = ACTS[self.ctr_act](g)                           # (n,K,mid,V,V)
+            g = ACTS[self.ctr_act](g)                     # (n,K,mid,[T,]V,V)
             G = g * _gate(self.alpha, K, sem, norm, self.subset_wise,
-                          3).to(dt) + G
+                          g.dim() - 2).to(dt) + G
         if self.ada is not None:
-            g = torch.einsum("nkcv,nkcw->nkvw", x1, x2)[:, :, None]
-            g = ACTS[self.ada_act](g)                           # (n,K,1,V,V)
+            g = _ada_graph(x1, x2)                              # (n,K,[T,]V,V)
+            if self.ada_attention:
+                gs = self.ada_linears(g.permute(0, 2, 3, 1))    # (n,V,V,K*E)
+                gs = gs.reshape(n, V, V, K, E).permute(0, 3, 4, 1, 2)
+                g = _edge_class_select(gs, self.edge_type)      # (n,K,V,V)
+            g = ACTS[self.ada_act](g[:, :, None])
             G = g * _gate(self.beta, K, sem, norm, self.subset_wise,
-                          3).to(dt) + G
+                          g.dim() - 2).to(dt) + G
         return _dispatch_contract(pre_x, G, self.ctr, self.ada)
 
 

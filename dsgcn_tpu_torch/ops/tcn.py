@@ -2,11 +2,12 @@
 
 The port of ``UnitTCN``, ``_MSBranches``, ``MSTCN`` (STGCN++),
 ``DGMSTCN`` (DG-STGCN, DS-GCN) and ``CTRMSTCN`` (CTR-GCN) from
-``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN runs the reference
-``concat`` layout, which is also the layout JAX trains with: the mean
-joint is appended as an extra joint row, the branch stack runs once (so
-in training the branch BatchNorms see the 26th joint), and the global row
-is scaled back onto every joint (tcn.py:428-460).  With
+``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN trains in the
+reference ``concat`` layout, as JAX does: the mean joint is appended as an
+extra joint row, the branch stack runs once (so in training the branch
+BatchNorms see the 26th joint), and the global row is scaled back onto
+every joint (tcn.py:428-460).  Eval runs the same layout whatever
+``eval_layout`` says (``DGMSTCN``).  With
 ``use_pallas=True`` both take the fused eval kernel K7
 (``ops/kernels/ms_tcn.py``) in eval where JAX does (``DEFAULT_MS_CFG``,
 default widths); training keeps the module path.  Submodule names follow
@@ -29,19 +30,25 @@ DEFAULT_MS_CFG: Tuple[MsCfgEntry, ...] = ((3, 1), (3, 2), (3, 3), (3, 4),
 
 
 class UnitTCN(nn.Module):
-    """k x 1 temporal conv + BN (reference unit_tcn, tcn.py:10-37)."""
+    """k x 1 temporal conv + BN + dropout (reference unit_tcn,
+    tcn.py:10-37).  ``dropout`` acts in training only, its mask drawn from
+    ``self.generator``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 9, stride: int = 1, dilation: int = 1,
-                 norm: Optional[str] = "BN"):
+                 norm: Optional[str] = "BN", dropout: float = 0.0):
         super().__init__()
         self.conv = TemporalConv(in_channels, out_channels, kernel_size,
                                  stride, dilation)
         self.bn = BatchNorm(out_channels) if norm is not None else None
+        self.dropout = dropout
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x)
-        return self.bn(y) if self.bn is not None else y
+        if self.bn is not None:
+            y = self.bn(y)
+        return dropout(y, self.dropout, self.training, self.generator)
 
 
 class _MSBranches(nn.Module):
@@ -179,19 +186,38 @@ class MSTCN(nn.Module):
 class DGMSTCN(nn.Module):
     """DG-STGCN multi-scale TCN with a global joint-mean branch (reference
     dgmstcn, tcn.py:344-431) in the ``concat`` layout, or K7 in eval with
-    ``use_pallas=True``.  ``dropout`` acts in training only, its mask drawn
-    from ``self.generator`` (a ``torch.Generator`` on the activations'
-    device, or None for torch's default).  The JAX module's ``split`` eval
-    layout (an exact rewrite of the same math) and ``branch_kind='mlp'``
-    are not ported.
+    ``use_pallas=True`` where it applies.  ``eval_layout`` takes JAX's
+    'auto' | 'split' | 'concat' (and its ValueError for anything else), and
+    all three run concat: JAX's ``split`` (tcn.py:341-403) is an exact
+    rewrite of the same function, and on the H100 the port's copy of it
+    never beat concat, at b16 or b64 x M2 x T100 (PERF.md §5), so it was
+    taken out.  ``dropout`` acts in training only, its mask drawn from
+    ``self.generator`` (a ``torch.Generator`` on the activations' device,
+    or None for torch's default).  The JAX module's
+    joint-partition mode (``graph_axis``), joint padding (``v_pad``) and
+    ``branch_kind='mlp'`` are not ported: each raises, naming the option,
+    when set.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[float] = None, num_joints: int = 25,
                  dropout: float = 0.0,
                  ms_cfg: Sequence[MsCfgEntry] = DEFAULT_MS_CFG,
-                 stride: int = 1, use_pallas: bool = False):
+                 stride: int = 1, use_pallas: bool = False,
+                 eval_layout: str = "auto", graph_axis=None, v_pad: int = 0,
+                 branch_kind: str = "tcn"):
         super().__init__()
+        for name, value, default in (("graph_axis", graph_axis, None),
+                                     ("v_pad", v_pad, 0),
+                                     ("branch_kind", branch_kind, "tcn")):
+            if value != default:
+                raise NotImplementedError(
+                    f"DGMSTCN {name}={value!r} is not ported yet")
+        if eval_layout not in ("auto", "split", "concat"):
+            raise ValueError(
+                f"eval_layout must be 'auto', 'split' or 'concat'; "
+                f"got {eval_layout!r}")
+        self.eval_layout = eval_layout
         self.branches = _MSBranches(in_channels, out_channels, mid_channels,
                                     ms_cfg, stride)
         width = sum(self.branches.widths)

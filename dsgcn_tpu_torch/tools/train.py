@@ -11,7 +11,10 @@ GPU it stops and says so).  From the config it reads the model, the data
 weight_decay, paramwise_cfg), ``optimizer_config.grad_clip``,
 ``total_epochs``, ``checkpoint_config``, ``evaluation`` and the top-level
 ``compute_dtype`` ('bfloat16' trains in bfloat16 over float32 master
-weights).  It resumes from the latest checkpoint in the work dir unless
+weights).  As JAX's ``tools/train.py`` does, it validates every
+``evaluation.interval`` epochs (and keeps the best checkpoint) whenever the
+config has a ``data.val`` split; ``--validate`` is accepted and changes
+nothing.  It resumes from the latest checkpoint in the work dir unless
 told not to.  ``--test-last`` scores the val split with the final weights
 after training and prints ``final: {metrics}``.
 """
@@ -26,7 +29,9 @@ def parse_args(argv=None):
                                             "recognizer with the port")
     p.add_argument("config")
     p.add_argument("--work-dir")
-    p.add_argument("--validate", action="store_true")
+    p.add_argument("--validate", action="store_true",
+                   help="validate during training (the default wherever "
+                   "the config has data.val)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--total-epochs", type=int)
     p.add_argument("--device", default=None,
@@ -37,9 +42,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_loaders(cfg, seed, validate):
-    """(train, val) loaders; val (None without ``validate`` or a val
-    split) takes the test batch size, in order."""
+def build_loaders(cfg, seed):
+    """(train, val) loaders; val (None without a val split) takes the test
+    batch size, in order (JAX ``tools/train.py:52``)."""
     from ..data.dataset import Loader, build_dataset
 
     data = cfg["data"]
@@ -48,7 +53,7 @@ def build_loaders(cfg, seed, validate):
     train = Loader(build_dataset(data["train"]), batch_size=batch,
                    drop_last=True, seed=seed, num_workers=workers)
     val = None
-    if validate and "val" in data:
+    if "val" in data:
         val = Loader(build_dataset(data["val"], test_mode=True),
                      batch_size=data.get("test_dataloader", {}).get(
                          "videos_per_gpu", batch),
@@ -68,12 +73,10 @@ def main(argv=None):
     cfg.dump(os.path.join(work_dir, "config.json"))
 
     model = build_model(cfg["model"])
-    train_loader, val_loader = build_loaders(
-        cfg, args.seed, args.validate or args.test_last)
+    train_loader, val_loader = build_loaders(cfg, args.seed)
     opt = cfg.get("optimizer", {})
     trainer = Trainer(
-        model, work_dir, train_loader,
-        val_loader if args.validate else None,
+        model, work_dir, train_loader, val_loader,
         total_epochs=args.total_epochs or cfg.get("total_epochs", 80),
         lr=opt.get("lr", 0.1), momentum=opt.get("momentum", 0.9),
         weight_decay=opt.get("weight_decay", 5e-4),

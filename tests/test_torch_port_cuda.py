@@ -847,9 +847,9 @@ def test_cuda_dgstgcn_eval_options_match_cpu(cuda):
 # K7: the fused multi-branch temporal conv
 # ---------------------------------------------------------------------------
 
-def _k7_args(cuda, dtype, C, T, coeff, seed, N=4, Cin=None, mid=None):
-    """x and the folded weights of a Cin -> C region (Cin = C, mid C // 6
-    unless given; rem = C - 5 mid)."""
+def _k7_args(cuda, dtype, C, T, coeff, seed, N=4, Cin=None, mid=None, V=25):
+    """x (N, T, V, Cin) and the folded weights of a Cin -> C region (Cin =
+    C, mid C // 6 unless given; rem = C - 5 mid)."""
     gen = torch.Generator().manual_seed(seed)
     Cin = C if Cin is None else Cin
     mid = C // 6 if mid is None else mid
@@ -865,11 +865,11 @@ def _k7_args(cuda, dtype, C, T, coeff, seed, N=4, Cin=None, mid=None):
     def a(n):
         return (0.5 + torch.rand(n, generator=gen)).to(cuda)
     widths = (rem, mid, mid, mid)
-    x = torch.randn(N, T, 25, Cin, generator=gen).to(cuda, dtype)
+    x = torch.randn(N, T, V, Cin, generator=gen).to(cuda, dtype)
     args = [x, w(Cin, P), b(P), [w(3, cb, cb) for cb in widths],
             [b(cb) for cb in widths], w(Cin, mid), b(mid), a(C), b(C),
             w(C, C), b(C), a(C), b(C)]
-    c = (torch.rand(25, generator=gen) - 0.5).to(cuda) if coeff else None
+    c = (torch.rand(V, generator=gen) - 0.5).to(cuda) if coeff else None
     return args + [c]
 
 
@@ -915,6 +915,27 @@ def test_cuda_k7_serving_shapes_match_plain(cuda, monkeypatch, C, T, stride,
     monkeypatch.setattr(ms_tcn, "tile_plan",
                         lambda N, *a, **k: plan(128, *a, **k))
     _k7_check(_k7_args(cuda, dtype, C, T, coeff, seed=C + T + stride, N=3),
+              stride, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("coeff", [False, True])
+@pytest.mark.parametrize("V,C,T,stride,N", [
+    (21, 64, 10, 1, 64), (21, 128, 10, 2, 64), (21, 128, 5, 1, 64),
+    (17, 64, 100, 1, 128), (17, 128, 100, 2, 128), (17, 128, 50, 1, 128),
+    (17, 256, 50, 2, 128), (17, 256, 25, 1, 128)])
+def test_cuda_k7_hand_and_coco_shapes_match_plain(cuda, monkeypatch, V, C, T,
+                                                  stride, N, coeff, dtype):
+    """K7 at the joint counts of the gesture config (the MediaPipe hand, V
+    = 21: its clip of 10 frames, 5 after the stride-2 block; N = 64
+    skeletons a serving batch) and of the hrnet configs (COCO, V = 17;
+    STGCN++'s temporal units at b64 x M2 x T100), under the plans the
+    planner makes for N skeletons, on N = 3."""
+    plan = ms_tcn.tile_plan
+    monkeypatch.setattr(ms_tcn, "tile_plan",
+                        lambda n, *a, **k: plan(N, *a, **k))
+    _k7_check(_k7_args(cuda, dtype, C, T, coeff, seed=V + C + T, N=3, V=V),
               stride, dtype)
 
 

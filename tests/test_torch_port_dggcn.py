@@ -317,6 +317,12 @@ def test_dggcn_dense_options_match_jax(kw):
     (dict(graph_axis="joints"), "graph_axis"), (dict(v_pad=32), "v_pad"),
     (dict(ctr="NA"), "'NA'"), (dict(ada="NA"), "'NA'")])
 def test_dggcn_unported_options_raise(kw, what):
+    """``graph_axis`` and ``v_pad`` raise, naming the option; per-frame
+    graphs ('NA') are ported and build (their parity with JAX is
+    ``test_torch_port_options.py``'s)."""
+    if what == "'NA'":
+        assert DGGCN(16, 16, A_init=_graph8(), **kw).per_frame
+        return
     with pytest.raises(NotImplementedError, match=what):
         DGGCN(16, 16, A_init=_graph8(), **kw)
 

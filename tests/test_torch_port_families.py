@@ -240,10 +240,16 @@ def _train_parity_f64(jmod, port, v, x, seed):
     want = convert_jax_variables({"params": gp})
     floor = 1e-2 * max(np.abs(w.numpy()).max() for w in want.values())
     for name, p in port.named_parameters():
-        assert_rel(p.grad.numpy(), want[name].numpy(), 1e-8, f"grad {name}",
+        # a parameter off the path (a gate of a graph that is off) has no
+        # gradient in torch and a zero one in JAX
+        got = p.grad if p.grad is not None else torch.zeros_like(p)
+        assert_rel(got.numpy(), want[name].numpy(), 1e-8, f"grad {name}",
                    floor)
     stats = convert_jax_variables({"batch_stats": mut["batch_stats"]})
-    for name, b in port.named_buffers():
+    state = port.state_dict()
+    buffers = {k: b for k, b in port.named_buffers() if k in state}
+    assert buffers.keys() == stats.keys()
+    for name, b in buffers.items():
         assert_rel(b.numpy(), stats[name].numpy(), 1e-8, name)
 
 
@@ -510,9 +516,25 @@ def test_init_rules_follow_jax(family):
     ("ada_attention", True), ("target_specific", True), ("add_type", True),
     ("graph_axis", "joints"), ("v_pad", 32)])
 def test_dgphgcn1_unported_options_raise(option, value):
-    """The options JAX's DGPHGCN1 has and the port's lacks raise, naming
-    the option, where a config sets them; at their defaults they build."""
+    """The options JAX's DGPHGCN1 has and the port's lacks (``graph_axis``,
+    ``v_pad``) raise, naming the option, where a config sets them; at their
+    defaults they build.  ``ada_attention``, ``target_specific`` and
+    ``add_type`` are ported: set, each builds what it adds
+    (``ada_linears``, the per-node-type ``nodeconv_*``) or, for
+    ``add_type``, which DGPHGCN1 never reads, the default's parameters
+    (their parity with JAX is ``test_torch_port_options.py``'s)."""
     graph = _graph(25)
+    if option in ("ada_attention", "target_specific", "add_type"):
+        shapes = [{k: tuple(t.shape) for k, t in DGPHGCN1(
+            16, 16, **graph, decompose=True, **kw).state_dict().items()}
+            for kw in ({}, {option: value})]
+        added = {k.split(".")[0] for k in set(shapes[1]) - set(shapes[0])}
+        assert added == {"ada_attention": {"ada_linears"},
+                         "target_specific": {"nodeconv_conv", "nodeconv_bn"},
+                         "add_type": set()}[option]
+        if option == "add_type":
+            assert shapes[1] == shapes[0]
+        return
     with pytest.raises(NotImplementedError, match=option):
         DGPHGCN1(16, 16, **graph, **{option: value})
     default = {"graph_axis": None, "v_pad": 0}.get(option, False)

@@ -1,15 +1,17 @@
-"""The 64 committed AAGCN and CTR-GCN configs in the port.
+"""The 128 committed AAGCN, CTR-GCN, ST-GCN and STGCN++ configs in the
+port.
 
-Each of ``configs/{aagcn,ctrgcn}/*/{j,b,jm,bm}.py`` reads the same with the
-port's ``Config.fromfile`` as with JAX's (its model and its train, val and
-test pipelines, which build in the port); for each of the eight distinct
-model dicts, JAX's variables (``jax.eval_shape`` + numpy) convert and load
-strictly into the port's ``build_model`` at full width (the classifier's
-for each class count).  On the CPU (``--device cpu``), the j stream of
-each family and CTR-GCN's b stream, narrowed to two blocks, go through the
-train CLI (``--test-last``) and the test CLI, and CTR-GCN's two through
-the fusion CLI; the fused scores must equal the numpy sum of the two
-pickles exactly.  Inference leaves a dense hrnet anno as it was.
+Each of ``configs/{aagcn,ctrgcn,stgcn,stgcnpp}/*/{j,b,jm,bm}.py`` reads
+the same with the port's ``Config.fromfile`` as with JAX's (its model and
+its train, val and test pipelines, which build in the port); for each of
+the sixteen distinct model dicts, JAX's variables (``jax.eval_shape`` +
+numpy) convert and load strictly into the port's ``build_model`` at full
+width (the classifier's for each class count).  On the CPU (``--device
+cpu``), the j stream of AAGCN and the j and b streams of CTR-GCN and
+ST-GCN, narrowed to two blocks, go through the train CLI (``--test-last``)
+and the test CLI, and each family's two through the fusion CLI; the fused
+scores must equal the numpy sum of the two pickles exactly.  Inference
+leaves a dense hrnet anno as it was.
 """
 import pathlib
 import pickle
@@ -32,16 +34,26 @@ from dsgcn_tpu_torch.utils.convert import convert_jax_variables
 from test_torch_port_dggcn import _variables
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FAMILIES = ("aagcn", "ctrgcn")
+FAMILIES = ("aagcn", "ctrgcn", "stgcn", "stgcnpp")
 CONFIGS = sorted(str(p.relative_to(REPO)) for f in FAMILIES
                  for p in (REPO / "configs" / f).glob("*/*.py"))
 LAYOUTS = [(f, lay) for f in FAMILIES for lay in ("nturgb+d", "coco")]
 
 
 def test_every_committed_config_is_covered():
-    assert len(CONFIGS) == 64
+    """Every stream config of the families on disk is held, four streams
+    of eight splits each."""
+    on_disk = sorted(str(p.relative_to(REPO)) for p in REPO.glob(
+        "configs/*/*/*.py") if p.parts[-3] in FAMILIES)
+    assert CONFIGS == on_disk and len(CONFIGS) == 128
+    for family in FAMILIES:
+        for split in {p.split("/")[2] for p in CONFIGS
+                      if p.split("/")[1] == family}:
+            assert sorted(p.split("/")[-1] for p in CONFIGS
+                          if p.split("/")[1:3] == [family, split]) == [
+                "b.py", "bm.py", "j.py", "jm.py"], (family, split)
     models = {repr(Config.fromfile(str(REPO / c))["model"]) for c in CONFIGS}
-    assert len(models) == 8            # 2 families x 2 layouts x 60/120
+    assert len(models) == 16           # 4 families x 2 layouts x 60/120
 
 
 def _pipelines(cfg):
@@ -120,7 +132,8 @@ def _printed(out, key):
 
 
 @pytest.mark.parametrize("family,streams", [("aagcn", ("j",)),
-                                            ("ctrgcn", ("j", "b"))])
+                                            ("ctrgcn", ("j", "b")),
+                                            ("stgcn", ("j", "b"))])
 def test_train_test_and_fuse(family, streams, tmp_path, capsys, one_thread):
     """The committed NTU j (and b) configs, narrowed to two blocks of 16
     channels and 5 classes, on a synthetic pickle: one epoch through the
@@ -148,6 +161,7 @@ def test_train_test_and_fuse(family, streams, tmp_path, capsys, one_thread):
                                   "--total-epochs", "1", "--device", "cpu",
                                   "--test-last"])
         assert type(trainer.model.backbone).__name__ == family.upper()
+        assert trainer.val_loader is not None   # data.val: validated
         assert "final: {" in capsys.readouterr().out
         out = str(tmp_path / f"s_{stream}.pkl")
         test_cli.main([str(cfg), wd, "--out", out, "--device", "cpu"])

@@ -361,6 +361,28 @@ def test_train_cli_checkpoints_and_resumes(tmp_path):
     assert losses and all(np.isfinite(losses))
 
 
+def test_train_cli_validates_without_the_flag(tmp_path):
+    """As JAX's tools/train.py (:52, :105): a config with ``data.val`` is
+    validated every ``evaluation.interval`` epochs, and the best
+    checkpoint kept, with no ``--validate`` on the command line."""
+    cfg = _cli_config(tmp_path)
+    wd = tmp_path / "wd"
+    trainer = cli.main([cfg, "--work-dir", str(wd), "--device", "cpu",
+                        "--total-epochs", "2", "--seed", "2"])
+    assert trainer.val_loader is not None
+    records = [json.loads(line) for f in sorted(wd.glob("*.log.jsonl"))
+               for line in f.read_text().splitlines()]
+    vals = [r for r in records if r.get("mode") == "val"]
+    assert [r["epoch"] for r in vals] == [0, 1]
+    assert all(0 <= r["top1_acc"] <= 1 for r in vals)
+    metas = [json.loads((wd / "ckpt" / f"{s}.json").read_text())
+             for s in (3, 6)]
+    best = max(vals, key=lambda r: r["top1_acc"])
+    assert metas[-1]["score"] == best["top1_acc"]
+    assert metas[-1]["best_epoch"] == best["epoch"]
+    assert metas[0]["best"]                 # the first score is the best yet
+
+
 def test_trainer_needs_cuda_unless_cpu_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
