@@ -66,10 +66,24 @@ idle time; DS-GCN and DG-STGCN steps at b128 under ``remat`` False, 'tcn' and Tr
 statistics equal, K1 twice a block under True, peak memory); DS-GCN with
 ``target_specific`` (K3 and K1 serving, a K1 + K2 step),
 ``ada_attention`` and per-frame graphs ('NA', dense, at b16 with peak
-memory).  Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16,
-17; ``--every-config`` runs 15 alone, ``--families`` 16 alone
+memory).  Phase 18 takes serving export: calibrated full-width DS-GCN (f32
+and bf16), DG-STGCN ('auto') and STGCN++ (K7) saved as checkpoints of the
+port's trainer, exported through ``python -m dsgcn_tpu_torch.tools.export``
+(four processes at once) and served with ``load_exported`` in a process
+of their own (``--serve-artifacts``, which imports no model code): a
+dynamic batch, the live module's logits (f32 within 1e-5; bf16 2e-3, top-1
+equal) and kernel launches a forward (10 K3; 7 K1 + 3 K4; 10 K7), clips/s
+of a (64, 2, 100, 25, 3) batch beside the live module's, ``predict``'s
+latency, the export time; DS-GCN and DG-STGCN in joint-padded mode
+(``to_padded_inference(v_pad=32)``, which runs at the real joints; f32
+and bf16) against the model with the same launches; a pyskl-named
+``.pth`` (``to_pyskl_state_dict``) through ``load_torch_checkpoint`` into
+DS-GCN, the card against the CPU.
+Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18;
+``--every-config`` runs 15 alone, ``--families`` 16 alone
 (``chiprun_out/families.json``), ``--options`` 17 alone
-(``chiprun_out/options.json``).  Any failed check raises, and the script
+(``chiprun_out/options.json``), ``--serving`` 18 alone
+(``chiprun_out/serving.json``).  Any failed check raises, and the script
 exits non-zero without a result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
@@ -185,7 +199,7 @@ def block_inputs(rng, dev, Cm, T, dtype, Vp=V, v_real=-1, N=N_BLOCK, K=K,
     pad = Vp - sel.shape[-1]
     sel = np.pad(sel, ((0, 0), (0, pad), (0, pad)))
     d["sel"] = torch.from_numpy(sel).to(dev)
-    if v_real > 0:   # padded joints: zero values, as the model pads them
+    if v_real > 0:   # padded joints: zero values, as JAX pads them
         d["pre"][:, :, v_real:] = 0
     q1, q2 = d["x1"][:, 1], d["x2"][:, 1]
     w = d["ew"]
@@ -3176,6 +3190,303 @@ def options_phase(dev, card, report):
                 v17=(h_worst, h_fwd, h_counts, HRNET_N))
 
 
+# ---------------------------------------------------------------------------
+# phase 18: serving export, joint-padded mode, pyskl import
+# ---------------------------------------------------------------------------
+
+# each artifact's kernel launches a forward: the live module's main path
+ARTIFACTS = {"dsgcn": {"bd_dyn_graph_agg": 10},
+             "dsgcn_bf16": {"bd_dyn_graph_agg": 10},
+             "dgstgcn": DG_AUTO,
+             "stgcnpp_k7": {"fused_dgmstcn_eval": 10}}
+SERVE_REQUESTS = 4
+
+
+def per_forward(counts, forwards):
+    return {k: v / forwards for k, v in counts.items() if v}
+
+
+def timed_forward(fn, x, iters=5):
+    """ms a forward of ``fn`` on ``x`` after two warm-up calls."""
+    with torch.no_grad():
+        for _ in range(2):
+            fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(x)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def serve_artifacts(tmp):
+    """The artifacts' side of phase 18, in a process of its own: each
+    artifact through ``load_exported`` (which must import nothing of the
+    port's models, configs or data), its logits on the requests' clips
+    with the kernel launches around them and ``predict``'s latency per
+    request; then, the models imported, each artifact's program and its
+    live module (from the same checkpoint) timed in turns (live, program,
+    program, live) on a (64, 2, 100, 25, 3) batch on the card, and through
+    ``logits`` from the host.  Results into ``tmp/served.json``."""
+    from dsgcn_tpu_torch.serving import load_exported
+    print(f"card: {card_line()}", flush=True)
+    tmp = pathlib.Path(tmp)
+    requests = np.load(tmp / "requests.npy")
+    out, served = {}, {}
+    for name in ARTIFACTS:
+        t0 = time.perf_counter()
+        served[name] = srv = load_exported(str(tmp / name / "art"))
+        load_s = time.perf_counter() - t0
+        srv.logits(requests[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        logits = np.stack([srv.logits(r) for r in requests])
+        torch.cuda.synchronize()
+        counts = per_forward(read_counts(), len(requests))
+        np.save(tmp / name / "logits.npy", logits)
+        predict_ms = []
+        for r in requests:
+            t0 = time.perf_counter()
+            scores = srv.predict(r)
+            predict_ms.append((time.perf_counter() - t0) * 1e3)
+        check(scores.shape == (60,) and bool(np.isfinite(scores).all()),
+              f"{name}: predict gave {scores.shape} / non-finite")
+        out[name] = dict(manifest=srv.manifest, load_s=load_s,
+                         launches_per_forward=counts, predict_ms=predict_ms)
+        print(f"artifact {name}: loaded in {load_s:.1f} s, launches a "
+              f"forward {json.dumps(counts)}, predict ms "
+              + ", ".join(f"{ms:.3f}" for ms in predict_ms), flush=True)
+    bad = sorted(m for m in sys.modules if m.startswith((
+        "dsgcn_tpu_torch.models", "dsgcn_tpu_torch.configs",
+        "dsgcn_tpu_torch.data")) or m.split(".")[0] in ("jax", "dsgcn_tpu"))
+    check(not bad, f"serving imported {bad}")
+
+    from dsgcn_tpu_torch.apis import init_recognizer, to_bf16_inference
+    from dsgcn_tpu_torch.core.checkpoint import CheckpointManager
+    x = np.random.default_rng(3).standard_normal(THROUGHPUT_BATCH).astype(
+        np.float32)
+    xd = torch.from_numpy(x).cuda()
+    sources = json.loads((tmp / "sources.json").read_text())
+    for name, (config, work_dir, bf16) in sources.items():
+        live = init_recognizer(config)
+        CheckpointManager(work_dir).restore(live)
+        live = to_bf16_inference(live) if bf16 else live
+        program = served[name]._fns[None]
+        turns = [(who, timed_forward(live if who == "live" else program, xd))
+                 for who in ("live", "program", "program", "live")]
+        ms = {who: float(np.mean([t for w, t in turns if w == who]))
+              for who in ("live", "program")}
+        ms["logits"] = timed_forward(served[name].logits, x)
+        out[name]["throughput"] = {
+            who: dict(ms_per_forward=t,
+                      clips_per_s=THROUGHPUT_BATCH[0] / t * 1e3)
+            for who, t in ms.items()}
+        out[name]["turns_ms"] = turns
+        if name.startswith("dsgcn"):     # the host-bound ones: busy, idle
+            for who, fn in (("live", live), ("program", program)):
+                breakdown(fn, xd, who, out[name], tag=f"artifact {name} ")
+        print(f"artifact {name}: b64 ms a forward, in turns "
+              + ", ".join(f"{w} {t:.3f}" for w, t in turns)
+              + f"; through logits (host input) {ms['logits']:.3f}",
+              flush=True)
+        del live
+    (tmp / "served.json").write_text(json.dumps(out, indent=1))
+
+
+def export_config(tmp, name, base, model):
+    """A config file in ``tmp`` on ``base`` whose model is replaced
+    (``model``: the text of its ``model = ...`` lines)."""
+    path = tmp / f"{name}.py"
+    path.write_text(f"_base_ = [{str(base)!r}]\n{model}\n")
+    return path
+
+
+def save_checkpoint(model, work_dir):
+    """The model's weights as step 0 of the port's trainer's checkpoints."""
+    from dsgcn_tpu_torch.core.checkpoint import CheckpointManager
+    from dsgcn_tpu_torch.core.train import make_optimizer
+    opt, sched = make_optimizer(model, total_steps=1)
+    CheckpointManager(str(work_dir)).save(0, model, opt, sched, epoch=0)
+
+
+def live_requests(model, requests):
+    """The live module's logits on the requests, and its kernel launches a
+    forward."""
+    reset_counts()
+    with torch.inference_mode():
+        logits = np.stack([model(torch.from_numpy(r).cuda()).float().cpu()
+                           .numpy() for r in requests])
+    torch.cuda.synchronize()
+    return logits, per_forward(read_counts(), len(requests))
+
+
+def padded_checks(name, model, bf16, requests, per_fwd, out):
+    """``to_padded_inference(v_pad=32)`` of a live model, f32 and bf16,
+    which runs at the real joints: logits on the requests against the
+    model's (f32 within 1e-4, bf16 2e-3, top-1 equal) and the same
+    K1/K3/K4 launches a forward."""
+    from dsgcn_tpu_torch.apis import to_bf16_inference, to_padded_inference
+    padded = to_padded_inference(model)
+    padded_bf16 = to_bf16_inference(padded)
+    row = out[name] = {}
+    for tag, m, ref, tol in (("f32", padded, model, 1e-4),
+                             ("bf16", padded_bf16, bf16, 2e-3)):
+        want, _ = live_requests(ref, requests)
+        got, counts = live_requests(m, requests)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        top1 = float((got.argmax(-1) == want.argmax(-1)).mean())
+        print(f"padded {name} {tag}: logits rel err {err:.3e} against the "
+              f"model, top-1 agreement {top1}, launches a forward "
+              f"{json.dumps(counts)}", flush=True)
+        check(err <= tol, f"padded {name} {tag} off the model by {err:.3e}")
+        check(top1 == 1.0, f"padded {name} {tag} top-1 differs")
+        check(counts == per_fwd, f"padded {name} {tag} launched {counts}, "
+              f"the model {per_fwd}")
+        row[tag] = dict(logits_rel_err=err, launches_per_forward=counts)
+
+
+def pyskl_import(model, dev, requests, tmp, out):
+    """A pyskl-named ``.pth`` (``torch.save`` of the calibrated DS-GCN's
+    seeded arrays under pyskl's names, ``to_pyskl_state_dict``) through
+    ``load_torch_checkpoint`` into full-width DS-GCN on the CPU and on the
+    card: logits on two clips within 1e-3."""
+    from dsgcn_tpu_torch.apis import init_recognizer
+    from dsgcn_tpu_torch.utils.torch_import import (load_torch_checkpoint,
+                                                    to_pyskl_state_dict)
+    sd = to_pyskl_state_dict(model.state_dict())
+    cpu = init_recognizer(str(CONFIG), device="cpu")
+    path = tmp / "dsgcn_pyskl.pth"
+    torch.save(dict(state_dict={k: torch.from_numpy(v) for k, v in sd.items()},
+                    meta=dict(epoch=0)), path)
+    state = load_torch_checkpoint(str(path))
+    cpu.load_state_dict(state, strict=True)
+    gpu = init_recognizer(str(CONFIG), device=dev)
+    gpu.load_state_dict(state, strict=True)
+    x = torch.from_numpy(requests[0][:2])
+    with torch.inference_mode():
+        want, got = cpu(x), gpu(x.to(dev)).cpu()
+    err = rel_err(got, want)
+    print(f"pyskl .pth ({len(sd)} arrays) into DS-GCN: GPU logits rel err "
+          f"{err:.3e} against the CPU's (max |logit| "
+          f"{want.abs().max().item():.3f})", flush=True)
+    check(bool(torch.isfinite(got).all()) and err <= 1e-3,
+          f"pyskl import: GPU logits off the CPU's by {err:.3e}")
+    check(got.argmax(-1).tolist() == want.argmax(-1).tolist(),
+          "pyskl import: GPU top-1 differs from the CPU's")
+    out["pyskl_import"] = dict(arrays=len(sd), logits_rel_err=err)
+
+
+def serving_phase(dev, card, report):
+    """Phase 18: calibrated full-width DS-GCN (f32 and bf16), DG-STGCN
+    ('auto') and STGCN++ (K7) exported through the port's export CLI from
+    checkpoints of the port's trainer, all four at once, and served in a
+    process of their own (``serve_artifacts``): dynamic batch, the live
+    module's logits (f32 within 1e-5; bf16 2e-3 and top-1) and kernel
+    launches a forward, clips/s beside the live module's (in turns, in the
+    serving process), ``predict``'s latency, the export time; DS-GCN and
+    DG-STGCN in joint-padded mode against the model; a pyskl ``.pth`` into
+    DS-GCN on the card."""
+    import tempfile
+    from dsgcn_tpu_torch.apis import init_recognizer, to_bf16_inference
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    out = report["serving_export"] = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # the live models, as phases 3, 9 and 12 calibrate them
+        torch.manual_seed(0)
+        ds = init_recognizer(str(CONFIG), device=dev)
+        pipeline = build_pipeline(ds.cfg["data"]["test"]["pipeline"])
+        calibrate_(ds, torch.from_numpy(pipeline(synthetic_annos(seed=1)[0])[
+            "keypoint"]).to(dev), seed=1)
+        torch.manual_seed(1)
+        dg = init_recognizer(dg_config(), device=dev)
+        calibrate_(dg, torch.from_numpy(pipeline(synthetic_annos(seed=1)[0])[
+            "keypoint"]).to(dev), seed=3)
+        _, stg, stg_pipeline = k7_model_pair(dev, stgcnpp_config, seed=5)
+        # requests of 10 clips x 2 bodies x 100 frames (STGCN++'s test
+        # pipeline; the DS-GCN configs take 60): every artifact is exported
+        # at T = 100, the throughput batch's
+        requests = np.stack([stg_pipeline(a)["keypoint"] for a in
+                             synthetic_annos(seed=2, n=SERVE_REQUESTS)])
+        np.save(tmp / "requests.npy", requests)
+        models = {
+            "dsgcn": (ds, CONFIG, []),
+            "dsgcn_bf16": (to_bf16_inference(ds), CONFIG, ["--bf16"]),
+            "dgstgcn": (dg, export_config(
+                tmp, "dgstgcn", CONFIG,
+                "from dsgcn_tpu_torch.models.builder import model_cfg\n"
+                "model = dict(model_cfg('dgstgcn'), _delete_=True)"), []),
+            "stgcnpp_k7": (stg, export_config(
+                tmp, "stgcnpp_k7", STGCNPP_CONFIG,
+                "model = dict(backbone=dict(tcn_use_pallas=True))"), [])}
+        live = {}
+        for name, (m, cfg_path, flags) in models.items():
+            if name != "dsgcn_bf16":
+                save_checkpoint(m, tmp / name / "wd")
+            logits, counts = live_requests(m, requests)
+            expect_counts({k: counts.get(k, 0) for k in read_counts()},
+                          ARTIFACTS[name], 1, f"live {name}")
+            live[name] = logits
+        (tmp / "sources.json").write_text(json.dumps({
+            name: (str(cfg_path), str(tmp / name.replace("_bf16", "") / "wd"),
+                   "--bf16" in flags)
+            for name, (_, cfg_path, flags) in models.items()}))
+        # joint-padded mode and the pyskl import, on the card alone
+        out["padded"] = {}
+        for name, m in (("dsgcn", ds), ("dgstgcn", dg)):
+            padded_checks(name, m, to_bf16_inference(m), requests,
+                          ARTIFACTS[name], out["padded"])
+        pyskl_import(ds, dev, requests, tmp, out)
+        # export through the CLI, the four at once
+        jobs = [(["dsgcn_tpu_torch.tools.export", cfg_path, "--work-dir",
+                  tmp / name.replace("_bf16", "") / "wd",
+                  "--out", tmp / name / "art", "--clip-len",
+                  THROUGHPUT_BATCH[2], *flags], f"export {name}")
+                for name, (_, cfg_path, flags) in models.items()]
+        t0 = time.perf_counter()
+        stdouts = run_modules(jobs, timeout=600)
+        out["export_wall_s"] = time.perf_counter() - t0
+        out["export_s"] = {name: float(printed_value(s, "export_s"))
+                           for name, s in zip(models, stdouts)}
+        # serve in a process of its own
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--serve-artifacts", str(tmp)], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"  served: {line}", flush=True)
+        check(proc.returncode == 0,
+              f"serving the artifacts failed:\n{proc.stderr[-3000:]}")
+        out["serve_process_s"] = time.perf_counter() - t0
+        served = json.loads((tmp / "served.json").read_text())
+        for name, row in served.items():
+            check(row["manifest"]["polymorphic_batch"],
+                  f"{name}: the artifact has no dynamic batch")
+            check(row["manifest"]["device"] == "cuda",
+                  f"{name}: exported for {row['manifest']['device']}")
+            check(row["launches_per_forward"] == ARTIFACTS[name],
+                  f"{name}: the artifact launched "
+                  f"{row['launches_per_forward']} a forward, the live "
+                  f"module {ARTIFACTS[name]}")
+            got = np.load(tmp / name / "logits.npy")
+            err = float(np.abs(got - live[name]).max()
+                        / np.abs(live[name]).max())
+            top1 = float((got.argmax(-1) == live[name].argmax(-1)).mean())
+            print(f"artifact {name}: logits rel err {err:.3e} against the "
+                  f"live module, top-1 agreement {top1}", flush=True)
+            check(err <= (2e-3 if name.endswith("bf16") else 1e-5),
+                  f"{name}: artifact logits off the live module's by "
+                  f"{err:.3e}")
+            check(top1 == 1.0, f"{name}: artifact top-1 differs")
+            row.update(logits_rel_err=err, export_s=out["export_s"][name])
+        out["served"] = served
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 18 took {out['phase_s']:.1f} s (exports "
+          f"{out['export_wall_s']:.1f} s wall, serving process "
+          f"{out['serve_process_s']:.1f} s) on {card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3184,22 +3495,6 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = card_line()
-    print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
-    t0 = time.perf_counter()
-    build_s = _build.build_all()
-    print(f"kernel build: {json.dumps(build_s)} "
-          f"({time.perf_counter() - t0:.1f} s wall)", flush=True)
-    for name in _build.SIGNATURES:
-        log = _build.library_path(name).with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {name}: {line.strip()}", flush=True)
-
     import argparse
     ap = argparse.ArgumentParser(description="GPU smoke run of the port")
     ap.add_argument("--sweep", action="store_true",
@@ -3224,11 +3519,36 @@ def main() -> int:
                     "hrnet configs (K7 at V = 21 and 17), the train CLI "
                     "without --validate, DGMSTCN's eval layouts, remat, "
                     "target_specific, ada_attention and per-frame graphs")
+    ap.add_argument("--serving", action="store_true",
+                    help="phase 18 alone: serving export and artifacts, "
+                    "joint-padded mode, the pyskl import")
+    ap.add_argument("--serve-artifacts", metavar="DIR",
+                    help="phase 18's serving process: serve the artifacts "
+                    "under DIR (no kernel build, no other phase)")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the port (a git archive of "
                     "the parent commit): time its K5, K6 and K7 beside "
                     "these")
     args = ap.parse_args()
+    if args.serve_artifacts:
+        serve_artifacts(args.serve_artifacts)
+        return 0
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    t0 = time.perf_counter()
+    build_s = _build.build_all()
+    print(f"kernel build: {json.dumps(build_s)} "
+          f"({time.perf_counter() - t0:.1f} s wall)", flush=True)
+    for name in _build.SIGNATURES:
+        log = _build.library_path(name).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas {name}: {line.strip()}", flush=True)
+
     sass = sass_mma()
     parent = parent_wrappers(args.parent) if args.parent else None
     if args.blocks:
@@ -3290,6 +3610,15 @@ def main() -> int:
                                                      default=str))
         print(card)
         return 0
+    if args.serving:
+        serving_phase(dev, card, report)
+        done(18)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "serving.json").write_text(json.dumps(report, indent=1,
+                                                     default=str))
+        print(card)
+        return 0
     if args.families:
         families(dev, card, report)
         done(16)
@@ -3328,6 +3657,8 @@ def main() -> int:
     done(16)
     k7_joints = options_phase(dev, card, report)                   # 17
     done(17)
+    serving_phase(dev, card, report)                               # 18
+    done(18)
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per

@@ -4,8 +4,9 @@ pyskl/apis/inference.py:20-184).
 ``init_recognizer`` builds a model from a config (and loads a checkpoint);
 ``inference_recognizer`` pushes one skeleton annotation dict through the
 config's test pipeline and returns the top-k (label, score) list;
-``to_bf16_inference`` gives the bfloat16 serving model.  Models run on the
-CUDA device unless the caller asks for ``device='cpu'``.
+``to_bf16_inference`` gives the bfloat16 serving model and
+``to_padded_inference`` the joint-padded one.  Models run on the CUDA
+device unless the caller asks for ``device='cpu'``.
 """
 from __future__ import annotations
 
@@ -62,6 +63,24 @@ def to_bf16_inference(model: torch.nn.Module) -> torch.nn.Module:
         p.data = p.data.to(torch.bfloat16)
     bf16.compute_dtype = torch.bfloat16
     return bf16
+
+
+def to_padded_inference(model: torch.nn.Module,
+                        v_pad: int = 32) -> torch.nn.Module:
+    """Joint-padded serving (JAX ``apis.py:to_padded_inference``): a model
+    whose backbone is in joint-padded mode (``joint_pad=v_pad``), with
+    JAX's refusals: eval only, DGSTGCN backbones (DG-STGCN, DS-GCN) only,
+    no 'mega'.  It runs at the real joints, which on the H100 is exact and
+    faster than padding (``ops/common.py:joint_pad_check``).
+
+    The returned model shares ``model``'s parameters and buffers (a new
+    module tree over the same tensors); inputs stay (N, M, T, V, C) at the
+    real V.  Composes with :func:`to_bf16_inference`, in either order."""
+    shared = {id(t): t for t in list(model.parameters())
+              + list(model.buffers())}
+    padded = copy.deepcopy(model, memo=shared)
+    padded.backbone.set_joint_pad(v_pad)
+    return padded
 
 
 @torch.inference_mode()

@@ -16,7 +16,10 @@ channels-last, output ``(N, M, T/4, V, C_out)``.  Blocks are named
 ``block{i}`` as the flax scopes are.  ``remat`` (training only, JAX
 ``_BackboneBase.remat``): True recomputes each whole block in the backward,
 'tcn' each DGBlock's temporal unit only (``ops/common.py:remat_call``);
-the state dict is the same either way.
+the state dict is the same either way.  ``joint_pad`` (DGSTGCN only, JAX
+``_BackboneBase.joint_pad``) puts the units in joint-padded mode (their
+``v_pad``): JAX's refusals (training, 'mega'), at the real joints
+(``ops/common.py:joint_pad_check``).
 """
 from __future__ import annotations
 
@@ -219,7 +222,8 @@ class _BackboneBase(nn.Module):
                  inflate_stages: Sequence[int] = (5, 8),
                  down_stages: Sequence[int] = (5, 8),
                  data_bn_type: Optional[str] = "VC", remat: Any = False,
-                 block_args: Optional[Mapping[str, Any]] = None):
+                 block_args: Optional[Mapping[str, Any]] = None,
+                 joint_pad: int = 0):
         super().__init__()
         if remat not in (False, True, "tcn"):
             raise ValueError(f"remat must be False, True or 'tcn'; got "
@@ -247,9 +251,18 @@ class _BackboneBase(nn.Module):
             kwargs["_lw_index"] = i + offset
             self.add_module(f"block{i}", self.make_block(
                 i, graph, A, in_c, out_c, stride, residual, kwargs))
+        self.joint_pad = 0
+        if joint_pad:
+            self.set_joint_pad(joint_pad)
 
     def make_block(self, i, graph, A, in_c, out_c, stride, residual, kwargs):
         raise NotImplementedError
+
+    def set_joint_pad(self, v_pad: int) -> None:
+        """Joint-padded eval at ``v_pad`` joints (0: off).  DGSTGCN's alone
+        (JAX asserts ``_supports_joint_pad``)."""
+        raise ValueError(f"{type(self).__name__} does not support joint_pad "
+                         "(joint-padded eval is DGSTGCN's)")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, m, t, v, c = x.shape
@@ -356,6 +369,23 @@ class DGSTGCN(_BackboneBase):
                        gcn_type=gcn_type, gcn_kwargs=gcn_kwargs,
                        tcn_type=tcn_type, tcn_kwargs=tcn_kwargs,
                        remat_tcn=self.remat == "tcn")
+
+    def set_joint_pad(self, v_pad: int) -> None:
+        """Joint-padded mode at ``v_pad`` joints (0: off): the blocks'
+        ``dggcn``/``dgphgcn1`` and ``dgmstcn`` units take ``v_pad``;
+        ``mstcn`` and ``unit_tcn`` need nothing (JAX backbones.py:612-619)."""
+        for i in range(self.num_blocks):
+            blk = getattr(self, f"block{i}")
+            if not isinstance(blk.tcn, (DGMSTCN, MSTCN, UnitTCN)):
+                raise ValueError(f"joint_pad unsupported for the temporal "
+                                 f"unit {type(blk.tcn).__name__}")
+            if 0 < v_pad < blk.gcn.A.shape[-1]:
+                raise ValueError(f"joint_pad={v_pad} is under the graph's "
+                                 f"{blk.gcn.A.shape[-1]} joints")
+            blk.gcn.v_pad = v_pad
+            if isinstance(blk.tcn, DGMSTCN):
+                blk.tcn.v_pad = v_pad
+        self.joint_pad = v_pad
 
 
 class STGCN(_BackboneBase):

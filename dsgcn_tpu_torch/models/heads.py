@@ -6,6 +6,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.common import cast
 from ..ops.common import dropout as _dropout
 
 
@@ -33,5 +34,6 @@ class GCNHead(nn.Module):
                                  f"{tuple(x.shape)}")
             x = x.mean(dim=(2, 3)).mean(dim=1)
         x = _dropout(x, self.dropout, self.training, self.generator)
-        w = self.fc_cls.weight.to(x.dtype)
-        return torch.nn.functional.linear(x, w, self.fc_cls.bias.to(x.dtype))
+        w = cast(self.fc_cls.weight, x.dtype)
+        return torch.nn.functional.linear(x, w,
+                                          cast(self.fc_cls.bias, x.dtype))

@@ -19,13 +19,21 @@ from torch.utils.checkpoint import checkpoint
 BN_EPS = 1e-5
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``: ``t`` itself where it already is.  Eager PyTorch
+    skips a cast to a tensor's own dtype anyway, but ``torch.export``
+    records each such ``.to`` (with a metadata assert), and the exported
+    program then runs them all: the modules' forwards cast through here."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 class PointConv(nn.Linear):
     """1x1 conv == linear map over the trailing channel axis (reference
     ``nn.Conv2d(in, out, 1)``).  Computes in the activation dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        bias = None if self.bias is None else cast(self.bias, x.dtype)
+        return F.linear(x, cast(self.weight, x.dtype), bias)
 
 
 class TemporalConv(nn.Module):
@@ -49,8 +57,8 @@ class TemporalConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (N, T, V, C) -> an NCHW view with channels-last strides: cuDNN
         # runs it as NHWC without a copy, and the output permutes back
-        w = self.conv.weight.to(x.dtype)
-        b = None if self.conv.bias is None else self.conv.bias.to(x.dtype)
+        w = cast(self.conv.weight, x.dtype)
+        b = None if self.conv.bias is None else cast(self.conv.bias, x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.conv.stride,
                      self.conv.padding, self.conv.dilation)
         return y.permute(0, 2, 3, 1)
@@ -129,15 +137,15 @@ class BatchNorm(nn.Module):
 
     def affine(self, dtype: torch.dtype = torch.float32):
         """The (a, b) of the eval affine, in ``dtype``."""
-        return fold_bn(self.weight.to(dtype), self.bias.to(dtype),
-                       self.running_mean.to(dtype),
-                       self.running_var.to(dtype))
+        return fold_bn(cast(self.weight, dtype), cast(self.bias, dtype),
+                       cast(self.running_mean, dtype),
+                       cast(self.running_var, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         acc = accum_dtype(x.dtype)
         if not self.training:
             a, b = self.affine(acc)
-            return x * a.to(x.dtype) + b.to(x.dtype)
+            return x * cast(a, x.dtype) + cast(b, x.dtype)
         xm = x.to(acc)
         axes = tuple(range(x.dim() - 1))
         mean = xm.mean(dim=axes)
@@ -255,3 +263,16 @@ def max_pool_t(x: torch.Tensor, window: int, stride: int,
     y = F.max_pool2d(x.permute(0, 3, 1, 2), (window, 1), (stride, 1),
                      (padding, 0))
     return y.permute(0, 2, 3, 1)
+
+
+def joint_pad_check(mod: nn.Module) -> None:
+    """JAX's refusal of training in joint-padded mode (``mod.v_pad``).
+
+    JAX pads the joint axis to ``v_pad`` for the TPU's 8-row sublanes.  The
+    H100 has no such tile on these paths: padding 25 -> 32 joints was
+    exact on the real joints and cost 20-26% of serving clips/s there
+    (PERF.md §6), so the port runs a unit in this mode at the real joints,
+    with JAX's refusals."""
+    if mod.v_pad and mod.training:
+        raise NotImplementedError(
+            f"{type(mod).__name__}: joint-padded mode (v_pad) is eval-only")

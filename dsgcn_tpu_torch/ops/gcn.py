@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm, PointConv, accum_dtype, fold_bn
+from .common import (BatchNorm, PointConv, accum_dtype, cast, fold_bn,
+                     joint_pad_check)
 from .kernels.bd_agg import bd_dyn_graph_agg, bd_dyn_graph_agg_subset
 from .kernels.dggcn_block import fused_dggcn_block_eval
 from .kernels.dyn_graph import (edge_onehot, fused_dyn_graph_agg,
@@ -102,16 +103,18 @@ class UnitGCN(nn.Module):
         if self.with_res:
             res = (self.down_bn(self.down_conv(x))
                    if c != self.out_channels else x)
-        A = self.A.to(acc)
+        A = cast(self.A, acc)
         if self.adaptive == "offset":
-            A = A + (self.PA.to(acc) - 1e-6)
+            A = A + (cast(self.PA, acc) - 1e-6)
         elif self.adaptive == "importance":
-            A = A * self.PA.to(acc)
+            A = A * cast(self.PA, acc)
         if self.conv_pos == "pre":
             y = self.conv(x).reshape(n, t, v, self.K, self.out_channels)
-            y = torch.einsum("ntvkc,kvw->ntwc", y.to(acc), A).to(x.dtype)
+            y = cast(torch.einsum("ntvkc,kvw->ntwc", cast(y, acc), A),
+                     x.dtype)
         else:
-            y = torch.einsum("ntvc,kvw->ntwkc", x.to(acc), A).to(x.dtype)
+            y = cast(torch.einsum("ntvc,kvw->ntwkc", cast(x, acc), A),
+                     x.dtype)
             y = self.conv(y.reshape(n, t, v, self.K * c))
         return F.relu(self.bn(y) + res)
 
@@ -162,7 +165,7 @@ def _dispatch_contract(pre_x: torch.Tensor, G: torch.Tensor, ctr,
     G: (K, V, V) when neither dynamic graph is on, else (N, K, Cq, V, V)
     for T-pooled graphs or (N, K, Cq, T, V, V) for per-frame ('NA') ones,
     with Cq in {1, C}.  Returns (N, T, W, K, C)."""
-    G = G.to(pre_x.dtype)
+    G = cast(G, pre_x.dtype)
     if ctr is None and ada is None:
         return torch.einsum("ntvkc,kvw->ntwkc", pre_x, G)
     per_frame = G.dim() == 6
@@ -188,7 +191,7 @@ def _graph_init(A: torch.Tensor, dt: torch.dtype,
                 per_frame: bool) -> torch.Tensor:
     """The trained graph as the dynamic graphs' accumulator: (1, K, 1, V,
     V), or (1, K, 1, 1, V, V) for per-frame graphs."""
-    G = A.to(dt)[None, :, None]
+    G = cast(A, dt)[None, :, None]
     return G[:, :, :, None] if per_frame else G
 
 
@@ -201,9 +204,10 @@ def _ada_graph(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 def _fold(conv: PointConv, bn: BatchNorm):
     """A 1x1 with its eval BatchNorm folded in: (w (in, out), b), float32."""
-    a, b = fold_bn(bn.weight.float(), bn.bias.float(),
-                   bn.running_mean.float(), bn.running_var.float())
-    return conv.weight.float().t() * a[None], conv.bias.float() * a + b
+    f32 = torch.float32
+    a, b = fold_bn(cast(bn.weight, f32), cast(bn.bias, f32),
+                   cast(bn.running_mean, f32), cast(bn.running_var, f32))
+    return cast(conv.weight, f32).t() * a[None], cast(conv.bias, f32) * a + b
 
 
 def fold_block_params(mod: nn.Module, changes_channels: bool):
@@ -225,6 +229,10 @@ def _graph_acts_ok(mod) -> bool:
             and mod.ada_act == "softmax")
 
 
+_MEGA_PADDED = ("eval_kernel='mega' does not support joint-padded mode "
+                "(v_pad); use 'auto'/'bd'/'fused'")
+
+
 DGGCN_EVAL_KERNELS = ("auto", "bd", "bdps", "bdg", "fused", "fusedpre",
                       "mega")
 
@@ -239,9 +247,10 @@ class DGGCN(nn.Module):
     added to the trained A with the gates alpha/beta (per subset with
     ``subset_wise``, else alpha[0] and beta[0] for every subset; the
     parameters keep shape (K,)).  Submodule names follow the JAX module's
-    flax scopes.  The JAX module's joint-partitioned mesh mode
-    (``graph_axis``) and joint padding (``v_pad``) are not ported and
-    raise.
+    flax scopes.  ``v_pad`` (joint-padded mode) keeps JAX's refusals,
+    training and 'mega', and runs at the real joints
+    (``ops/common.py:joint_pad_check``).  The JAX module's
+    joint-partitioned mesh mode (``graph_axis``) is not ported and raises.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -254,9 +263,7 @@ class DGGCN(nn.Module):
             raise NotImplementedError(
                 "DGGCN graph_axis (the joint-partitioned mesh mode, "
                 "_jp_aggregate) is not ported")
-        if v_pad:
-            raise NotImplementedError(
-                "DGGCN v_pad (joint-padded eval) is not ported")
+        self.v_pad = v_pad
         self.per_frame = _graph_mode(ctr, ada)
         if eval_kernel not in DGGCN_EVAL_KERNELS:
             raise ValueError(f"unknown eval_kernel {eval_kernel!r}")
@@ -303,6 +310,7 @@ class DGGCN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         K, mid = self.K, self.mid
         n, t, v, c = x.shape
+        joint_pad_check(self)
         x1 = x2 = None
         if self.ctr is not None or self.ada is not None:
             if self.per_frame:                          # (n, K, mid, t, v)
@@ -321,6 +329,8 @@ class DGGCN(nn.Module):
         a_vec = _gate_vec(self.alpha, K, 0, K, self.subset_wise)
         b_vec = _gate_vec(self.beta, K, 0, K, self.subset_wise)
         if kernel and ek == "mega":
+            if self.v_pad:
+                raise ValueError(_MEGA_PADDED)
             # the whole block in one kernel (JAX gcn.py:635-648)
             w = fold_block_params(self, c != self.out_channels)
             return fused_dggcn_block_eval(x, x1, x2, w[0], w[1], self.A,
@@ -331,8 +341,9 @@ class DGGCN(nn.Module):
             # K5: the BN-folded pre 1x1 inside the kernel, w_pre in x's
             # dtype and b_pre in float32 (JAX gcn.py:686-700)
             w_pre, b_pre = _fold(self.pre_conv, self.pre_bn)
-            y = fused_dyn_graph_agg_eval(x, w_pre.to(x.dtype), b_pre, x1, x2,
-                                         self.A, a_vec, b_vec, K=K, Cm=mid)
+            y = fused_dyn_graph_agg_eval(x, cast(w_pre, x.dtype), b_pre, x1,
+                                         x2, self.A, a_vec, b_vec, K=K,
+                                         Cm=mid)
         else:
             pre_x = F.relu(self.pre_bn(self.pre_conv(x)))     # (n,t,v,K*mid)
             if kernel:
@@ -363,17 +374,17 @@ class DGGCN(nn.Module):
         (N, K, Cq, [T,] V, V)."""
         K = self.K
         dt = pre_x.dtype
-        G = self.A.to(dt)                                       # (K, V, V)
+        G = cast(self.A, dt)                                    # (K, V, V)
         if self.ctr is not None or self.ada is not None:
             G = _graph_init(self.A, dt, self.per_frame)
         if self.ctr is not None:
             g = ACTS[self.ctr_act](x1[..., :, None] - x2[..., None, :])
-            G = g * _gate(self.alpha, K, 0, K, self.subset_wise,
-                          g.dim() - 2).to(dt) + G
+            G = g * cast(_gate(self.alpha, K, 0, K, self.subset_wise,
+                               g.dim() - 2), dt) + G
         if self.ada is not None:
             g = ACTS[self.ada_act](_ada_graph(x1, x2)[:, :, None])
-            G = g * _gate(self.beta, K, 0, K, self.subset_wise,
-                          g.dim() - 2).to(dt) + G
+            G = g * cast(_gate(self.beta, K, 0, K, self.subset_wise,
+                               g.dim() - 2), dt) + G
         return _dispatch_contract(pre_x, G, self.ctr, self.ada)
 
 
@@ -401,9 +412,11 @@ class DGPHGCN1(nn.Module):
     with JAX's (lack of) effect: JAX's DGPHGCN1 declares it and never
     reads it.
     ``eval_kernel='mega'`` runs the whole eval block in K6, the
-    edge-class attention included.  The JAX module's joint-partitioned
-    mesh mode (``graph_axis``) and joint padding (``v_pad``) are not
-    ported yet and raise, naming the option, when set.
+    edge-class attention included.  ``v_pad`` (joint-padded mode) keeps
+    JAX's refusals, training, 'mega' and the dense path, and runs at the
+    real joints (``ops/common.py:joint_pad_check``).  The JAX module's
+    joint-partitioned mesh mode (``graph_axis``) is not ported yet and
+    raises, naming the option, when set.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -416,11 +429,10 @@ class DGPHGCN1(nn.Module):
                  use_pallas=False, eval_kernel="auto", graph_axis=None,
                  v_pad=0):
         super().__init__()
-        for name, value, default in (("graph_axis", graph_axis, None),
-                                     ("v_pad", v_pad, 0)):
-            if value != default:
-                raise NotImplementedError(
-                    f"DGPHGCN1 {name}={value!r} is not ported yet")
+        if graph_axis is not None:
+            raise NotImplementedError(
+                f"DGPHGCN1 graph_axis={graph_axis!r} is not ported yet")
+        self.v_pad = v_pad
         self.per_frame = _graph_mode(ctr, ada)
         if eval_kernel not in ("auto", "bd", "fused", "mega"):
             raise ValueError(f"unknown eval_kernel {eval_kernel!r}")
@@ -527,6 +539,7 @@ class DGPHGCN1(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         K, mid, sem = self.K, self.mid, self.sem
         n, t, v, _ = x.shape
+        joint_pad_check(self)
         x1 = x2 = None
         if self.ctr is not None or self.ada is not None:
             x1, x2 = self._queries(x)
@@ -534,6 +547,12 @@ class DGPHGCN1(nn.Module):
         kernel = (self.use_pallas and _graph_acts_ok(self)
                   and not self.ada_attention
                   and (not active_edge or sem == 1))
+        if self.v_pad and not kernel:
+            raise NotImplementedError(
+                "joint-padded mode (v_pad) requires the kernel eval path "
+                "(use_pallas with ctr/ada='T', tanh/softmax)")
+        if self.v_pad and self.eval_kernel == "mega":
+            raise ValueError(_MEGA_PADDED)
         if (kernel and not self.training and self.eval_kernel == "mega"
                 and not self.target_specific):
             return self._mega(x, x1, x2, active_edge)
@@ -565,13 +584,13 @@ class DGPHGCN1(nn.Module):
             if active_edge:
                 # class projections P = W_e^T q of the edge subset's queries
                 # and the transposed bias field, outside the kernel
-                w = ew.to(x1.dtype)
+                w = cast(ew, x1.dtype)
                 p1 = torch.einsum("ncv,fc->nfv", x1[:, edge_k], w).reshape(
                     n, E, mid, v)
                 p2 = torch.einsum("ncv,fc->nfv", x2[:, edge_k], w).reshape(
                     n, E, mid, v)
                 ebias = torch.einsum("evw,ec->vcw", self.edge_sel,
-                                     eb.float().reshape(E, mid))
+                                     cast(eb, torch.float32).reshape(E, mid))
                 kw = dict(p1t=p1.transpose(-1, -2), p2=p2,
                           edge_sel=self.edge_sel, ebias=ebias)
             return bd_dyn_graph_agg(
@@ -607,7 +626,7 @@ class DGPHGCN1(nn.Module):
         K, mid, sem, norm, E = self.K, self.mid, self.sem, self.norm, self.E
         n, _, V = pre_x.shape[:3]
         dt = pre_x.dtype
-        G = self.A.to(dt)                                       # (K, V, V)
+        G = cast(self.A, dt)                                    # (K, V, V)
         if self.ctr is not None or self.ada is not None:
             G = _graph_init(self.A, dt, self.per_frame)
         if self.ctr is not None:
@@ -628,8 +647,8 @@ class DGPHGCN1(nn.Module):
             else:
                 g = diff(0, K)
             g = ACTS[self.ctr_act](g)                     # (n,K,mid,[T,]V,V)
-            G = g * _gate(self.alpha, K, sem, norm, self.subset_wise,
-                          g.dim() - 2).to(dt) + G
+            G = g * cast(_gate(self.alpha, K, sem, norm, self.subset_wise,
+                               g.dim() - 2), dt) + G
         if self.ada is not None:
             g = _ada_graph(x1, x2)                              # (n,K,[T,]V,V)
             if self.ada_attention:
@@ -637,8 +656,8 @@ class DGPHGCN1(nn.Module):
                 gs = gs.reshape(n, V, V, K, E).permute(0, 3, 4, 1, 2)
                 g = _edge_class_select(gs, self.edge_type)      # (n,K,V,V)
             g = ACTS[self.ada_act](g[:, :, None])
-            G = g * _gate(self.beta, K, sem, norm, self.subset_wise,
-                          g.dim() - 2).to(dt) + G
+            G = g * cast(_gate(self.beta, K, sem, norm, self.subset_wise,
+                               g.dim() - 2), dt) + G
         return _dispatch_contract(pre_x, G, self.ctr, self.ada)
 
 
@@ -649,8 +668,8 @@ class DGPHGCN1(nn.Module):
 def _conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     """``conv`` over the middle axis of channels-last (N, L, C) -> (N, L,
     out), in x's dtype."""
-    b = None if conv.bias is None else conv.bias.to(x.dtype)
-    y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype), b,
+    b = None if conv.bias is None else cast(conv.bias, x.dtype)
+    y = F.conv1d(x.transpose(1, 2), cast(conv.weight, x.dtype), b,
                  padding=conv.padding)
     return y.transpose(1, 2)
 
@@ -770,24 +789,24 @@ class UnitAAHGCN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, v, c = x.shape
         acc = accum_dtype(x.dtype)
-        A = self.A.to(acc)
+        A = cast(self.A, acc)
         y = None
         for i in range(self.K):
             Ai = A[i]
             if self.adaptive:
                 a = self._embed(getattr(self, f"conv_a{i}"), x)
                 b = self._embed(getattr(self, f"conv_b{i}"), x)
-                g = torch.tanh(torch.einsum("ntvc,ntwc->nvw", a.to(acc),
-                                            b.to(acc))
-                               / (self.inter * t)).to(x.dtype)
+                g = cast(torch.tanh(torch.einsum(
+                    "ntvc,ntwc->nvw", cast(a, acc), cast(b, acc))
+                    / (self.inter * t)), x.dtype)
                 if self.edge_att:
                     es = getattr(self, f"conv_edge{i}")(g[..., None])
                     g = _edge_class_select(es.movedim(-1, 1), self.edge_type)
-                Ai = Ai + g.to(acc) * self.alpha[0].to(acc)
-                z = torch.einsum("ntvc,nvw->ntwc", x.to(acc), Ai)
+                Ai = Ai + cast(g, acc) * cast(self.alpha[0], acc)
+                z = torch.einsum("ntvc,nvw->ntwc", cast(x, acc), Ai)
             else:
-                z = torch.einsum("ntvc,vw->ntwc", x.to(acc), Ai)
-            z = getattr(self, f"conv_d{i}")(z.to(x.dtype))
+                z = torch.einsum("ntvc,vw->ntwc", cast(x, acc), Ai)
+            z = getattr(self, f"conv_d{i}")(cast(z, x.dtype))
             y = z if y is None else y + z
         res = (self.down_bn(self.down_conv(x))
                if c != self.out_channels else x)
@@ -831,8 +850,9 @@ class CTRGC(nn.Module):
         x2 = self.conv2(x).mean(dim=1)
         x3 = self.conv3(x)
         g = self.conv4(torch.tanh(x1[:, :, None] - x2[:, None]))  # (n,u,w,c)
-        g = g.to(acc) * alpha.to(acc) + A.to(acc)[None, :, :, None]
-        return torch.einsum("nuwc,ntuc->ntwc", g, x3.to(acc)).to(x.dtype)
+        g = cast(g, acc) * cast(alpha, acc) + cast(A, acc)[None, :, :, None]
+        return cast(torch.einsum("nuwc,ntuc->ntwc", g, cast(x3, acc)),
+                    x.dtype)
 
 
 class CTRHGC(nn.Module):
@@ -914,16 +934,17 @@ class CTRHGC(nn.Module):
                 graph = graph + self._conv4(diff)
         else:
             graph = self._conv4(diff)                          # (n,c,v,v)
-        G = graph.to(acc) * alpha.to(acc) + A.to(acc)[None, None]
+        G = cast(graph, acc) * cast(alpha, acc) + cast(A, acc)[None, None]
         if self.ada:
             ada = torch.einsum("ncv,ncw->nvw", x1, x2)[:, None]
-            G = ada.to(acc) * self.beta[0].to(acc) + G
+            G = cast(ada, acc) * cast(self.beta[0], acc) + G
         if self.tgt:
             xn = self.nodeconv(x).reshape(n, t, v, self.P,
                                           self.out_channels).movedim(2, -1)
             xn = _type_gather(xn, self.node_type, type_axis=2)  # (n,t,c,v)
             x3 = x3 + xn.movedim(2, -1)
-        return torch.einsum("ncuw,ntuc->ntwc", G, x3.to(acc)).to(x.dtype)
+        return cast(torch.einsum("ncuw,ntuc->ntwc", G, cast(x3, acc)),
+                    x.dtype)
 
 
 class _UnitCTR(nn.Module):

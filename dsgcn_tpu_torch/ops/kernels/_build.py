@@ -6,7 +6,8 @@ PyTorch headers, so a build takes seconds; ``build_all`` starts one ``nvcc``
 per source at once.  Libraries live in ``build/kernels`` at the repository
 root (listed in ``.gitignore``), named by a hash of their sources and flags,
 so an edited source is never served from a stale build.  Nothing here runs
-at import time.
+at import time; :func:`custom_op` registers a kernel's op when its wrapper's
+module is imported, and builds nothing.
 """
 from __future__ import annotations
 
@@ -243,6 +244,28 @@ def check_limits(name: str, N: int, V: int, E: int) -> None:
                          f"most {MAX_EDGE_CLASSES}")
     if N > MAX_SAMPLES:
         raise ValueError(f"{name}: batch {N} over {MAX_SAMPLES}; split it")
+
+
+# The namespace of the kernels' custom ops: ``dsgcn`` for this package; a
+# second copy of the kernels loaded under another package name (e.g. a
+# parent commit's, timed beside these) registers its own
+OP_NAMESPACE = ("dsgcn" if __name__.startswith("dsgcn_tpu_torch.")
+                else "dsgcn_" + __name__.split(".")[0])
+
+
+def custom_op(name: str, schema: str, plain, kernel, fake):
+    """Register the kernel as the custom op ``dsgcn::<name>`` of ``schema``:
+    ``plain`` (its plain version) on CPU tensors, ``kernel`` (the launcher,
+    which checks the call, plans on the batch and counts the launch) on
+    CUDA tensors, ``fake`` (output shapes and dtypes only) under tracing,
+    so that ``torch.export`` keeps the op as one node.  Registering builds
+    nothing; returns the op, called like a function."""
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", plain,
+                                 mutates_args=(), device_types="cpu",
+                                 schema=schema)
+    op.register_kernel("cuda")(kernel)
+    op.register_fake(fake)
+    return op
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -14,9 +14,10 @@ The ports of ``dsgcn_tpu/ops/pallas/bd_agg.py``:
   builds it from each subset's full queries, as K3's does).
 
 The TPU kernels' block-diagonal densification and group-major relayouts are
-TPU mechanics and are not ported.  On a CUDA tensor each wrapper launches
-the hand-written kernel of ``csrc/bd_agg.cu`` (K4 with no edge subset); on
-a CPU tensor it runs its plain version.  K3 and K4 share K1's tiled design
+TPU mechanics and are not ported.  Each wrapper calls its custom op
+(``dsgcn::bd_agg``, ``dsgcn::bd_agg_subset``): on a CUDA tensor the
+hand-written kernel of ``csrc/bd_agg.cu`` (K4 with no edge subset), on a
+CPU tensor its plain version.  K3 and K4 share K1's tiled design
 (``csrc/graph_agg_tiled.cuh``) and block planner (``dyn_graph.agg_plan``).
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .dyn_graph import _ada, agg_plan
+from .dyn_graph import _ada, agg_plan, like_first
 
 
 def reference_bd_dyn_graph_agg(pre2, x1t, x2, A, alpha, beta, p1t=None,
@@ -77,12 +78,25 @@ def bd_dyn_graph_agg(pre2: torch.Tensor, x1t: torch.Tensor, x2: torch.Tensor,
     (N, K, Cm, V); A: (K, V, V); alpha/beta: (K,) effective gates; with
     ``edge_k >= 0``: p1t (N, E, V, Cm), p2 (N, E, Cm, V), edge_sel
     (E, V, V) one-hot class mask, ebias (V, Cm, V).  Returns (N, T, V*K*Cm)
-    with columns (w, k, c), the layout of pre2.
+    with columns (w, k, c), the layout of pre2.  The custom op
+    ``dsgcn::bd_agg``.
     """
-    if pre2.device.type == "cpu":
-        return reference_bd_dyn_graph_agg(
-            pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias, K=K,
-            Cm=Cm, edge_k=edge_k, edge_num=edge_num, v_real=v_real)
+    if pre2.device.type != "cpu":
+        _build.refuse_grad("bd_dyn_graph_agg", pre2, x1t, x2, A, alpha, beta,
+                           p1t, p2, ebias)
+    return bd_agg_op(pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias,
+                     K, Cm, edge_k, edge_num, v_real)
+
+
+def _k3_plain(pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias, K,
+              Cm, edge_k, edge_num, v_real):
+    return reference_bd_dyn_graph_agg(
+        pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias, K=K, Cm=Cm,
+        edge_k=edge_k, edge_num=edge_num, v_real=v_real).contiguous()
+
+
+def _k3_kernel(pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias, K,
+               Cm, edge_k, edge_num, v_real):
     out = _launch("bd_dyn_graph_agg", pre2, x1t, x2, A, alpha, beta, p1t,
                   p2, edge_sel, ebias, K, Cm, edge_k, edge_num, v_real)
     if out.numel():
@@ -90,12 +104,19 @@ def bd_dyn_graph_agg(pre2: torch.Tensor, x1t: torch.Tensor, x2: torch.Tensor,
     return out
 
 
+_AGG_OPERANDS = ("Tensor pre2, Tensor x1t, Tensor x2, Tensor A, "
+                 "Tensor alpha, Tensor beta")
+bd_agg_op = _build.custom_op(
+    "bd_agg", f"({_AGG_OPERANDS}, Tensor? p1t, Tensor? p2, Tensor? edge_sel, "
+    "Tensor? ebias, int K, int Cm, int edge_k, int edge_num, int v_real) "
+    "-> Tensor", _k3_plain, _k3_kernel, like_first)
+
+
 def _launch(name, pre2, x1t, x2, A, alpha, beta, p1t, p2, edge_sel, ebias,
             K, Cm, edge_k, E, v_real):
     """Check a K3 or K4 call and launch ``csrc/bd_agg.cu`` on its CUDA
     tensors (K4: no edge subset); returns y2, empty without a launch."""
     _build.check_activation(pre2, name)
-    _build.refuse_grad(name, pre2, x1t, x2, A, alpha, beta, p1t, p2, ebias)
     N, T, VKC = pre2.shape
     V, dev = A.shape[-1], pre2.device
     _build.check_limits(name, N, V, E)
@@ -166,17 +187,31 @@ def bd_dyn_graph_agg_subset(pre2: torch.Tensor, x1t: torch.Tensor,
     (K,) effective gates.  ``g`` (default Cm) is the TPU kernel's channel
     group; it must divide Cm and be a multiple of 8, and does not change
     the function.  ``v_real`` masks padded sources of the ada softmax,
-    which is taken over each subset's full Cm (``bd_agg.py:275-281``)."""
-    if pre2.device.type == "cpu":
-        return reference_bd_dyn_graph_agg_subset(
-            pre2, x1t, x2, A, alpha, beta, K=K, Cm=Cm, g=g, v_real=v_real)
+    which is taken over each subset's full Cm (``bd_agg.py:275-281``).
+    The custom op ``dsgcn::bd_agg_subset``."""
     name = "bd_dyn_graph_agg_subset"
     _check_group(name, Cm, g)
-    out = _launch(name, pre2, x1t, x2, A, alpha, beta, None, None, None,
-                  None, K, Cm, -1, 0, v_real)
+    if pre2.device.type != "cpu":
+        _build.refuse_grad(name, pre2, x1t, x2, A, alpha, beta)
+    return bd_agg_subset_op(pre2, x1t, x2, A, alpha, beta, K, Cm, g or 0,
+                            v_real)
+
+
+def _k4_plain(pre2, x1t, x2, A, alpha, beta, K, Cm, g, v_real):
+    return reference_bd_dyn_graph_agg_subset(
+        pre2, x1t, x2, A, alpha, beta, K=K, Cm=Cm, g=g or None,
+        v_real=v_real).contiguous()
+
+
+def _k4_kernel(pre2, x1t, x2, A, alpha, beta, K, Cm, g, v_real):
+    out = _launch("bd_dyn_graph_agg_subset", pre2, x1t, x2, A, alpha, beta,
+                  None, None, None, None, K, Cm, -1, 0, v_real)
     if out.numel():
         bd_dyn_graph_agg_subset.launches += 1
     return out
 
 
 bd_dyn_graph_agg_subset.launches = 0
+bd_agg_subset_op = _build.custom_op(
+    "bd_agg_subset", f"({_AGG_OPERANDS}, int K, int Cm, int g, int v_real) "
+    "-> Tensor", _k4_plain, _k4_kernel, like_first)

@@ -11,10 +11,11 @@ The port of ``dsgcn_tpu/ops/pallas/dggcn_block.py:fused_dggcn_block_eval``:
 
 with every BatchNorm already folded into its 1x1 (``ops/gcn.py:
 fold_block_params``).  The T-pooled queries x1/x2 are built outside, as in
-JAX.  On a CUDA tensor :func:`fused_dggcn_block_eval` launches the
-hand-written kernel ``csrc/dggcn_block.cu`` (a block a tile of whole
+JAX.  :func:`fused_dggcn_block_eval` calls the custom op
+``dsgcn::dggcn_block``: on a CUDA tensor the hand-written kernel
+``csrc/dggcn_block.cu`` (a block a tile of whole
 frames, its 1x1 products on tensor cores; :func:`block_plan` picks the tile
-and the channel chunks); on a CPU tensor it runs the plain version
+and the channel chunks), on a CPU tensor the plain version
 :func:`reference_dggcn_block_eval`.  Eval only.
 """
 from __future__ import annotations
@@ -148,18 +149,33 @@ def fused_dggcn_block_eval(x: torch.Tensor, x1: torch.Tensor,
     orientation; A (K, V, V); alpha/beta (K,) effective gates; edge_w
     (Cm, edge_num*Cm), edge_b (edge_num*Cm,) or None, edge_sel
     (edge_num, V, V): the edge-class attention on subset ``edge_k``.
-    Returns (N, T, V, Cout) in x's dtype."""
+    Returns (N, T, V, Cout) in x's dtype.  The custom op
+    ``dsgcn::dggcn_block``."""
     if edge_w is None:
         edge_k = -1
-    if x.device.type == "cpu":
-        return reference_dggcn_block_eval(
-            x, x1, x2, w_pre, b_pre, A, alpha, beta, w_post, b_post, w_down,
-            b_down, K=K, Cm=Cm, edge_w=edge_w, edge_b=edge_b,
-            edge_sel=edge_sel, edge_k=edge_k, edge_num=edge_num)
+    if x.device.type != "cpu":
+        _build.refuse_grad("fused_dggcn_block_eval", x, x1, x2, w_pre, b_pre,
+                           A, alpha, beta, w_post, b_post, w_down, b_down,
+                           edge_w, edge_b)
+    return dggcn_block_op(x, x1, x2, w_pre, b_pre, A, alpha, beta, w_post,
+                          b_post, w_down, b_down, edge_w, edge_b, edge_sel,
+                          K, Cm, edge_k, edge_num)
+
+
+def _k6_plain(x, x1, x2, w_pre, b_pre, A, alpha, beta, w_post, b_post,
+              w_down, b_down, edge_w, edge_b, edge_sel, K, Cm, edge_k,
+              edge_num):
+    return reference_dggcn_block_eval(
+        x, x1, x2, w_pre, b_pre, A, alpha, beta, w_post, b_post, w_down,
+        b_down, K=K, Cm=Cm, edge_w=edge_w, edge_b=edge_b, edge_sel=edge_sel,
+        edge_k=edge_k, edge_num=edge_num).contiguous()
+
+
+def _k6_kernel(x, x1, x2, w_pre, b_pre, A, alpha, beta, w_post, b_post,
+               w_down, b_down, edge_w, edge_b, edge_sel, K, Cm, edge_k,
+               edge_num):
     name = "fused_dggcn_block_eval"
     _build.check_activation(x, name)
-    _build.refuse_grad(name, x, x1, x2, w_pre, b_pre, A, alpha, beta, w_post,
-                       b_post, w_down, b_down, edge_w, edge_b)
     N, T, V, C = x.shape
     KC, Cout, dev = K * Cm, w_post.shape[-1], x.device
     E = edge_num if edge_k >= 0 else 0
@@ -212,4 +228,16 @@ def fused_dggcn_block_eval(x: torch.Tensor, x1: torch.Tensor,
     return out
 
 
+
+
+def _k6_fake(x, x1, x2, w_pre, b_pre, A, alpha, beta, w_post, *args):
+    return x.new_empty((*x.shape[:3], w_post.shape[-1]))
+
+
+dggcn_block_op = _build.custom_op(
+    "dggcn_block", "(Tensor x, Tensor x1, Tensor x2, Tensor w_pre, "
+    "Tensor b_pre, Tensor A, Tensor alpha, Tensor beta, Tensor w_post, "
+    "Tensor b_post, Tensor? w_down, Tensor? b_down, Tensor? edge_w, "
+    "Tensor? edge_b, Tensor? edge_sel, int K, int Cm, int edge_k, "
+    "int edge_num) -> Tensor", _k6_plain, _k6_kernel, _k6_fake)
 fused_dggcn_block_eval.launches = 0

@@ -10,16 +10,19 @@ its custom VJP:
     y[t,w,k,c]   = sum_v pre[t,v,k,c] * G[k,c,v,w]
 
 with the DS-GCN per-edge-class attention on subset ``edge_k`` and the
-padded-joint softmax mask ``v_real`` (eval only).  :class:`FusedDynGraphAgg`
-saves only its inputs, never the graph, as the JAX VJP does.  On CUDA
-tensors its forward launches the hand-written kernel ``csrc/dyn_graph.cu``
-and its backward ``csrc/dyn_graph_bwd.cu``; on CPU tensors they run the
+padded-joint softmax mask ``v_real`` (eval only).  The forward and the
+backward are the custom ops ``dsgcn::dyn_graph_agg`` and
+``dsgcn::dyn_graph_agg_bwd``: on CUDA tensors the hand-written kernels
+``csrc/dyn_graph.cu`` and ``csrc/dyn_graph_bwd.cu``, on CPU tensors the
 plain versions :func:`reference_dyn_graph_agg` and
-:func:`reference_dyn_graph_agg_bwd`.
+:func:`reference_dyn_graph_agg_bwd`.  :class:`FusedDynGraphAgg` joins them
+where a gradient is wanted and saves only its inputs, never the graph, as
+the JAX VJP does.
 
-:func:`fused_dyn_graph_agg_eval` (K5, eval only) is the same forward with
-the BatchNorm-folded pre 1x1 inside the kernel (``csrc/dyn_graph_eval.cu``;
-plain version :func:`reference_dyn_graph_agg_eval`).
+:func:`fused_dyn_graph_agg_eval` (K5, eval only, ``dsgcn::
+dyn_graph_agg_eval``) is the same forward with the BatchNorm-folded pre
+1x1 inside the kernel (``csrc/dyn_graph_eval.cu``; plain version
+:func:`reference_dyn_graph_agg_eval`).
 """
 from __future__ import annotations
 
@@ -408,13 +411,49 @@ def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
     """The backward of :func:`fused_dyn_graph_agg` (K2) for the upstream
     gradient ``dy`` (pre_x's shape and dtype).  Returns (dpre, dx1, dx2,
     dA, dalpha, dbeta, dedge_w, dedge_b) as
-    :func:`reference_dyn_graph_agg_bwd` does.  On a CUDA tensor it launches
-    ``csrc/dyn_graph_bwd.cu``; on a CPU tensor it runs the plain version."""
-    if pre_x.device.type == "cpu":
-        return reference_dyn_graph_agg_bwd(pre_x, x1, x2, A, alpha, beta,
-                                           edge_w, edge_b, edge_sel, dy, K=K,
-                                           Cm=Cm, edge_k=edge_k,
-                                           edge_num=edge_num)
+    :func:`reference_dyn_graph_agg_bwd` does: the custom op
+    ``dsgcn::dyn_graph_agg_bwd`` gives dpre, dx1, dx2 and one float32
+    vector of the parameter gradients, sliced here.  On a CUDA tensor it
+    launches ``csrc/dyn_graph_bwd.cu``; on a CPU tensor it runs the plain
+    version."""
+    if edge_w is None:
+        edge_k = -1
+    dpre, dx1, dx2, sums = dyn_graph_agg_bwd_op(
+        pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel, dy, K, Cm,
+        edge_k, edge_num)
+    V = pre_x.shape[2]
+    W0 = K * V * V + 2 * K
+    dA = sums[:K * V * V].view(K, V, V)
+    dgates = sums[K * V * V:W0].view(2, K)
+    dew = deb = None
+    if edge_w is not None:
+        F = edge_num * Cm
+        dew = sums[W0:W0 + Cm * F].view(Cm, F)
+        deb = sums[W0 + Cm * F:] if edge_b is not None else None
+    return dpre, dx1, dx2, dA, dgates[0], dgates[1], dew, deb
+
+
+def _sums_len(V, K, Cm, E, has_edge):
+    """Length of K2's parameter-gradient vector: dA, dalpha, dbeta, and
+    with the edge subset dedge_w and dedge_b."""
+    return K * V * V + 2 * K + ((Cm + 1) * E * Cm if has_edge else 0)
+
+
+def _k2_plain(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel, dy,
+              K, Cm, edge_k, edge_num):
+    dpre, dx1, dx2, dA, da, db, dew, deb = reference_dyn_graph_agg_bwd(
+        pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel, dy, K=K,
+        Cm=Cm, edge_k=edge_k, edge_num=edge_num)
+    parts = [dA.reshape(-1), da, db]
+    if edge_w is not None:
+        parts += [dew.reshape(-1), deb if deb is not None
+                  else dA.new_zeros(edge_num * Cm)]
+    return (dpre.contiguous(), dx1.contiguous(), dx2.contiguous(),
+            torch.cat([t.float() for t in parts]))
+
+
+def _k2_kernel(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel, dy,
+               K, Cm, edge_k, edge_num):
     name = "fused_dyn_graph_agg_bwd"
     E = edge_num
     o = _graph_operands(name, pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
@@ -443,7 +482,7 @@ def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
     dpre = torch.empty_like(pre_x)
     dx1 = torch.empty((N, K, Cm, V), device=dev, dtype=f32)
     dx2 = torch.empty_like(dx1)
-    sums = torch.empty(W0 + ((Cm + 1) * F if has_edge else 0), device=dev,
+    sums = torch.empty(_sums_len(V, K, Cm, E, has_edge), device=dev,
                        dtype=f32)
     if N == 0:
         sums.zero_()
@@ -479,15 +518,28 @@ def fused_dyn_graph_agg_bwd(pre_x: torch.Tensor, x1: torch.Tensor,
                 Cm, E, o["edge_k"], CG, rows, nrr, ns,
                 _build.stream_of(pre_x))
         fused_dyn_graph_agg_bwd.launches += 1
-    dA = sums[:K * VV].view(K, V, V)
-    dgates = sums[K * VV:W0].view(2, K)
-    dew = deb = None
-    if has_edge:
-        dew = sums[W0:W0 + Cm * F].view(Cm, F)
-        deb = sums[W0 + Cm * F:] if edge_b is not None else None
-    return dpre, dx1, dx2, dA, dgates[0], dgates[1], dew, deb
+    return dpre, dx1, dx2, sums
 
 
+
+
+def _k2_fake(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel, dy, K,
+             Cm, edge_k, edge_num):
+    N, _, V, _ = pre_x.shape
+    dx = pre_x.new_empty((N, K, Cm, V), dtype=torch.float32)
+    return (torch.empty_like(pre_x, memory_format=torch.contiguous_format),
+            dx, torch.empty_like(dx), pre_x.new_empty(
+                _sums_len(V, K, Cm, edge_num, edge_w is not None),
+                dtype=torch.float32))
+
+
+_GRAPH_OPERANDS = ("Tensor x1, Tensor x2, Tensor A, Tensor alpha, "
+                   "Tensor beta, Tensor? edge_w, Tensor? edge_b, "
+                   "Tensor? edge_sel")
+dyn_graph_agg_bwd_op = _build.custom_op(
+    "dyn_graph_agg_bwd", f"(Tensor pre_x, {_GRAPH_OPERANDS}, Tensor dy, "
+    "int K, int Cm, int edge_k, int edge_num) -> "
+    "(Tensor, Tensor, Tensor, Tensor)", _k2_plain, _k2_kernel, _k2_fake)
 fused_dyn_graph_agg_bwd.launches = 0
 
 
@@ -495,9 +547,30 @@ def _cast(g, like):
     return None if g is None or like is None else g.to(like.dtype)
 
 
+def _k1_plain(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel, K,
+              Cm, edge_k, edge_num, v_real):
+    return reference_dyn_graph_agg(
+        pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel, K=K, Cm=Cm,
+        edge_k=edge_k, edge_num=edge_num, v_real=v_real).contiguous()
+
+
+def like_first(t, *args):
+    """The fake output of an op whose output has its first input's shape
+    and dtype (K1, K3, K4)."""
+    return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+
+dyn_graph_agg_op = _build.custom_op(
+    "dyn_graph_agg", f"(Tensor pre_x, {_GRAPH_OPERANDS}, int K, int Cm, "
+    "int edge_k, int edge_num, int v_real) -> Tensor", _k1_plain,
+    _forward_kernel, like_first)
+
+
 class FusedDynGraphAgg(torch.autograd.Function):
-    """K1 forward and K2 backward; saves the inputs only (JAX ``_vjp_fwd``).
-    Grad-of-grad is not supported (``once_differentiable`` raises)."""
+    """K1 forward and K2 backward (the ops ``dsgcn::dyn_graph_agg`` and
+    ``dsgcn::dyn_graph_agg_bwd``); saves the inputs only (JAX
+    ``_vjp_fwd``).  Grad-of-grad is not supported (``once_differentiable``
+    raises)."""
 
     @staticmethod
     def forward(ctx, pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel,
@@ -505,13 +578,9 @@ class FusedDynGraphAgg(torch.autograd.Function):
         ctx.save_for_backward(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
                               edge_sel)
         ctx.static = (K, Cm, edge_k, edge_num, v_real)
-        if pre_x.device.type == "cpu":
-            return reference_dyn_graph_agg(pre_x, x1, x2, A, alpha, beta,
-                                           edge_w, edge_b, edge_sel, K=K,
-                                           Cm=Cm, edge_k=edge_k,
-                                           edge_num=edge_num, v_real=v_real)
-        return _forward_kernel(pre_x, x1, x2, A, alpha, beta, edge_w, edge_b,
-                               edge_sel, K, Cm, edge_k, edge_num, v_real)
+        return dyn_graph_agg_op(pre_x, x1, x2, A, alpha, beta, edge_w,
+                                edge_b, edge_sel, K, Cm, edge_k, edge_num,
+                                v_real)
 
     @staticmethod
     @once_differentiable
@@ -547,19 +616,22 @@ def fused_dyn_graph_agg(pre_x: torch.Tensor, x1: torch.Tensor,
     (Cm, edge_num*Cm) or None; edge_b: (edge_num*Cm,) or None; edge_sel:
     (edge_num, V, V) one-hot class mask or None; v_real: the ada softmax
     masks source joints >= v_real (joint-padded eval input; it has no
-    backward).  Returns y in pre_x's layout and dtype.
+    backward).  Returns y in pre_x's layout and dtype.  Where a gradient
+    is wanted this is :class:`FusedDynGraphAgg`, else the op
+    ``dsgcn::dyn_graph_agg`` alone (what ``torch.export`` records).
     """
-    if v_real > 0 and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (pre_x, x1, x2, A, alpha, beta, edge_w, edge_b)):
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (pre_x, x1, x2, A, alpha, beta, edge_w, edge_b))
+    if v_real > 0 and grad:
         raise NotImplementedError(
             "fused_dyn_graph_agg: joint-padded mode (v_real) is eval-only; "
             "call it under torch.no_grad()")
     if edge_w is None:
         edge_k = -1
-    return FusedDynGraphAgg.apply(pre_x, x1, x2, A, alpha, beta, edge_w,
-                                  edge_b, edge_sel, K, Cm, edge_k, edge_num,
-                                  v_real)
+    args = (pre_x, x1, x2, A, alpha, beta, edge_w, edge_b, edge_sel, K, Cm,
+            edge_k, edge_num, v_real)
+    return FusedDynGraphAgg.apply(*args) if grad else dyn_graph_agg_op(*args)
 
 
 fused_dyn_graph_agg.launches = 0
@@ -756,14 +828,24 @@ def fused_dyn_graph_agg_eval(x: torch.Tensor, w_pre: torch.Tensor,
     x: (N, T, V, C) float32 or bfloat16; w_pre: (C, K*Cm) in x's dtype and
     b_pre: (K*Cm,) float32, the BatchNorm-folded pre-conv; x1/x2:
     (N, K, Cm, V); A: (K, V, V); alpha/beta: (K,).  No edge attention.
-    Returns (N, T, V, K*Cm) in x's dtype."""
-    if x.device.type == "cpu":
-        return reference_dyn_graph_agg_eval(x, w_pre, b_pre, x1, x2, A,
-                                            alpha, beta, K=K, Cm=Cm,
-                                            v_real=v_real)
+    Returns (N, T, V, K*Cm) in x's dtype.  The custom op
+    ``dsgcn::dyn_graph_agg_eval``."""
+    if x.device.type != "cpu":
+        _build.refuse_grad("fused_dyn_graph_agg_eval", x, w_pre, b_pre, x1,
+                           x2, A, alpha, beta)
+    return dyn_graph_agg_eval_op(x, w_pre, b_pre, x1, x2, A, alpha, beta, K,
+                                 Cm, v_real)
+
+
+def _k5_plain(x, w_pre, b_pre, x1, x2, A, alpha, beta, K, Cm, v_real):
+    return reference_dyn_graph_agg_eval(x, w_pre, b_pre, x1, x2, A, alpha,
+                                        beta, K=K, Cm=Cm,
+                                        v_real=v_real).contiguous()
+
+
+def _k5_kernel(x, w_pre, b_pre, x1, x2, A, alpha, beta, K, Cm, v_real):
     name = "fused_dyn_graph_agg_eval"
     _build.check_activation(x, name)
-    _build.refuse_grad(name, x, w_pre, b_pre, x1, x2, A, alpha, beta)
     N, T, V, C = x.shape
     KC = K * Cm
     if w_pre.shape != (C, KC) or w_pre.dtype != x.dtype \
@@ -802,4 +884,14 @@ def fused_dyn_graph_agg_eval(x: torch.Tensor, w_pre: torch.Tensor,
     return out
 
 
+
+
+def _k5_fake(x, w_pre, b_pre, x1, x2, A, alpha, beta, K, Cm, v_real):
+    return x.new_empty((*x.shape[:3], K * Cm))
+
+
+dyn_graph_agg_eval_op = _build.custom_op(
+    "dyn_graph_agg_eval", "(Tensor x, Tensor w_pre, Tensor b_pre, Tensor x1, "
+    "Tensor x2, Tensor A, Tensor alpha, Tensor beta, int K, int Cm, "
+    "int v_real) -> Tensor", _k5_plain, _k5_kernel, _k5_fake)
 fused_dyn_graph_agg_eval.launches = 0

@@ -19,9 +19,9 @@ The TPU kernel multiplies shift-grouped, zero-embedded (P, C') matrices
 each branch's taps padded to whole k8 steps (:func:`pack_weights`), and
 :func:`tile_plan` picks its blocks.
 
-On a CUDA tensor :func:`fused_dgmstcn_eval` launches the hand-written
-kernel ``csrc/ms_tcn.cu``; on a CPU tensor it runs the plain version
-:func:`reference_fused_dgmstcn_eval`.  Eval only.
+:func:`fused_dgmstcn_eval` calls the custom op ``dsgcn::ms_tcn``: on a
+CUDA tensor the hand-written kernel ``csrc/ms_tcn.cu``, on a CPU tensor
+the plain version :func:`reference_fused_dgmstcn_eval`.  Eval only.
 """
 from __future__ import annotations
 
@@ -265,16 +265,29 @@ def fused_dgmstcn_eval(x: torch.Tensor, w_pre: torch.Tensor,
     and b11 (mid,): the strided 1x1 branch; a_tr, b_tr (C',): the transform
     BN; w_tc (C', C'), b_tc (C',): the transform 1x1; a_out, b_out (C',):
     the output BN; coeff (V,) or None.  Returns (N, ceil(T / stride), V,
-    C') in x's dtype."""
-    dilations = tuple(int(d) for d in dilations)
-    if x.device.type == "cpu":
-        return reference_fused_dgmstcn_eval(
-            x, w_pre, b_pre, taps_w, taps_b, w11, b11, a_tr, b_tr, w_tc,
-            b_tc, a_out, b_out, coeff, dilations=dilations, stride=stride)
+    C') in x's dtype.  The custom op ``dsgcn::ms_tcn``."""
+    if x.device.type != "cpu":
+        _build.refuse_grad("fused_dgmstcn_eval", x, w_pre, b_pre, *taps_w,
+                           *taps_b, w11, b11, a_tr, b_tr, w_tc, b_tc, a_out,
+                           b_out, coeff)
+    return ms_tcn_op(x, w_pre, b_pre, list(taps_w), list(taps_b), w11, b11,
+                     a_tr, b_tr, w_tc, b_tc, a_out, b_out, coeff,
+                     [int(d) for d in dilations], stride)
+
+
+def _k7_plain(x, w_pre, b_pre, taps_w, taps_b, w11, b11, a_tr, b_tr, w_tc,
+              b_tc, a_out, b_out, coeff, dilations, stride):
+    return reference_fused_dgmstcn_eval(
+        x, w_pre, b_pre, taps_w, taps_b, w11, b11, a_tr, b_tr, w_tc, b_tc,
+        a_out, b_out, coeff, dilations=dilations,
+        stride=stride).contiguous()
+
+
+def _k7_kernel(x, w_pre, b_pre, taps_w, taps_b, w11, b11, a_tr, b_tr, w_tc,
+               b_tc, a_out, b_out, coeff, dilations, stride):
+    dilations = tuple(dilations)
     name = "fused_dgmstcn_eval"
     _build.check_activation(x, name)
-    _build.refuse_grad(name, x, w_pre, b_pre, *taps_w, *taps_b, w11, b11,
-                       a_tr, b_tr, w_tc, b_tc, a_out, b_out, coeff)
     N, T, V, C = x.shape
     if len(taps_w) != 4 or len(taps_b) != 4 or len(dilations) != 4:
         raise ValueError(f"{name}: four conv branches (DEFAULT_MS_CFG), "
@@ -325,4 +338,18 @@ def fused_dgmstcn_eval(x: torch.Tensor, w_pre: torch.Tensor,
     return out
 
 
+
+
+def _k7_fake(x, w_pre, b_pre, taps_w, taps_b, w11, b11, a_tr, b_tr, w_tc,
+             b_tc, a_out, b_out, coeff, dilations, stride):
+    N, T, V, _ = x.shape
+    return x.new_empty((N, conv_out_len(T, stride), V, w_tc.shape[-1]))
+
+
+ms_tcn_op = _build.custom_op(
+    "ms_tcn", "(Tensor x, Tensor w_pre, Tensor b_pre, Tensor[] taps_w, "
+    "Tensor[] taps_b, Tensor w11, Tensor b11, Tensor a_tr, Tensor b_tr, "
+    "Tensor w_tc, Tensor b_tc, Tensor a_out, Tensor b_out, Tensor? coeff, "
+    "int[] dilations, int stride) -> Tensor", _k7_plain, _k7_kernel,
+    _k7_fake)
 fused_dgmstcn_eval.launches = 0

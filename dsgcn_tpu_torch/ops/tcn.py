@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm, PointConv, TemporalConv, dropout, max_pool_t
+from .common import (BatchNorm, PointConv, TemporalConv, cast, dropout,
+                     joint_pad_check, max_pool_t)
 from .kernels.ms_tcn import fused_dgmstcn_eval
 
 MsCfgEntry = Union[str, Tuple[Union[str, int], int]]
@@ -125,18 +126,18 @@ def fused_ms_eval(mod: nn.Module, x: torch.Tensor,
     for i, cfg in enumerate(br.ms_cfg):
         if cfg == "1x1":
             conv = getattr(br, f"branch{i}_conv").conv
-            w11 = conv.weight.float()[:, :, 0, 0].t()        # (C, mid)
-            b11 = conv.bias.float()
+            w11 = cast(conv.weight, f32)[:, :, 0, 0].t()     # (C, mid)
+            b11 = cast(conv.bias, f32)
             continue
         a, b = getattr(br, f"branch{i}_bn").affine(f32)
         pre = getattr(br, f"branch{i}_pre")
-        w_pre.append(pre.weight.float().t() * a[None])
-        b_pre.append(pre.bias.float() * a + b)
+        w_pre.append(cast(pre.weight, f32).t() * a[None])
+        b_pre.append(cast(pre.bias, f32) * a + b)
         kind, val = cfg
         if kind != "max":
             conv = getattr(br, f"branch{i}_tcn").conv.conv   # (O, I, 3, 1)
-            taps_w.append(conv.weight.float()[..., 0].permute(2, 1, 0))
-            taps_b.append(conv.bias.float())
+            taps_w.append(cast(conv.weight, f32)[..., 0].permute(2, 1, 0))
+            taps_b.append(cast(conv.bias, f32))
             dilations.append(val)
     a_tr, b_tr = mod.transform_bn.affine(f32)
     a_out, b_out = mod.bn.affine(f32)
@@ -144,8 +145,8 @@ def fused_ms_eval(mod: nn.Module, x: torch.Tensor,
     # the kernel reads x row-major; UnitGCN's einsum may leave it permuted
     return fused_dgmstcn_eval(
         x.contiguous(), torch.cat(w_pre, 1), torch.cat(b_pre), taps_w, taps_b, w11, b11,
-        a_tr, b_tr, tc.weight.float().t(), tc.bias.float(), a_out, b_out,
-        coeff, dilations=dilations, stride=br.stride)
+        a_tr, b_tr, cast(tc.weight, f32).t(), cast(tc.bias, f32), a_out,
+        b_out, coeff, dilations=dilations, stride=br.stride)
 
 
 class MSTCN(nn.Module):
@@ -193,10 +194,11 @@ class DGMSTCN(nn.Module):
     never beat concat, at b16 or b64 x M2 x T100 (PERF.md §5), so it was
     taken out.  ``dropout`` acts in training only, its mask drawn from
     ``self.generator`` (a ``torch.Generator`` on the activations' device,
-    or None for torch's default).  The JAX module's
-    joint-partition mode (``graph_axis``), joint padding (``v_pad``) and
-    ``branch_kind='mlp'`` are not ported: each raises, naming the option,
-    when set.
+    or None for torch's default).  ``v_pad`` (joint-padded mode) keeps
+    JAX's refusal of training and runs at the real joints
+    (``ops/common.py:joint_pad_check``).  The JAX module's joint-partition
+    mode (``graph_axis``) and ``branch_kind='mlp'`` are not ported: each
+    raises, naming the option, when set.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -208,7 +210,6 @@ class DGMSTCN(nn.Module):
                  branch_kind: str = "tcn"):
         super().__init__()
         for name, value, default in (("graph_axis", graph_axis, None),
-                                     ("v_pad", v_pad, 0),
                                      ("branch_kind", branch_kind, "tcn")):
             if value != default:
                 raise NotImplementedError(
@@ -217,7 +218,7 @@ class DGMSTCN(nn.Module):
             raise ValueError(
                 f"eval_layout must be 'auto', 'split' or 'concat'; "
                 f"got {eval_layout!r}")
-        self.eval_layout = eval_layout
+        self.eval_layout, self.v_pad = eval_layout, v_pad
         self.branches = _MSBranches(in_channels, out_channels, mid_channels,
                                     ms_cfg, stride)
         width = sum(self.branches.widths)
@@ -231,12 +232,13 @@ class DGMSTCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         v = x.shape[2]
+        joint_pad_check(self)
         if _k7_applies(self):
             return fused_ms_eval(self, x, self.add_coeff[:v])
         # append the global mean joint as row v (tcn.py:409)
         xg = torch.cat([x, x.mean(dim=2, keepdim=True)], dim=2)
         out = self.branches(xg)
-        coeff = self.add_coeff[:v].to(x.dtype)
+        coeff = cast(self.add_coeff[:v], x.dtype)
         feat = out[:, :, :v] + out[:, :, v:] * coeff[None, None, :, None]
         feat = self.transform_conv(F.relu(self.transform_bn(feat)))
         return dropout(self.bn(feat), self.dropout, self.training,

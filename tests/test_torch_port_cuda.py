@@ -4,8 +4,11 @@ backward), K3 (bd_dyn_graph_agg), K4 (bd_dyn_graph_agg_subset), K5
 (fused_dgmstcn_eval) against their plain PyTorch versions on the card, the
 K1+K2 autograd Function, a narrow DG-STGCN's eval options on the card
 against the CPU, MSTCN through K7, one DS-GCN train step on the card
-against the same step on the CPU, and narrow AAGCN and CTR-GCN forwards and
-train steps on the card against the CPU.
+against the same step on the CPU, narrow AAGCN and CTR-GCN forwards and
+train steps on the card against the CPU, the seven kernels' custom ops
+under ``torch.library.opcheck``, a DS-GCN served from its exported
+artifact, and K1, K3 and K4 through the joint-padded modules (which run
+at the real joints).
 
 Marked ``cuda``: they skip without a GPU.  The file imports no JAX, so it
 runs on a GPU machine without it; there, run it without the JAX-side
@@ -39,7 +42,10 @@ from dsgcn_tpu_torch.ops.kernels import ms_tcn
 from dsgcn_tpu_torch.ops.kernels.ms_tcn import (fused_dgmstcn_eval,
                                                 reference_fused_dgmstcn_eval)
 from dsgcn_tpu_torch.ops.tcn import MSTCN
-from torch_port_cases import CASES, E, block_inputs, k3_packaging, to_torch
+from dsgcn_tpu_torch.apis import to_padded_inference
+from dsgcn_tpu_torch.serving import export_recognizer, load_exported
+from torch_port_cases import (CASES, E, block_inputs, k3_packaging,
+                              opcheck_cases, to_torch)
 from chip_smoke import DG_BLOCKS, DG_K, DS_BLOCKS, TCN_SHAPES
 
 K2_OUTS = ("dpre", "dx1", "dx2", "dA", "dalpha", "dbeta", "dedge_w",
@@ -1050,3 +1056,74 @@ def test_cuda_mstcn_launches_k7_once(cuda):
     assert fused_dgmstcn_eval.launches == n + 1
     assert _rel(got.cpu(), want) <= 1e-4
 
+
+# ---------------------------------------------------------------------------
+# the kernels as custom ops: opcheck, serving export, joint padding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(opcheck_cases("cpu")))
+def test_cuda_opcheck(cuda, case):
+    """Schema, fake implementation (shapes, dtypes, strides) and dispatch
+    of each kernel's custom op on CUDA tensors (the kernel)."""
+    op, args = opcheck_cases(cuda)[case]
+    torch.library.opcheck(op, args)
+
+
+def _narrow_on_cpu(name, **backbone):
+    """A narrow recognizer (four blocks, 64/128 wide) with seeded weights
+    and gates off zero, in eval on the CPU."""
+    cfg = model_cfg(name, num_classes=11)
+    cfg["backbone"].update(num_stages=4, base_channels=64,
+                           inflate_stages=(3,), down_stages=(3,), **backbone)
+    cfg["cls_head"]["in_channels"] = 128
+    cpu = init_weights_(build_model(cfg), torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if hasattr(m, "alpha") and hasattr(m, "beta"):
+                m.alpha.uniform_(-0.5, 0.5, generator=gen)
+                m.beta.uniform_(-0.5, 0.5, generator=gen)
+    return cpu.eval()
+
+
+@pytest.mark.cuda
+def test_cuda_dsgcn_artifact_launches_k3(cuda, tmp_path):
+    """A narrow DS-GCN exported on the card (dynamic batch) and served from
+    the artifact: K3 once a block a forward, counted inside the op, and the
+    live module's logits within 1e-5 relative."""
+    model = _narrow_on_cpu("dsgcn").to(cuda)
+    x = torch.randn(3, 2, 16, 25, 3, generator=torch.Generator().manual_seed(
+        2))
+    with torch.no_grad():
+        want = model(x.to(cuda)).cpu()
+    man = export_recognizer(model, str(tmp_path), sample_shape=(2, 16, 25, 3))
+    assert man["polymorphic_batch"] and man["device"] == "cuda"
+    served = load_exported(str(tmp_path))
+    n = bd_dyn_graph_agg.launches
+    got = torch.from_numpy(served.logits(x.numpy()))
+    assert bd_dyn_graph_agg.launches - n == model.backbone.num_blocks
+    assert _rel(got, want) <= 1e-5, _rel(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,ek,fn", [
+    ("dsgcn", "auto", bd_dyn_graph_agg), ("dsgcn", "fused",
+                                          fused_dyn_graph_agg),
+    ("dgstgcn", "auto", fused_dyn_graph_agg),
+    ("dgstgcn", "bdg", bd_dyn_graph_agg_subset)])
+def test_cuda_padded_modules_match_cpu(cuda, name, ek, fn):
+    """The joint-padded model on the card, which runs at the real joints:
+    its kernel (K3 with edge attention, K1 with and without it, K4) once
+    a block, the CPU's unpadded logits within 1e-4 relative."""
+    cpu = _narrow_on_cpu(name, gcn_eval_kernel=ek)
+    x = torch.randn(2, 2, 16, 25, 3, generator=torch.Generator().manual_seed(
+        3))
+    with torch.no_grad():
+        want = cpu(x)
+    gpu = to_padded_inference(copy.deepcopy(cpu).to(cuda))
+    n = fn.launches
+    with torch.no_grad():
+        got = gpu(x.to(cuda)).cpu()
+    assert fn.launches - n == cpu.backbone.num_blocks
+    assert _rel(got, want) <= 1e-4, _rel(got, want)

@@ -516,14 +516,23 @@ def test_init_rules_follow_jax(family):
     ("ada_attention", True), ("target_specific", True), ("add_type", True),
     ("graph_axis", "joints"), ("v_pad", 32)])
 def test_dgphgcn1_unported_options_raise(option, value):
-    """The options JAX's DGPHGCN1 has and the port's lacks (``graph_axis``,
-    ``v_pad``) raise, naming the option, where a config sets them; at their
-    defaults they build.  ``ada_attention``, ``target_specific`` and
-    ``add_type`` are ported: set, each builds what it adds
-    (``ada_linears``, the per-node-type ``nodeconv_*``) or, for
-    ``add_type``, which DGPHGCN1 never reads, the default's parameters
-    (their parity with JAX is ``test_torch_port_options.py``'s)."""
+    """The option JAX's DGPHGCN1 has and the port's lacks (``graph_axis``)
+    raises, naming the option, where a config sets it; at its default it
+    builds.  ``ada_attention``, ``target_specific`` and ``add_type`` are
+    ported: set, each builds what it adds (``ada_linears``, the
+    per-node-type ``nodeconv_*``) or, for ``add_type``, which DGPHGCN1
+    never reads, the default's parameters (their parity with JAX is
+    ``test_torch_port_options.py``'s); so is ``v_pad``, which builds the
+    default's parameters and refuses training (its parity is
+    ``test_torch_port_padded.py``'s)."""
     graph = _graph(25)
+    if option == "v_pad":
+        mod = DGPHGCN1(16, 16, **graph, **{option: value})
+        assert mod.state_dict().keys() == DGPHGCN1(
+            16, 16, **graph).state_dict().keys()
+        with pytest.raises(NotImplementedError, match="eval-only"):
+            mod.train()(torch.zeros(1, 2, 32, 16))
+        return
     if option in ("ada_attention", "target_specific", "add_type"):
         shapes = [{k: tuple(t.shape) for k, t in DGPHGCN1(
             16, 16, **graph, decompose=True, **kw).state_dict().items()}
