@@ -78,12 +78,29 @@ latency, the export time; DS-GCN and DG-STGCN in joint-padded mode
 (``to_padded_inference(v_pad=32)``, which runs at the real joints; f32
 and bf16) against the model with the same launches; a pyskl-named
 ``.pth`` (``to_pyskl_state_dict``) through ``load_torch_checkpoint`` into
-DS-GCN, the card against the CPU.
-Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18;
+DS-GCN, the card against the CPU.  Phase 19 takes ``dsgcn_tpu_torch/
+parallel`` through launches of ``python -m torch.distributed.run
+--standalone`` (this script's ``--parallel-worker``): (a) the train CLI on
+full-width DS-GCN (b128 x M2 x T60, three steps and the validation) in a
+one-process NCCL launch, DDP at world size 1, against the plain trainer
+from the same seed and batches (state within 1e-6), 10 K1 and 10 K2
+launches a step and 10 K3 a validation forward, step ms and peak memory
+beside the plain trainer's; (b) DDP over gloo, two processes on the one
+card, b64 each, two steps: the two states equal, and equal to a reference
+in this process that runs each half in train mode and averages gradients
+and statistics by hand (loss and state within 1e-5); (c) in (a)'s process,
+DS-GCN and DG-STGCN built with ``graph_axis`` on a (1, 1) mesh (the ring
+of one hop) against the plain models at b16 (logits and a step's loss
+within 1e-5, updates at cosine > 0.995, forward ms beside the plain
+forward's); and which gloo collectives take CUDA tensors (recorded, not
+checked; send and recv only under ``--parallel``, in a launch of their
+own, since gloo's send of a CUDA tensor aborts the process).
+Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19;
 ``--every-config`` runs 15 alone, ``--families`` 16 alone
 (``chiprun_out/families.json``), ``--options`` 17 alone
 (``chiprun_out/options.json``), ``--serving`` 18 alone
-(``chiprun_out/serving.json``).  Any failed check raises, and the script
+(``chiprun_out/serving.json``), ``--parallel`` 19 alone
+(``chiprun_out/parallel.json``).  Any failed check raises, and the script
 exits non-zero without a result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
@@ -3487,6 +3504,454 @@ def serving_phase(dev, card, report):
           f"{out['serve_process_s']:.1f} s) on {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: data-parallel and joint-partitioned training (parallel/)
+# ---------------------------------------------------------------------------
+
+PAR_TIMED = 5            # timed DDP steps of part (a), after one warm-up
+GLOO_BATCH, GLOO_STEPS = 128, 2     # part (b): the global batch, its steps
+JP_BATCH = 16            # part (c)
+
+
+def par_config(tmp):
+    """The j config on a synthetic pickle: a train split of three b128
+    batches and a val split of 129 clips (five b32 forwards)."""
+    from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
+    ann = tmp / "par.pkl"
+    # the first 3/4 trains: 3 batches of 128 and a few clips over
+    make_synthetic_pose_dataset(num_samples=3 * TRAIN_BATCH * 4 // 3 + 4,
+                                num_classes=60, t=100, seed=9, path=str(ann))
+    cfg = tmp / "par_cfg.py"
+    cfg.write_text(f"_base_ = [{str(CONFIG)!r}]\n"
+                   f"data = dict(workers_per_gpu=8,\n"
+                   f"    train=dict(ann_file={str(ann)!r}, split='train'),\n"
+                   f"    val=dict(ann_file={str(ann)!r}, split='val'))\n"
+                   "checkpoint_config = dict(interval=1)\n")
+    return cfg
+
+
+def par_cli_args(cfg, wd):
+    return [str(cfg), "--work-dir", str(wd), "--validate", "--total-epochs",
+            "1", "--seed", "7", "--no-auto-resume"]
+
+
+def deterministic(on: bool) -> None:
+    """Deterministic kernels on or off.  Three float32 steps from an
+    untrained model amplify rounding (the BatchNorm stacks; PERF.md §6),
+    so comparing two runs needs the same order of every sum: cuDNN's and
+    the scatter-based backwards' (``torch.gather``'s) atomics otherwise
+    reorder them from run to run.  The launches set CUBLAS_WORKSPACE_CONFIG
+    (``PAR_ENV``) before any CUDA call."""
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def time_trainer_steps(trainer, dev):
+    """ms a step of the trainer's own step function (its DDP step under a
+    launcher) on one b128 batch, after one warm-up, and the peak GiB."""
+    b = next(trainer.train_loader.epoch(1))
+    batch = dict(keypoint=torch.from_numpy(b["keypoint"][:, 0]).to(dev),
+                 label=torch.from_numpy(b["label"]).to(dev))
+    trainer._step(trainer.ddp, trainer.opt, trainer.sched, batch)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        trainer._step(trainer.ddp, trainer.opt, trainer.sched, batch)
+    torch.cuda.synchronize(dev)
+    return dict(step_ms=(time.perf_counter() - t0) / PAR_TIMED * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+
+def state_rel_err(got, want, what):
+    """The largest |got - want| over max |want| of any tensor of a state;
+    the three worst tensors are printed."""
+    check(got.keys() == want.keys(), "the states name different tensors")
+    errs = []
+    for k, w in want.items():
+        g = got[k].detach().float().cpu()
+        w = w.detach().float().cpu()
+        errs.append((((g - w).abs().max()
+                      / w.abs().max().clamp_min(1e-12)).item(), k))
+    errs.sort()
+    print(f"{what}: worst tensors {errs[-3:]}", flush=True)
+    return errs[-1][0]
+
+
+def cli_part(work, tag):
+    """Part (a)'s train CLI: one epoch of three b128 steps and the
+    validation, deterministic (under a one-process NCCL launch: DDP; in a
+    plain process: the single-device trainer); the kernels it launched, its
+    weights, then (nondeterministic again) its step time and peak
+    memory."""
+    import torch.distributed as dist
+    from dsgcn_tpu_torch.tools import train as cli
+    deterministic(True)
+    reset_counts()
+    trainer = cli.main(par_cli_args(work / "par_cfg.py", work / f"wd_{tag}"))
+    counts = read_counts()
+    dev = trainer.device
+    torch.save(trainer.model.state_dict(), work / f"{tag}_state.pt")
+    deterministic(False)
+    n_val = -(-len(trainer.val_loader.dataset)
+              // trainer.val_loader.batch_size)
+    launched = dist.is_initialized()
+    return dict(backend=dist.get_backend() if launched else None,
+                world=dist.get_world_size() if launched else None,
+                device=str(dev), ddp=type(trainer.ddp).__name__,
+                steps=trainer.step, val_forwards=n_val, launches=counts,
+                **time_trainer_steps(trainer, dev))
+
+
+def update_cosines(before, after_a, after_b):
+    """Per parameter, the cosine of two updates from one state (tensors
+    that neither step moved are skipped)."""
+    worst = 1.0
+    for k, p0 in before.items():
+        da = (after_a[k].float() - p0.float()).ravel()
+        db = (after_b[k].float() - p0.float()).ravel()
+        if da.norm() == 0 and db.norm() == 0:
+            continue
+        worst = min(worst, (da @ db / (da.norm() * db.norm())).item())
+    return worst
+
+
+def jp_part(dev):
+    """Part (c), in the same process as (a) (NCCL, world 1): DS-GCN and
+    DG-STGCN with graph_axis on a (1, 1) mesh (the ring of one hop, the
+    synced BatchNorms and the gathers) against the plain models (K3/K1 in
+    eval, K1 + K2 in a step), b16 x M2 x T100."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    from dsgcn_tpu_torch.parallel.mesh import GRAPH_AXIS, make_mesh
+    make_mesh(1, 1)
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(JP_BATCH, 2, 100, V, 3, generator=gen).to(dev)
+    y = torch.randint(0, 60, (JP_BATCH,), generator=gen).to(dev)
+    rows = {}
+    for name, mcfg in (("dsgcn", Config.fromfile(str(CONFIG))["model"]),
+                       ("dgstgcn", dg_config()["model"])):
+        plain = build_model(mcfg)
+        init_weights_(plain, torch.Generator().manual_seed(22))
+        nudge_gates_(plain, torch.Generator().manual_seed(23))
+        plain = plain.to(dev).eval()
+        jcfg = copy.deepcopy(mcfg)
+        jcfg["backbone"]["graph_axis"] = GRAPH_AXIS
+        jp = build_model(jcfg).to(dev).eval()
+        jp.load_state_dict(plain.state_dict())
+        reset_counts()
+        with torch.no_grad():
+            lp = plain(x)
+            counts_plain = read_counts()
+            reset_counts()
+            lj = jp(x)
+        counts_jp = read_counts()
+        err = rel_err(lj, lp)
+        row = dict(logits_rel_err=err, plain_launches=per_forward(
+            counts_plain, 1), jp_launches=per_forward(counts_jp, 1),
+            plain_ms=timed_forward(plain, x), jp_ms=timed_forward(jp, x))
+        before = {k: v.detach().clone() for k, v in plain.state_dict().items()}
+        losses, after = [], []
+        for m in (plain, jp):
+            opt, sched = make_optimizer(m, 10)
+            losses.append(train_step(m, opt, sched, dict(
+                keypoint=x, label=y))["loss"].item())
+            after.append({k: v.detach() for k, v in m.state_dict().items()})
+        row.update(loss_plain=losses[0], loss_jp=losses[1],
+                   loss_rel_err=abs(losses[1] - losses[0]) / abs(losses[0]),
+                   worst_update_cos=update_cosines(
+                       {k: v for k, v in before.items() if "running" not in k
+                        and "num_batches" not in k}, *after))
+        rows[name] = row
+        print(f"jp G=1 {name}", json.dumps(row), flush=True)
+        check(err <= 1e-5, f"{name}: graph_axis logits off the plain "
+              f"model's by {err:.3e}")
+        check(row["loss_rel_err"] <= 1e-5 and row["worst_update_cos"] > 0.995,
+              f"{name}: graph_axis step off the plain step: {row}")
+        check(not any(counts_jp.values()), f"{name}: the graph_axis model "
+              f"launched kernels {counts_jp}")
+        del plain, jp
+    return rows
+
+
+def gloo_batch(step):
+    """The global batch of part (b)'s step ``step`` (host numpy)."""
+    rng = np.random.default_rng(100 + step)
+    return (rng.standard_normal((GLOO_BATCH, 2, 60, V, 3)).astype(
+        np.float32), rng.integers(0, 60, GLOO_BATCH))
+
+
+def gloo_model(dev):
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    model = build_model(Config.fromfile(str(CONFIG))["model"])
+    init_weights_(model, torch.Generator().manual_seed(31))
+    nudge_gates_(model, torch.Generator().manual_seed(32))
+    return model.to(dev)
+
+
+def gloo_part(work):
+    """Part (b), in each of a two-process launch: gloo, both processes on
+    cuda:0, DDP of full-width DS-GCN, b64 a process, two steps
+    (deterministic)."""
+    import torch.distributed as dist
+    from dsgcn_tpu_torch.core.train import make_optimizer
+    from dsgcn_tpu_torch.parallel.mesh import (DATA_AXIS, init_distributed,
+                                               make_mesh)
+    from dsgcn_tpu_torch.parallel.train import distribute, make_dp_train_step
+    deterministic(True)
+    dev = init_distributed("gloo", device="cuda:0")
+    mesh = make_mesh()
+    r, half = mesh.axis(DATA_AXIS).index, GLOO_BATCH // 2
+    model = gloo_model(dev)
+    ddp = distribute(model, mesh, seed=31)
+    opt, sched = make_optimizer(model, 10)
+    step = make_dp_train_step(mesh)
+    losses = []
+    for s in range(GLOO_STEPS):
+        kp, lab = gloo_batch(s)
+        m = step(ddp, opt, sched, dict(
+            keypoint=torch.from_numpy(kp[r * half:(r + 1) * half]).to(dev),
+            label=torch.from_numpy(lab[r * half:(r + 1) * half]).to(dev)))
+        losses.append(m["loss"].item())
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save(state, work / f"gloo_state{r}.pt")
+    return dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                device=str(dev), losses=losses, cuda_ops=gloo_cuda_ops(dev))
+
+
+def gloo_cuda_ops(dev):
+    """Which gloo collectives take CUDA tensors, of those that fail on
+    both processes alike or not at all (send is ``gloo_send_probe``'s)."""
+    import torch.distributed as dist
+    t = torch.ones(4, device=dev)
+    found = {}
+    for name, op in (("all_reduce", lambda: dist.all_reduce(t)),
+                     ("broadcast", lambda: dist.broadcast(t, src=0)),
+                     ("all_gather", lambda: dist.all_gather(
+                         [torch.empty_like(t) for _ in range(2)], t))):
+        try:
+            op()
+            torch.cuda.synchronize(dev)
+            found[name] = "ok"
+        except RuntimeError as e:
+            found[name] = str(e).strip().splitlines()[0][:160]
+    return found
+
+
+def gloo_reference(dev, work):
+    """Part (b)'s steps in one process: each half of the global batch in
+    train mode from the same weights and statistics, the gradients and the
+    running statistics averaged by hand, then the SGD step."""
+    from dsgcn_tpu_torch.core.train import loss_and_metrics, make_optimizer
+    from dsgcn_tpu_torch.parallel.train import running_stats
+    deterministic(True)
+    model = gloo_model(dev).train()
+    opt, sched = make_optimizer(model, 10)
+    half, losses = GLOO_BATCH // 2, []
+    stats = running_stats(model)
+    for s in range(GLOO_STEPS):
+        kp, lab = gloo_batch(s)
+        start = [b.clone() for b in stats]
+        opt.zero_grad(set_to_none=True)
+        ends, step_losses = [], []
+        for r in range(2):
+            for b, v in zip(stats, start):
+                b.copy_(v)
+            loss, _ = loss_and_metrics(model, dict(
+                keypoint=torch.from_numpy(kp[r * half:(r + 1) * half]),
+                label=torch.from_numpy(lab[r * half:(r + 1) * half])))
+            loss.backward()
+            step_losses.append(loss.item())
+            ends.append([b.clone() for b in stats])
+        with torch.no_grad():
+            for b, e0, e1 in zip(stats, *ends):
+                b.copy_((e0 + e1) / 2)
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad /= 2
+        opt.step()
+        sched.step()
+        losses.append(sum(step_losses) / 2)
+    return losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def gloo_send_probe(work):
+    """Whether gloo sends a CUDA tensor (rank 0 to rank 1 on cuda:0): each
+    process writes what it saw before the op and after it, so a process
+    the op kills leaves its first line (``--parallel`` alone runs it)."""
+    import datetime
+    import torch.distributed as dist
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    # a short timeout: an op that fails on one process only must not hold
+    # the other for long
+    dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=30))
+    rank = dist.get_rank()
+    t = torch.ones(4, device=dev)
+    path = work / f"send{rank}.json"
+    path.write_text(json.dumps({"send/recv": "started"}))
+    try:
+        dist.send(t, 1) if rank == 0 else dist.recv(t, 0)
+        torch.cuda.synchronize(dev)
+        found = "ok"
+    except RuntimeError as e:
+        found = str(e).strip().splitlines()[0][:160]
+    path.write_text(json.dumps({"send/recv": found}))
+
+
+def parallel_worker(part, work):
+    """One process of a phase 19 launch (``--parallel-worker``); rank 0
+    writes its report to ``work/<part>.json``."""
+    import torch.distributed as dist
+    work = pathlib.Path(work)
+    if part == "single":           # a plain process: no launcher, no group
+        rep = cli_part(work, "plain")
+        losses, state = gloo_reference(torch.device("cuda"), work)
+        torch.save(state, work / "reference_state.pt")
+        rep["reference_losses"] = losses
+        (work / "single.json").write_text(json.dumps(rep, default=str))
+        return
+    if part == "nccl":
+        rep = cli_part(work, "ddp")
+        rep["jp"] = jp_part(torch.device("cuda", torch.cuda.current_device()))
+        (work / "nccl.json").write_text(json.dumps(rep, default=str))
+    elif part == "gloo":
+        rep = gloo_part(work)
+        (work / f"gloo{dist.get_rank()}.json").write_text(json.dumps(rep))
+    else:
+        gloo_send_probe(work)
+    dist.destroy_process_group()
+
+
+PAR_ENV = dict(CUBLAS_WORKSPACE_CONFIG=":4096:8")
+
+
+def torchrun(nproc, part, work, timeout):
+    """``python -m torch.distributed.run --standalone`` of ``nproc``
+    processes of this script's ``part`` (``nproc`` 0: one plain process,
+    no launcher); returns (rc, seconds, stderr tail).  Its process group is
+    ended whatever happens."""
+    import os
+    import signal
+    t0 = time.perf_counter()
+    launcher = ([] if nproc == 0 else
+                ["-m", "torch.distributed.run", "--standalone",
+                 f"--nproc-per-node={nproc}"])
+    proc = subprocess.Popen(
+        [sys.executable, *launcher, str(ROOT / "chip_smoke.py"),
+         "--parallel-worker", part, "--work", str(work)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, **PAR_ENV), start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for line in out.splitlines():
+        if line.startswith(("jp G=1", "batch:")):
+            print(f"  {part}: {line}", flush=True)
+    return proc.returncode, time.perf_counter() - t0, err[-3000:]
+
+
+def parallel_phase(dev, card, report, send_probe=False):
+    """Phase 19: (a) the train CLI under a one-process NCCL launch (DDP,
+    world 1) against the plain trainer in a process of its own, same seed
+    and batches, both deterministic (state within 1e-6), with 10 K1 and 10
+    K2 a step and 10 K3 a validation forward; (b) DDP over gloo, two
+    processes on the one card, b64 each, two steps: equal states on both,
+    and equal to a reference in the plain process (each half in train
+    mode, gradients and statistics averaged by hand; loss and state within
+    1e-5); (c) in (a)'s process, DS-GCN and DG-STGCN with graph_axis at G
+    = 1 against the plain models; and which gloo collectives take CUDA
+    tensors (with ``send_probe`` also send and recv, in a launch of their
+    own).  Returns the per-rank launches."""
+    import tempfile
+    out = report["parallel"] = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        cfg = par_config(work)
+        rc, secs, err = torchrun(1, "nccl", work, 600)
+        check(rc == 0, f"the NCCL launch failed ({rc}):\n{err}")
+        a = json.loads((work / "nccl.json").read_text())
+        print(f"(a) DDP launch: {secs:.1f} s, {json.dumps(a)}", flush=True)
+        check(a["backend"] == "nccl" and a["world"] == 1
+              and a["ddp"] == "DistributedDataParallel",
+              f"(a) did not train under DDP over NCCL: {a}")
+        per_step = {"fused_dyn_graph_agg": 10 * a["steps"],
+                    "fused_dyn_graph_agg_bwd": 10 * a["steps"],
+                    "bd_dyn_graph_agg": 10 * a["val_forwards"]}
+        expect_counts(a["launches"], per_step, 1, "(a) the DDP epoch")
+        # the plain trainer (the same CLI without a launcher) and (b)'s
+        # reference, in a process of their own
+        rc, secs_1, err = torchrun(0, "single", work, 600)
+        check(rc == 0, f"the plain process failed ({rc}):\n{err}")
+        plain = json.loads((work / "single.json").read_text())
+        print(f"(a) plain process: {secs_1:.1f} s, {json.dumps(plain)}",
+              flush=True)
+        check(plain["ddp"] != "DistributedDataParallel",
+              "the plain run trained under DDP")
+        expect_counts(plain["launches"], per_step, 1, "(a) the plain epoch")
+        err_a = state_rel_err(torch.load(work / "ddp_state.pt"),
+                              torch.load(work / "plain_state.pt"),
+                              "(a) DDP against the plain trainer")
+        out["ddp_nccl"] = dict(a, state_rel_err=err_a, plain_step_ms=plain[
+            "step_ms"], plain_peak_gib=plain["peak_gib"], seconds=secs)
+        print(f"(a) DDP (NCCL, world 1) against the plain trainer: state "
+              f"{err_a:.3e} rel; step {a['step_ms']:.2f} ms (plain "
+              f"{plain['step_ms']:.2f} ms), peak {a['peak_gib']:.2f} GiB "
+              f"(plain {plain['peak_gib']:.2f}) on {card}", flush=True)
+        check(err_a <= 1e-6, f"(a) DDP state off the plain trainer's by "
+              f"{err_a:.3e}")
+        out["jp_g1"] = a["jp"]
+
+        rc, secs, err = torchrun(2, "gloo", work, 600)
+        check(rc == 0, f"the gloo launch failed ({rc}):\n{err}")
+        b = [json.loads((work / f"gloo{r}.json").read_text())
+             for r in range(2)]
+        states = [torch.load(work / f"gloo_state{r}.pt") for r in range(2)]
+        same = all(torch.equal(states[0][k], states[1][k])
+                   for k in states[0])
+        ref_losses = plain["reference_losses"]
+        err_b = state_rel_err(states[0], torch.load(
+            work / "reference_state.pt"), "(b) gloo against the reference")
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(b[0]["losses"],
+                                                            ref_losses))
+        out["ddp_gloo"] = dict(ranks=b, ranks_equal=same, seconds=secs,
+                               reference_losses=ref_losses,
+                               state_rel_err=err_b, loss_rel_err=loss_err)
+        print(f"(b) DDP over gloo, 2 processes on {b[0]['device']}: ranks "
+              f"equal {same}; against the in-process reference: loss "
+              f"{loss_err:.3e}, state {err_b:.3e} rel ({secs:.1f} s)",
+              flush=True)
+        check(all(r["backend"] == "gloo" and r["world"] == 2 for r in b),
+              f"(b) did not run on two gloo processes: {b}")
+        check(same, "(b) the two processes end with different states")
+        check(loss_err <= 1e-5 and err_b <= 1e-5,
+              f"(b) off the reference: loss {loss_err:.3e}, state "
+              f"{err_b:.3e}")
+
+        ops = b[0]["cuda_ops"]
+        if send_probe:
+            rc, _, err = torchrun(2, "send", work, 150)
+            sent = [json.loads(p.read_text()) if p.exists() else {}
+                    for p in (work / f"send{r}.json" for r in range(2))]
+            ops = dict(ops, send=dict(rc=rc, ranks=sent,
+                                      stderr_tail=err[-600:]))
+        out["gloo_cuda_ops"] = ops
+        print(f"gloo collectives on CUDA tensors: {json.dumps(ops)}",
+              flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return a["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3525,11 +3990,24 @@ def main() -> int:
     ap.add_argument("--serve-artifacts", metavar="DIR",
                     help="phase 18's serving process: serve the artifacts "
                     "under DIR (no kernel build, no other phase)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="phase 19 alone: DDP over NCCL (world 1) and over "
+                    "gloo (two processes on the card), the joint partition "
+                    "at G = 1")
+    ap.add_argument("--parallel-worker", metavar="PART",
+                    help="one process of a phase 19 launch (nccl, single, "
+                    "gloo or send); no kernel build, no other phase")
+    ap.add_argument("--work", metavar="DIR",
+                    help="phase 19's working directory (with "
+                    "--parallel-worker)")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the port (a git archive of "
                     "the parent commit): time its K5, K6 and K7 beside "
                     "these")
     args = ap.parse_args()
+    if args.parallel_worker:
+        parallel_worker(args.parallel_worker, args.work)
+        return 0
     if args.serve_artifacts:
         serve_artifacts(args.serve_artifacts)
         return 0
@@ -3619,6 +4097,15 @@ def main() -> int:
                                                      default=str))
         print(card)
         return 0
+    if args.parallel:
+        parallel_phase(dev, card, report, send_probe=True)
+        done(19)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "parallel.json").write_text(json.dumps(report, indent=1,
+                                                      default=str))
+        print(card)
+        return 0
     if args.families:
         families(dev, card, report)
         done(16)
@@ -3659,6 +4146,8 @@ def main() -> int:
     done(17)
     serving_phase(dev, card, report)                               # 18
     done(18)
+    parallel_phase(dev, card, report)                              # 19
+    done(19)
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per

@@ -38,8 +38,9 @@ def init_recognizer(config, checkpoint: Optional[str] = None,
     mode on ``device`` (default: the CUDA device; raises without one).
 
     ``checkpoint``: a ``torch.save``d ``state_dict`` of the port (e.g. from
-    :func:`dsgcn_tpu_torch.utils.convert.convert_jax_variables`), loaded
-    strictly.  Without one the weights are the initial ones, drawn from
+    :func:`dsgcn_tpu_torch.utils.convert.convert_jax_variables`) or a
+    checkpoint of the port's trainer (``<work_dir>/ckpt/<step>.pt``, one
+    process's or a distributed run's), loaded strictly.  Without one the weights are the initial ones, drawn from
     torch's global generator.  The config rides on the model as ``.cfg``.
     """
     dev = resolve_device(device)
@@ -48,6 +49,8 @@ def init_recognizer(config, checkpoint: Optional[str] = None,
     model = build_model(cfg["model"])
     if checkpoint is not None:
         state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        if "model" in state and "optimizer" in state:
+            state = state["model"]       # a checkpoint of the port's trainer
         model.load_state_dict(state, strict=True)
     model.cfg = cfg
     return model.to(dev).eval()

@@ -6,6 +6,10 @@ its checkpoints are not read here: JAX weights enter the port through
 
 Layout: ``<work_dir>/ckpt/<step>.pt`` and ``<step>.json``; the latest is
 the highest step, and all but the latest ``MAX_TO_KEEP`` are removed.
+A model wrapped in DistributedDataParallel is saved and restored through
+the module it wraps, so the state's names carry no ``module.`` prefix and
+``apis.init_recognizer``, ``tools/test.py`` and ``serving.py`` load it as
+they load a single-process checkpoint.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..parallel.train import unwrap
 
 MAX_TO_KEEP = 5
 
@@ -39,7 +45,8 @@ class CheckpointManager:
         """Write step ``step`` (atomically: a temp file, then a rename) and
         drop the oldest beyond ``MAX_TO_KEEP``."""
         path = self.path(step)
-        state = dict(model=model.state_dict(), optimizer=opt.state_dict(),
+        state = dict(model=unwrap(model).state_dict(),
+                     optimizer=opt.state_dict(),
                      scheduler=sched.state_dict() if sched is not None
                      else None, step=step, epoch=epoch)
         torch.save(state, path + ".tmp")
@@ -66,7 +73,7 @@ class CheckpointManager:
                                     f"{self.dir} (it has {self.steps()})")
         state = torch.load(self.path(step), map_location="cpu",
                            weights_only=True)
-        model.load_state_dict(state["model"], strict=True)
+        unwrap(model).load_state_dict(state["model"], strict=True)
         if opt is not None:
             opt.load_state_dict(state["optimizer"])
         if sched is not None and state["scheduler"] is not None:

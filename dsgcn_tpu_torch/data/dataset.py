@@ -204,15 +204,26 @@ class ConcatDataset:
         return np.concatenate([d.labels for d in self.datasets])
 
 
-def epoch_indices(n: int, epoch: int, shuffle: bool = True,
-                  seed: int = 0) -> np.ndarray:
-    """Deterministic per-epoch indices (distributed_sampler.py:9-43): a
-    permutation of range(n) from ``RandomState(seed + epoch)``, the JAX
-    package's on one shard.  Its host shards and ``class_prob`` replication
-    are not ported."""
-    if not shuffle:
-        return np.arange(n)
-    return np.random.RandomState(seed + epoch).permutation(n)
+def epoch_indices(n: int, epoch: int, shard: int = 0, num_shards: int = 1,
+                  shuffle: bool = True, seed: int = 0,
+                  drop_last_to_multiple: Optional[int] = None) -> np.ndarray:
+    """Deterministic per-epoch shard indices (distributed_sampler.py:9-43),
+    as the JAX package computes them: every process draws the same
+    permutation of range(n) from ``RandomState(seed + epoch)``, pads it to a
+    multiple of ``num_shards`` by wrapping, and takes the strided slice
+    ``shard::num_shards``; ``drop_last_to_multiple`` then cuts the slice to
+    a multiple of it.  The JAX package's ``class_prob`` replication is not
+    ported."""
+    inds = (np.random.RandomState(seed + epoch).permutation(n) if shuffle
+            else np.arange(n))
+    total = ((n + num_shards - 1) // num_shards) * num_shards
+    if total > n:
+        inds = np.concatenate([inds, inds[:total - n]])
+    inds = inds[shard::num_shards]
+    if drop_last_to_multiple:
+        keep = (len(inds) // drop_last_to_multiple) * drop_last_to_multiple
+        inds = inds[:keep]
+    return inds
 
 
 class Loader:
@@ -221,21 +232,27 @@ class Loader:
     Sample ``idx`` of epoch ``e`` runs the pipeline with
     ``RandomState((seed * 1_000_003 + e * 7919 + idx) % 2**31)``, so the
     batches do not depend on worker scheduling and equal the JAX loader's.
+    ``shard``/``num_shards``: this process's share of every epoch
+    (:func:`epoch_indices`); one process a device takes shard = its data
+    rank and num_shards = the data axis, so the graph ranks of one data row
+    load the same batches.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, num_workers: int = 8,
-                 drop_last: bool = False):
+                 drop_last: bool = False, shard: int = 0,
+                 num_shards: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.shard, self.num_shards = shard, num_shards
         self._pool = ThreadPoolExecutor(num_workers) if num_workers else None
 
     def _indices(self, epoch: int) -> np.ndarray:
-        return epoch_indices(len(self.dataset), epoch, self.shuffle,
-                             self.seed)
+        return epoch_indices(len(self.dataset), epoch, self.shard,
+                             self.num_shards, self.shuffle, self.seed)
 
     def steps_per_epoch(self) -> int:
         n = len(self._indices(0))

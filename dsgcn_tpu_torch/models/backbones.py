@@ -32,6 +32,8 @@ from torch import nn
 
 from ..graph import Graph, GraphConfig
 from ..ops.common import BatchNorm, remat_call
+from ..parallel.joint_partition import all_gather
+from ..parallel.mesh import axis
 from ..ops.gcn import (DGGCN, DGPHGCN1, UnitAAGCN, UnitAAHGCN, UnitCTRGCN,
                        UnitCTRHGCN, UnitGCN)
 from ..ops.tcn import CTRMSTCN, DGMSTCN, MSTCN, UnitTCN
@@ -112,16 +114,17 @@ class DataBN(BatchNorm):
 
 
 class ResidualTCN(nn.Module):
-    """Block residual path: identity, zero, or strided 1x1 unit_tcn."""
+    """Block residual path: identity, zero, or strided 1x1 unit_tcn (its BN
+    synced over ``bn_axis`` in a joint-partitioned block)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 enabled: bool = True):
+                 enabled: bool = True, bn_axis: Optional[str] = None):
         super().__init__()
         self.enabled = enabled
         self.identity = in_channels == out_channels and stride == 1
         if enabled and not self.identity:
             self.down = UnitTCN(in_channels, out_channels, kernel_size=1,
-                                stride=stride)
+                                stride=stride, bn_axis=bn_axis)
 
     def forward(self, x: torch.Tensor):
         if not self.enabled:
@@ -153,7 +156,10 @@ class STGCNBlock(nn.Module):
 
 class DGBlock(nn.Module):
     """{dggcn | dgphgcn1} + {unit_tcn | mstcn | dgmstcn} (reference
-    dgstgcn.py:12-65); the edge and node types go to dgphgcn1 only."""
+    dgstgcn.py:12-65); the edge and node types go to dgphgcn1 only.
+    ``graph_axis`` (JAX backbones.py:288-316) reaches the GCN unit, the
+    residual's BN and the temporal unit (``dgmstcn``'s graph_axis,
+    ``unit_tcn``'s bn_axis; JAX asserts one of the two)."""
 
     def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
                  edge_type: Optional[np.ndarray],
@@ -162,24 +168,33 @@ class DGBlock(nn.Module):
                  gcn_kwargs: Optional[Dict[str, Any]] = None,
                  tcn_type: str = "dgmstcn",
                  tcn_kwargs: Optional[Dict[str, Any]] = None,
-                 remat_tcn: bool = False):
+                 remat_tcn: bool = False,
+                 graph_axis: Optional[str] = None):
         super().__init__()
         self.remat_tcn = remat_tcn
         if gcn_type not in ("dggcn", "dgphgcn1"):
             raise NotImplementedError(
                 f"gcn_type={gcn_type!r} is not ported yet (the port has "
                 "'dggcn' and 'dgphgcn1')")
+        tcn_kwargs = dict(tcn_kwargs or {})
+        if graph_axis is not None:
+            if tcn_type not in ("dgmstcn", "unit_tcn"):
+                raise ValueError(
+                    f"graph_axis takes tcn_type 'dgmstcn' or 'unit_tcn', "
+                    f"not {tcn_type!r}")
+            tcn_kwargs["graph_axis" if tcn_type == "dgmstcn"
+                       else "bn_axis"] = graph_axis
         self.residual = ResidualTCN(in_channels, out_channels, stride,
-                                    residual)
+                                    residual, bn_axis=graph_axis)
         if gcn_type == "dggcn":
             self.gcn = DGGCN(in_channels, out_channels, A_init=A,
-                             **(gcn_kwargs or {}))
+                             graph_axis=graph_axis, **(gcn_kwargs or {}))
         else:
             self.gcn = DGPHGCN1(in_channels, out_channels, A_init=A,
                                 edge_type=edge_type, node_type=node_type,
-                                **(gcn_kwargs or {}))
+                                graph_axis=graph_axis, **(gcn_kwargs or {}))
         self.tcn = _make_tcn(tcn_type, out_channels, out_channels, stride,
-                             tcn_kwargs or {})
+                             tcn_kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         res = self.residual(x)
@@ -223,12 +238,18 @@ class _BackboneBase(nn.Module):
                  down_stages: Sequence[int] = (5, 8),
                  data_bn_type: Optional[str] = "VC", remat: Any = False,
                  block_args: Optional[Mapping[str, Any]] = None,
-                 joint_pad: int = 0):
+                 joint_pad: int = 0, graph_axis: Optional[str] = None):
         super().__init__()
         if remat not in (False, True, "tcn"):
             raise ValueError(f"remat must be False, True or 'tcn'; got "
                              f"{remat!r}")
+        if graph_axis is not None and not self._supports_graph_axis:
+            raise ValueError(f"{type(self).__name__} does not support "
+                             "graph_axis (the joint partition is DGSTGCN's)")
+        if graph_axis is not None and joint_pad:
+            raise ValueError("graph_axis and joint_pad exclude each other")
         self.remat = remat
+        self.graph_axis = graph_axis
         graph = Graph.from_config(graph_cfg)
         A = graph.A.astype(np.float32)
         if data_bn_type not in ("VC", "MVC", None):
@@ -255,6 +276,8 @@ class _BackboneBase(nn.Module):
         if joint_pad:
             self.set_joint_pad(joint_pad)
 
+    _supports_graph_axis = False
+
     def make_block(self, i, graph, A, in_c, out_c, stride, residual, kwargs):
         raise NotImplementedError
 
@@ -269,10 +292,20 @@ class _BackboneBase(nn.Module):
         if self.data_bn is not None:
             x = self.data_bn(x)
         x = x.reshape(n * m, t, v, c)
+        if self.graph_axis is not None:
+            # this process's block of the joints (JAX backbones.py:420-426)
+            ax = axis(self.graph_axis)
+            if v % ax.size:
+                raise ValueError(f"graph-axis shards ({ax.size}) must "
+                                 f"divide V ({v})")
+            vl = v // ax.size
+            x = x[:, :, ax.index * vl:(ax.index + 1) * vl]
         for i in range(self.num_blocks):
             blk = getattr(self, f"block{i}")
             x = (remat_call(blk, x) if self.remat is True and self.training
                  else blk(x))
+        if self.graph_axis is not None:
+            x = all_gather(x, axis(self.graph_axis).group, dim=2)
         return x.reshape((n, m) + x.shape[1:])
 
 
@@ -346,8 +379,13 @@ class DGSTGCN(_BackboneBase):
     """DG-STGCN / DS-GCN backbone (reference dgstgcn.py:74-170): blocks of
     gcn_type 'dggcn' (DG-STGCN, the default) or 'dgphgcn1' (DS-GCN) with
     tcn_type 'dgmstcn'.  The per-stage 'gcn_stage' list toggles semantics
-    on listed stages (dgstgcn.py:115-120).
+    on listed stages (dgstgcn.py:115-120).  ``graph_axis`` (joint
+    partition, JAX backbones.py:410-435): after ``data_bn`` each process of
+    the axis keeps its V / G joints, the blocks run joint-partitioned, and
+    the output is all-gathered back to every joint before the head.
     """
+
+    _supports_graph_axis = True
 
     def __init__(self, graph_cfg: GraphConfig = GraphConfig(
                      layout="nturgb+d", mode="random", seed=0), **kwargs):
@@ -368,12 +406,15 @@ class DGSTGCN(_BackboneBase):
                        node_type=nt, stride=stride, residual=residual,
                        gcn_type=gcn_type, gcn_kwargs=gcn_kwargs,
                        tcn_type=tcn_type, tcn_kwargs=tcn_kwargs,
-                       remat_tcn=self.remat == "tcn")
+                       remat_tcn=self.remat == "tcn",
+                       graph_axis=self.graph_axis)
 
     def set_joint_pad(self, v_pad: int) -> None:
         """Joint-padded mode at ``v_pad`` joints (0: off): the blocks'
         ``dggcn``/``dgphgcn1`` and ``dgmstcn`` units take ``v_pad``;
         ``mstcn`` and ``unit_tcn`` need nothing (JAX backbones.py:612-619)."""
+        if v_pad and self.graph_axis is not None:
+            raise ValueError("graph_axis and joint_pad exclude each other")
         for i in range(self.num_blocks):
             blk = getattr(self, f"block{i}")
             if not isinstance(blk.tcn, (DGMSTCN, MSTCN, UnitTCN)):

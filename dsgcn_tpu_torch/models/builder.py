@@ -30,7 +30,7 @@ HEADS = {"GCNHead": GCNHead}
 _BACKBONE_FIELDS = {
     "in_channels", "base_channels", "ch_ratio", "num_person", "num_stages",
     "inflate_stages", "down_stages", "data_bn_type", "remat",
-    "semantic_stage", "joint_pad",
+    "semantic_stage", "joint_pad", "graph_axis",
 }
 
 

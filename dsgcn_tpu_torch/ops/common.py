@@ -16,6 +16,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.joint_partition import all_reduce_sum
+from ..parallel.mesh import axis
+
 BN_EPS = 1e-5
 
 
@@ -125,11 +128,22 @@ class BatchNorm(nn.Module):
     Eval applies the folded affine ``x * a + b`` with
     ``a = rsqrt(var + 1e-5) * weight`` and ``b = bias - mean * a``, computed
     in :func:`accum_dtype` and applied in the activation dtype.
+
+    ``axis_name``: the mesh axis (``parallel/mesh.py``) whose processes
+    share the batch statistics (the joint-partitioned units: each process
+    holds a block of the joints, and the statistics must be the unsharded
+    model's); the sums ``s1 = sum(w x)``, ``s2 = sum(w x^2)`` and
+    ``cnt = sum(w)`` are all-reduced over it, differentiably, and Bessel's
+    factor takes the summed count.  ``weight`` in the forward: a
+    per-location weight broadcastable to x's non-channel dims with a
+    trailing 1 (DGMSTCN's appended mean joint, present on every process,
+    weighs 1/G so that it counts once).
     """
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, axis_name: Optional[str] = None):
         super().__init__()
         self.num_features = num_features
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -141,19 +155,39 @@ class BatchNorm(nn.Module):
                        cast(self.running_mean, dtype),
                        cast(self.running_var, dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         acc = accum_dtype(x.dtype)
         if not self.training:
             a, b = self.affine(acc)
             return x * cast(a, x.dtype) + cast(b, x.dtype)
         xm = x.to(acc)
         axes = tuple(range(x.dim() - 1))
-        mean = xm.mean(dim=axes)
-        var = (xm * xm).mean(dim=axes) - mean * mean
-        n = xm.numel() // self.num_features
+        if weight is None and self.axis_name is None:
+            mean = xm.mean(dim=axes)
+            var = (xm * xm).mean(dim=axes) - mean * mean
+            n = xm.numel() // self.num_features
+            bessel = n / max(n - 1, 1)
+        else:
+            if weight is None:
+                sums = [xm.sum(dim=axes), (xm * xm).sum(dim=axes),
+                        xm.new_full((1,), xm.numel() // self.num_features)]
+            else:
+                w = cast(weight, acc).expand(x.shape[:-1] + (1,))
+                sums = [(xm * w).sum(dim=axes), (xm * xm * w).sum(dim=axes),
+                        w.sum()[None]]
+            # one all-reduce for s1, s2 and the count
+            sums = torch.cat(sums)
+            if self.axis_name is not None:
+                ax = axis(self.axis_name)
+                sums = all_reduce_sum(sums, ax.group)
+            c = self.num_features
+            cnt = sums[2 * c]
+            mean = sums[:c] / cnt
+            var = sums[c:2 * c] / cnt - mean * mean
+            bessel = cnt / torch.clamp(cnt - 1, min=1)
         if not recomputing():
             with torch.no_grad():
-                bessel = n / max(n - 1, 1)
                 self.running_mean.mul_(0.9).add_(
                     0.1 * mean.to(self.running_mean.dtype))
                 self.running_var.mul_(0.9).add_(
@@ -162,7 +196,8 @@ class BatchNorm(nn.Module):
         return ((xm - mean) * mul + self.bias.to(acc)).to(x.dtype)
 
     def extra_repr(self) -> str:
-        return f"{self.num_features}"
+        return (f"{self.num_features}" if self.axis_name is None
+                else f"{self.num_features}, axis_name={self.axis_name!r}")
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.joint_partition import all_gather, ring_permute
+from ..parallel.mesh import axis
 from .common import (BatchNorm, PointConv, accum_dtype, cast, fold_bn,
                      joint_pad_check)
 from .kernels.bd_agg import bd_dyn_graph_agg, bd_dyn_graph_agg_subset
@@ -233,6 +235,56 @@ _MEGA_PADDED = ("eval_kernel='mega' does not support joint-padded mode "
                 "(v_pad); use 'auto'/'bd'/'fused'")
 
 
+def _jp_form_check(unit: str, options) -> None:
+    """JAX's assert on the joint-partitioned form (gcn.py:592-595,
+    :1069-1076): {option: (value, the value the mode takes)}; raises
+    naming the first option off its value."""
+    for name, (value, want) in options.items():
+        if value != want:
+            raise NotImplementedError(
+                f"{unit} graph_axis: the joint-partitioned mode takes "
+                f"{name}={want!r}, not {value!r}")
+
+
+def _jp_block(mod: nn.Module, x: torch.Tensor, aggregate) -> torch.Tensor:
+    """A joint-partitioned DGGCN/DGPHGCN1 block on this process's joints:
+    the residual, the values (their BNs synced over the axis), the ring
+    aggregation and the post 1x1 + BN (JAX gcn.py:591-600, :1068-1083)."""
+    res = (mod.down_bn(mod.down_conv(x)) if x.shape[-1] != mod.out_channels
+           else x)
+    y = aggregate(x, F.relu(mod.pre_bn(mod.pre_conv(x))))
+    return F.relu(mod.bn(mod.post_conv(y)) + res)
+
+
+def _ring_aggregate(A, ada, x1f, x2, pre, ax, gated_ctr, be, acc):
+    """The ring of a joint-partitioned unit: ``pre`` (N, T, Vl, K, C), this
+    process's values; ``x1f`` (N, K, C, V) the gathered queries, ``x2``
+    (N, K, C, Vl) the local ones, ``ada`` (N, K, V, Vl) the softmaxed
+    outer-product graph of the local target columns and ``be`` its gate.
+    At hop i the values of process src = (g + i) mod G are here: the
+    chunk's graph tanh(x1[src] - x2) (gated and, for DS-GCN, edge-attended
+    by ``gated_ctr(ctr, src)``) + be ada[src] + A[src, local] is built, the
+    values start on to the previous process, and the chunk is contracted
+    in ``acc``; the sum is cast once at the end."""
+    n, t, vl, K, mid = pre.shape
+    g, G = ax.index, ax.size
+    A_cols = cast(A[:, :, g * vl:(g + 1) * vl], pre.dtype)      # (K, V, vl)
+    y = pre.new_zeros((n, t, vl, K, mid), dtype=acc)
+    cur = pre
+    for i in range(G):
+        src = (g + i) % G
+        blk = slice(src * vl, (src + 1) * vl)
+        ctr = torch.tanh(x1f[..., blk][..., :, None] - x2[..., None, :])
+        Gc = gated_ctr(ctr, src) + (ada[:, :, blk] * be
+                                    + A_cols[:, blk][None])[:, :, None]
+        # start the transfer, then contract the chunk already here
+        nxt = ring_permute(cur, ax.group)
+        y = y + torch.einsum("ntvkc,nkcvw->ntwkc", cast(cur, acc),
+                             cast(Gc, acc))
+        cur = nxt.wait()
+    return cast(y, pre.dtype)
+
+
 DGGCN_EVAL_KERNELS = ("auto", "bd", "bdps", "bdg", "fused", "fusedpre",
                       "mega")
 
@@ -249,8 +301,16 @@ class DGGCN(nn.Module):
     parameters keep shape (K,)).  Submodule names follow the JAX module's
     flax scopes.  ``v_pad`` (joint-padded mode) keeps JAX's refusals,
     training and 'mega', and runs at the real joints
-    (``ops/common.py:joint_pad_check``).  The JAX module's
-    joint-partitioned mesh mode (``graph_axis``) is not ported and raises.
+    (``ops/common.py:joint_pad_check``).
+
+    ``graph_axis`` (the joint-partitioned mode, JAX gcn.py:591-600,
+    :738-797): x holds this process's block of the joints (the backbone
+    slices them); the graph is built and contracted block by block on the
+    ring of :meth:`_jp_aggregate`, whatever ``use_pallas`` says (JAX takes
+    no kernel there either), and ``down_bn``, ``pre_bn`` and ``bn`` sync
+    their statistics over the axis.  It takes the standard form only (ctr
+    and ada 'T', tanh and softmax) and refuses any other, naming the
+    option, as JAX asserts.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -260,9 +320,11 @@ class DGGCN(nn.Module):
                  v_pad=0):
         super().__init__()
         if graph_axis is not None:
-            raise NotImplementedError(
-                "DGGCN graph_axis (the joint-partitioned mesh mode, "
-                "_jp_aggregate) is not ported")
+            _jp_form_check("DGGCN", dict(ctr=(ctr, "T"), ada=(ada, "T"),
+                                         ctr_act=(ctr_act, "tanh"),
+                                         ada_act=(ada_act, "softmax"),
+                                         v_pad=(v_pad, 0)))
+        self.graph_axis = graph_axis
         self.v_pad = v_pad
         self.per_frame = _graph_mode(ctr, ada)
         if eval_kernel not in DGGCN_EVAL_KERNELS:
@@ -279,19 +341,19 @@ class DGGCN(nn.Module):
         mid = self.mid
         if in_channels != out_channels:
             self.down_conv = PointConv(in_channels, out_channels)
-            self.down_bn = BatchNorm(out_channels)
+            self.down_bn = BatchNorm(out_channels, axis_name=graph_axis)
         # a copy: blocks are built from one numpy graph and must not share it
         self.A = nn.Parameter(torch.tensor(np.asarray(A_init),
                                            dtype=torch.float32))
         self.pre_conv = PointConv(in_channels, mid * K)
-        self.pre_bn = BatchNorm(mid * K)
+        self.pre_bn = BatchNorm(mid * K, axis_name=graph_axis)
         self.alpha = nn.Parameter(torch.zeros(K))
         self.beta = nn.Parameter(torch.zeros(K))
         if ctr is not None or ada is not None:
             self.conv1 = PointConv(in_channels, mid * K)
             self.conv2 = PointConv(in_channels, mid * K)
         self.post_conv = PointConv(K * mid, out_channels)
-        self.bn = BatchNorm(out_channels)
+        self.bn = BatchNorm(out_channels, axis_name=graph_axis)
 
     def eval_path(self, c: int) -> str:
         """The eval kernel the JAX dispatch picks (gcn.py:621-700): 'auto'
@@ -311,6 +373,8 @@ class DGGCN(nn.Module):
         K, mid = self.K, self.mid
         n, t, v, c = x.shape
         joint_pad_check(self)
+        if self.graph_axis is not None:
+            return _jp_block(self, x, self._jp_aggregate)
         x1 = x2 = None
         if self.ctr is not None or self.ada is not None:
             if self.per_frame:                          # (n, K, mid, t, v)
@@ -369,6 +433,35 @@ class DGGCN(nn.Module):
         return fused_dyn_graph_agg(pre_x, x1, x2, self.A, a_vec, b_vec,
                                    K=K, Cm=mid)
 
+    def _jp_aggregate(self, x, pre_x):
+        """The joint-partitioned graph build and ring aggregation (JAX
+        gcn.py:738-797): the queries x1 are all-gathered ((N, K, mid, V),
+        small); the ada softmax runs over the whole source axis for this
+        process's target columns; the values ``pre_x`` go round the ring,
+        and at each hop the (V_src, W_local) chunk of the graph is built
+        and contracted, in the accumulation type, cast once at the end."""
+        K, mid = self.K, self.mid
+        n, t, vl, _ = pre_x.shape
+        ax = axis(self.graph_axis)
+        acc = accum_dtype(x.dtype)
+        tmp = x.mean(dim=1)                                     # (n, vl, c)
+        x1 = self.conv1(tmp).reshape(n, vl, K, mid).permute(0, 2, 3, 1)
+        x2 = self.conv2(tmp).reshape(n, vl, K, mid).permute(0, 2, 3, 1)
+        x1f = all_gather(x1, ax.group, dim=-1)                 # (n,K,mid,V)
+        ada = torch.softmax(torch.einsum("nkcv,nkcw->nkvw", cast(x1f, acc),
+                                         cast(x2, acc)), dim=-2)
+        if self.subset_wise:
+            al = cast(self.alpha, x.dtype)[None, :, None, None, None]
+            be = cast(self.beta, x.dtype)[None, :, None, None]
+        else:
+            al, be = cast(self.alpha[0], x.dtype), cast(self.beta[0],
+                                                         x.dtype)
+        return _ring_aggregate(
+            self.A, cast(ada, x.dtype), x1f, x2, pre_x.reshape(n, t, vl, K,
+                                                              mid),
+            ax, lambda ctr, src: ctr * al, be, acc).reshape(n, t, vl,
+                                                             K * mid)
+
     def _dense_aggregate(self, pre_x, x1, x2):
         """Materialized graph + einsum (JAX gcn.py:710-732); graphs are
         (N, K, Cq, [T,] V, V)."""
@@ -414,9 +507,15 @@ class DGPHGCN1(nn.Module):
     ``eval_kernel='mega'`` runs the whole eval block in K6, the
     edge-class attention included.  ``v_pad`` (joint-padded mode) keeps
     JAX's refusals, training, 'mega' and the dense path, and runs at the
-    real joints (``ops/common.py:joint_pad_check``).  The JAX module's
-    joint-partitioned mesh mode (``graph_axis``) is not ported yet and
-    raises, naming the option, when set.
+    real joints (``ops/common.py:joint_pad_check``).
+
+    ``graph_axis`` (the joint-partitioned mode, JAX gcn.py:1068-1083,
+    :1261-1393): the DS-GCN form on the ring of :meth:`_jp_aggregate`
+    (``down_bn``, ``pre_bn`` and ``bn`` synced over the axis), for ctr and
+    ada 'T', tanh and softmax, without ``ada_attention`` or
+    ``target_specific`` and, decomposed without edge attention, with
+    sem == norm - sem; any other form raises, naming the option, as JAX
+    asserts.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -429,9 +528,7 @@ class DGPHGCN1(nn.Module):
                  use_pallas=False, eval_kernel="auto", graph_axis=None,
                  v_pad=0):
         super().__init__()
-        if graph_axis is not None:
-            raise NotImplementedError(
-                f"DGPHGCN1 graph_axis={graph_axis!r} is not ported yet")
+        self.graph_axis = graph_axis
         self.v_pad = v_pad
         self.per_frame = _graph_mode(ctr, ada)
         if eval_kernel not in ("auto", "bd", "fused", "mega"):
@@ -461,10 +558,25 @@ class DGPHGCN1(nn.Module):
         self.ctr_act, self.ada_act = ctr_act, ada_act
         self.use_pallas, self.eval_kernel = use_pallas, eval_kernel
         mid, sem, norm = self.mid, self.sem, self.norm
+        if graph_axis is not None:
+            _jp_form_check("DGPHGCN1", dict(
+                ctr=(ctr, "T"), ada=(ada, "T"), ctr_act=(ctr_act, "tanh"),
+                ada_act=(ada_act, "softmax"),
+                ada_attention=(ada_attention, False),
+                target_specific=(self.target_specific, False),
+                v_pad=(v_pad, 0)))
+            if sem and not (edge_attention and decompose) and \
+                    sem != norm - sem:
+                # the ring builds subset j's ctr from subset j's queries,
+                # the reference's concat order only where [sem:norm] is
+                # the identity placement (JAX gcn.py:1330-1335)
+                raise NotImplementedError(
+                    "DGPHGCN1 graph_axis: decompose without edge_attention "
+                    f"needs sem == norm - sem (sem={sem}, norm={norm})")
 
         if in_channels != out_channels:
             self.down_conv = PointConv(in_channels, out_channels)
-            self.down_bn = BatchNorm(out_channels)
+            self.down_bn = BatchNorm(out_channels, axis_name=graph_axis)
         # a copy: blocks are built from one numpy graph and must not share it
         self.A = nn.Parameter(torch.tensor(np.asarray(A_init),
                                            dtype=torch.float32))
@@ -476,7 +588,7 @@ class DGPHGCN1(nn.Module):
             self.nodeconv_bn = BatchNorm(sem * num_types * mid)
         values = norm if self.target_specific else K
         self.pre_conv = PointConv(in_channels, mid * values)
-        self.pre_bn = BatchNorm(mid * values)
+        self.pre_bn = BatchNorm(mid * values, axis_name=graph_axis)
         if ctr is not None or ada is not None:
             self.conv1 = PointConv(in_channels, norm * mid)
             self.conv2 = PointConv(in_channels, norm * mid)
@@ -490,7 +602,7 @@ class DGPHGCN1(nn.Module):
         if self.ada_attention:
             self.ada_linears = PointConv(K, edge_num * K)
         self.post_conv = PointConv(K * mid, out_channels)
-        self.bn = BatchNorm(out_channels)
+        self.bn = BatchNorm(out_channels, axis_name=graph_axis)
         # static graph structure: buffers that move with the module but are
         # not weights (not in the state_dict)
         self.register_buffer("node_type", torch.as_tensor(
@@ -540,6 +652,8 @@ class DGPHGCN1(nn.Module):
         K, mid, sem = self.K, self.mid, self.sem
         n, t, v, _ = x.shape
         joint_pad_check(self)
+        if self.graph_axis is not None:
+            return _jp_block(self, x, self._jp_aggregate)
         x1 = x2 = None
         if self.ctr is not None or self.ada is not None:
             x1, x2 = self._queries(x)
@@ -603,6 +717,71 @@ class DGPHGCN1(nn.Module):
                                        edge_k, E)
         return fused_dyn_graph_agg(pre_x, x1, x2, self.A, a_vec, b_vec,
                                    K=K, Cm=mid, edge_num=E)
+
+    def _jp_aggregate(self, x, pre_x):
+        """The joint-partitioned DS-GCN graph build and ring aggregation
+        (JAX gcn.py:1261-1393): the node-type query gathers take the
+        one-hot rows of this process's joints; the edge-class attention,
+        linear in the diff, runs as the class projections P1/P2 of the
+        edge subset's queries (the kernels' trick) with the class mask's
+        blocks; the queries x1 are all-gathered and the values go round
+        the ring (:func:`_ring_aggregate`).  As the reference: x2's
+        semantic part is ``conv1_se``'s query, and the edge-attended subset
+        is norm - sem."""
+        K, mid, sem, norm, E = self.K, self.mid, self.sem, self.norm, self.E
+        n, t, vl, _ = pre_x.shape
+        ax = axis(self.graph_axis)
+        g, V = ax.index, self.A.shape[-1]
+        acc = accum_dtype(x.dtype)
+        tmp = x.mean(dim=1)                                     # (n, vl, c)
+        x1 = self.conv1(tmp).reshape(n, vl, norm, mid).permute(0, 2, 3, 1)
+        x2 = self.conv2(tmp).reshape(n, vl, norm, mid).permute(0, 2, 3, 1)
+        if sem:
+            s = self.conv1_se(tmp)
+            if self.node_attention:
+                oh = F.one_hot(self.node_type[g * vl:(g + 1) * vl],
+                               self.P).to(x.dtype)               # (vl, P)
+                s = torch.einsum("nvsmp,vp->nsmv",
+                                 s.reshape(n, vl, sem, mid, self.P), oh)
+            else:
+                s = s.reshape(n, vl, sem, mid).permute(0, 2, 3, 1)
+            x1, x2 = torch.cat([x1, s], dim=1), torch.cat([x2, s], dim=1)
+        x1f = all_gather(x1, ax.group, dim=-1)                 # (n,K,mid,V)
+        ada = torch.softmax(torch.einsum("nkcv,nkcw->nkvw", cast(x1f, acc),
+                                         cast(x2, acc)), dim=-2)
+        a_vec = cast(_gate_vec(self.alpha, K, sem, norm, self.subset_wise),
+                     x.dtype)[None, :, None, None, None]
+        b_vec = cast(_gate_vec(self.beta, K, sem, norm, self.subset_wise),
+                     x.dtype)[None, :, None, None]
+        if not (self.edge_attention and sem):
+            def gated(ctr, src):
+                return ctr * a_vec
+        else:
+            lo = norm - sem               # the edge subsets [norm-sem, norm)
+            w = cast(self.edge_linears.weight, x.dtype)     # (E sem mid, .)
+            p1 = torch.einsum("ncv,ec->nev",
+                              x1f[:, lo:norm].reshape(n, sem * mid, V), w)
+            p1 = p1.reshape(n, sem, E, mid, V)
+            p2 = torch.einsum("ncw,ec->new",
+                              x2[:, lo:norm].reshape(n, sem * mid, vl), w)
+            p2 = p2.reshape(n, sem, E, mid, vl)
+            sel = cast(self.edge_sel[:, :, g * vl:(g + 1) * vl], x.dtype)
+            bias = torch.einsum("evw,sec->scvw", sel, cast(
+                self.edge_linears.bias, x.dtype).reshape(sem, E, mid))
+
+            def gated(ctr, src):
+                blk = slice(src * vl, (src + 1) * vl)
+                ea = (torch.einsum("evw,nsecv->nscvw", sel[:, blk],
+                                   p1[..., blk])
+                      - torch.einsum("evw,nsecw->nscvw", sel[:, blk], p2)
+                      + bias[None, :, :, blk])
+                ctr = torch.cat([ctr[:, :lo], torch.tanh(ea), ctr[:, norm:]],
+                                dim=1)
+                return ctr * a_vec
+        return _ring_aggregate(
+            self.A, cast(ada, x.dtype), x1f, x2,
+            pre_x.reshape(n, t, vl, K, mid), ax, gated, b_vec,
+            acc).reshape(n, t, vl, K * mid)
 
     def _mega(self, x, x1, x2, active_edge):
         """The whole eval block in K6, the semantic queries and the edge

@@ -12,6 +12,7 @@ module is imported, and builds nothing.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -136,19 +137,27 @@ def library_path(name: str) -> Path:
 
 def compile_kernel(name: str) -> Path:
     """Build ``csrc/<name>.cu`` unless a build of the same sources exists.
-    ptxas's register/spill report goes to the ``.log`` beside the library."""
+    ptxas's register/spill report goes to the ``.log`` beside the library.
+    Processes sharing the build directory (the ranks of one launch) build a
+    source once: the first takes the source's file lock, the others wait
+    for it and load its library."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
     return out
 
 

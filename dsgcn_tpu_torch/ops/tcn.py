@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.joint_partition import all_reduce_sum
+from ..parallel.mesh import axis
 from .common import (BatchNorm, PointConv, TemporalConv, cast, dropout,
                      joint_pad_check, max_pool_t)
 from .kernels.ms_tcn import fused_dgmstcn_eval
@@ -33,15 +35,18 @@ DEFAULT_MS_CFG: Tuple[MsCfgEntry, ...] = ((3, 1), (3, 2), (3, 3), (3, 4),
 class UnitTCN(nn.Module):
     """k x 1 temporal conv + BN + dropout (reference unit_tcn,
     tcn.py:10-37).  ``dropout`` acts in training only, its mask drawn from
-    ``self.generator``."""
+    ``self.generator``.  ``bn_axis``: the mesh axis the BN's statistics are
+    synced over (joint-partitioned blocks)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 9, stride: int = 1, dilation: int = 1,
-                 norm: Optional[str] = "BN", dropout: float = 0.0):
+                 norm: Optional[str] = "BN", dropout: float = 0.0,
+                 bn_axis: Optional[str] = None):
         super().__init__()
         self.conv = TemporalConv(in_channels, out_channels, kernel_size,
                                  stride, dilation)
-        self.bn = BatchNorm(out_channels) if norm is not None else None
+        self.bn = (BatchNorm(out_channels, axis_name=bn_axis)
+                   if norm is not None else None)
         self.dropout = dropout
         self.generator: Optional[torch.Generator] = None
 
@@ -56,13 +61,15 @@ class _MSBranches(nn.Module):
     """Multi-branch structure of mstcn/dgmstcn (reference tcn.py:134-153).
 
     Branch i: 1x1 -> BN -> ReLU -> {k x 1 dilated conv | maxpool}, or a plain
-    strided 1x1.  Branch 0 gets the remainder channels.
+    strided 1x1.  Branch 0 gets the remainder channels.  ``bn_axis``: the
+    mesh axis the branch BNs sync their statistics over; the forward's
+    ``bn_weight`` weighs their locations (JAX tcn.py:194).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[float] = None,
                  ms_cfg: Sequence[MsCfgEntry] = DEFAULT_MS_CFG,
-                 stride: int = 1):
+                 stride: int = 1, bn_axis: Optional[str] = None):
         super().__init__()
         self.ms_cfg = tuple(ms_cfg)
         self.stride = stride
@@ -82,13 +89,14 @@ class _MSBranches(nn.Module):
                 continue
             kind, val = cfg
             self.add_module(f"branch{i}_pre", PointConv(in_channels, bc))
-            self.add_module(f"branch{i}_bn", BatchNorm(bc))
+            self.add_module(f"branch{i}_bn", BatchNorm(bc, axis_name=bn_axis))
             if kind != "max":
                 self.add_module(f"branch{i}_tcn", UnitTCN(
                     bc, bc, kernel_size=kind, stride=stride, dilation=val,
                     norm=None))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                bn_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         outs = []
         for i, cfg in enumerate(self.ms_cfg):
             if cfg == "1x1":
@@ -96,7 +104,7 @@ class _MSBranches(nn.Module):
                 continue
             kind, val = cfg
             b = getattr(self, f"branch{i}_pre")(x)
-            b = F.relu(getattr(self, f"branch{i}_bn")(b))
+            b = F.relu(getattr(self, f"branch{i}_bn")(b, bn_weight))
             if kind == "max":
                 b = max_pool_t(b, window=val, stride=self.stride, padding=1)
             else:
@@ -109,6 +117,7 @@ def _k7_applies(mod) -> bool:
     """JAX's condition for the fused eval kernel (tcn.py:231-233, :337-340):
     eval, the default branches at the default widths."""
     return (mod.use_pallas and not mod.training
+            and getattr(mod, "graph_axis", None) is None
             and mod.branches.mid_channels is None
             and mod.branches.ms_cfg == DEFAULT_MS_CFG)
 
@@ -196,9 +205,15 @@ class DGMSTCN(nn.Module):
     ``self.generator`` (a ``torch.Generator`` on the activations' device,
     or None for torch's default).  ``v_pad`` (joint-padded mode) keeps
     JAX's refusal of training and runs at the real joints
-    (``ops/common.py:joint_pad_check``).  The JAX module's joint-partition
-    mode (``graph_axis``) and ``branch_kind='mlp'`` are not ported: each
-    raises, naming the option, when set.
+    (``ops/common.py:joint_pad_check``).  ``branch_kind='mlp'`` is not
+    ported and raises, naming the option.
+
+    ``graph_axis`` (joint-partitioned, JAX tcn.py:440-459): x holds this
+    process's v of the G v joints; the appended joint is the mean over all
+    of them (a sum all-reduced over the axis, over G v), the same row on
+    every process, so the branch BNs weigh it 1/G; each process scales it
+    back with its own v entries of ``add_coeff``; every BN syncs over the
+    axis.  K7 and ``v_pad`` are refused with it, as in JAX.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -209,23 +224,25 @@ class DGMSTCN(nn.Module):
                  eval_layout: str = "auto", graph_axis=None, v_pad: int = 0,
                  branch_kind: str = "tcn"):
         super().__init__()
-        for name, value, default in (("graph_axis", graph_axis, None),
-                                     ("branch_kind", branch_kind, "tcn")):
-            if value != default:
-                raise NotImplementedError(
-                    f"DGMSTCN {name}={value!r} is not ported yet")
+        if branch_kind != "tcn":
+            raise NotImplementedError(
+                f"DGMSTCN branch_kind={branch_kind!r} is not ported yet")
         if eval_layout not in ("auto", "split", "concat"):
             raise ValueError(
                 f"eval_layout must be 'auto', 'split' or 'concat'; "
                 f"got {eval_layout!r}")
+        if graph_axis is not None and v_pad:
+            raise ValueError("DGMSTCN: graph_axis and joint-padded mode "
+                             "(v_pad) exclude each other")
         self.eval_layout, self.v_pad = eval_layout, v_pad
+        self.graph_axis = graph_axis
         self.branches = _MSBranches(in_channels, out_channels, mid_channels,
-                                    ms_cfg, stride)
+                                    ms_cfg, stride, bn_axis=graph_axis)
         width = sum(self.branches.widths)
         self.add_coeff = nn.Parameter(torch.zeros(num_joints))
-        self.transform_bn = BatchNorm(width)
+        self.transform_bn = BatchNorm(width, axis_name=graph_axis)
         self.transform_conv = PointConv(width, out_channels)
-        self.bn = BatchNorm(out_channels)
+        self.bn = BatchNorm(out_channels, axis_name=graph_axis)
         self.dropout = dropout
         self.use_pallas = use_pallas
         self.generator: Optional[torch.Generator] = None
@@ -235,10 +252,21 @@ class DGMSTCN(nn.Module):
         joint_pad_check(self)
         if _k7_applies(self):
             return fused_ms_eval(self, x, self.add_coeff[:v])
+        bn_weight = None
+        if self.graph_axis is None:
+            mean_joint = x.mean(dim=2, keepdim=True)
+            coeff = self.add_coeff[:v]
+        else:
+            ax = axis(self.graph_axis)
+            mean_joint = all_reduce_sum(x.sum(dim=2, keepdim=True),
+                                        ax.group) / (ax.size * v)
+            coeff = self.add_coeff[ax.index * v:(ax.index + 1) * v]
+            bn_weight = x.new_ones(v + 1, 1)
+            bn_weight[v] = 1.0 / ax.size
         # append the global mean joint as row v (tcn.py:409)
-        xg = torch.cat([x, x.mean(dim=2, keepdim=True)], dim=2)
-        out = self.branches(xg)
-        coeff = cast(self.add_coeff[:v], x.dtype)
+        xg = torch.cat([x, mean_joint], dim=2)
+        out = self.branches(xg, bn_weight)
+        coeff = cast(coeff, x.dtype)
         feat = out[:, :, :v] + out[:, :, v:] * coeff[None, None, :, None]
         feat = self.transform_conv(F.relu(self.transform_bn(feat)))
         return dropout(self.bn(feat), self.dropout, self.training,

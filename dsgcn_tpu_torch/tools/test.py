@@ -4,6 +4,7 @@ score a config's test split with a checkpoint of the port's trainer.
     python -m dsgcn_tpu_torch.tools.test CONFIG WORK_DIR [--step S]
         [--out scores.pkl] [--metrics top_k_accuracy mean_class_accuracy]
         [--average-clips prob|score|none] [--bf16] [--device cpu]
+        [--dist-backend gloo] [--dist-url URL]
 
 It loads the latest checkpoint under ``WORK_DIR/ckpt`` (or step ``S``),
 runs the config's test pipeline over ``data.test`` on the CUDA device
@@ -13,12 +14,20 @@ scores (``--average-clips``), prints the metrics (``top1_acc: 0.xxxx``)
 and, with ``--out``, dumps ``{'scores': (N, classes), 'labels': [...]}``
 for ``dsgcn_tpu_torch.tools.fuse_scores``.  One device pads nothing.  On
 a GPU it also prints the forwards and the port's kernel launches.
+
+Under ``python -m torch.distributed.run --nproc-per-node N`` each process
+joins the group (as the train CLI does) and the evaluation is distributed
+(JAX ``tools/test.py:143-160``): every process folds the same batch, wraps
+it round to a multiple of N, scores its rows and all-gathers the logits,
+so the scores equal one process's; rank 0 prints and writes them.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import pickle
+
+from .train import add_dist_args, join_launcher, shutdown
 
 
 def parse_args(argv=None):
@@ -42,6 +51,7 @@ def parse_args(argv=None):
                        help="not ported: features for the TSNE and graph "
                             "metrics")
     p.add_argument("--pool-opt", default=None, help="not ported (--feat-ext)")
+    add_dist_args(p)
     return p.parse_args(argv)
 
 
@@ -52,6 +62,8 @@ def main(argv=None):
             "--feat-ext, --score-ext and --pool-opt are not ported: they "
             "feed the feature-space metrics 'TSNEmap' and 'graph', which the "
             "port does not have yet")
+    import torch.distributed as dist
+
     from ..apis import resolve_device, to_bf16_inference
     from ..configs.config import Config
     from ..core.checkpoint import CheckpointManager
@@ -60,13 +72,20 @@ def main(argv=None):
     from ..data.dataset import Loader, build_dataset
     from ..models.builder import build_model
 
-    device = resolve_device(args.device)
+    launched, device = join_launcher(args)
+    device = resolve_device(device)
+    mesh = None
+    if launched:
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh()
+    is_main = not launched or dist.get_rank() == 0
     cfg = Config.fromfile(args.config)
     model = build_model(cfg["model"])
     meta = CheckpointManager(args.work_dir).restore(model, step=args.step)
     if meta is None:
         raise FileNotFoundError(f"no checkpoint under {args.work_dir}/ckpt")
-    print(f"loaded step={meta['step']} meta={meta}", flush=True)
+    if is_main:
+        print(f"loaded step={meta['step']} meta={meta}", flush=True)
     model = model.to(device).eval()
     if args.bf16:
         model = to_bf16_inference(model)
@@ -78,7 +97,10 @@ def main(argv=None):
                     shuffle=False, num_workers=data.get("workers_per_gpu", 8))
     scores, labels = clip_scores(
         model, loader,
-        None if args.average_clips == "none" else args.average_clips)
+        None if args.average_clips == "none" else args.average_clips,
+        mesh=mesh)
+    if not is_main:
+        return scores, labels
     if device.type == "cuda":
         from ..ops.kernels import launch_counts
         print(f"forwards: {loader.steps_per_epoch()}, kernel launches: "
@@ -93,4 +115,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

@@ -1127,3 +1127,77 @@ def test_cuda_padded_modules_match_cpu(cuda, name, ek, fn):
         got = gpu(x.to(cuda)).cpu()
     assert fn.launches - n == cpu.backbone.num_blocks
     assert _rel(got, want) <= 1e-4, _rel(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the joint partition's collectives at world size 1 (NCCL)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-process NCCL group on the card and its (1, 1) mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from dsgcn_tpu_torch.parallel import mesh as pmesh
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    pmesh.init_distributed("nccl", "cuda:0", init_method=f"file://{store}",
+                           rank=0, world_size=1)
+    try:
+        yield pmesh.make_mesh(1, 1)
+    finally:
+        pmesh.release_mesh()
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_ring_permute_backward_is_its_transpose(cuda, nccl_mesh):
+    """At G = 1 the ring step is the identity permutation: the autograd
+    Function returns the block and its backward the cotangent (the
+    permutation's transpose), in float32 and under gradcheck in float64."""
+    from dsgcn_tpu_torch.parallel.joint_partition import ring_permute
+    group = nccl_mesh.axis("graph").group
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4, 6, 5, 3, 8, device=cuda, generator=gen,
+                    requires_grad=True)
+    y = ring_permute(x, group).wait()
+    g = torch.randn(y.shape, device=cuda, generator=gen)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert torch.equal(y.detach(), x.detach()) and torch.equal(dx, g)
+    x64 = torch.randn(2, 3, 5, 3, 2, device=cuda, dtype=torch.float64,
+                      requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda t: ring_permute(t, group).wait() * 2.0, (x64,))
+
+
+@pytest.mark.cuda
+def test_cuda_synced_batchnorm_matches_unsynced(cuda, nccl_mesh):
+    """BatchNorm(axis_name='graph') with DGMSTCN's per-location weight
+    (1 for the joints, 1/G = 1 for the appended one) at world size 1
+    against the unsynced BatchNorm: output, input and parameter gradients
+    and running statistics; and a general weight against the weighted
+    statistics written out."""
+    from dsgcn_tpu_torch.ops.common import BatchNorm
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(4, 6, 26, 16, device=cuda, generator=gen) * 2 + 0.5
+    g = torch.randn(x.shape, device=cuda, generator=gen)
+    outs = []
+    for bn, w in ((BatchNorm(16), None),
+                  (BatchNorm(16, axis_name="graph"), torch.ones(26, 1))):
+        bn = bn.to(cuda).train()
+        xi = x.clone().requires_grad_(True)
+        y = bn(xi, None if w is None else w.to(cuda))
+        y.backward(g)
+        outs.append((y.detach(), xi.grad, bn.weight.grad, bn.bias.grad,
+                     bn.running_mean.clone(), bn.running_var.clone()))
+    for got, want in zip(*outs[::-1]):
+        assert _rel(got, want) <= 1e-6, _rel(got, want)
+    w = torch.rand(26, 1, device=cuda, generator=gen) + 0.5
+    bn = BatchNorm(16, axis_name="graph").to(cuda).train()
+    y = bn(x, w)
+    wx = w.expand(4, 6, 26, 1)
+    cnt = wx.sum()
+    mean = (x * wx).sum((0, 1, 2)) / cnt
+    var = (x * x * wx).sum((0, 1, 2)) / cnt - mean ** 2
+    want = (x - mean) * torch.rsqrt(var + 1e-5)
+    assert _rel(y.detach(), want) <= 1e-5
+    assert _rel(bn.running_var, 0.9 + 0.1 * var * cnt / (cnt - 1)) <= 1e-6

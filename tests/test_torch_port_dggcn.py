@@ -317,9 +317,11 @@ def test_dggcn_dense_options_match_jax(kw):
     (dict(graph_axis="joints"), "graph_axis"), (dict(v_pad=32), "v_pad"),
     (dict(ctr="NA"), "'NA'"), (dict(ada="NA"), "'NA'")])
 def test_dggcn_unported_options_raise(kw, what):
-    """``graph_axis`` raises, naming the option; per-frame graphs ('NA')
-    are ported and build (their parity with JAX is
-    ``test_torch_port_options.py``'s), and so is ``v_pad``, which refuses
+    """Every option builds: ``graph_axis`` (the joint-partitioned mode; its
+    parity with JAX is ``test_torch_port_jp.py``'s) takes the standard
+    form, and a form JAX's assert rejects raises, naming the option;
+    per-frame graphs ('NA') build (their parity with JAX is
+    ``test_torch_port_options.py``'s), and so does ``v_pad``, which refuses
     training (its parity is ``test_torch_port_padded.py``'s)."""
     if what == "'NA'":
         assert DGGCN(16, 16, A_init=_graph8(), **kw).per_frame
@@ -329,8 +331,12 @@ def test_dggcn_unported_options_raise(kw, what):
         with pytest.raises(NotImplementedError, match="eval-only"):
             mod.train()(torch.zeros(1, 2, 32, 16))
         return
-    with pytest.raises(NotImplementedError, match=what):
-        DGGCN(16, 16, A_init=_graph8(), **kw)
+    assert DGGCN(16, 16, A_init=_graph8(), **kw).graph_axis == "joints"
+    for bad in (dict(ctr="NA"), dict(ada=None), dict(ada_act="relu"),
+                dict(v_pad=32)):
+        with pytest.raises(NotImplementedError,
+                           match=f"graph_axis.*{next(iter(bad))}"):
+            DGGCN(16, 16, A_init=_graph8(), **kw, **bad)
 
 
 @pytest.mark.parametrize("path", ["kernel", "dense"])

@@ -516,8 +516,10 @@ def test_init_rules_follow_jax(family):
     ("ada_attention", True), ("target_specific", True), ("add_type", True),
     ("graph_axis", "joints"), ("v_pad", 32)])
 def test_dgphgcn1_unported_options_raise(option, value):
-    """The option JAX's DGPHGCN1 has and the port's lacks (``graph_axis``)
-    raises, naming the option, where a config sets it; at its default it
+    """Every option of JAX's DGPHGCN1 builds.  ``graph_axis`` (the
+    joint-partitioned mode; its parity with JAX is
+    ``test_torch_port_jp.py``'s) takes JAX's supported form, and each form
+    JAX's assert rejects raises, naming the option; at its default it
     builds.  ``ada_attention``, ``target_specific`` and ``add_type`` are
     ported: set, each builds what it adds (``ada_linears``, the
     per-node-type ``nodeconv_*``) or, for ``add_type``, which DGPHGCN1
@@ -544,7 +546,16 @@ def test_dgphgcn1_unported_options_raise(option, value):
         if option == "add_type":
             assert shapes[1] == shapes[0]
         return
-    with pytest.raises(NotImplementedError, match=option):
-        DGPHGCN1(16, 16, **graph, **{option: value})
-    default = {"graph_axis": None, "v_pad": 0}.get(option, False)
-    DGPHGCN1(16, 16, **graph, **{option: default})
+    assert DGPHGCN1(16, 16, **graph, decompose=True, edge_attention=True,
+                    **{option: value}).graph_axis == value
+    for bad in (dict(ada_attention=True), dict(target_specific=True),
+                dict(ada=None), dict(ctr_act="relu"), dict(v_pad=32)):
+        with pytest.raises(NotImplementedError,
+                           match=f"graph_axis.*{next(iter(bad))}"):
+            DGPHGCN1(16, 16, **graph, decompose=True, edge_attention=True,
+                     **{option: value}, **bad)
+    # decomposed without edge attention: the ring needs sem == norm - sem
+    with pytest.raises(NotImplementedError, match="sem == norm - sem"):
+        DGPHGCN1(16, 16, **dict(graph, A_init=_graph(25)["A_init"][:2]),
+                 decompose=True, **{option: value})
+    DGPHGCN1(16, 16, **graph, **{option: None})

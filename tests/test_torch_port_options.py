@@ -118,15 +118,21 @@ def test_dgmstcn_eval_layout_matches_jax(layout, stride):
 def test_dgmstcn_eval_layout_dispatch(monkeypatch):
     """Every layout JAX takes is accepted and runs the same concat path,
     bit for bit, at any batch; K7 (``use_pallas``) comes first whatever
-    the layout; any other layout raises JAX's ValueError, and the options
-    not ported raise naming themselves (``v_pad`` is ported: it builds and
-    refuses training; its parity is ``test_torch_port_padded.py``'s)."""
+    the layout; any other layout raises JAX's ValueError, and the option
+    not ported (``branch_kind='mlp'``) raises naming itself.  ``v_pad``
+    builds and refuses training (its parity is
+    ``test_torch_port_padded.py``'s); ``graph_axis`` builds and refuses
+    ``v_pad`` (its parity is ``test_torch_port_jp.py``'s)."""
     assert DGMSTCN(24, 24).eval_layout == "auto"
     with pytest.raises(ValueError, match="eval_layout"):
         DGMSTCN(24, 24, eval_layout="fused")
-    for option, value in (("graph_axis", "joints"), ("branch_kind", "mlp")):
-        with pytest.raises(NotImplementedError, match=option):
-            DGMSTCN(24, 24, **{option: value})
+    with pytest.raises(NotImplementedError, match="branch_kind"):
+        DGMSTCN(24, 24, branch_kind="mlp")
+    # graph_axis (joint partition; parity in test_torch_port_jp.py) builds,
+    # and refuses joint-padded mode as JAX asserts
+    assert DGMSTCN(24, 24, graph_axis="joints").graph_axis == "joints"
+    with pytest.raises(ValueError, match="graph_axis"):
+        DGMSTCN(24, 24, graph_axis="joints", v_pad=32)
     with pytest.raises(NotImplementedError, match="eval-only"):
         DGMSTCN(24, 24, v_pad=32).train()(torch.zeros(1, 4, 32, 24))
     calls = []
