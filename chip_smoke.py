@@ -94,13 +94,32 @@ of one hop) against the plain models at b16 (logits and a step's loss
 within 1e-5, updates at cosine > 0.995, forward ms beside the plain
 forward's); and which gloo collectives take CUDA tensors (recorded, not
 checked; send and recv only under ``--parallel``, in a launch of their
-own, since gloo's send of a CUDA tensor aborts the process).
-Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19;
+own, since gloo's send of a CUDA tensor aborts the process).  Phase 20
+takes the author's variants of the backbones, each seeded and calibrated
+at full width: DS-GCN with ``tcn_type='dgmsmlp'`` (10 K3 launches a
+forward), DG-STGCN with ``gcn_type='dghgcn'``, AAGCN with
+``unit_aahgcn`` + ``unitmlp``, CTRGCN with ``unit_ctrhgcn`` asked for
+msmlp (which CTRGCN, in JAX and the port, leaves to CTR-GCN's MSTCN) and
+STGCN++ with msmlp and ``tcn_use_pallas`` (no K7 for mlp branches): GPU
+logits against the CPU's, launches and ms of a (64, 2, 100, 25, 3)
+forward beside the parent form's, a pyskl-named ``.pth`` round trip
+(``to_pyskl_state_dict`` -> ``load_torch_checkpoint``), a train step
+against the CPU's and timed steps (the dgmsmlp one at b128 x M2 x T60
+with 10 K1 + 10 K2 launches, the others at b16 x M2 x T100, none);
+feature extraction through the test CLI (``--feat-ext --pool-opt all``,
+``tv``, ``--score-ext``, 10 K3 launches a backbone forward, float16
+dumps against ``--device cpu``, TSNEmap and graph; the scores'
+confusion matrix and mAP; a 1000-point t-SNE on the card); the NTU j
+train pipeline with the native ``PreNormalize3D`` against the numpy path
+(clips within 1e-6, ms per clip of each) and a ``class_prob`` epoch.
+Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19,
+20;
 ``--every-config`` runs 15 alone, ``--families`` 16 alone
 (``chiprun_out/families.json``), ``--options`` 17 alone
 (``chiprun_out/options.json``), ``--serving`` 18 alone
 (``chiprun_out/serving.json``), ``--parallel`` 19 alone
-(``chiprun_out/parallel.json``).  Any failed check raises, and the script
+(``chiprun_out/parallel.json``), ``--extras`` 20 alone
+(``chiprun_out/extras.json``).  Any failed check raises, and the script
 exits non-zero without a result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
@@ -3952,6 +3971,399 @@ def parallel_phase(dev, card, report, send_probe=False):
     return a["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the author's temporal MLPs and DGHGCN in the backbones, their
+# pyskl import, feature extraction through the test CLI, the host data path
+# ---------------------------------------------------------------------------
+
+K1K2 = {"fused_dyn_graph_agg": 10, "fused_dyn_graph_agg_bwd": 10}
+EXTRA_STEPS = 2                           # timed steps after one warm-up
+
+
+def extra_variants():
+    """Phase 20's models: (name, config of the author's form, its parent
+    form's config, launches a forward of each, pyskl attributes, batch).
+    DS-GCN's backbone with dgmsmlp (K3 in every block); DG-STGCN with
+    dghgcn; AAGCN with unit_aahgcn + unitmlp and CTRGCN with unit_ctrhgcn
+    asked for msmlp (the forms of the reference's committed AAGCN_model.py
+    and CTRGCN_model.py; CTRGCN takes no tcn_type, in JAX or the port, and
+    keeps CTR-GCN's MSTCN); STGCN++ with msmlp and ``tcn_use_pallas``
+    (the mlp branches take no K7; the parent runs 10)."""
+    from dsgcn_tpu_torch.configs.config import Config
+
+    def cfg_with(path_or_cfg, **bb):
+        cfg = (Config.fromfile(str(path_or_cfg))
+               if isinstance(path_or_cfg, pathlib.Path) else path_or_cfg)
+        cfg["model"]["backbone"].update(bb)
+        return cfg
+    ctr = dict(blocks_attr="net", gcn_attr="gcn1", tcn_attr="tcn1")
+    return [
+        ("dsgcn_dgmsmlp", cfg_with(CONFIG, tcn_type="dgmsmlp"),
+         cfg_with(CONFIG), {"bd_dyn_graph_agg": 10},
+         {"bd_dyn_graph_agg": 10}, {}, "b128"),
+        ("dgstgcn_dghgcn", cfg_with(dg_config(), gcn_type="dghgcn"),
+         dg_config(), {}, {"fused_dyn_graph_agg": 7,
+                           "bd_dyn_graph_agg_subset": 3}, {}, "b16"),
+        ("aagcn_aahgcn_unitmlp",
+         cfg_with(family_config("aagcn"), gcn_type="unit_aahgcn",
+                  tcn_type="unitmlp", gcn_node_att=True),
+         cfg_with(family_config("aagcn")), {}, {}, {}, "b16"),
+        ("ctrgcn_ctrhgcn_msmlp",
+         cfg_with(family_config("ctrgcn"), gcn_type="unit_ctrhgcn",
+                  tcn_type="msmlp", gcn_node_attention=True,
+                  gcn_edge_attention=True),
+         cfg_with(family_config("ctrgcn")), {}, {}, ctr, "b16"),
+        ("stgcnpp_msmlp_k7", cfg_with(stgcnpp_config(True), tcn_type="msmlp"),
+         stgcnpp_config(True), {}, {"fused_dgmstcn_eval": 10}, None, "b16"),
+    ]
+
+
+def variant_model(cfg, dev, calib, seed):
+    """The config's model, seeded (``init_weights_``, gates and units
+    nudged), on ``dev``, BN statistics from ``calib``: an anno through the
+    config's test pipeline, or clips (N, M, T, V, C)."""
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    gen = torch.Generator().manual_seed(seed)
+    model = init_weights_(build_model(cfg["model"]), gen)
+    nudge_gates_(model, gen)
+    nudge_units_(model, gen)
+    model = model.to(dev).eval()
+    pipeline = build_pipeline(cfg["data"]["test"]["pipeline"])
+    if isinstance(calib, dict):
+        calib = pipeline(copy.deepcopy(calib))["keypoint"]
+    calibrate_(model, torch.from_numpy(calib).to(dev), seed=seed)
+    return model, pipeline
+
+
+def forward_ms(model, x, iters=5):
+    """Wall ms of a batch forward on the card (two warm-ups) and its
+    kernel launches."""
+    with torch.inference_mode():
+        for _ in range(2):
+            y = model(x)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = model(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            y = model(x)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), "a batch forward gave non-finite "
+          "logits")
+    return (time.perf_counter() - t0) / iters * 1e3, counts
+
+
+def pyskl_round_trip(name, model, cfg, attrs, clips, tmp):
+    """The model's state dict under pyskl's names (``to_pyskl_state_dict``)
+    saved as a ``.pth`` and read back through ``load_torch_checkpoint``
+    into the config's model on the CPU and on the card: logits on two
+    clips within 1e-3, top-1 equal."""
+    from dsgcn_tpu_torch.models.builder import build_model
+    from dsgcn_tpu_torch.utils.torch_import import (load_torch_checkpoint,
+                                                    to_pyskl_state_dict)
+    sd = to_pyskl_state_dict(model.state_dict(), **attrs)
+    path = tmp / f"{name}_pyskl.pth"
+    torch.save(dict(state_dict={k: torch.from_numpy(v) for k, v in sd.items()},
+                    meta=dict(epoch=0)), path)
+    state = load_torch_checkpoint(str(path), **attrs)
+    cpu, gpu = build_model(cfg["model"]), build_model(cfg["model"])
+    cpu.load_state_dict(state, strict=True)
+    gpu.load_state_dict(state, strict=True)
+    x = clips[:2]
+    with torch.inference_mode():
+        want = cpu.eval()(x)
+        got = gpu.cuda().eval()(x.cuda()).cpu()
+    err = rel_err(got, want)
+    print(f"{name}: pyskl .pth ({len(sd)} arrays) GPU logits rel err "
+          f"{err:.3e} against the CPU's", flush=True)
+    check(bool(torch.isfinite(got).all()) and err <= 1e-3,
+          f"{name} pyskl round trip: GPU off the CPU by {err:.3e}")
+    check(got.argmax(-1).tolist() == want.argmax(-1).tolist(),
+          f"{name} pyskl round trip: top-1 differs")
+    return dict(arrays=len(sd), logits_rel_err=err)
+
+
+def step_times(model, batches, per_step, card, name):
+    """One warm-up and EXTRA_STEPS timed f32 train steps: wall ms, peak
+    GiB and each step's kernel launches (``per_step``, every other kernel
+    none)."""
+    from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+    opt, sched = make_optimizer(model, 100)
+    rows = []
+    for i, b in enumerate(batches[:1 + EXTRA_STEPS]):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, sched, b)["loss"].item()
+        wall = (time.perf_counter() - t0) * 1e3
+        expect_counts(read_counts(), per_step, 1, f"{name} step {i}")
+        check(np.isfinite(loss), f"{name} step {i}: loss {loss}")
+        rows.append(dict(step=i, warmup=i == 0, loss=loss, wall_ms=wall,
+                         peak_mem_gib=torch.cuda.max_memory_allocated()
+                         / 2 ** 30))
+    timed = [r["wall_ms"] for r in rows[1:]]
+    print(f"{name}: train steps at b{len(batches[0]['label'])} "
+          f"{', '.join(f'{t:.2f}' for t in timed)} ms, peak "
+          f"{rows[-1]['peak_mem_gib']:.3f} GiB, launches a step "
+          f"{json.dumps(per_step)} on {card}", flush=True)
+    return rows
+
+
+def author_variants_part(dev, card, out, tmp):
+    """Phase 20 (a)-(c): each author form serving a (64, 2, 100, 25, 3)
+    batch (its launches a forward, ms beside its parent form's), GPU
+    logits within 1e-3 of the CPU's on ten clips of an anno it was not
+    calibrated on, top-1 equal; the pyskl round trip (not for STGCN++,
+    phase 18 reads its naming); a train step against the CPU's (phase 7's
+    criteria) and timed steps."""
+    from dsgcn_tpu_torch.configs.config import Config
+    ds_cfg = Config.fromfile(str(CONFIG))
+    tmp_b = tmp / "b128"
+    tmp_b.mkdir()
+    train, _ = train_data(tmp_b, ds_cfg, seed=20)
+    b128 = [as_batch(b) for b, _ in zip(train.epoch(0),
+                                        range(1 + EXTRA_STEPS))]
+    b128_cpu = as_batch(next(train.epoch(1)), CPU_CHECK_CLIPS)
+    b16, b16_cpu = repeat_batches(Config.fromfile(str(family_config(
+        "aagcn"))), seed=20)
+    batches = dict(b128=(b128, b128_cpu), b16=(b16, b16_cpu))
+    calib, anno = synthetic_annos(seed=1)[0], synthetic_annos(seed=2)[1]
+    x = torch.from_numpy(np.random.default_rng(20).standard_normal(
+        THROUGHPUT_BATCH).astype(np.float32)).to(dev)
+    for i, (name, cfg, parent_cfg, per_fwd, parent_fwd, attrs, kind) in \
+            enumerate(extra_variants()):
+        row = out[name] = {}
+        model, pipeline = variant_model(cfg, dev, calib, seed=20 + i)
+        cpu = copy.deepcopy(model).cpu()
+        g, c = logits_of(model, pipeline, anno), logits_of(cpu, pipeline,
+                                                            anno)
+        err = rel_err(g, c)
+        top1 = g.argmax(-1).tolist() == c.argmax(-1).tolist()
+        check(bool(torch.isfinite(g).all()) and err <= 1e-3 and top1,
+              f"{name}: GPU logits off the CPU's by {err:.3e} (top-1 equal "
+              f"{top1})")
+        ms, counts = forward_ms(model, x)
+        expect_counts(counts, per_fwd, 1, f"{name} b64 forward")
+        parent, _ = variant_model(parent_cfg, dev, calib, seed=20 + i)
+        parent_ms, parent_counts = forward_ms(parent, x)
+        expect_counts(parent_counts, parent_fwd, 1, f"{name}'s parent form")
+        del parent
+        row.update(logits_rel_err=err, top1_equal=top1, ms=ms,
+                   clips_per_s=THROUGHPUT_BATCH[0] / ms * 1e3,
+                   launches=counts, parent_ms=parent_ms,
+                   parent_clips_per_s=THROUGHPUT_BATCH[0] / parent_ms * 1e3,
+                   parent_launches=parent_counts)
+        print(f"{name}: b64 forward {ms:.3f} ms ({row['clips_per_s']:.1f} "
+              f"clips/s; launches {json.dumps(counts)}), parent form "
+              f"{parent_ms:.3f} ms ({row['parent_clips_per_s']:.1f} clips/s; "
+              f"{json.dumps(parent_counts)}); GPU vs CPU logits {err:.3e} "
+              f"on {card}", flush=True)
+        if attrs is not None:
+            clips = torch.from_numpy(pipeline(copy.deepcopy(anno))[
+                "keypoint"])
+            row["pyskl"] = pyskl_round_trip(name, model, cfg, attrs, clips,
+                                            tmp)
+        steps, cpu_batch = batches[kind]
+        row["train"] = {}
+        gpu_vs_cpu_step(model, cpu_batch, row["train"])
+        row["train"]["steps"] = step_times(
+            model, steps, K1K2 if kind == "b128" else {}, card, name)
+        del model, cpu
+        torch.cuda.empty_cache()
+
+
+def float32_features(cfg, x, wd, dev, card):
+    """The checkpoint's unpooled float32 features (``extract_pooled_feat``,
+    pool 'none') of the folded test clips ``x``, on the card against the
+    CPU: within 1e-3 of the largest."""
+    from dsgcn_tpu_torch.apis import init_recognizer
+    from dsgcn_tpu_torch.models.recognizer import extract_pooled_feat
+    ckpt = str(next((wd / "ckpt").glob("*.pt")))
+    feats = [extract_pooled_feat(init_recognizer(cfg, ckpt, device=d),
+                                 x.to(d), "none").cpu()
+             for d in (dev, "cpu")]
+    err = rel_err(*feats)
+    print(f"float32 features {tuple(feats[0].shape)}: card against CPU "
+          f"{err:.3e} of the largest on {card}", flush=True)
+    check(bool(torch.isfinite(feats[0]).all()) and err <= 1e-3,
+          f"float32 features off the CPU's by {err:.3e}")
+    return dict(shape=list(feats[0].shape), rel_err=err)
+
+
+def feature_cli_part(dev, card, out, tmp):
+    """Phase 20 (d): calibrated full-width DS-GCN (the j config) saved as a
+    checkpoint of the port's trainer, its test split (four synthetic
+    videos, ten clips each, one batch) through the test CLI in this
+    process: ``--feat-ext --pool-opt all``, ``--pool-opt tv`` and
+    ``--score-ext`` on the card (10 K3 launches a backbone forward, the
+    TSNEmap on the card) against the same CLI with ``--device cpu``
+    (float16 dumps within 1e-3 of the largest feature plus one float16
+    step at each value, since each side rounds to float16 on its own);
+    the float32 features of ``extract_pooled_feat`` (pool 'none') on the
+    same batch, the card against the CPU, within 1e-3; then the scores
+    with ``confusion_matrix`` and their mAP against one-hot labels; and a
+    t-SNE of 1000 points on the card."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.core.metrics import evaluate
+    from dsgcn_tpu_torch.data.dataset import (Loader, build_dataset,
+                                              make_synthetic_pose_dataset)
+    from dsgcn_tpu_torch.tools import test as test_cli
+    from dsgcn_tpu_torch.utils.analysis import tsne_map
+    ann = tmp / "feat.pkl"
+    make_synthetic_pose_dataset(num_samples=16, num_classes=60, t=100,
+                                seed=21, path=str(ann))
+    cfg_path = tmp / "feat_cfg.py"
+    cfg_path.write_text(
+        f"_base_ = [{str(CONFIG)!r}]\n"
+        "data = dict(workers_per_gpu=4, test_dataloader=dict("
+        "videos_per_gpu=4),\n"
+        f"    test=dict(ann_file={str(ann)!r}, split='val'))\n")
+    cfg = Config.fromfile(str(cfg_path))
+    kp = next(Loader(build_dataset(cfg["data"]["test"], test_mode=True),
+                     batch_size=4, shuffle=False,
+                     num_workers=4).epoch(0))["keypoint"]
+    x = kp.reshape((-1,) + kp.shape[2:])          # the test clips, folded
+    # BN statistics from the clips the model extracts features of: from
+    # other data, activations reach 1e3 and rounding grows through the
+    # blocks
+    model, _ = variant_model(cfg, dev, x, seed=21)
+    wd = tmp / "feat_wd"
+    save_checkpoint(model, wd)
+    del model
+    common = [str(cfg_path), str(wd), "--metrics", "TSNEmap", "graph"]
+    rows = {}
+    for tag, flags in (("feat_all", ["--feat-ext", "--pool-opt", "all"]),
+                       ("feat_tv", ["--feat-ext", "--pool-opt", "tv"]),
+                       ("score_ext", ["--score-ext"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        got, labels = test_cli.main(common + flags + ["--out", str(
+            tmp / f"{tag}.pkl")])
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        want, want_labels = test_cli.main(common[:2] + flags
+                                          + ["--device", "cpu"])
+        g32, w32 = got.astype(np.float32), want.astype(np.float32)
+        diff = np.abs(g32 - w32)
+        err = float(diff.max() / np.abs(w32).max())
+        over = float((diff - 1e-3 * np.abs(w32).max()
+                      - np.spacing(np.abs(want))).max())
+        dump = load_pickle(tmp / f"{tag}.pkl")
+        print(f"test CLI {' '.join(flags)}: features {got.shape} "
+              f"{got.dtype}, rel err {err:.3e} against --device cpu (past "
+              f"1e-3 plus one float16 step: {over:.3e}), launches "
+              f"{json.dumps(counts)}, {secs:.2f} s on {card}", flush=True)
+        check(got.dtype == np.float16 and bool(np.isfinite(got).all())
+              and got.shape == want.shape, f"{tag}: features {got.shape}")
+        check(over <= 0, f"{tag}: GPU features off the CPU's by {err:.3e}")
+        check(labels == want_labels == dump["labels"], f"{tag}: labels")
+        check(np.array_equal(dump["features"], got), f"{tag}: the dump")
+        expect_counts(counts, {"bd_dyn_graph_agg": 10}, 1,
+                      f"{tag}: one backbone forward")
+        rows[tag] = dict(shape=list(got.shape), rel_err=err, seconds=secs,
+                         launches=counts)
+    rows["float32"] = float32_features(cfg, torch.from_numpy(x), wd, dev,
+                                       card)
+    reset_counts()
+    scores, labels = test_cli.main(common[:2] + [
+        "--metrics", "top_k_accuracy", "confusion_matrix"])
+    expect_counts(read_counts(), {"bd_dyn_graph_agg": 10}, 1, "scores")
+    onehot = np.eye(scores.shape[1], dtype=int)[labels]
+    res = evaluate(scores, onehot, ["mean_average_precision"])
+    res.update(evaluate(scores, labels, ["confusion_matrix"]))
+    check(np.isfinite(res["mean_average_precision"])
+          and res["confusion_matrix"].ndim == 2, f"scores' metrics {res}")
+    rows["scores"] = dict(mean_average_precision=res[
+        "mean_average_precision"], confusion_matrix=np.shape(res[
+            "confusion_matrix"]))
+    pts = np.random.default_rng(22).standard_normal((1000, 32))
+    pts[:500] += 4.0
+    t0 = time.perf_counter()
+    emb = tsne_map(pts)
+    tsne_s = time.perf_counter() - t0
+    d = ((emb[:, None] - emb[None]) ** 2).sum(-1)
+    np.fill_diagonal(d, np.inf)
+    nn_same = float(((d.argmin(1) < 500) == (np.arange(1000) < 500)).mean())
+    print(f"tsne_map of 1000 points (32 features) on the card: "
+          f"{tsne_s:.2f} s, nearest neighbour in its own cluster "
+          f"{nn_same:.4f} on {card}", flush=True)
+    check(emb.shape == (1000, 2) and bool(np.isfinite(emb).all())
+          and nn_same > 0.99, f"t-SNE on the card: {nn_same}")
+    rows["tsne_1000"] = dict(seconds=tsne_s, nn_same_cluster=nn_same)
+    out["feature_cli"] = rows
+
+
+def host_data_part(card, out, tmp):
+    """Phase 20 (e): the NTU j train pipeline with the native
+    PreNormalize3D (``use_native=True``, the default) and the numpy path on
+    64 synthetic annos from the same RandomStates: clips within 1e-6 of
+    the largest, ms per clip of each; one class_prob epoch of the Loader
+    (its length the replicated count)."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.data.dataset import (Loader, PoseDataset,
+                                              epoch_indices,
+                                              make_synthetic_pose_dataset)
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    pipe = Config.fromfile(str(CONFIG))["data"]["train"]["pipeline"]
+    check(pipe[0]["type"] == "PreNormalize3D", "no PreNormalize3D first")
+    path = str(tmp / "host.pkl")
+    annos = make_synthetic_pose_dataset(num_samples=64, num_classes=60,
+                                        t=100, seed=23,
+                                        path=path)["annotations"]
+    clips, ms = {}, {}
+    for native in (True, False):
+        p = copy.deepcopy(pipe)
+        p[0]["use_native"] = native
+        pipeline = build_pipeline(p)
+        pipeline(copy.deepcopy(annos[0]), rng=np.random.RandomState(0))
+        t0 = time.perf_counter()
+        clips[native] = [pipeline(copy.deepcopy(a),
+                                  rng=np.random.RandomState(i))["keypoint"]
+                         for i, a in enumerate(annos)]
+        ms[native] = (time.perf_counter() - t0) * 1e3 / len(annos)
+    err = max(float(np.abs(a - b).max() / np.abs(b).max())
+              for a, b in zip(clips[True], clips[False]))
+    print(f"NTU j train pipeline: native PreNormalize3D {ms[True]:.3f} ms "
+          f"per clip, numpy {ms[False]:.3f} ms ({ms[False] / ms[True]:.2f}x);"
+          f" clips rel err {err:.3e} (host of {card})", flush=True)
+    check(err <= 1e-6, f"native pipeline off the numpy one by {err:.3e}")
+    prob = {i: (2.0 if i % 2 else 0.5) for i in range(60)}
+    loader = Loader(PoseDataset(path, pipe, split="train"), batch_size=16,
+                    seed=23, num_workers=8, class_prob=prob)
+    want = len(epoch_indices(len(loader.dataset), 0, seed=23,
+                             class_prob=prob, labels=loader.dataset.labels))
+    t0 = time.perf_counter()
+    seen = sum(len(b["label"]) for b in loader.epoch(0))
+    secs = time.perf_counter() - t0
+    print(f"class_prob loader: {seen} clips in an epoch of "
+          f"{len(loader.dataset)} samples ({secs:.2f} s)", flush=True)
+    check(seen == want and seen != len(loader.dataset),
+          f"class_prob epoch of {seen} clips, expected {want}")
+    out["host_data"] = dict(native_ms_per_clip=ms[True],
+                            numpy_ms_per_clip=ms[False], rel_err=err,
+                            class_prob_epoch=seen,
+                            dataset=len(loader.dataset))
+
+
+def extras_phase(dev, card, report):
+    """Phase 20: the author's variants (a-c), feature extraction through
+    the test CLI (d) and the host data path (e)."""
+    import tempfile
+    out = report["extras"] = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        author_variants_part(dev, card, out, tmp)
+        feature_cli_part(dev, card, out, tmp)
+        host_data_part(card, out, tmp)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['seconds']:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3994,6 +4406,10 @@ def main() -> int:
                     help="phase 19 alone: DDP over NCCL (world 1) and over "
                     "gloo (two processes on the card), the joint partition "
                     "at G = 1")
+    ap.add_argument("--extras", action="store_true",
+                    help="phase 20 alone: the author's temporal MLPs and "
+                    "DGHGCN (serving, steps, the pyskl round trip), feature "
+                    "extraction through the test CLI, the host data path")
     ap.add_argument("--parallel-worker", metavar="PART",
                     help="one process of a phase 19 launch (nccl, single, "
                     "gloo or send); no kernel build, no other phase")
@@ -4106,6 +4522,15 @@ def main() -> int:
                                                       default=str))
         print(card)
         return 0
+    if args.extras:
+        extras_phase(dev, card, report)
+        done(20)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "extras.json").write_text(json.dumps(report, indent=1,
+                                                    default=str))
+        print(card)
+        return 0
     if args.families:
         families(dev, card, report)
         done(16)
@@ -4148,6 +4573,8 @@ def main() -> int:
     done(18)
     parallel_phase(dev, card, report)                              # 19
     done(19)
+    extras_phase(dev, card, report)                                # 20
+    done(20)
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per

@@ -1,4 +1,4 @@
-"""Classification loss and the on-device top-k metric (port of
+"""Classification losses and the on-device top-k metric (port of
 ``dsgcn_tpu/core/losses.py``; reference pyskl/models/losses/
 cross_entropy_loss.py and heads/base.py)."""
 from __future__ import annotations
@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def cross_entropy(cls_score: torch.Tensor, label: torch.Tensor,
@@ -35,6 +36,20 @@ def cross_entropy(cls_score: torch.Tensor, label: torch.Tensor,
         else:
             loss = -picked.mean()
     return loss * loss_weight
+
+
+def bce_with_logits(cls_score: torch.Tensor, label: torch.Tensor,
+                    class_weight: Optional[torch.Tensor] = None,
+                    loss_weight: float = 1.0) -> torch.Tensor:
+    """Binary cross entropy with logits for multi-label targets, the mean
+    over samples and classes, each class weighted by ``class_weight``
+    (reference cross_entropy_loss.py BCELossWithLogits; JAX
+    ``losses.py:bce_with_logits``)."""
+    loss = -(label * F.logsigmoid(cls_score)
+             + (1.0 - label) * F.logsigmoid(-cls_score))
+    if class_weight is not None:
+        loss = loss * class_weight[None]
+    return loss.mean() * loss_weight
 
 
 def top_k_correct(cls_score: torch.Tensor, label: torch.Tensor,

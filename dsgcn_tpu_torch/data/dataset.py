@@ -206,16 +206,34 @@ class ConcatDataset:
 
 def epoch_indices(n: int, epoch: int, shard: int = 0, num_shards: int = 1,
                   shuffle: bool = True, seed: int = 0,
-                  drop_last_to_multiple: Optional[int] = None) -> np.ndarray:
+                  drop_last_to_multiple: Optional[int] = None,
+                  class_prob: Optional[dict] = None,
+                  labels: Optional[np.ndarray] = None) -> np.ndarray:
     """Deterministic per-epoch shard indices (distributed_sampler.py:9-43),
     as the JAX package computes them: every process draws the same
     permutation of range(n) from ``RandomState(seed + epoch)``, pads it to a
     multiple of ``num_shards`` by wrapping, and takes the strided slice
     ``shard::num_shards``; ``drop_last_to_multiple`` then cuts the slice to
-    a multiple of it.  The JAX package's ``class_prob`` replication is not
-    ported."""
-    inds = (np.random.RandomState(seed + epoch).permutation(n) if shuffle
-            else np.arange(n))
+    a multiple of it.  With ``class_prob`` (label -> replication factor r,
+    1 for a label it omits) sample i appears floor(r) times, once more with
+    probability frac(r), before the shuffle (ClassSpecificDistributedSampler,
+    samplers/distributed_sampler.py:46-112): the same generator draws the
+    extra copies, then the permutation, as in JAX."""
+    g = np.random.RandomState(seed + epoch)
+    if class_prob is not None:
+        if labels is None:
+            raise ValueError("class_prob needs the samples' labels")
+        reps = np.array([class_prob.get(int(lab), 1.0) for lab in labels])
+        counts = np.floor(reps).astype(int)
+        counts += (g.rand(n) < (reps - counts)).astype(int)
+        inds = np.repeat(np.arange(n), counts)
+        n = len(inds)
+        if shuffle:
+            inds = inds[g.permutation(n)]
+    elif shuffle:
+        inds = g.permutation(n)
+    else:
+        inds = np.arange(n)
     total = ((n + num_shards - 1) // num_shards) * num_shards
     if total > n:
         inds = np.concatenate([inds, inds[:total - n]])
@@ -235,30 +253,37 @@ class Loader:
     ``shard``/``num_shards``: this process's share of every epoch
     (:func:`epoch_indices`); one process a device takes shard = its data
     rank and num_shards = the data axis, so the graph ranks of one data row
-    load the same batches.
+    load the same batches.  ``class_prob`` (label -> replication factor)
+    replicates samples by class each epoch (:func:`epoch_indices`), so an
+    epoch's length may vary; ``steps_per_epoch`` counts epoch 0's.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, num_workers: int = 8,
                  drop_last: bool = False, shard: int = 0,
-                 num_shards: int = 1):
+                 num_shards: int = 1, class_prob: Optional[dict] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.shard, self.num_shards = shard, num_shards
+        self.class_prob = class_prob
         self._pool = ThreadPoolExecutor(num_workers) if num_workers else None
 
     def _indices(self, epoch: int) -> np.ndarray:
+        labels = self.dataset.labels if self.class_prob is not None else None
         return epoch_indices(len(self.dataset), epoch, self.shard,
-                             self.num_shards, self.shuffle, self.seed)
+                             self.num_shards, self.shuffle, self.seed,
+                             class_prob=self.class_prob, labels=labels)
 
-    def steps_per_epoch(self) -> int:
-        n = len(self._indices(0))
+    def _steps(self, n: int) -> int:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def steps_per_epoch(self) -> int:
+        return self._steps(len(self._indices(0)))
 
     def _prepare(self, idx: int, epoch: int):
         rng = np.random.RandomState(
@@ -267,7 +292,7 @@ class Loader:
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         inds = self._indices(epoch)
-        for b in range(self.steps_per_epoch()):
+        for b in range(self._steps(len(inds))):
             chunk = inds[b * self.batch_size:(b + 1) * self.batch_size]
             if self._pool is not None:
                 samples = list(self._pool.map(

@@ -2,9 +2,11 @@
 
 The port's copy of the transforms that the committed DS-GCN pipelines
 (``configs/dsgcn/*/{j,b,jm,bm}.py``, NTU 3D and hrnet COCO 2D) use, from
-``dsgcn_tpu/data/transforms.py``: pre-normalization (3D and 2D), random
-rotation, compressed-pose expansion, the joint, bone and motion stream
-features, clip sampling, decode, format and collect (``PoseCompact`` is in
+``dsgcn_tpu/data/transforms.py``: pre-normalization (3D, with the native
+C++ path of ``native.py``, and 2D), random rotation, scale and noise, the
+reference's ``GaussAug``, compressed-pose expansion, the joint, bone and
+motion stream features, clip sampling (also ``UniformSampleOrder``),
+decode, padding, format and collect (``PoseCompact`` is in
 ``pose_aug.py``).  Behavioral parity with the reference pipelines (pyskl
 ``pose_related.py``, ``sampling.py``, ``formatting.py``).  Randomized
 transforms draw from the ``RandomState`` that ``Compose`` passes them, so
@@ -20,10 +22,11 @@ import numpy as np
 from .pose_aug import PoseCompact
 
 __all__ = [
-    "Compose", "PreNormalize3D", "PreNormalize2D", "RandomRot", "BONE_PAIRS",
-    "JointToBone", "ToMotion", "MergeSkeFeat", "GenSkeFeat",
-    "UniformSampleFrames", "UniformSample", "PoseDecode", "DecompressPose",
-    "FormatGCNInput", "Collect", "Rename", "build_pipeline",
+    "Compose", "PreNormalize3D", "PreNormalize2D", "RandomRot", "RandomScale",
+    "RandomGaussianNoise", "GaussAug", "BONE_PAIRS", "JointToBone",
+    "ToMotion", "MergeSkeFeat", "GenSkeFeat", "UniformSampleFrames",
+    "UniformSample", "UniformSampleOrder", "PoseDecode", "DecompressPose",
+    "PadTo", "FormatGCNInput", "Collect", "Rename", "build_pipeline",
 ]
 
 
@@ -77,18 +80,33 @@ class PreNormalize3D:
 
     Drops empty frames, selects the denser body as primary, centers on the
     spine-base joint, and optionally aligns spine->z and shoulders->x.
+    ``use_native`` (JAX's default, True) runs it in the C++ library of
+    ``native.py`` (float32 out, built at first use; a failed build raises)
+    for centered, non-empty 3D input of one or two bodies; other input,
+    and ``use_native=False``, take the numpy path, as in JAX
+    (transforms.py:90-107).
     """
     randomized = False
 
     def __init__(self, zaxis=(0, 1), xaxis=(8, 4), align_spine=True,
-                 align_center=True):
+                 align_center=True, use_native=True):
         self.zaxis = list(zaxis)
         self.xaxis = list(xaxis)
         self.align_spine = align_spine
         self.align_center = align_center
+        self.use_native = use_native
 
     def __call__(self, results: Dict) -> Dict:
         skeleton = results["keypoint"]
+        if (self.use_native and self.align_center and skeleton.ndim == 4
+                and skeleton.shape[-1] == 3 and skeleton.sum() != 0):
+            from .native import prenormalize3d
+            native = prenormalize3d(skeleton, self.align_spine,
+                                    self.align_center, self.zaxis, self.xaxis)
+            if native is not None:
+                results["keypoint"], results["total_frames"], \
+                    results["body_center"] = native
+                return results
         total_frames = results.get("total_frames", skeleton.shape[1])
         M, T, V, C = skeleton.shape
         if T != total_frames:
@@ -212,6 +230,64 @@ class RandomRot:
         else:
             rot = self._rot2d(rng.uniform(-self.theta))
         results["keypoint"] = np.einsum("ab,mtvb->mtva", rot, skeleton)
+        return results
+
+
+class RandomScale:
+    """Scale each coordinate by 1 + U(-1, 1) scale (pose_related.py:182);
+    ``scale`` a float (every axis) or one per axis."""
+    randomized = True
+
+    def __init__(self, scale=0.2):
+        self.scale = scale
+
+    def __call__(self, results: Dict, rng) -> Dict:
+        skeleton = results["keypoint"]
+        scale = self.scale
+        if isinstance(scale, float):
+            scale = (scale,) * skeleton.shape[-1]
+        if len(scale) != skeleton.shape[-1]:
+            raise ValueError(f"RandomScale: {len(scale)} scales for "
+                             f"{skeleton.shape[-1]} coordinates")
+        scale = 1 + rng.uniform(-1, 1, size=len(scale)) * np.array(scale)
+        results["keypoint"] = skeleton * scale
+        return results
+
+
+class RandomGaussianNoise:
+    """Add N(0, sigma^2) noise to every coordinate (pose_related.py:200);
+    float32 out."""
+    randomized = True
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+
+    def __call__(self, results: Dict, rng) -> Dict:
+        kp = results["keypoint"]
+        results["keypoint"] = (kp + rng.standard_normal(kp.shape) * self.sigma
+                               ).astype(np.float32)
+        return results
+
+
+class GaussAug:
+    """Gaussian keypoint jitter with probability 1 - thr (reference
+    pose_related.py:83-104).  As the reference, and JAX, it writes the
+    jittered array to the misspelled key ``'keyoint'``
+    (pose_related.py:102): ``'keypoint'`` is left as it was."""
+    randomized = True
+
+    def __init__(self, thr=0.5, ratio=1e-2):
+        self.thr = thr
+        self.ratio = ratio
+
+    def __call__(self, results: Dict, rng) -> Dict:
+        if rng.rand() > self.thr:
+            kp = results["keypoint"]
+            n, t, v, c = kp.shape
+            aug = rng.multivariate_normal(
+                np.zeros(c), np.eye(c) * self.ratio,
+                kp.reshape(-1, c).shape[0]).reshape(n, t, v, c)
+            results["keyoint"] = kp + aug     # sic (pose_related.py:102)
         return results
 
 
@@ -398,15 +474,18 @@ class UniformSampleFrames:
             inds = bst + offset
         return inds + off
 
+    def _get_clips(self, num_frames, clip_len, rng):
+        return np.concatenate([
+            self._sample_one(num_frames, clip_len, rng, i)
+            for i in range(self.num_clips)])
+
     def __call__(self, results: Dict, rng=None) -> Dict:
         num_frames = results["total_frames"]
         if self.test_mode:
             rng = np.random.RandomState(self.seed)
         elif rng is None:
             rng = np.random.RandomState()
-        inds = np.concatenate([
-            self._sample_one(num_frames, self.clip_len, rng, i)
-            for i in range(self.num_clips)])
+        inds = self._get_clips(num_frames, self.clip_len, rng)
         inds = np.mod(inds, num_frames)
         inds = inds + results.get("start_index", 0)
         results["frame_inds"] = inds.astype(np.int64)
@@ -418,6 +497,53 @@ class UniformSampleFrames:
 
 class UniformSample(UniformSampleFrames):
     pass
+
+
+class UniformSampleOrder(UniformSampleFrames):
+    """UniformSample_order (reference sampling.py:195-282): as
+    UniformSampleFrames, except that a short video's train clip always
+    starts at frame 0 (:241-243) and indices past the end clamp to the
+    last frame instead of looping (:254)."""
+
+    def _sample_one(self, num_frames, clip_len, rng, clip_idx):
+        pi = self.p_interval
+        old_num_frames = num_frames
+        ratio = rng.rand() * (pi[1] - pi[0]) + pi[0]
+        num_frames = int(ratio * num_frames)
+        off = rng.randint(old_num_frames - num_frames + 1)
+        if not self.test_mode and num_frames < clip_len:
+            return np.arange(0, clip_len) + off
+        if num_frames < clip_len:
+            start = (clip_idx if num_frames < self.num_clips
+                     else clip_idx * num_frames // self.num_clips)
+            inds = np.arange(start, start + clip_len)
+        elif clip_len <= num_frames < 2 * clip_len:
+            basic = np.arange(clip_len)
+            chosen = rng.choice(clip_len + 1, num_frames - clip_len,
+                                replace=False)
+            offset = np.zeros(clip_len + 1, dtype=np.int64)
+            offset[chosen] = 1
+            inds = basic + np.cumsum(offset)[:-1]
+        else:
+            bids = np.array([i * num_frames // clip_len
+                             for i in range(clip_len + 1)])
+            inds = bids[:clip_len] + rng.randint(np.diff(bids))
+        return inds + off
+
+    def __call__(self, results: Dict, rng=None) -> Dict:
+        num_frames = results["total_frames"]
+        if self.test_mode:
+            rng = np.random.RandomState(self.seed)
+        elif rng is None:
+            rng = np.random.RandomState()
+        inds = self._get_clips(num_frames, self.clip_len, rng)
+        inds[inds >= num_frames] = num_frames - 1    # clamp (sampling.py:254)
+        inds = inds + results.get("start_index", 0)
+        results["frame_inds"] = inds.astype(np.int64)
+        results["clip_len"] = self.clip_len
+        results["frame_interval"] = None
+        results["num_clips"] = self.num_clips
+        return results
 
 
 class PoseDecode:
@@ -497,6 +623,32 @@ class DecompressPose:
         return results
 
 
+class PadTo:
+    """Pad the frames to ``length`` by looping them, or with zeros past the
+    last frame (``mode='zero'``); videos longer than ``length`` are
+    refused."""
+    randomized = False
+
+    def __init__(self, length, mode="loop"):
+        if mode not in ("loop", "zero"):
+            raise ValueError(f"PadTo mode {mode!r} ('loop' or 'zero')")
+        self.length = length
+        self.mode = mode
+
+    def __call__(self, results: Dict) -> Dict:
+        total_frames = results["total_frames"]
+        if total_frames > self.length:
+            raise ValueError(f"PadTo: {total_frames} frames exceed "
+                             f"{self.length}")
+        inds = np.mod(np.arange(self.length), total_frames)
+        keypoint = results["keypoint"][:, inds].copy()
+        if self.mode == "zero":
+            keypoint[:, total_frames:] = 0
+        results["keypoint"] = keypoint
+        results["total_frames"] = self.length
+        return results
+
+
 class FormatGCNInput:
     """Pad/trim persons and split clips: (M, T, V, C) -> (nc, M, T/nc, V, C)
     (pose_related.py:468-514)."""
@@ -546,10 +698,11 @@ class Collect:
 
 
 TRANSFORMS = {c.__name__: c for c in
-              [PreNormalize3D, PreNormalize2D, RandomRot, JointToBone,
-               ToMotion, MergeSkeFeat, GenSkeFeat, UniformSampleFrames,
-               UniformSample, PoseDecode, DecompressPose, PoseCompact,
-               FormatGCNInput, Collect, Rename]}
+              [PreNormalize3D, PreNormalize2D, RandomRot, RandomScale,
+               RandomGaussianNoise, GaussAug, JointToBone, ToMotion,
+               MergeSkeFeat, GenSkeFeat, UniformSampleFrames, UniformSample,
+               UniformSampleOrder, PoseDecode, DecompressPose, PoseCompact,
+               PadTo, FormatGCNInput, Collect, Rename]}
 
 
 def build_pipeline(cfgs: Sequence[Dict]) -> Compose:

@@ -9,8 +9,10 @@ The port of ``split_stage_kwargs``, ``route_prefix``, ``DataBN``,
 (stgcn.py:100-128), channel inflation x2 and temporal stride 2 at stages 5
 and 8, block = spatial GCN (``unit_gcn`` for STGCN, ``unit_aagcn`` or
 ``unit_aahgcn`` for AAGCN, ``unit_ctrgcn`` or ``unit_ctrhgcn`` for
-CTRGCN, ``dggcn`` for DG-STGCN, ``dgphgcn1`` for DS-GCN) -> temporal conv
-(``unit_tcn``, ``mstcn``, CTR-GCN's ``CTRMSTCN`` or ``dgmstcn``)
+CTRGCN, ``dggcn`` for DG-STGCN, ``dghgcn``, ``dgphgcn1`` for DS-GCN) ->
+temporal conv (``unit_tcn``, ``mstcn``, ``dgmstcn``, the author's
+temporal MLPs ``unitmlp``, ``msmlp``, ``gcmlp``, ``dgmsmlp``, or
+CTR-GCN's ``CTRMSTCN``)
 (+ residual, ReLU).  Input ``(N, M, T, V, C)``
 channels-last, output ``(N, M, T/4, V, C_out)``.  Blocks are named
 ``block{i}`` as the flax scopes are.  ``remat`` (training only, JAX
@@ -34,9 +36,9 @@ from ..graph import Graph, GraphConfig
 from ..ops.common import BatchNorm, remat_call
 from ..parallel.joint_partition import all_gather
 from ..parallel.mesh import axis
-from ..ops.gcn import (DGGCN, DGPHGCN1, UnitAAGCN, UnitAAHGCN, UnitCTRGCN,
-                       UnitCTRHGCN, UnitGCN)
-from ..ops.tcn import CTRMSTCN, DGMSTCN, MSTCN, UnitTCN
+from ..ops.gcn import (DGGCN, DGHGCN, DGPHGCN1, UnitAAGCN, UnitAAHGCN,
+                       UnitCTRGCN, UnitCTRHGCN, UnitGCN)
+from ..ops.tcn import CTRMSTCN, DGMSTCN, GCMLP, MSTCN, UnitMLP, UnitTCN
 
 EPS = 1e-4
 
@@ -76,21 +78,27 @@ def tuple_ify(v):
 def _make_tcn(tcn_type: str, in_channels: int, out_channels: int,
               stride: int, tcn_kwargs: Dict[str, Any]) -> nn.Module:
     """The temporal unit of a block (JAX backbones.py:85-115): 'unit_tcn'
-    (k = 9), 'mstcn' or 'dgmstcn'.  The temporal-MLP kinds ('unitmlp',
-    'msmlp', 'gcmlp', 'dgmsmlp') are not ported."""
+    (k = 9), 'mstcn', 'dgmstcn', or the author's temporal MLPs 'unitmlp'
+    (k = 9), 'msmlp' (``MSTCN`` with mlp branches), 'gcmlp' and 'dgmsmlp'
+    (``DGMSTCN`` with mlp branches)."""
     kw = {k: (tuple(map(tuple_ify, v)) if k == "ms_cfg" else v)
           for k, v in tcn_kwargs.items()}
     if tcn_type == "unit_tcn":
         return UnitTCN(in_channels, out_channels, kernel_size=9,
                        stride=stride, **kw)
-    if tcn_type == "mstcn":
-        return MSTCN(in_channels, out_channels, stride=stride, **kw)
-    if tcn_type == "dgmstcn":
-        return DGMSTCN(in_channels, out_channels, stride=stride, **kw)
-    if tcn_type in ("unitmlp", "msmlp", "gcmlp", "dgmsmlp"):
-        raise NotImplementedError(
-            f"tcn_type={tcn_type!r} is not ported yet (the port has "
-            "'unit_tcn', 'mstcn' and 'dgmstcn')")
+    if tcn_type == "unitmlp":
+        return UnitMLP(in_channels, out_channels, kernel_size=9,
+                       stride=stride, **kw)
+    if tcn_type in ("mstcn", "msmlp"):
+        return MSTCN(in_channels, out_channels, stride=stride,
+                     branch_kind="mlp" if tcn_type == "msmlp" else "tcn",
+                     **kw)
+    if tcn_type in ("dgmstcn", "dgmsmlp"):
+        return DGMSTCN(in_channels, out_channels, stride=stride,
+                       branch_kind="mlp" if tcn_type == "dgmsmlp" else "tcn",
+                       **kw)
+    if tcn_type == "gcmlp":
+        return GCMLP(in_channels, out_channels, stride=stride, **kw)
     raise ValueError(f"unknown tcn type {tcn_type!r}")
 
 
@@ -155,11 +163,12 @@ class STGCNBlock(nn.Module):
 
 
 class DGBlock(nn.Module):
-    """{dggcn | dgphgcn1} + {unit_tcn | mstcn | dgmstcn} (reference
-    dgstgcn.py:12-65); the edge and node types go to dgphgcn1 only.
-    ``graph_axis`` (JAX backbones.py:288-316) reaches the GCN unit, the
-    residual's BN and the temporal unit (``dgmstcn``'s graph_axis,
-    ``unit_tcn``'s bn_axis; JAX asserts one of the two)."""
+    """{dggcn | dghgcn | dgphgcn1} + a temporal unit of :func:`_make_tcn`
+    (reference dgstgcn.py:12-65); the edge and node types go to dghgcn and
+    dgphgcn1.  ``graph_axis`` (JAX backbones.py:288-316) reaches the GCN
+    unit, the residual's BN and the temporal unit (``dgmstcn``'s
+    graph_axis, ``unit_tcn``'s bn_axis; JAX asserts one of the two, and a
+    GCN unit other than dghgcn)."""
 
     def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
                  edge_type: Optional[np.ndarray],
@@ -172,12 +181,13 @@ class DGBlock(nn.Module):
                  graph_axis: Optional[str] = None):
         super().__init__()
         self.remat_tcn = remat_tcn
-        if gcn_type not in ("dggcn", "dgphgcn1"):
-            raise NotImplementedError(
-                f"gcn_type={gcn_type!r} is not ported yet (the port has "
-                "'dggcn' and 'dgphgcn1')")
+        if gcn_type not in ("dggcn", "dghgcn", "dgphgcn1"):
+            raise ValueError(f"unknown gcn type {gcn_type!r}")
         tcn_kwargs = dict(tcn_kwargs or {})
         if graph_axis is not None:
+            if gcn_type == "dghgcn":
+                raise ValueError("graph_axis takes gcn_type 'dggcn' or "
+                                 "'dgphgcn1', not 'dghgcn'")
             if tcn_type not in ("dgmstcn", "unit_tcn"):
                 raise ValueError(
                     f"graph_axis takes tcn_type 'dgmstcn' or 'unit_tcn', "
@@ -189,6 +199,10 @@ class DGBlock(nn.Module):
         if gcn_type == "dggcn":
             self.gcn = DGGCN(in_channels, out_channels, A_init=A,
                              graph_axis=graph_axis, **(gcn_kwargs or {}))
+        elif gcn_type == "dghgcn":
+            self.gcn = DGHGCN(in_channels, out_channels, A_init=A,
+                              edge_type=edge_type, node_type=node_type,
+                              **(gcn_kwargs or {}))
         else:
             self.gcn = DGPHGCN1(in_channels, out_channels, A_init=A,
                                 edge_type=edge_type, node_type=node_type,
@@ -412,14 +426,22 @@ class DGSTGCN(_BackboneBase):
     def set_joint_pad(self, v_pad: int) -> None:
         """Joint-padded mode at ``v_pad`` joints (0: off): the blocks'
         ``dggcn``/``dgphgcn1`` and ``dgmstcn`` units take ``v_pad``;
-        ``mstcn`` and ``unit_tcn`` need nothing (JAX backbones.py:612-619)."""
+        ``mstcn`` and ``unit_tcn`` need nothing; ``dghgcn`` and the temporal
+        MLPs are refused (JAX backbones.py:612-619)."""
         if v_pad and self.graph_axis is not None:
             raise ValueError("graph_axis and joint_pad exclude each other")
         for i in range(self.num_blocks):
             blk = getattr(self, f"block{i}")
-            if not isinstance(blk.tcn, (DGMSTCN, MSTCN, UnitTCN)):
+            if v_pad and not isinstance(blk.gcn, (DGGCN, DGPHGCN1)):
+                raise ValueError(f"joint_pad unsupported for the GCN unit "
+                                 f"{type(blk.gcn).__name__}")
+            tcn_ok = isinstance(blk.tcn, UnitTCN) or (
+                isinstance(blk.tcn, (DGMSTCN, MSTCN))
+                and blk.tcn.branches.branch_kind == "tcn")
+            if v_pad and not tcn_ok:
                 raise ValueError(f"joint_pad unsupported for the temporal "
-                                 f"unit {type(blk.tcn).__name__}")
+                                 f"unit {type(blk.tcn).__name__} (JAX takes "
+                                 "dgmstcn, mstcn and unit_tcn)")
             if 0 < v_pad < blk.gcn.A.shape[-1]:
                 raise ValueError(f"joint_pad={v_pad} is under the graph's "
                                  f"{blk.gcn.A.shape[-1]} joints")

@@ -10,6 +10,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.common import cast
+
 
 class RecognizerGCN(nn.Module):
     """Composes a GCN backbone and a classification head.
@@ -33,6 +35,35 @@ class RecognizerGCN(nn.Module):
             return self.head(self.backbone(keypoint))
         logits = self.head(self.backbone(keypoint.to(self.compute_dtype)))
         return logits.float()
+
+
+@torch.no_grad()
+def extract_pooled_feat(model: RecognizerGCN, keypoint: torch.Tensor,
+                        pool_opt: str = "nmtv",
+                        score_ext: bool = False) -> torch.Tensor:
+    """Pooled backbone features, or per-location class scores, for analysis
+    (JAX ``dsgcn_tpu/models/recognizer.py:extract_pooled_feat``; reference
+    recognizergcn.py:53-107 feat_ext/score_ext).
+
+    keypoint: (N, M, T, V, C).  The backbone runs in eval (the model's mode
+    is put back afterwards) and gives (N, M, T', V, C').  With ``score_ext``
+    the head's ``fc_cls`` is applied at every location first
+    (recognizergcn.py:88-93).  Then the mean over each axis of ``pool_opt``
+    (a subset of 'nmtv', kept as size 1; 'none' keeps everything)."""
+    was = model.training
+    model.eval()
+    try:
+        feat = model.backbone(keypoint)
+    finally:
+        model.train(was)
+    if score_ext:
+        fc = model.head.fc_cls
+        feat = torch.nn.functional.linear(feat, cast(fc.weight, feat.dtype),
+                                          cast(fc.bias, feat.dtype))
+    if pool_opt != "none":
+        for d in pool_opt:
+            feat = feat.mean(dim="nmtv".index(d), keepdim=True)
+    return feat
 
 
 def average_clip(cls_score: torch.Tensor,

@@ -6,9 +6,10 @@ graph, contracted with ``torch.einsum`` as JAX leaves it to XLA),
 ``UnitAAGCN``/``UnitAAHGCN`` with ``AttentionChain`` (AAGCN),
 ``UnitCTRGCN``/``UnitCTRHGCN`` with ``CTRGC``/``CTRHGC`` (CTR-GCN; these
 units, like UnitGCN, run no kernel: JAX computes them in XLA einsums too),
-``DGGCN`` (DG-STGCN) and ``DGPHGCN1`` (DS-GCN), train and eval, with the
-helpers they use.  DGGCN and DGPHGCN1 have two aggregation paths, chosen
-as in the JAX modules:
+``DGGCN`` (DG-STGCN), ``DGHGCN`` (the semantic DG-GCN without subset
+decomposition; einsums only, as in JAX) and ``DGPHGCN1`` (DS-GCN), train
+and eval, with the helpers they use.  DGGCN and DGPHGCN1 have two
+aggregation paths, chosen as in the JAX modules:
 
 * ``use_pallas=True`` (``build_backbone``'s default): the dynamic-graph
   kernels.  Training always runs K1 and its backward K2 as one autograd
@@ -479,6 +480,158 @@ class DGGCN(nn.Module):
             G = g * cast(_gate(self.beta, K, 0, K, self.subset_wise,
                                g.dim() - 2), dt) + G
         return _dispatch_contract(pre_x, G, self.ctr, self.ada)
+
+
+class DGHGCN(nn.Module):
+    """Semantic DG-GCN without subset decomposition (reference dghgcn,
+    gcn.py:1586-1806; JAX ``dsgcn_tpu/ops/gcn.py:DGHGCN``): DGGCN's ctr and
+    ada graphs with the semantic attentions on all K subsets.
+
+    ``node_attention``: the queries ``conv1``/``conv2`` give P = num_types
+    heads, gathered per joint by its node type (:func:`_type_gather`).
+    ``edge_attention`` (ctr): the diff graph through ``edge_linears`` (K mid
+    -> E K mid) and the per-edge class select (:func:`_edge_class_select`),
+    plus the diff itself with ``add_type``.  ``ada_attention``: the
+    outer-product graph through ``ada_linears`` (K -> E K) and the class
+    select.  Both need T-pooled graphs, as JAX asserts.
+    ``target_specific``: a per-node-type output 1x1 (``nodeconv``, gathered
+    by joint type) added to ``post_conv`` after the aggregation
+    (gcn.py:1791-1795).  The contraction is JAX's four-way einsum dispatch
+    (:func:`_dispatch_contract`); JAX computes this unit outside any Pallas
+    kernel, and so does the port: ``use_pallas`` is accepted, because the
+    builder sets it on every DGSTGCN unit, and changes nothing.  (JAX's
+    DGHGCN has no such field, so JAX's ``build_backbone`` refuses
+    ``gcn_type='dghgcn'`` with a TypeError; its DGSTGCN built directly
+    takes it.)"""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, edge_type: Optional[np.ndarray] = None,
+                 node_type: Optional[np.ndarray] = None, ratio=0.25,
+                 ctr="T", ada="T", node_attention=False,
+                 edge_attention=False, ada_attention=False,
+                 target_specific=False, add_type=False, num_types=5,
+                 edge_num=15, subset_wise=False, ada_act="softmax",
+                 ctr_act="tanh", use_pallas=False):
+        super().__init__()
+        self.per_frame = _graph_mode(ctr, ada)
+        if self.per_frame and ((ctr is not None and edge_attention)
+                               or (ada is not None and ada_attention)):
+            raise ValueError("edge and ada attention require T-pooled "
+                             "graphs")
+        if node_attention or target_specific:
+            if node_type is None:
+                raise ValueError("node attention and target_specific need "
+                                 "the graph's node types")
+        if (edge_attention or ada_attention) and edge_type is None:
+            raise ValueError("edge and ada attention need the graph's "
+                             "edge types")
+        K = A_init.shape[0]
+        self.in_channels, self.out_channels, self.K = (in_channels,
+                                                       out_channels, K)
+        self.mid = mid = int((ratio if ratio is not None else 1.0 / K)
+                             * out_channels)
+        self.P, self.E = num_types, edge_num
+        self.ctr, self.ada = ctr, ada
+        self.ctr_act, self.ada_act = ctr_act, ada_act
+        self.node_attention = node_attention
+        self.edge_attention = edge_attention and ctr is not None
+        self.ada_attention = ada_attention and ada is not None
+        self.target_specific, self.add_type = target_specific, add_type
+        self.subset_wise = subset_wise
+        if in_channels != out_channels:
+            self.down_conv = PointConv(in_channels, out_channels)
+            self.down_bn = BatchNorm(out_channels)
+        # a copy: blocks are built from one numpy graph and must not share it
+        self.A = nn.Parameter(torch.tensor(np.asarray(A_init),
+                                           dtype=torch.float32))
+        self.alpha = nn.Parameter(torch.zeros(K))
+        self.beta = nn.Parameter(torch.zeros(K))
+        self.pre_conv = PointConv(in_channels, mid * K)
+        self.pre_bn = BatchNorm(mid * K)
+        if ctr is not None or ada is not None:
+            feats = K * mid * (num_types if node_attention else 1)
+            self.conv1 = PointConv(in_channels, feats)
+            self.conv2 = PointConv(in_channels, feats)
+        if self.edge_attention:
+            self.edge_linears = PointConv(K * mid, edge_num * K * mid)
+        if self.ada_attention:
+            self.ada_linears = PointConv(K, edge_num * K)
+        if target_specific:
+            self.nodeconv = PointConv(K * mid, num_types * out_channels)
+        self.post_conv = PointConv(K * mid, out_channels)
+        self.bn = BatchNorm(out_channels)
+        for name, types in (("node_type", node_type),
+                            ("edge_type", edge_type)):
+            if types is not None:
+                self.register_buffer(name, torch.as_tensor(
+                    np.asarray(types), dtype=torch.long), persistent=False)
+
+    def _queries(self, x: torch.Tensor):
+        """x1, x2: (N, K, mid, Tq, V), Tq = 1 (T-pooled) or T ('NA')."""
+        K, mid = self.K, self.mid
+        tmp = x if self.per_frame else x.mean(dim=1, keepdim=True)
+        n, tq, v, _ = tmp.shape
+
+        def heads(y):
+            if self.node_attention:            # (n, tq, K, mid, P, V)
+                y = y.reshape(n, tq, v, K, mid, self.P).movedim(2, -1)
+                y = _type_gather(y, self.node_type, type_axis=4)
+                return y.permute(0, 2, 3, 1, 4)
+            return y.reshape(n, tq, v, K, mid).permute(0, 3, 4, 1, 2)
+        return heads(self.conv1(tmp)), heads(self.conv2(tmp))
+
+    def _graph(self, x1, x2, dt):
+        """The (1 | N, K, Cq, Tq, V, V) graph (JAX gcn.py:884-926)."""
+        K, E, mid = self.K, self.E, self.mid
+        n, V = x1.shape[0], self.A.shape[-1]
+        G = cast(self.A, dt)[None, :, None, None]
+
+        def gated(g, gates):
+            gates = cast(gates, dt)
+            return g * (gates.reshape(1, K, 1, 1, 1, 1) if self.subset_wise
+                        else gates[0])
+        if self.ctr is not None:
+            diff = x1[..., :, None] - x2[..., None, :]     # (n,K,mid,tq,V,V)
+            g = diff
+            if self.edge_attention:
+                d2 = diff[:, :, :, 0].reshape(n, K * mid, V, V).movedim(1, -1)
+                es = self.edge_linears(d2).reshape(n, V, V, K, E, mid)
+                es = es.permute(0, 3, 5, 4, 1, 2)          # (n,K,mid,E,V,V)
+                g = _edge_class_select(es, self.edge_type)[:, :, :, None]
+                if self.add_type:
+                    g = diff + g
+            G = gated(ACTS[self.ctr_act](g), self.alpha) + G
+        if self.ada is not None:
+            g = _ada_graph(x1, x2)[:, :, None]             # (n,K,1,tq,V,V)
+            if self.ada_attention:
+                gs = self.ada_linears(g[:, :, 0, 0].movedim(1, -1))
+                gs = gs.reshape(n, V, V, K, E).permute(0, 3, 4, 1, 2)
+                g = _edge_class_select(gs, self.edge_type)[:, :, None, None]
+            G = gated(ACTS[self.ada_act](g), self.beta) + G
+        return G
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        K, mid = self.K, self.mid
+        n, t, v, c = x.shape
+        res = (self.down_bn(self.down_conv(x)) if c != self.out_channels
+               else x)
+        pre_x = F.relu(self.pre_bn(self.pre_conv(x))).reshape(n, t, v, K,
+                                                              mid)
+        if self.ctr is None and self.ada is None:
+            G = self.A
+        else:
+            G = self._graph(*self._queries(x), pre_x.dtype)
+            if not self.per_frame:
+                G = G[:, :, :, 0]                          # (N, K, Cq, V, V)
+        y = _dispatch_contract(pre_x, G, self.ctr, self.ada).reshape(
+            n, t, v, K * mid)
+        out = self.post_conv(y)
+        if self.target_specific:
+            # a per-type output head gathered by joint type (gcn.py:1791)
+            xn = self.nodeconv(y).reshape(n, t, v, self.P, self.out_channels)
+            xn = _type_gather(xn.movedim(2, -1), self.node_type, type_axis=2)
+            out = out + xn.movedim(2, -1)
+        return F.relu(self.bn(out) + res)
 
 
 class DGPHGCN1(nn.Module):

@@ -1,17 +1,19 @@
 """Temporal convolution ops (channels-last ``(N, T, V, C)``).
 
-The port of ``UnitTCN``, ``_MSBranches``, ``MSTCN`` (STGCN++),
-``DGMSTCN`` (DG-STGCN, DS-GCN) and ``CTRMSTCN`` (CTR-GCN) from
-``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN trains in the
-reference ``concat`` layout, as JAX does: the mean joint is appended as an
-extra joint row, the branch stack runs once (so in training the branch
-BatchNorms see the 26th joint), and the global row is scaled back onto
-every joint (tcn.py:428-460).  Eval runs the same layout whatever
-``eval_layout`` says (``DGMSTCN``).  With
+The port of ``UnitTCN``, ``UnitMLP``, ``_MSBranches``, ``MSTCN``
+(STGCN++; msmlp with ``branch_kind='mlp'``), ``GCMLP``, ``DGMSTCN``
+(DG-STGCN, DS-GCN; dgmsmlp with ``branch_kind='mlp'``) and ``CTRMSTCN``
+(CTR-GCN) from ``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN trains
+in the reference ``concat`` layout, as JAX does: the mean joint is
+appended as an extra joint row, the branch stack runs once (so in
+training the branch BatchNorms see the 26th joint), and the global row is
+scaled back onto every joint (tcn.py:428-460).  Eval runs the same
+layout whatever ``eval_layout`` says (``DGMSTCN``).  With
 ``use_pallas=True`` both take the fused eval kernel K7
 (``ops/kernels/ms_tcn.py``) in eval where JAX does (``DEFAULT_MS_CFG``,
-default widths); training keeps the module path.  Submodule names follow
-the JAX modules' flax scopes.
+default widths, ``branch_kind='tcn'``); training, and the temporal MLPs
+(which JAX computes outside any Pallas kernel), keep the module path.
+Submodule names follow the JAX modules' flax scopes.
 """
 from __future__ import annotations
 
@@ -57,23 +59,102 @@ class UnitTCN(nn.Module):
         return dropout(y, self.dropout, self.training, self.generator)
 
 
-class _MSBranches(nn.Module):
-    """Multi-branch structure of mstcn/dgmstcn (reference tcn.py:134-153).
+class UnitMLP(nn.Module):
+    """The author's temporal-MLP unit (reference unitmlp, tcn.py:525-610;
+    JAX ``dsgcn_tpu/ops/tcn.py:UnitMLP``): a depthwise causal temporal conv
+    of (k + 1) // 2 taps, left-padded mlp_size + (mlp_size - 1)(d - 1) - 1
+    frames, with its stride, dilation and bias (``conv``, a grouped
+    ``Conv2d`` holding the (C, 1, taps, 1) weight), then the 1x1 ``conv1``,
+    the optional BN and dropout (training only, its mask from
+    ``self.generator``).
 
-    Branch i: 1x1 -> BN -> ReLU -> {k x 1 dilated conv | maxpool}, or a plain
-    strided 1x1.  Branch 0 gets the remainder channels.  ``bn_axis``: the
-    mesh axis the branch BNs sync their statistics over; the forward's
-    ``bn_weight`` weighs their locations (JAX tcn.py:194).
+    ``channel_annention`` averages T' in ``group`` contiguous blocks
+    (8 if C <= 16, else C // ``reduce``), which must divide T' (JAX
+    asserts it).  ``add_tcn`` adds a k x 1 ``TemporalConv`` of x
+    (``conv2``) through the gate ``alpha`` (learned, from zero, when
+    ``adaptive``, else 1), after ``conv1`` with ``merge_after``, else before
+    it."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 5, stride: int = 1, dilation: int = 1,
+                 norm: Optional[str] = "BN", dropout: float = 0.0,
+                 adaptive: bool = True, channel_annention: bool = False,
+                 reduce: int = 4, add_tcn: bool = False,
+                 merge_after: bool = False):
+        super().__init__()
+        if in_channels != out_channels:
+            raise ValueError("depthwise mlp expects in == out channels "
+                             f"({in_channels} != {out_channels})")
+        c, d = out_channels, dilation
+        taps = (kernel_size + 1) // 2
+        self.pad = taps + (taps - 1) * (d - 1) - 1          # causal left pad
+        self.conv = nn.Conv2d(c, c, (taps, 1), stride=(stride, 1),
+                              dilation=(d, 1), groups=c)
+        self.channel_annention, self.reduce = channel_annention, reduce
+        self.add_tcn, self.merge_after = add_tcn, merge_after
+        self.adaptive = adaptive
+        if add_tcn:
+            self.conv2 = TemporalConv(c, c, kernel_size, stride, d)
+            if adaptive:
+                self.alpha = nn.Parameter(torch.zeros(1))
+        self.conv1 = PointConv(c, c)
+        self.bn = BatchNorm(c) if norm is not None else None
+        self.dropout = dropout
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, _, v, c = x.shape
+        w = cast(self.conv.weight, x.dtype)
+        y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (0, 0, self.pad, 0)), w,
+                     cast(self.conv.bias, x.dtype), self.conv.stride, 0,
+                     self.conv.dilation, groups=c).permute(0, 2, 3, 1)
+        if self.channel_annention:
+            group = 8 if c <= 16 else c // self.reduce
+            t2 = y.shape[1]
+            if t2 % group:
+                raise ValueError(f"channel_annention needs group {group} | "
+                                 f"T' {t2}")
+            y = y.reshape(n, group, t2 // group, v, c).mean(dim=1)
+        if self.add_tcn:
+            x_tcn = self.conv2(x)
+            if self.adaptive:
+                x_tcn = x_tcn * cast(self.alpha, x.dtype)
+            y = (self.conv1(y) + x_tcn if self.merge_after
+                 else self.conv1(y + x_tcn))
+        else:
+            y = self.conv1(y)
+        if self.bn is not None:
+            y = self.bn(y)
+        return dropout(y, self.dropout, self.training, self.generator)
+
+
+class _MSBranches(nn.Module):
+    """Multi-branch structure of mstcn/dgmstcn/msmlp (reference
+    tcn.py:134-153, 215-234).
+
+    Branch i: 1x1 -> BN -> ReLU -> {k x 1 dilated conv | causal mlp |
+    maxpool}, or a plain strided 1x1.  Branch 0 gets the remainder
+    channels.  ``branch_kind='mlp'`` makes the conv branches ``UnitMLP``s
+    without BN (``branch{i}_mlp``), with ``channel_annention``, ``add_tcn``
+    and ``merge_after`` passed through.  ``bn_axis``: the mesh axis the
+    branch BNs sync their statistics over; the forward's ``bn_weight``
+    weighs their locations (JAX tcn.py:194).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[float] = None,
                  ms_cfg: Sequence[MsCfgEntry] = DEFAULT_MS_CFG,
-                 stride: int = 1, bn_axis: Optional[str] = None):
+                 stride: int = 1, bn_axis: Optional[str] = None,
+                 branch_kind: str = "tcn", channel_annention: bool = False,
+                 add_tcn: bool = False, merge_after: bool = False):
         super().__init__()
+        if branch_kind not in ("tcn", "mlp"):
+            raise ValueError(f"unknown branch_kind {branch_kind!r} ('tcn' "
+                             "or 'mlp')")
         self.ms_cfg = tuple(ms_cfg)
         self.stride = stride
         self.mid_channels = mid_channels
+        self.branch_kind = branch_kind
         nb = len(self.ms_cfg)
         if mid_channels is None:
             mid = out_channels // nb
@@ -90,7 +171,14 @@ class _MSBranches(nn.Module):
             kind, val = cfg
             self.add_module(f"branch{i}_pre", PointConv(in_channels, bc))
             self.add_module(f"branch{i}_bn", BatchNorm(bc, axis_name=bn_axis))
-            if kind != "max":
+            if kind == "max":
+                continue
+            if branch_kind == "mlp":
+                self.add_module(f"branch{i}_mlp", UnitMLP(
+                    bc, bc, kernel_size=kind, stride=stride, dilation=val,
+                    norm=None, channel_annention=channel_annention,
+                    add_tcn=add_tcn, merge_after=merge_after))
+            else:
                 self.add_module(f"branch{i}_tcn", UnitTCN(
                     bc, bc, kernel_size=kind, stride=stride, dilation=val,
                     norm=None))
@@ -108,16 +196,17 @@ class _MSBranches(nn.Module):
             if kind == "max":
                 b = max_pool_t(b, window=val, stride=self.stride, padding=1)
             else:
-                b = getattr(self, f"branch{i}_tcn")(b)
+                b = getattr(self, f"branch{i}_{self.branch_kind}")(b)
             outs.append(b)
         return torch.cat(outs, dim=-1)
 
 
 def _k7_applies(mod) -> bool:
     """JAX's condition for the fused eval kernel (tcn.py:231-233, :337-340):
-    eval, the default branches at the default widths."""
+    eval, the default conv branches at the default widths."""
     return (mod.use_pallas and not mod.training
             and getattr(mod, "graph_axis", None) is None
+            and mod.branches.branch_kind == "tcn"
             and mod.branches.mid_channels is None
             and mod.branches.ms_cfg == DEFAULT_MS_CFG)
 
@@ -161,8 +250,10 @@ def fused_ms_eval(mod: nn.Module, x: torch.Tensor,
 class MSTCN(nn.Module):
     """STGCN++ multi-scale TCN (reference mstcn, tcn.py:104-180): the
     branches, then BN -> ReLU -> 1x1 transform -> BN.  ``dropout`` acts in
-    training only, its mask drawn from ``self.generator``.  The JAX
-    module's ``branch_kind='mlp'`` (msmlp) is not ported and raises."""
+    training only, its mask drawn from ``self.generator``.  With
+    ``branch_kind='mlp'`` it is the author's msmlp (tcn.py:182-262), which
+    runs the module path with or without ``use_pallas``: K7 computes the
+    conv branches only, as JAX's dispatch says."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[float] = None, dropout: float = 0.0,
@@ -170,12 +261,8 @@ class MSTCN(nn.Module):
                  stride: int = 1, branch_kind: str = "tcn",
                  use_pallas: bool = False):
         super().__init__()
-        if branch_kind != "tcn":
-            raise NotImplementedError(
-                f"MSTCN branch_kind={branch_kind!r} is not ported yet (the "
-                "port has 'tcn')")
         self.branches = _MSBranches(in_channels, out_channels, mid_channels,
-                                    ms_cfg, stride)
+                                    ms_cfg, stride, branch_kind=branch_kind)
         width = sum(self.branches.widths)
         self.transform_bn = BatchNorm(width)
         self.transform_conv = PointConv(width, out_channels)
@@ -193,6 +280,33 @@ class MSTCN(nn.Module):
                        self.generator)
 
 
+class GCMLP(nn.Module):
+    """msmlp without the 1x1 transform after the concat (reference gcmlp,
+    tcn.py:263-340; JAX ``tcn.py:GCMLP``): the mlp branches, concat, BN,
+    dropout (training only, its mask from ``self.generator``).  The width
+    is the branches' sum.  ``channel_annention`` defaults to False, as in
+    JAX: the reference's default (1) shrinks T on the mlp branches only,
+    and the concat then fails."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 mid_channels: Optional[float] = None, dropout: float = 0.0,
+                 ms_cfg: Sequence[MsCfgEntry] = DEFAULT_MS_CFG,
+                 stride: int = 1, channel_annention: bool = False,
+                 add_tcn: bool = False, merge_after: bool = False):
+        super().__init__()
+        self.branches = _MSBranches(
+            in_channels, out_channels, mid_channels, ms_cfg, stride,
+            branch_kind="mlp", channel_annention=channel_annention,
+            add_tcn=add_tcn, merge_after=merge_after)
+        self.bn = BatchNorm(sum(self.branches.widths))
+        self.dropout = dropout
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(self.bn(self.branches(x)), self.dropout,
+                       self.training, self.generator)
+
+
 class DGMSTCN(nn.Module):
     """DG-STGCN multi-scale TCN with a global joint-mean branch (reference
     dgmstcn, tcn.py:344-431) in the ``concat`` layout, or K7 in eval with
@@ -205,8 +319,10 @@ class DGMSTCN(nn.Module):
     ``self.generator`` (a ``torch.Generator`` on the activations' device,
     or None for torch's default).  ``v_pad`` (joint-padded mode) keeps
     JAX's refusal of training and runs at the real joints
-    (``ops/common.py:joint_pad_check``).  ``branch_kind='mlp'`` is not
-    ported and raises, naming the option.
+    (``ops/common.py:joint_pad_check``).  ``branch_kind='mlp'`` is the
+    author's dgmsmlp (tcn.py:432-524): the same region with ``UnitMLP``
+    branches, the module path always (K7 computes the conv branches only,
+    as JAX's dispatch says); it keeps the appended joint in training too.
 
     ``graph_axis`` (joint-partitioned, JAX tcn.py:440-459): x holds this
     process's v of the G v joints; the appended joint is the mean over all
@@ -224,9 +340,6 @@ class DGMSTCN(nn.Module):
                  eval_layout: str = "auto", graph_axis=None, v_pad: int = 0,
                  branch_kind: str = "tcn"):
         super().__init__()
-        if branch_kind != "tcn":
-            raise NotImplementedError(
-                f"DGMSTCN branch_kind={branch_kind!r} is not ported yet")
         if eval_layout not in ("auto", "split", "concat"):
             raise ValueError(
                 f"eval_layout must be 'auto', 'split' or 'concat'; "
@@ -237,7 +350,8 @@ class DGMSTCN(nn.Module):
         self.eval_layout, self.v_pad = eval_layout, v_pad
         self.graph_axis = graph_axis
         self.branches = _MSBranches(in_channels, out_channels, mid_channels,
-                                    ms_cfg, stride, bn_axis=graph_axis)
+                                    ms_cfg, stride, bn_axis=graph_axis,
+                                    branch_kind=branch_kind)
         width = sum(self.branches.widths)
         self.add_coeff = nn.Parameter(torch.zeros(num_joints))
         self.transform_bn = BatchNorm(width, axis_name=graph_axis)

@@ -8,6 +8,9 @@ re-orients kernels:
 * ``kernel`` -> ``weight``: a dense (I, O) kernel becomes (O, I); a 1-D
   conv (k, I, O) kernel becomes (O, I, k) (``nn.Conv1d``); a conv
   (k, 1, I, O) kernel becomes (O, I, k, 1);
+* ``UnitMLP``'s depthwise ``conv_kernel`` (k, 1, 1, C) and ``conv_bias``
+  become its grouped ``Conv2d``'s ``conv.weight`` (C, 1, k, 1) and
+  ``conv.bias``;
 * a BatchNorm's ``<name>/bn/{scale,bias}`` params and ``<name>/bn/{mean,var}``
   statistics become ``<name>.{weight,bias,running_mean,running_var}``;
 * every other leaf (biases, ``A``, ``alpha``, ``beta``, ``add_coeff``) keeps
@@ -52,6 +55,10 @@ def _convert_leaf(collection: str, path: Tuple[str, ...],
         return ".".join(scope[:-1] + [_BN_LEAVES[collection, leaf]]), a
     if collection != "params":
         raise ValueError(f"unexpected {collection} leaf {'/'.join(path)}")
+    if leaf in ("conv_kernel", "conv_bias"):      # UnitMLP's depthwise conv
+        scope, leaf = scope + ["conv"], leaf[5:]
+        if leaf == "bias":
+            return ".".join(scope + ["bias"]), a
     if leaf == "kernel":
         if a.ndim == 2:
             a = a.T

@@ -8,12 +8,12 @@ after the flax scopes), which ``utils/convert.py:convert_jax_variables``
 turns into the port's ``state_dict``, loaded with ``strict=True``.  The
 name mapping is the JAX package's, kept here as its own copy (the port
 imports nothing of ``dsgcn_tpu``).  Covers STGCN/STGCN++, AAGCN
-(+aahgcn), CTRGCN (+ctrhgcn) and DGSTGCN with ``dggcn`` and ``dgphgcn1``
-and the ported temporal units (``unit_tcn``, ``mstcn``, ``dgmstcn``,
-CTR-GCN's MSTCN).  ``dghgcn`` and the temporal MLPs (``unitmlp``,
-``msmlp``) are not ported yet and raise ``NotImplementedError``.
-``to_pyskl_state_dict`` is the inverse: the port's ``state_dict`` under
-pyskl's names.
+(+aahgcn), CTRGCN (+ctrhgcn) and DGSTGCN with ``dggcn``, ``dghgcn`` and
+``dgphgcn1``, and every temporal unit (``unit_tcn``, ``mstcn``,
+``dgmstcn``, CTR-GCN's MSTCN and the author's temporal MLPs ``unitmlp``,
+``msmlp`` and ``dgmsmlp``; like JAX's, it reads no ``gcmlp``, which has no
+transform stage).  ``to_pyskl_state_dict`` is the inverse: the port's
+``state_dict`` under pyskl's names.
 """
 from __future__ import annotations
 
@@ -157,13 +157,7 @@ def _unit_ctrgcn(s: _Scope) -> Tuple[Dict, Dict]:
 
 
 def _dg_gcn(s: _Scope) -> Tuple[Dict, Dict]:
-    """dggcn / dgphgcn1 (shared naming)."""
-    if (s.has_sub("nodeconv") and not s.has_sub("nodeconv.0")) or (
-            s.has_sub("edge_linears") and not s.has_sub("conv1_se")):
-        raise NotImplementedError(
-            f"{s.prefix[:-1]}: a dghgcn unit (its per-node-type 'nodeconv' "
-            "or edge attention without 'conv1_se'); the port has dggcn and "
-            "dgphgcn1, not dghgcn yet")
+    """dggcn / dghgcn / dgphgcn1 (shared naming)."""
     p, st = {}, {}
     for k in ("A", "alpha", "beta"):
         p[k] = s[k]
@@ -175,10 +169,11 @@ def _dg_gcn(s: _Scope) -> Tuple[Dict, Dict]:
     p.update(dp)
     st.update(ds)
     for name in ("conv1", "conv2", "conv1_se", "edge_linears",
-                 "ada_linears"):
+                 "ada_linears", "nodeconv"):
         if s.has_sub(name):
             p[name] = _dense(s, name)
     if s.has_sub("nodeconv.0"):   # dgphgcn1's target_specific Sequential
+        p.pop("nodeconv", None)
         p["nodeconv_conv"] = _dense(s, "nodeconv.0")
         p["nodeconv_bn"], st["nodeconv_bn"] = _bn(s, "nodeconv.1")
     if s.has_sub("edge_linears.0"):   # Sequential wrapper variant
@@ -198,7 +193,24 @@ def _unit_tcn(s: _Scope) -> Tuple[Dict, Dict]:
     return p, st
 
 
-def _ms_branches(s: _Scope) -> Tuple[Dict, Dict]:
+def _unitmlp(s: _Scope) -> Tuple[Dict, Dict]:
+    """unitmlp: the depthwise ``Conv1d`` (C, 1, k) ``conv``, the 1x1
+    ``conv1``, an optional ``bn``, and with add_tcn the k x 1 ``conv2`` and
+    its gate ``alpha``."""
+    w = s["conv.weight"]
+    k = w.shape[-1]
+    p = {"conv_kernel": np.transpose(w, (2, 1, 0)).reshape(k, 1, 1, -1),
+         "conv_bias": s["conv.bias"], "conv1": _dense(s, "conv1")}
+    st = {}
+    if s.has_sub("bn"):
+        p["bn"], st["bn"] = _bn(s, "bn")
+    if s.has_sub("conv2"):
+        p["conv2"] = {"conv": _tconv(s, "conv2")}
+        p["alpha"] = s["alpha"]
+    return p, st
+
+
+def _ms_branches(s: _Scope, kind: str = "tcn") -> Tuple[Dict, Dict]:
     p, st = {}, {}
     i = 0
     while s.has_sub(f"branches.{i}"):
@@ -206,7 +218,12 @@ def _ms_branches(s: _Scope) -> Tuple[Dict, Dict]:
         if br.has_sub("0"):              # (1x1, BN, ReLU[, unit | maxpool])
             p[f"branch{i}_pre"] = _dense(br, "0")
             p[f"branch{i}_bn"], st[f"branch{i}_bn"] = _bn(br, "1")
-            if br.has_sub("3.conv"):
+            if kind == "mlp" and br.has_sub("3.conv1"):
+                mp, ms = _unitmlp(br.sub("3"))
+                p[f"branch{i}_mlp"] = mp
+                if ms:
+                    st[f"branch{i}_mlp"] = ms
+            elif br.has_sub("3.conv"):
                 p[f"branch{i}_tcn"] = {"conv": {"conv": _tconv(br,
                                                                "3.conv")}}
         else:                            # bare 1x1 Conv2d
@@ -240,8 +257,8 @@ def _ctr_mstcn(s: _Scope) -> Tuple[Dict, Dict]:
     return p, st
 
 
-def _mstcn(s: _Scope) -> Tuple[Dict, Dict]:
-    bp, bs = _ms_branches(s)
+def _mstcn(s: _Scope, kind: str = "tcn") -> Tuple[Dict, Dict]:
+    bp, bs = _ms_branches(s, kind)
     p = {"branches": bp}
     st = {"branches": bs} if bs else {}
     p["transform_bn"], st["transform_bn"] = _bn(s, "transform.0")
@@ -291,15 +308,12 @@ def _block(s: _Scope, gcn_attr="gcn", tcn_attr="tcn") -> Tuple[Dict, Dict]:
     p["gcn"], st["gcn"] = _GCN_CONVERTERS[_detect_gcn(g)](g)
     t = s.sub(tcn_attr)
     kind = _detect_tcn(t)
-    if kind in ("msmlp", "unitmlp"):
-        raise NotImplementedError(
-            f"{t.prefix[:-1]}: a {kind} temporal unit; the port has "
-            "unit_tcn, mstcn, dgmstcn and CTR-GCN's MSTCN, not the temporal "
-            "MLPs yet")
     if kind == "mstcn" and not t.has_sub("transform.0"):
         tp, ts = _ctr_mstcn(t)            # CTR-GCN MSTCN: no transform stage
-    elif kind == "mstcn":
-        tp, ts = _mstcn(t)
+    elif kind in ("mstcn", "msmlp"):      # msmlp and dgmsmlp
+        tp, ts = _mstcn(t, "mlp" if kind == "msmlp" else "tcn")
+    elif kind == "unitmlp":
+        tp, ts = _unitmlp(t)
     else:
         tp, ts = _unit_tcn(t)
     p["tcn"], st["tcn"] = tp, ts
@@ -377,7 +391,11 @@ _GCN_NAMES = [(r"^down_conv\.", "down.0."), (r"^down_bn\.", "down.1."),
               (r"^nodeconv_bn\.", "nodeconv.1."),
               (r"^conv_(a|b|d|edge)(\d+)\.", r"conv_\1.\2."),
               (r"^convs(\d+)\.", r"convs.\1."), (r"^att\.", "")]
-_TCN_NAMES = [(r"^(branches\.)?branch(\d+)_pre\.", r"branches.\2.0."),
+_TCN_NAMES = [(r"^branches\.branch(\d+)_mlp\.conv2\.conv\.",
+               r"branches.\1.3.conv2."),
+              (r"^branches\.branch(\d+)_mlp\.", r"branches.\1.3."),
+              (r"^conv2\.conv\.", "conv2."),
+              (r"^(branches\.)?branch(\d+)_pre\.", r"branches.\2.0."),
               (r"^(branches\.)?branch(\d+)_bn\.", r"branches.\2.1."),
               (r"^(branches\.)?branch(\d+)_bn2\.", r"branches.\2.4."),
               (r"^(branches\.)?branch(\d+)_tcn\.conv\.conv\.",
@@ -397,7 +415,8 @@ def to_pyskl_state_dict(state_dict: Mapping[str, torch.Tensor],
     """The port's ``state_dict`` under pyskl's names (name -> numpy array),
     the inverse of :func:`import_state_dict` with the same keywords: blocks
     in ``backbone.{blocks_attr}.{i}``, residual projections as unit_tcns,
-    1x1 convs as (O, I, 1, 1) Conv2d weights, the head as ``cls_head``;
+    1x1 convs as (O, I, 1, 1) Conv2d weights, a unitmlp's depthwise conv
+    as a (C, 1, k) Conv1d weight, the head as ``cls_head``;
     BatchNorm's ``num_batches_tracked`` dropped."""
     out = {}
     for key, t in state_dict.items():
@@ -412,6 +431,9 @@ def to_pyskl_state_dict(state_dict: Mapping[str, torch.Tensor],
             if unit == "residual":
                 rest = rest.replace("down.conv.conv.", "conv.").replace(
                     "down.bn.", "bn.")
+            if unit == "tcn" and re.match(r"(branches\.branch\d+_mlp\.)?"
+                                          r"conv\.weight$", rest):
+                a = a[..., 0]     # a UnitMLP's depthwise Conv1d (C, 1, k)
             for pat, rep in (_GCN_NAMES if unit == "gcn" else
                              _TCN_NAMES if unit == "tcn" else []):
                 rest = re.sub(pat, rep, rest)

@@ -55,10 +55,12 @@ def test_test_pipeline_identity(t):
 
 
 def test_unported_transforms_raise():
+    """Transforms of JAX's registry that the port does not have yet raise
+    (RandomScale and GaussAug are ported: test_torch_port_data_extras)."""
     with pytest.raises(NotImplementedError):
-        T.build_pipeline([dict(type="RandomScale", scale=0.2)])
+        T.build_pipeline([dict(type="Causalmetrix", causal_file="c.npy")])
     with pytest.raises(NotImplementedError):
-        T.build_pipeline([dict(type="GaussAug")])
+        T.build_pipeline([dict(type="FormatShape", input_format="NCTHW")])
 
 
 @pytest.mark.parametrize("c", [3, 2])

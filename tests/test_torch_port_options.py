@@ -118,16 +118,17 @@ def test_dgmstcn_eval_layout_matches_jax(layout, stride):
 def test_dgmstcn_eval_layout_dispatch(monkeypatch):
     """Every layout JAX takes is accepted and runs the same concat path,
     bit for bit, at any batch; K7 (``use_pallas``) comes first whatever
-    the layout; any other layout raises JAX's ValueError, and the option
-    not ported (``branch_kind='mlp'``) raises naming itself.  ``v_pad``
+    the layout; any other layout raises JAX's ValueError, and so does an
+    unknown ``branch_kind`` (``'mlp'`` builds dgmsmlp).  ``v_pad``
     builds and refuses training (its parity is
     ``test_torch_port_padded.py``'s); ``graph_axis`` builds and refuses
     ``v_pad`` (its parity is ``test_torch_port_jp.py``'s)."""
     assert DGMSTCN(24, 24).eval_layout == "auto"
     with pytest.raises(ValueError, match="eval_layout"):
         DGMSTCN(24, 24, eval_layout="fused")
-    with pytest.raises(NotImplementedError, match="branch_kind"):
-        DGMSTCN(24, 24, branch_kind="mlp")
+    assert DGMSTCN(24, 24, branch_kind="mlp").branches.branch_kind == "mlp"
+    with pytest.raises(ValueError, match="branch_kind"):
+        DGMSTCN(24, 24, branch_kind="conv")
     # graph_axis (joint partition; parity in test_torch_port_jp.py) builds,
     # and refuses joint-padded mode as JAX asserts
     assert DGMSTCN(24, 24, graph_axis="joints").graph_axis == "joints"

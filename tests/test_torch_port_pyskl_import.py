@@ -11,8 +11,9 @@ port's model and give JAX's logits (``import_state_dict`` + ``apply``,
 jitted) within ``MODEL_TOL``; a ``torch.save``d ``.pth`` goes through
 ``load_torch_checkpoint``, which refuses a pickled object beyond tensors,
 containers, strings and numbers unless the caller passes
-``trusted=True``; the units the port lacks (``dghgcn``, the temporal
-MLPs) are refused by name.
+``trusted=True``; the units ported later (``dghgcn``, the temporal MLPs)
+import as JAX's importer reads them (their models in
+``tests/test_torch_port_mlp.py``).
 """
 from fractions import Fraction
 
@@ -24,6 +25,7 @@ from dsgcn_tpu.models.builder import build_model as j_build_model
 from dsgcn_tpu.models.builder import model_cfg as j_model_cfg
 from dsgcn_tpu.utils.torch_import import import_state_dict as j_import
 from dsgcn_tpu_torch.models.builder import build_model, model_cfg
+from dsgcn_tpu_torch.utils.convert import convert_jax_variables
 from dsgcn_tpu_torch.utils.torch_import import (import_state_dict,
                                                 load_torch_checkpoint,
                                                 to_pyskl_state_dict)
@@ -127,16 +129,28 @@ def test_load_torch_checkpoint_refuses_objects(pyskl, tmp_path):
 @pytest.mark.parametrize("unit", ["dghgcn_nodeconv", "dghgcn_edge",
                                   "unitmlp"])
 def test_unported_units_refused(pyskl, unit):
-    """dghgcn (a plain per-node-type ``nodeconv``, or edge attention
-    without ``conv1_se``) and the temporal MLPs raise, naming the unit."""
+    """The units this test once saw refused, dghgcn (a plain per-node-type
+    ``nodeconv``, or edge attention without ``conv1_se``) and a unitmlp,
+    now import as JAX's importer reads them (converted), array for
+    array."""
+    rng = np.random.default_rng(len(unit))
     sd = dict(pyskl("dgstgcn")[2])
     blk = "backbone.gcn.1."
     if unit == "dghgcn_nodeconv":
-        sd[blk + "gcn.nodeconv.weight"] = np.zeros((8, 4, 1, 1), np.float32)
+        sd[blk + "gcn.nodeconv.weight"] = rng.standard_normal(
+            (8, 4, 1, 1)).astype(np.float32)
     elif unit == "dghgcn_edge":
-        sd[blk + "gcn.edge_linears.weight"] = np.zeros((8, 4), np.float32)
+        sd[blk + "gcn.edge_linears.weight"] = rng.standard_normal(
+            (8, 4)).astype(np.float32)
     else:
         sd = {k: v for k, v in sd.items() if not k.startswith(blk + "tcn.")}
-        sd[blk + "tcn.conv1.weight"] = np.zeros((8, 4, 1, 1), np.float32)
-    with pytest.raises(NotImplementedError, match=unit.split("_")[0]):
-        import_state_dict(sd)
+        f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa
+        sd.update({blk + "tcn.conv.weight": f(4, 1, 5),
+                   blk + "tcn.conv.bias": f(4),
+                   blk + "tcn.conv1.weight": f(4, 4, 1, 1),
+                   blk + "tcn.conv1.bias": f(4)})
+    got = import_state_dict(sd)
+    want = convert_jax_variables(j_import(sd))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -41,6 +41,7 @@ from dsgcn_tpu_torch.models.builder import build_model, model_cfg
 from dsgcn_tpu_torch.ops.gcn import UnitGCN
 from dsgcn_tpu_torch.ops.kernels.ms_tcn import (fused_dgmstcn_eval,
                                                 tile_plan)
+from dsgcn_tpu_torch.ops import tcn as tcn_mod
 from dsgcn_tpu_torch.ops.tcn import DGMSTCN, MSTCN
 from dsgcn_tpu_torch.tools import train as cli
 from test_torch_port_dggcn import _close, _variables
@@ -174,8 +175,8 @@ def test_ms_tcn_train_matches_jax(kind):
 
 
 def test_ms_tcn_k7_condition_follows_jax():
-    """K7 only in eval, for DEFAULT_MS_CFG at the default widths; the mlp
-    branches raise."""
+    """K7 only in eval, for DEFAULT_MS_CFG at the default widths and conv
+    branches; the mlp branches (msmlp) run the module path."""
     x = torch.randn(1, 4, 25, 12)
     before = fused_dgmstcn_eval.launches
     for m in (MSTCN(12, 12, use_pallas=True, mid_channels=0.25),
@@ -185,8 +186,11 @@ def test_ms_tcn_k7_condition_follows_jax():
             y = m.eval()(x)
         assert y.shape == (1, 4, 25, 12)
     assert fused_dgmstcn_eval.launches == before
-    with pytest.raises(NotImplementedError, match="mlp"):
-        MSTCN(12, 12, branch_kind="mlp")
+    m = MSTCN(12, 12, branch_kind="mlp", use_pallas=True).eval()
+    assert not tcn_mod._k7_applies(m)
+    with torch.no_grad():
+        assert m(x).shape == (1, 4, 25, 12)
+    assert fused_dgmstcn_eval.launches == before
 
 
 def test_ms_tcn_dropout_in_train_only():
@@ -339,17 +343,16 @@ def test_model_cfg_stgcn_matches_jax_and_builds(name, use_pallas):
                                       "msmlp"])
 def test_dgblock_takes_every_ported_tcn_type(tcn_type):
     """DGBlock builds its temporal unit through _make_tcn, as JAX's does;
-    the temporal-MLP kinds raise."""
+    msmlp is an MSTCN with mlp branches."""
     cfg = model_cfg("dgstgcn", num_classes=5)
     cfg["backbone"].update(num_stages=2, base_channels=16, tcn_type=tcn_type)
     cfg["cls_head"]["in_channels"] = 16
-    if tcn_type == "msmlp":
-        with pytest.raises(NotImplementedError, match="msmlp"):
-            build_model(cfg)
-        return
     model = build_model(cfg).eval()
-    want = {"unit_tcn": "UnitTCN", "mstcn": "MSTCN", "dgmstcn": "DGMSTCN"}
+    want = {"unit_tcn": "UnitTCN", "mstcn": "MSTCN", "dgmstcn": "DGMSTCN",
+            "msmlp": "MSTCN"}
     assert type(model.backbone.block1.tcn).__name__ == want[tcn_type]
+    if tcn_type == "msmlp":
+        assert model.backbone.block1.tcn.branches.branch_kind == "mlp"
     with torch.no_grad():
         assert model(torch.zeros(1, 2, 8, 25, 3)).shape == (1, 5)
 

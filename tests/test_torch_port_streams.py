@@ -8,8 +8,9 @@ train, val and test pipelines of every committed DS-GCN config
 Numpy on both sides, no JAX: ``dsgcn_tpu/data/transforms.py``,
 ``pose_aug.py``, ``dataset.py`` and ``configs/config.py`` import only
 numpy.  Every comparison is exact (``assert_array_equal``): the same numpy
-arithmetic on the same inputs.  The JAX ``PreNormalize3D`` is asked for its
-numpy path (``use_native=False``), the one the port copies.
+arithmetic on the same inputs.  Both ``PreNormalize3D``s are asked for
+their numpy path (``use_native=False``); the native paths are held to each
+other in ``tests/test_torch_port_data_extras.py``.
 """
 import copy
 import pathlib
@@ -238,7 +239,7 @@ def test_committed_pipeline_matches_jax(cfg_dir, stream, split):
     pipe = _pipeline(Config.fromfile(path), split)
     jpipe = copy.deepcopy(_pipeline(JConfig.fromfile(path), split))
     assert pipe == jpipe
-    for p in jpipe:
+    for p in pipe + jpipe:
         if p["type"] == "PreNormalize3D":
             p["use_native"] = False
     anno = _anno_for(pipe, seed=len(cfg_dir) + len(stream))

@@ -145,7 +145,7 @@ def test_cli_needs_cuda_unless_cpu_asked(tmp_path):
         fuse_cli.main([str(tmp_path / "a.pkl")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         test_cli.main([f"{NTU}/j.py", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="TSNEmap"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         test_cli.main([f"{NTU}/j.py", str(tmp_path), "--feat-ext"])
 
 
