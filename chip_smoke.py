@@ -112,14 +112,26 @@ dumps against ``--device cpu``, TSNEmap and graph; the scores'
 confusion matrix and mAP; a 1000-point t-SNE on the card); the NTU j
 train pipeline with the native ``PreNormalize3D`` against the numpy path
 (clips within 1e-6, ms per clip of each) and a ``class_prob`` epoch.
+Phase 21 takes the other GCN families and the Granger-causality
+learners, none of which has a kernel: MS-G3D and SGN
+(``model_cfg('msg3d'|'sgn')``) served through init_recognizer /
+inference_recognizer, GTGCN and STGIN recognizers, STGCN_GC fed a seeded
+(3, 25, 25) external graph with a GCNHead, GCGCN and GCGCN_component with
+a GCHead; each full-width, seeded, calibrated: GPU logits against the
+CPU's, a (64, 2, T, 25, 3) batch forward (T 30 for SGN; MS-G3D and SGN
+also in bf16) with its profile and peak memory, a train step against the
+CPU's (the learners on ``gc_recognizer_losses``) and timed steps at b16
+(STGIN at ``STGIN_TRAIN_BATCH``) with peak memory; no kernel of the port
+may launch.
 Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19,
-20;
+20, 21;
 ``--every-config`` runs 15 alone, ``--families`` 16 alone
 (``chiprun_out/families.json``), ``--options`` 17 alone
 (``chiprun_out/options.json``), ``--serving`` 18 alone
 (``chiprun_out/serving.json``), ``--parallel`` 19 alone
 (``chiprun_out/parallel.json``), ``--extras`` 20 alone
-(``chiprun_out/extras.json``).  Any failed check raises, and the script
+(``chiprun_out/extras.json``), ``--other-families`` 21 alone
+(``chiprun_out/other_families.json``).  Any failed check raises, and the script
 exits non-zero without a result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
@@ -591,13 +603,15 @@ def as_batch(b, n=None):
     return dict(keypoint=kp[:n], label=b["label"][:n])
 
 
-def gpu_vs_cpu_step(model, batch, out):
-    """One train_step on the card and the same step on the CPU (plain
-    versions) from the same weights and batch: loss within 1e-4, train-mode
-    logits within 1e-3 relative, each parameter's update with cosine >
-    0.995 and norm within 5% (float32 rounding grows through the untrained
-    BatchNorm stacks; tests/test_training_dynamics_parity.py)."""
+def gpu_vs_cpu_step(model, batch, out, step=None):
+    """One train_step (or ``step``, of train_step's signature) on the card
+    and the same step on the CPU (plain versions) from the same weights and
+    batch: loss within 1e-4, train-mode logits within 1e-3 relative, each
+    parameter's update with cosine > 0.995 and norm within 5% (float32
+    rounding grows through the untrained BatchNorm stacks;
+    tests/test_training_dynamics_parity.py)."""
     from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+    step = step or train_step
     model = copy.deepcopy(model)          # the caller's model stays as it is
     cpu = copy.deepcopy(model).cpu()
     init = {k: v.detach().cpu().clone() for k, v in cpu.state_dict().items()}
@@ -610,20 +624,22 @@ def gpu_vs_cpu_step(model, batch, out):
     losses = []
     for m in (model, cpu):
         opt, sched = make_optimizer(m, 10)
-        losses.append(train_step(m, opt, sched, batch)["loss"].item())
+        losses.append(step(m, opt, sched, batch)["loss"].item())
     lerr = rel_err(logits[0], logits[1])
     loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
-    worst_cos, worst_ratio = 1.0, 0.0
+    worst_cos, worst_ratio, worst_name = 1.0, 0.0, None
     gpu_state = model.state_dict()
     for name, p in cpu.named_parameters():
         du_c = (p.detach() - init[name]).ravel()
         du_g = (gpu_state[name].cpu() - init[name]).ravel()
         cos = (du_g @ du_c / (du_g.norm() * du_c.norm())).item()
-        worst_cos = min(worst_cos, cos)
+        if cos < worst_cos:
+            worst_cos, worst_name = cos, name
         worst_ratio = max(worst_ratio,
                           abs((du_g.norm() / du_c.norm()).item() - 1))
     row = dict(loss_gpu=losses[0], loss_cpu=losses[1], loss_rel_err=loss_err,
                logits_rel_err=lerr, worst_update_cos=worst_cos,
+               worst_update_param=worst_name,
                worst_update_norm_ratio_err=worst_ratio)
     print("train gpu vs cpu", json.dumps(row), flush=True)
     out["gpu_vs_cpu"] = row
@@ -4086,11 +4102,12 @@ def pyskl_round_trip(name, model, cfg, attrs, clips, tmp):
     return dict(arrays=len(sd), logits_rel_err=err)
 
 
-def step_times(model, batches, per_step, card, name):
-    """One warm-up and EXTRA_STEPS timed f32 train steps: wall ms, peak
-    GiB and each step's kernel launches (``per_step``, every other kernel
-    none)."""
+def step_times(model, batches, per_step, card, name, step=None):
+    """One warm-up and EXTRA_STEPS timed f32 train steps (train_step, or
+    ``step``): wall ms, peak GiB and each step's kernel launches
+    (``per_step``, every other kernel none)."""
     from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+    step = step or train_step
     opt, sched = make_optimizer(model, 100)
     rows = []
     for i, b in enumerate(batches[:1 + EXTRA_STEPS]):
@@ -4098,7 +4115,7 @@ def step_times(model, batches, per_step, card, name):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        loss = train_step(model, opt, sched, b)["loss"].item()
+        loss = step(model, opt, sched, b)["loss"].item()
         wall = (time.perf_counter() - t0) * 1e3
         expect_counts(read_counts(), per_step, 1, f"{name} step {i}")
         check(np.isfinite(loss), f"{name} step {i}: loss {loss}")
@@ -4364,6 +4381,324 @@ def extras_phase(dev, card, report):
     print(f"phase 20: {out['seconds']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the other GCN families (MS-G3D, SGN, GTGCN, STGIN, STGCN_GC) and
+# the Granger-causality learners (GCGCN, GCGCN_component with GCHead)
+# ---------------------------------------------------------------------------
+
+OTHER_CPU_CLIPS = 2                 # clips of each family's CPU checks
+# STGIN's train batch: b16 x M2 x T100 keeps ~5 GB of edge tensors a block
+STGIN_TRAIN_BATCH = 16
+
+
+class ExternalGraph(torch.nn.Module):
+    """STGCN_GC fed a fixed external (K, V, V) graph, then its GCNHead: the
+    composition a user writes by hand (a RecognizerGCN feeds its backbone
+    the clip alone)."""
+
+    def __init__(self, backbone, head, A_ext):
+        super().__init__()
+        self.backbone, self.head = backbone, head
+        self.register_buffer("A_ext", A_ext)
+
+    def forward(self, x):
+        return self.head(self.backbone(x, self.A_ext))
+
+
+class GrangerRecognizer(torch.nn.Module):
+    """A Granger-causality learner and a GCHead over the graph it learns;
+    ``loss`` is the GC objective (``core/flows.py:gc_recognizer_losses``)."""
+
+    def __init__(self, backbone, head):
+        super().__init__()
+        self.backbone, self.head = backbone, head
+
+    @staticmethod
+    def graph(out):
+        return out[0] if len(out) == 4 else out[1]
+
+    def forward(self, x):
+        return self.head(self.graph(self.backbone(x)))
+
+    def loss(self, x, label):
+        from dsgcn_tpu_torch.core.flows import gc_recognizer_losses
+        out = self.backbone(x)
+        return gc_recognizer_losses(out, self.head(self.graph(out)), label)
+
+
+class fixed_dropout_masks:
+    """SGN's dropout with one mask per shape, drawn on the host from a
+    seeded CPU generator at each call, so that the card and the CPU step
+    with the same mask (phase 7's check of one step against the other);
+    the module draws its masks from the device's generator, whose streams
+    differ between the card and the CPU."""
+
+    def __enter__(self):
+        from dsgcn_tpu_torch.models import msg3d_sgn
+        self.module, self.dropout = msg3d_sgn, msg3d_sgn.dropout
+
+        def fixed(x, p, training, generator=None):
+            if not training or p <= 0:
+                return x
+            keep = torch.empty(x.shape).bernoulli_(
+                1 - p, generator=torch.Generator().manual_seed(21))
+            return x * (keep / (1 - p)).to(x.device, x.dtype)
+        msg3d_sgn.dropout = fixed
+
+    def __exit__(self, *exc):
+        self.module.dropout = self.dropout
+
+
+def gc_train_step(model, opt, sched, batch):
+    """``core/train.py:train_step`` with the GC objective in place of the
+    cross entropy (a Granger recognizer's step, Recognizergcn_gc.py)."""
+    from dsgcn_tpu_torch.core.train import zero_missing_grads_
+    model.train()
+    dev = next(model.parameters()).device
+    kp = torch.as_tensor(batch["keypoint"]).to(dev)
+    label = torch.as_tensor(batch["label"]).to(dev)
+    loss, _ = model.loss(kp, label)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    zero_missing_grads_(opt)
+    opt.step()
+    sched.step()
+    return dict(loss=loss.detach())
+
+
+def other_config(name):
+    """The STGCN++ j config (NTU, its pipelines, b16 x T100) with its model
+    replaced: ``model_cfg('msg3d'|'sgn')`` or a full-width GTGCN / STGIN
+    recognizer (each family's defaults); the test pipeline at
+    OTHER_CPU_CLIPS clips, SGN's pipelines at its 30 frames."""
+    from dsgcn_tpu_torch.models.builder import model_cfg
+    cfg = stgcnpp_config(False)
+    if name in ("msg3d", "sgn"):
+        cfg["model"] = model_cfg(name)
+    else:
+        cfg["model"] = dict(type="RecognizerGCN", backbone=dict(
+            type=name.upper(), graph_cfg=dict(layout="nturgb+d",
+                                              mode="spatial")),
+            cls_head=dict(type="GCNHead", num_classes=60, in_channels=256))
+    for pipe in (cfg["data"]["train"]["dataset"]["pipeline"],
+                 cfg["data"]["test"]["pipeline"]):
+        for step in pipe:
+            if step["type"] == "UniformSample":
+                if "num_clips" in step:
+                    step["num_clips"] = OTHER_CPU_CLIPS
+                if name == "sgn":
+                    step["clip_len"] = 30
+    return cfg
+
+
+def other_model(name, seed):
+    """A phase 21 model on the CPU, seeded (``init_weights_``, gates
+    nudged): STGCN_GC as :class:`ExternalGraph` with a seeded graph (NTU's
+    spatial subsets plus U(0, 0.05)) and ``gcn_adaptive='importance'``;
+    the learners as :class:`GrangerRecognizer` with a GCHead (625 -> 60,
+    dropout 0 so that the card and the CPU draw no masks)."""
+    from dsgcn_tpu_torch.graph import Graph
+    from dsgcn_tpu_torch.models.builder import (build_backbone, build_head,
+                                                build_model, init_weights_)
+    gen = torch.Generator().manual_seed(seed)
+    if name == "stgcn_gc":
+        A = torch.from_numpy(Graph(layout="nturgb+d", mode="spatial").A
+                             .astype(np.float32))
+        model = ExternalGraph(
+            build_backbone(dict(type="STGCN_GC", gcn_adaptive="importance",
+                                graph_cfg=dict(layout="nturgb+d",
+                                               mode="spatial"))),
+            build_head(dict(type="GCNHead", num_classes=60,
+                            in_channels=256)),
+            A + 0.05 * torch.rand(A.shape, generator=gen))
+    elif name in ("gcgcn", "gcgcn_component"):
+        model = GrangerRecognizer(
+            build_backbone(dict(type="GCGCN" if name == "gcgcn"
+                                else "GCGCN_component")),
+            build_head(dict(type="GCHead", num_classes=60,
+                            in_channels=25 * 25, dropout=0.0)))
+    else:
+        model = build_model(other_config(name)["model"])
+    init_weights_(model, gen)
+    nudge_gates_(model, gen)
+    nudge_pre_bn_biases_(model, gen)
+    return model
+
+
+def nudge_pre_bn_biases_(model, gen):
+    """The biases that feed a train-mode BatchNorm (an ``<x>_conv`` beside
+    an ``<x>_bn``, MS-G3D's ``out_conv_bias`` before its ``out_bn``) get a
+    gradient of rounding noise (MS-G3D's window biases start at zero, where
+    that noise is all of their update).  At U(1, 2) their first update is
+    the weight decay's, the same on the card and the CPU, and phase 7's
+    update check reads the gradients that exist; the function is unchanged
+    (the BatchNorm takes the shift out)."""
+    with torch.no_grad():
+        for m in model.modules():
+            for cname, child in m.named_children():
+                bias = getattr(child, "bias", None)
+                if cname.endswith("_conv") and bias is not None \
+                        and hasattr(m, cname[:-len("conv")] + "bn"):
+                    bias.uniform_(1, 2, generator=gen)
+            if hasattr(m, "out_conv_bias"):
+                m.out_conv_bias.uniform_(1, 2, generator=gen)
+
+
+def serve_entry_points(name, model, dev, out):
+    """MS-G3D and SGN through the entry points: a checkpoint of the seeded
+    model read by ``init_recognizer`` on the card, BN statistics from data,
+    two requests through ``inference_recognizer`` (each request's ms); the
+    GPU's top-1 equal to the CPU's and its logits within 1e-3 of them on
+    the requests' clips."""
+    import tempfile
+    from dsgcn_tpu_torch.apis import inference_recognizer, init_recognizer
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    from dsgcn_tpu_torch.models.recognizer import average_clip
+    cfg = other_config(name)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = pathlib.Path(tmp) / f"{name}.pt"
+        torch.save(model.state_dict(), ckpt)
+        gpu = init_recognizer(cfg, checkpoint=str(ckpt), device=dev)
+    pipeline = build_pipeline(cfg["data"]["test"]["pipeline"])
+    calibrate_(gpu, torch.from_numpy(pipeline(copy.deepcopy(
+        synthetic_annos(seed=1)[0]))["keypoint"]).to(dev), seed=21)
+    rows, request_ms = [], []
+    cpu = copy.deepcopy(gpu).cpu()
+    for a in synthetic_annos(seed=2, n=2):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ans = inference_recognizer(gpu, a)
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        g, c = logits_of(gpu, pipeline, a), logits_of(cpu, pipeline, a)
+        err = rel_err(g, c)
+        check(g.shape == (OTHER_CPU_CLIPS, 60)
+              and bool(torch.isfinite(g).all()),
+              f"{name} logits of shape {tuple(g.shape)} or not finite")
+        cpu_top1 = int(average_clip(c[None], "prob")[0].argmax())
+        check(ans[0][0] == cpu_top1 and err <= 1e-3,
+              f"{name} request {a['frame_dir']}: GPU top-1 {ans[0][0]} vs "
+              f"CPU {cpu_top1}, logits rel err {err:.3e}")
+        rows.append(dict(request=a["frame_dir"], top5=ans,
+                         cpu_top1=cpu_top1, logits_rel_err=err))
+    out["requests"], out["request_ms"] = rows, request_ms
+    print(f"{name}: requests through init_recognizer / inference_recognizer "
+          f"({OTHER_CPU_CLIPS} clips): ms " + ", ".join(
+              f"{ms:.3f}" for ms in request_ms) + "; logits rel err "
+          + ", ".join(f"{r['logits_rel_err']:.3e}" for r in rows),
+          flush=True)
+    return gpu
+
+
+def no_launches(what):
+    """No kernel of the port launched since the counts were last set to
+    0 (by the phase, ``forward_ms`` or ``step_times``)."""
+    expect_counts(read_counts(), {}, 1, what)
+
+
+def other_families(dev, card, report):
+    """Phase 21: each family at full width, seeded, BN statistics from data
+    (``calibrate_``): MS-G3D and SGN served through the entry points; every
+    model's GPU logits against the CPU's on OTHER_CPU_CLIPS clips (top-1
+    equal, 1e-3); a (64, 2, T, 25, 3) batch forward (T = 30 for SGN, 100
+    otherwise; MS-G3D and SGN in f32 and bf16 through
+    ``to_bf16_inference``) with its ms, busy and idle time, top device ops
+    and peak memory; a train step against the CPU's (phase 7's criteria;
+    the learners on the GC objective and in float64; OTHER_CPU_CLIPS
+    clips) and timed f32 steps at b16 x M2 x T100
+    (SGN T30; STGIN at STGIN_TRAIN_BATCH) with their peak memory.  No
+    kernel of the port may launch anywhere in the phase."""
+    from dsgcn_tpu_torch.apis import to_bf16_inference
+    out_all = report["other_families"] = {}
+    t_phase = time.perf_counter()
+    reset_counts()
+    names = ("msg3d", "sgn", "gtgcn", "stgin", "stgcn_gc", "gcgcn",
+             "gcgcn_component")
+    base_batches, base_cpu = repeat_batches(other_config("gtgcn"), seed=21)
+    sgn_batches, sgn_cpu = repeat_batches(other_config("sgn"), seed=21)
+    calib = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (8, 2, 100, 25, 3)).astype(np.float32))
+    for i, name in enumerate(names):
+        t_fam = time.perf_counter()
+        out = out_all[name] = {}
+        t_len = 30 if name == "sgn" else 100
+        model = other_model(name, seed=21 + i).to(dev).eval()
+        if name in ("msg3d", "sgn"):
+            model = serve_entry_points(name, model, dev, out)
+        else:
+            calibrate_(model, calib.to(dev), seed=21 + i)
+        x = torch.from_numpy(np.random.default_rng(22).standard_normal(
+            (64, 2, t_len, 25, 3)).astype(np.float32)).to(dev)
+        cpu = copy.deepcopy(model).cpu()
+        with torch.inference_mode():
+            g = model(x[:OTHER_CPU_CLIPS]).cpu()
+            c = cpu(x[:OTHER_CPU_CLIPS].cpu())
+        err = rel_err(g, c)
+        top1 = g.argmax(-1).tolist() == c.argmax(-1).tolist()
+        print(f"{name}: GPU vs CPU logits rel err {err:.3e} on "
+              f"{OTHER_CPU_CLIPS} clips, top-1 equal {top1}", flush=True)
+        check(bool(torch.isfinite(g).all()) and err <= 1e-3 and top1,
+              f"{name}: GPU logits off the CPU's by {err:.3e} (top-1 equal "
+              f"{top1})")
+        out.update(logits_rel_err=err, top1_equal=top1)
+        no_launches(f"{name} serving")
+        torch.cuda.reset_peak_memory_stats()
+        if name in ("msg3d", "sgn"):
+            throughput(model, to_bf16_inference(model), dev, card, out,
+                       f"{name} ", tuple(x.shape), 60)
+            no_launches(f"{name} batch forwards")
+        else:
+            ms, counts = forward_ms(model, x)
+            expect_counts(counts, {}, 1, f"{name} batch forward")
+            out["throughput"] = {"f32": dict(
+                ms_per_forward=ms, clips_per_s=x.shape[0] / ms * 1e3)}
+            print(f"throughput {name} f32: batch {tuple(x.shape)} "
+                  f"{ms:.3f} ms/forward, {x.shape[0] / ms * 1e3:.1f} "
+                  f"clips/s on {card}", flush=True)
+            breakdown(model, x, "f32", out, f"{name} ")
+            no_launches(f"{name} profiled forward")
+        out["forward_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+        print(f"{name}: forward peak {out['forward_peak_mem_gib']:.3f} GiB",
+              flush=True)
+        del x, cpu
+        step = gc_train_step if isinstance(model, GrangerRecognizer) \
+            else None
+        batches, cpu_batch = ((sgn_batches, sgn_cpu) if name == "sgn"
+                              else (base_batches, base_cpu))
+        cpu_batch = {k: v[:OTHER_CPU_CLIPS] for k, v in cpu_batch.items()}
+        if name == "stgin":
+            batches = [dict(keypoint=b["keypoint"][:STGIN_TRAIN_BATCH],
+                            label=b["label"][:STGIN_TRAIN_BATCH])
+                       for b in batches]
+        out["train"] = {}
+        with fixed_dropout_masks():
+            if step is gc_train_step:
+                # the Granger objective (~1.5e3, its GSGL penalty) makes the
+                # float32 gradient of a bias before a BatchNorm (exactly
+                # zero) rounding noise as large as its weight decay, over
+                # the four rows of the causal chain's BatchNorm: the card's
+                # step is held to the CPU's in float64
+                gpu_vs_cpu_step(copy.deepcopy(model).double(), dict(
+                    keypoint=cpu_batch["keypoint"].astype(np.float64),
+                    label=cpu_batch["label"]), out["train"], step)
+            else:
+                gpu_vs_cpu_step(model, cpu_batch, out["train"], step)
+        no_launches(f"{name} GPU vs CPU step")
+        out["train"]["steps"] = step_times(model, batches, {}, card, name,
+                                           step)
+        out["seconds"] = time.perf_counter() - t_fam
+        del model
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    expect_counts(counts, {}, 1, "phase 21's forwards and steps")
+    out_all["launches"] = counts
+    out_all["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21: every forward and step of MS-G3D, SGN, GTGCN, STGIN, "
+          f"STGCN_GC, GCGCN and GCGCN_component launched no kernel of the "
+          f"port: {json.dumps(counts)}; {out_all['seconds']:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4410,6 +4745,10 @@ def main() -> int:
                     help="phase 20 alone: the author's temporal MLPs and "
                     "DGHGCN (serving, steps, the pyskl round trip), feature "
                     "extraction through the test CLI, the host data path")
+    ap.add_argument("--other-families", action="store_true",
+                    help="phase 21 alone: MS-G3D, SGN, GTGCN, STGIN, "
+                    "STGCN_GC, GCGCN and GCGCN_component (serving, GPU "
+                    "against CPU, batch forwards, steps)")
     ap.add_argument("--parallel-worker", metavar="PART",
                     help="one process of a phase 19 launch (nccl, single, "
                     "gloo or send); no kernel build, no other phase")
@@ -4531,6 +4870,15 @@ def main() -> int:
                                                     default=str))
         print(card)
         return 0
+    if args.other_families:
+        other_families(dev, card, report)
+        done(21)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "other_families.json").write_text(json.dumps(
+            report, indent=1, default=str))
+        print(card)
+        return 0
     if args.families:
         families(dev, card, report)
         done(16)
@@ -4575,6 +4923,8 @@ def main() -> int:
     done(19)
     extras_phase(dev, card, report)                                # 20
     done(20)
+    other_families(dev, card, report)                              # 21
+    done(21)
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per

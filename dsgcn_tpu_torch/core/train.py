@@ -18,7 +18,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.common import BatchNorm
+from ..ops.common import BatchNorm, TorchBN
 from .losses import cross_entropy, top_k_correct
 
 
@@ -26,15 +26,20 @@ def jax_param_names(model: nn.Module) -> Dict[str, str]:
     """Port parameter name -> the dotted path of the same leaf in the JAX
     package's param tree (the inverse of ``utils/convert.py``): a
     BatchNorm's ``weight``/``bias`` live under its ``bn`` scope as
-    ``scale``/``bias``, other weights are ``kernel``s."""
+    ``scale``/``bias`` (a :class:`TorchBN`'s at its own scope), the
+    weights of linear maps and convolutions are ``kernel``s, and raw
+    parameters (``PA``, ``out_conv_kernel``, the causal banks,
+    ``GCComponent.weight``) keep their names."""
     out = {}
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{leaf}" if mod_name else leaf
             if isinstance(mod, BatchNorm):
-                path = f"{mod_name}.bn." + ("scale" if leaf == "weight"
-                                            else leaf)
-            elif leaf == "weight":
+                scope = mod_name if isinstance(mod, TorchBN) \
+                    else f"{mod_name}.bn"
+                path = f"{scope}." + ("scale" if leaf == "weight" else leaf)
+            elif leaf == "weight" and isinstance(
+                    mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 path = f"{mod_name}.kernel"
             else:
                 path = name
@@ -162,17 +167,31 @@ def loss_and_metrics(model: nn.Module, batch: Mapping,
     return loss, metrics
 
 
+def zero_missing_grads_(opt: torch.optim.Optimizer) -> None:
+    """A zero gradient for each parameter of ``opt`` the backward did not
+    reach."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
                batch: Mapping, compute_dtype: Optional[str] = None
                ) -> Dict[str, torch.Tensor]:
     """One step on the model's device: forward in train mode (BatchNorm
-    running statistics move), backward, SGD update, schedule step.
-    Returns the metrics (``loss``, ``top1_acc``, ``top5_acc``) as 0-d
-    tensors on the device."""
+    running statistics move), backward, SGD update, schedule step.  A
+    parameter the loss does not reach (STGIN's last temporal-edge conv, a
+    gate of a graph that is off) gets a zero gradient, so that it decays
+    and its momentum moves as optax moves every leaf in JAX (torch's SGD
+    skips a parameter without a gradient).  Returns the metrics
+    (``loss``, ``top1_acc``, ``top5_acc``) as 0-d tensors on the
+    device."""
     model.train()
     loss, metrics = loss_and_metrics(model, batch, compute_dtype)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    zero_missing_grads_(opt)
     opt.step()
     if sched is not None:
         sched.step()

@@ -1,18 +1,23 @@
-"""STGCN (ST-GCN, STGCN++), AAGCN, CTRGCN and DGSTGCN (DG-STGCN, DS-GCN)
-backbones, train and eval.
+"""STGCN (ST-GCN, STGCN++), AAGCN, CTRGCN, DGSTGCN (DG-STGCN, DS-GCN),
+GTGCN, STGIN and STGCN_GC backbones, train and eval.
 
 The port of ``split_stage_kwargs``, ``route_prefix``, ``DataBN``,
-``_make_tcn``, ``ResidualTCN``, ``STGCNBlock``, ``AAGCNBlock``,
-``CTRGCNBlock``, ``DGBlock``, ``stage_plan``, ``_BackboneBase``,
-``STGCN``, ``AAGCN``, ``CTRGCN`` and ``DGSTGCN`` from
-``dsgcn_tpu/models/backbones.py``: the 10-stage template of the reference
+``_make_tcn``, ``ResidualTCN``, ``STGCNBlock``, ``STGINBlock``,
+``GTGCNBlock``, ``AAGCNBlock``, ``CTRGCNBlock``, ``DGBlock``,
+``stage_plan``, ``_BackboneBase``, ``STGCN``, ``STGIN``, ``STGCNGC``,
+``GTGCN``, ``AAGCN``, ``CTRGCN`` and ``DGSTGCN`` from
+``dsgcn_tpu/models/backbones.py`` (MS-G3D and SGN are
+``models/msg3d_sgn.py``'s): the 10-stage template of the reference
 (stgcn.py:100-128), channel inflation x2 and temporal stride 2 at stages 5
-and 8, block = spatial GCN (``unit_gcn`` for STGCN, ``unit_aagcn`` or
+and 8, block = spatial GCN (``unit_gcn`` for STGCN and STGCN_GC, with the
+external graph ``A_ext`` for STGCN_GC, ``unit_gtgcn`` for GTGCN,
+``unit_gcnedge`` for STGIN, ``unit_aagcn`` or
 ``unit_aahgcn`` for AAGCN, ``unit_ctrgcn`` or ``unit_ctrhgcn`` for
 CTRGCN, ``dggcn`` for DG-STGCN, ``dghgcn``, ``dgphgcn1`` for DS-GCN) ->
 temporal conv (``unit_tcn``, ``mstcn``, ``dgmstcn``, the author's
-temporal MLPs ``unitmlp``, ``msmlp``, ``gcmlp``, ``dgmsmlp``, or
-CTR-GCN's ``CTRMSTCN``)
+temporal MLPs ``unitmlp``, ``msmlp``, ``gcmlp``, ``dgmsmlp``,
+CTR-GCN's ``CTRMSTCN``, or STGIN's ``unit_tcnedge``, which threads the
+spatial and temporal edge representations from block to block)
 (+ residual, ReLU).  Input ``(N, M, T, V, C)``
 channels-last, output ``(N, M, T/4, V, C_out)``.  Blocks are named
 ``block{i}`` as the flax scopes are.  ``remat`` (training only, JAX
@@ -36,9 +41,12 @@ from ..graph import Graph, GraphConfig
 from ..ops.common import BatchNorm, remat_call
 from ..parallel.joint_partition import all_gather
 from ..parallel.mesh import axis
+from ..ops.common import PointConv
 from ..ops.gcn import (DGGCN, DGHGCN, DGPHGCN1, UnitAAGCN, UnitAAHGCN,
-                       UnitCTRGCN, UnitCTRHGCN, UnitGCN)
-from ..ops.tcn import CTRMSTCN, DGMSTCN, GCMLP, MSTCN, UnitMLP, UnitTCN
+                       UnitCTRGCN, UnitCTRHGCN, UnitGCN, UnitGCNEdge,
+                       UnitGTGCN)
+from ..ops.tcn import (CTRMSTCN, DGMSTCN, GCMLP, MSTCN, UnitMLP, UnitTCN,
+                       UnitTCNEdge)
 
 EPS = 1e-4
 
@@ -157,9 +165,66 @@ class STGCNBlock(nn.Module):
         self.tcn = _make_tcn(tcn_type, out_channels, out_channels, stride,
                              tcn_kwargs or {})
 
+    def forward(self, x: torch.Tensor,
+                A_ext: Optional[torch.Tensor] = None) -> torch.Tensor:
+        res = self.residual(x)
+        return F.relu(self.tcn(self.gcn(x, A_ext)) + res)
+
+
+class STGINBlock(nn.Module):
+    """unit_gcnedge + unit_tcnedge with the edge representations threaded
+    through (reference STGINBlock, stgin.py:17-72): ``gcn`` updates the
+    nodes, spatial and temporal edges, ``tcn`` strides them in time; the
+    block residual is added to the nodes.  ``edge_t_channels``: the width
+    of the temporal edges coming in (the backbone's ``edge_conv`` output
+    in the first block)."""
+
+    def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
+                 stride: int = 1, residual: bool = True,
+                 gcn_kwargs: Optional[Dict[str, Any]] = None,
+                 tcn_kwargs: Optional[Dict[str, Any]] = None,
+                 edge_t_channels: Optional[int] = None):
+        super().__init__()
+        self.residual = ResidualTCN(in_channels, out_channels, stride,
+                                    residual)
+        self.gcn = UnitGCNEdge(in_channels, out_channels, A_init=A,
+                               edge_t_channels=edge_t_channels,
+                               **(gcn_kwargs or {}))
+        self.tcn = UnitTCNEdge(out_channels, out_channels, stride=stride,
+                               **(tcn_kwargs or {}))
+
+    def forward(self, x: torch.Tensor, edge_t: torch.Tensor,
+                edge_s: torch.Tensor):
+        res = self.residual(x)
+        y, edge_s, edge_t = self.gcn(x, edge_s, edge_t)
+        y, edge_t, edge_s = self.tcn(y, edge_t, edge_s)
+        return F.relu(y + res), edge_t, edge_s
+
+
+class GTGCNBlock(nn.Module):
+    """unit_gtgcn + temporal unit + residual (reference MEGA-era
+    GTGCNBlock, gtgcn.py:11-64): ``gcn1`` and ``tcn1``, the edge and node
+    types going to the unit."""
+
+    def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
+                 stride: int = 1, residual: bool = True,
+                 edge_type: Optional[np.ndarray] = None,
+                 node_type: Optional[np.ndarray] = None,
+                 gcn_kwargs: Optional[Dict[str, Any]] = None,
+                 tcn_type: str = "unit_tcn",
+                 tcn_kwargs: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        self.residual = ResidualTCN(in_channels, out_channels, stride,
+                                    residual)
+        self.gcn1 = UnitGTGCN(in_channels, out_channels, A_init=A,
+                              edge_type=edge_type, node_type=node_type,
+                              **(gcn_kwargs or {}))
+        self.tcn1 = _make_tcn(tcn_type, out_channels, out_channels, stride,
+                              tcn_kwargs or {})
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         res = self.residual(x)
-        return F.relu(self.tcn(self.gcn(x)) + res)
+        return F.relu(self.tcn1(self.gcn1(x)) + res)
 
 
 class DGBlock(nn.Module):
@@ -520,3 +585,92 @@ class CTRGCN(_BackboneBase):
                            gcn_type=gcn_type, semantic_index=semantic,
                            edge_type=edge_type, node_type=node_type,
                            gcn_kwargs=gcn_kwargs, **extra)
+
+
+class GTGCN(_BackboneBase):
+    """Graph-transformer GCN (reference gtgcn.py:68-141): the STGCN stage
+    plan with ``unit_gtgcn`` spatial units (:class:`GTGCNBlock`) and
+    tcn_type 'unit_tcn' (the default) or any of :func:`_make_tcn`'s."""
+
+    def make_block(self, i, graph, A, in_c, out_c, stride, residual, kwargs):
+        kwargs = dict(kwargs)
+        kwargs.pop("_lw_index", None)
+        gcn_kwargs, tcn_kwargs = route_prefix(kwargs)
+        tcn_type = tcn_kwargs.pop("type", "unit_tcn")
+        gcn_kwargs.pop("type", None)
+        edge_type, node_type = _types(graph)
+        return GTGCNBlock(in_c, out_c, A=A, stride=stride, residual=residual,
+                          edge_type=edge_type, node_type=node_type,
+                          gcn_kwargs=gcn_kwargs, tcn_type=tcn_type,
+                          tcn_kwargs=tcn_kwargs)
+
+
+class STGIN(_BackboneBase):
+    """ST-GIN (reference stgin.py:74-162): the STGCN stage plan with
+    edge-representation blocks (:class:`STGINBlock`).  The spatial edges
+    start as the joint differences x_u - x_v, the temporal edges as the
+    forward frame difference (the last frame zero) through the 1x1
+    ``edge_conv`` to ``base_channels`` (stgin.py:149-156).  As JAX's, it
+    takes the committed configuration only (unit_gcnedge, unit_tcnedge;
+    a ``type`` in the block args is dropped) and ignores ``remat``."""
+
+    def __init__(self, in_channels: int = 3, base_channels: int = 64,
+                 **kwargs):
+        # make_block reads it while the base class builds the blocks
+        self.base_channels = base_channels
+        super().__init__(in_channels=in_channels,
+                         base_channels=base_channels, **kwargs)
+        self.edge_conv = PointConv(in_channels, base_channels)
+
+    def make_block(self, i, graph, A, in_c, out_c, stride, residual, kwargs):
+        kwargs = dict(kwargs)
+        kwargs.pop("_lw_index", None)
+        gcn_kwargs, tcn_kwargs = route_prefix(kwargs)
+        gcn_kwargs.pop("type", None)
+        tcn_kwargs.pop("type", None)
+        return STGINBlock(in_c, out_c, A=A, stride=stride, residual=residual,
+                          gcn_kwargs=gcn_kwargs, tcn_kwargs=tcn_kwargs,
+                          edge_t_channels=self.base_channels if i == 0
+                          else in_c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, m, t, v, c = x.shape
+        if self.data_bn is not None:
+            x = self.data_bn(x)
+        x = x.reshape(n * m, t, v, c)
+        edge_s = x[:, :, :, None, :] - x[:, :, None, :, :]  # (NM,T,V,V,C)
+        diff = torch.cat([x[:, 1:] - x[:, :-1], torch.zeros_like(x[:, :1])],
+                         dim=1)
+        edge_t = self.edge_conv(diff)
+        for i in range(self.num_blocks):
+            x, edge_t, edge_s = getattr(self, f"block{i}")(x, edge_t, edge_s)
+        return x.reshape((n, m) + x.shape[1:])
+
+
+class STGCNGC(_BackboneBase):
+    """STGCN_GC (reference stgcn_gc.py:68-149): the STGCN trunk with an
+    external (K, V, V) graph ``A_ext`` given to the forward and fed to every
+    block's unit_gcn (e.g. a Granger-causality graph).  ``gcn_adaptive``
+    must be None, 'offset' or 'importance': the default 'init' refuses an
+    external graph (:class:`UnitGCN`), as in JAX.  Like JAX's, it ignores
+    ``remat``."""
+
+    def make_block(self, i, graph, A, in_c, out_c, stride, residual, kwargs):
+        kwargs = dict(kwargs)
+        kwargs.pop("_lw_index", None)
+        gcn_kwargs, tcn_kwargs = route_prefix(kwargs)
+        tcn_type = tcn_kwargs.pop("type", "unit_tcn")
+        gcn_kwargs.pop("type", None)
+        return STGCNBlock(in_c, out_c, A=A, stride=stride, residual=residual,
+                          gcn_kwargs=gcn_kwargs, tcn_type=tcn_type,
+                          tcn_kwargs=tcn_kwargs)
+
+    def forward(self, x: torch.Tensor,
+                A_ext: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n, m, t, v, c = x.shape
+        if self.data_bn is not None:
+            x = self.data_bn(x)
+        x = x.reshape(n * m, t, v, c)
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block{i}")(x, A_ext)
+        return x.reshape((n, m) + x.shape[1:])

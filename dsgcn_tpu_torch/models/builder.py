@@ -2,8 +2,14 @@
 
 The port of ``dsgcn_tpu/models/builder.py`` for what the port has: the
 ``STGCN`` backbone (ST-GCN, STGCN++; alias ``MEGASTGCN``), ``AAGCN``,
-``CTRGCN``, the ``DGSTGCN`` backbone in its DG-STGCN and DS-GCN forms and
-the ``GCNHead``.  Config keys are the JAX package's.
+``CTRGCN``, the ``DGSTGCN`` backbone in its DG-STGCN and DS-GCN forms,
+``GTGCN``, ``STGIN``, ``STGCN_GC`` (whose forward takes the external graph
+``A_ext``), ``MSG3D`` and ``SGN``, the Granger-causality learners
+``GCGCN`` and ``GCGCN_component``, and the ``GCNHead`` and ``GCHead``.
+Config keys are the JAX package's.  ``STGCN_GC`` and the two learners are
+built with ``build_backbone`` and composed by hand (the learners with
+``GCHead`` and ``core/flows.py:gc_recognizer_losses``); ``build_model``
+builds a ``RecognizerGCN``, which feeds a backbone the clip alone.
 """
 from __future__ import annotations
 
@@ -15,17 +21,26 @@ import torch
 from torch import nn
 
 from ..graph import GraphConfig
+from ..ops.causal import GCGCN, GCComponent, GCSparse
 from ..ops.common import (branch_normal_, kaiming_normal_fan_out_,
                           trunc_normal_scaled_)
-from ..ops.gcn import CTRGC, CTRHGC, AttentionChain, UnitAAHGCN, UnitGCN
+from ..ops.gcn import (CTRGC, CTRHGC, AttentionChain, UnitAAHGCN, UnitGCN,
+                       UnitGCNEdge, UnitGTGCN)
+from ..ops.msg3d import MSG3DBlock, _ScaledGraphs
 from ..ops.tcn import CTRMSTCN
-from .backbones import AAGCN, CTRGCN, DGSTGCN, STGCN
-from .heads import GCNHead
+from .backbones import AAGCN, CTRGCN, DGSTGCN, GTGCN, STGCN, STGCNGC, STGIN
+from .heads import GCHead, GCNHead
+from .msg3d_sgn import MSG3D, SGN
 from .recognizer import RecognizerGCN
 
-BACKBONES = {"STGCN": STGCN, "MEGASTGCN": STGCN, "AAGCN": AAGCN,
-             "CTRGCN": CTRGCN, "DGSTGCN": DGSTGCN}
-HEADS = {"GCNHead": GCNHead}
+BACKBONES = {"STGCN": STGCN, "MEGASTGCN": STGCN, "GTGCN": GTGCN,
+             "STGIN": STGIN, "STGCN_GC": STGCNGC, "GCGCN": GCGCN,
+             "GCGCN_component": GCComponent, "AAGCN": AAGCN,
+             "CTRGCN": CTRGCN, "DGSTGCN": DGSTGCN, "MSG3D": MSG3D,
+             "SGN": SGN}
+# backbones configured by plain fields (no gcn_/tcn_ block routing)
+_PLAIN_BACKBONES = ("GCGCN", "GCGCN_component", "MSG3D", "SGN")
+HEADS = {"GCNHead": GCNHead, "GCHead": GCHead}
 
 _BACKBONE_FIELDS = {
     "in_channels", "base_channels", "ch_ratio", "num_person", "num_stages",
@@ -45,6 +60,12 @@ def build_backbone(cfg: Dict[str, Any]):
     cfg = copy.deepcopy(dict(cfg))
     typ = cfg.pop("type")
     cls = _lookup(BACKBONES, typ, "backbone")
+    if typ in _PLAIN_BACKBONES:
+        if "graph_cfg" in cfg:
+            gc = cfg.pop("graph_cfg")
+            cfg["graph_cfg"] = gc if isinstance(gc, GraphConfig) \
+                else GraphConfig(**gc)
+        return cls(**cfg)
     gc = cfg.pop("graph_cfg")
     if not isinstance(gc, GraphConfig):
         gc = GraphConfig(**gc)
@@ -84,6 +105,10 @@ def build_model(cfg: Dict[str, Any]) -> RecognizerGCN:
                          compute_dtype=compute_dtype)
 
 
+MODEL_NAMES = ("stgcn", "stgcn++", "aagcn", "ctrgcn", "dgstgcn", "dsgcn",
+               "msg3d", "sgn")
+
+
 def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
               graph_seed: int = 0, use_pallas=None) -> Dict[str, Any]:
     """The reference's published setup of a ported model.
@@ -98,6 +123,8 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
       upstream)
     * dsgcn: dgphgcn1 with semantic node+edge attention, decompose,
       subset_wise, ratio=0.125 (configs/dsstgcn/DSSTGCN_model.py)
+    * msg3d: MS-G3D on the binary adjacency, head width 384
+    * sgn: SGN (T = 30), head width 512
 
     ``use_pallas`` sets ``gcn_use_pallas`` and ``tcn_use_pallas`` of the
     DGSTGCN models, as the JAX package does (builder.py:196-198); STGCN++
@@ -106,6 +133,7 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
     """
     graph = dict(layout=layout, mode="random", init_off=0.04, init_std=0.02,
                  seed=graph_seed)
+    width = 256                               # the head's input channels
     if name == "stgcn":
         bb = dict(type="STGCN",
                   graph_cfg=dict(layout=layout, mode="stgcn_spatial"))
@@ -129,14 +157,20 @@ def model_cfg(name: str, num_classes: int = 60, layout: str = "nturgb+d",
                   gcn_decompose=True, gcn_subset_wise=True,
                   gcn_ctr="T", gcn_ada="T", tcn_type="dgmstcn",
                   graph_cfg=dict(graph, num_filter=3))
+    elif name == "msg3d":
+        bb = dict(type="MSG3D",
+                  graph_cfg=dict(layout=layout, mode="binary_adj"))
+        width = 384
+    elif name == "sgn":
+        bb = dict(type="SGN")
+        width = 512
     else:
-        raise NotImplementedError(f"model {name!r} is not ported yet (the "
-                                  "port has 'stgcn', 'stgcn++', 'aagcn', "
-                                  "'ctrgcn', 'dgstgcn' and 'dsgcn')")
+        raise ValueError(f"unknown model {name!r} (model_cfg has "
+                         f"{', '.join(map(repr, MODEL_NAMES))})")
     if use_pallas is not None and bb["type"] == "DGSTGCN":
         bb["gcn_use_pallas"] = use_pallas
         bb["tcn_use_pallas"] = use_pallas
-    head = dict(type="GCNHead", num_classes=num_classes, in_channels=256)
+    head = dict(type="GCNHead", num_classes=num_classes, in_channels=width)
     return dict(type="RecognizerGCN", backbone=bb, cls_head=head)
 
 
@@ -151,17 +185,21 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     distributions, not the same bits).  By default every 1x1 and temporal
     conv kernel and bias is U(+-1/sqrt(fan_in)) (torch's defaults, fan_in =
     in_channels * kernel size), the classifier N(0, init_std) with a zero
-    bias, a UnitGCN's 'offset' PA U(0, 2e-6).  Then the per-module rules
-    of :func:`_module_rules` (AAGCN's and CTR-GCN's units and TCN).
-    Graphs, gates, joint coefficients and BatchNorms keep their
-    deterministic initial values (the 1e-6 scale of a unit's closing
+    bias, an 'offset' PA of UnitGCN, UnitGTGCN or UnitGCNEdge U(0, 2e-6).
+    Then the per-module rules of :func:`_module_rules` (AAGCN's and
+    CTR-GCN's units and TCN, MS-G3D's graph offsets and window convs, the
+    Granger banks).  Graphs, gates, joint coefficients and BatchNorms keep
+    their deterministic initial values (the 1e-6 scale of a unit's closing
     ``bn`` included).  The generator lives on the CPU; call this before
     moving the model to its device."""
-    heads = {id(m.fc_cls) for m in model.modules() if isinstance(m, GCNHead)}
+    head_types = (GCNHead, GCHead)
+    heads = {id(m.fc_cls) for m in model.modules()
+             if isinstance(m, head_types)}
     for m in model.modules():
-        if isinstance(m, UnitGCN) and m.adaptive == "offset":
+        if isinstance(m, (UnitGCN, UnitGTGCN, UnitGCNEdge)) \
+                and m.adaptive == "offset":
             m.PA.uniform_(0.0, 2e-6, generator=generator)
-        elif isinstance(m, GCNHead):
+        elif isinstance(m, head_types):
             m.fc_cls.weight.normal_(0.0, m.init_std, generator=generator)
             m.fc_cls.bias.zero_()
         elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)) \
@@ -182,7 +220,13 @@ def _module_rules(m: nn.Module, gen: torch.Generator) -> None:
     for the graph embeddings, ``branch_init(K)`` for AAGCN's ``conv_d``,
     flax's ``xavier_normal``/``kaiming_normal`` (truncated normals) and
     zeros in :class:`AttentionChain`, ``kaiming_normal_fan_out`` kernels
-    (default biases) for the residual 1x1s and CTRMSTCN's branch 1x1s."""
+    (default biases) for the residual 1x1s and CTRMSTCN's branch 1x1s
+    (MS-G3D's too); MS-G3D's graph offsets ``PA`` U(-1e-6, 1e-6)
+    (``uniform_eps_init``) and window kernels ``out_conv_kernel``
+    ``variance_scaling(1/3, fan_in, uniform)`` (U(+-1/sqrt(w C))) with zero
+    biases; the Granger banks JAX's ``torch_default_kernel``/``_bias``
+    over its fans (GCComponent's ``weight_norm`` then taken from the new
+    weight, as JAX's init computes it)."""
     if isinstance(m, UnitAAHGCN):
         for name, sub in m.named_children():
             if name.startswith(("conv_a", "conv_b", "conv_edge")):
@@ -208,6 +252,15 @@ def _module_rules(m: nn.Module, gen: torch.Generator) -> None:
                 kaiming_normal_fan_out_(sub.weight, gen)
             elif name.endswith("_conv"):
                 kaiming_normal_fan_out_(sub.conv.weight, gen)
+    elif isinstance(m, _ScaledGraphs):
+        m.PA.uniform_(-1e-6, 1e-6, generator=gen)
+    elif isinstance(m, MSG3DBlock):
+        w = m.out_conv_kernel
+        bound = (w.shape[0] * w.shape[1]) ** -0.5
+        w.uniform_(-bound, bound, generator=gen)
+        m.out_conv_bias.zero_()
+    elif isinstance(m, (GCSparse, GCComponent)):
+        m.draw_(gen)
 
 
 def set_dropout_generator(model: nn.Module,

@@ -200,6 +200,16 @@ class BatchNorm(nn.Module):
                 else f"{self.num_features}, axis_name={self.axis_name!r}")
 
 
+class TorchBN(BatchNorm):
+    """JAX ``ops/common.py:TorchBN``, flax's ``BatchNorm`` layout with
+    torch's statistics: ``scale``, ``bias``, ``mean`` and ``var`` sit at
+    the module's own scope (no inner ``bn``), the normalization uses the
+    biased batch variance and the running variance moves with the unbiased
+    one (momentum 0.1).  The arithmetic is :class:`BatchNorm`'s; only the
+    JAX names differ (``core/train.py:jax_param_names``).  SGN's
+    ``BatchNorm1d(C*V)`` over the (c, v) features of a frame."""
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout (keep with probability 1 - p, scale by 1/(1 - p)),

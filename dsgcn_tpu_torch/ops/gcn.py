@@ -7,9 +7,11 @@ graph, contracted with ``torch.einsum`` as JAX leaves it to XLA),
 ``UnitCTRGCN``/``UnitCTRHGCN`` with ``CTRGC``/``CTRHGC`` (CTR-GCN; these
 units, like UnitGCN, run no kernel: JAX computes them in XLA einsums too),
 ``DGGCN`` (DG-STGCN), ``DGHGCN`` (the semantic DG-GCN without subset
-decomposition; einsums only, as in JAX) and ``DGPHGCN1`` (DS-GCN), train
-and eval, with the helpers they use.  DGGCN and DGPHGCN1 have two
-aggregation paths, chosen as in the JAX modules:
+decomposition; einsums only, as in JAX), ``DGPHGCN1`` (DS-GCN), ``GTGC``
+with ``UnitGTGCN`` (GTGCN) and ``UnitGCNEdge`` (STGIN; these run no
+kernel, in JAX or the port), train and eval, with the helpers they use.
+DGGCN and DGPHGCN1 have two aggregation paths, chosen as in the JAX
+modules:
 
 * ``use_pallas=True`` (``build_backbone``'s default): the dynamic-graph
   kernels.  Training always runs K1 and its backward K2 as one autograd
@@ -65,8 +67,12 @@ class UnitGCN(nn.Module):
     ``conv_pos`` 'pre' runs the 1x1 before the graph contraction, 'post'
     after it; ``with_res`` adds the input (or its 1x1 + BN where the width
     changes) before the final ReLU.  The contraction runs in
-    :func:`accum_dtype` and rounds to x's type, as JAX's einsum does.  The
-    external graph of STGCN_GC (``A_ext``) is not ported.
+    :func:`accum_dtype` and rounds to x's type, as JAX's einsum does.
+    ``A_ext`` in the forward (STGCN_GC, JAX gcn.py:70-127): a (K, V, V)
+    graph fed from outside takes the place of ``A_init`` ('offset' adds
+    ``PA``, 'importance' scales by it); with ``adaptive='init'`` it is
+    refused, as JAX asserts (the reference assigns the fed tensor onto a
+    Parameter and crashes).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -99,14 +105,20 @@ class UnitGCN(nn.Module):
                      PointConv(K * in_channels, out_channels))
         self.bn = BatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                A_ext: Optional[torch.Tensor] = None) -> torch.Tensor:
         n, t, v, c = x.shape
         acc = accum_dtype(x.dtype)
+        if A_ext is not None and self.adaptive == "init":
+            raise ValueError("external A requires adaptive in (None, "
+                             "'offset', 'importance')")
         res = 0.0
         if self.with_res:
             res = (self.down_bn(self.down_conv(x))
                    if c != self.out_channels else x)
-        A = cast(self.A, acc)
+        # JAX casts A_ext to float32 before the contraction
+        A = cast(self.A if A_ext is None else cast(A_ext, torch.float32),
+                 acc)
         if self.adaptive == "offset":
             A = A + (cast(self.PA, acc) - 1e-6)
         elif self.adaptive == "importance":
@@ -1352,3 +1364,235 @@ class UnitCTRHGCN(_UnitCTR):
                           semantic_index=semantic_index)
         super().__init__(in_channels, out_channels, A_init, A_init.shape[0],
                          make_conv)
+
+
+def _adaptive_graph(mod: nn.Module, A_init: np.ndarray, adaptive,
+                    pa_shape) -> None:
+    """The unit's graph as JAX's GTGCN and STGIN units keep it: 'init' a
+    parameter ``A`` (a copy of ``A_init``), 'offset' a ``PA`` of
+    ``pa_shape`` drawn from U(0, 2e-6) (``A + PA - 1e-6`` in the forward),
+    'importance' a ``PA`` of ones (``A * PA``), None the fixed graph; the
+    fixed ``A`` is a non-persistent buffer, as it is no JAX variable."""
+    if adaptive not in (None, "init", "offset", "importance"):
+        raise ValueError(f"unknown adaptive {adaptive!r}")
+    mod.adaptive = adaptive
+    A = torch.tensor(np.asarray(A_init), dtype=torch.float32)
+    if adaptive == "init":
+        mod.A = nn.Parameter(A)
+    else:
+        mod.register_buffer("A", A, persistent=False)
+    if adaptive == "offset":
+        mod.PA = nn.Parameter(torch.empty(pa_shape).uniform_(0, 2e-6))
+    elif adaptive == "importance":
+        mod.PA = nn.Parameter(torch.ones(pa_shape))
+
+
+def _graph_of(mod: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """The effective (K, V, V) graph of :func:`_adaptive_graph`'s unit."""
+    A = cast(mod.A, dtype)
+    if mod.adaptive == "offset":
+        return A + (cast(mod.PA, dtype) - 1e-6)
+    if mod.adaptive == "importance":
+        return A * cast(mod.PA, dtype)
+    return A
+
+
+def _onehot(types: np.ndarray, num: int) -> torch.Tensor:
+    return torch.from_numpy(np.eye(num, dtype=np.float32)[
+        np.asarray(types, np.int64)])
+
+
+class GTGC(nn.Module):
+    """Graph-transformer graph conv (reference GTGC, gcn.py:1054-1222; JAX
+    ``dsgcn_tpu/ops/gcn.py:GTGC``).
+
+    Per-(subset, node-type) key/query projections (``k_linears``,
+    ``q_linears``; channel order ``(k*Cm + c)*P + p``, gcn.py:1094-1095)
+    are gathered per joint by its node type and averaged over time; their
+    pairwise difference k[u] - q[w] is the edge-attention field, through a
+    ReLU, or with ``edge_attention`` through the per-edge-class projection
+    ``edge_linears`` and the class select.  ``A_eff = alpha * field + A``
+    (+ ``beta`` times the global k.q graph with ``global_attention``); the
+    relu'd ``pre_conv``/``pre_bn`` features are aggregated over the source
+    joints per (subset, channel), then ``out_linears`` (one per node type,
+    gathered per joint, with ``target_specific``).  The node- and
+    edge-type one-hots are non-persistent buffers."""
+
+    def __init__(self, in_channels: int, out_channels: int, K: int,
+                 edge_attention: bool = False, target_specific: bool = False,
+                 num_types: int = 5, reduce: int = 8, edge_num: int = 15,
+                 global_attention: bool = False,
+                 node_type: Optional[np.ndarray] = None,
+                 edge_type: Optional[np.ndarray] = None):
+        super().__init__()
+        if node_type is None:
+            raise ValueError("GTGC needs the graph's node types")
+        if edge_attention and edge_type is None:
+            raise ValueError("edge attention needs the graph's edge types")
+        self.K, self.Cm, self.P, self.E = (K, out_channels // reduce,
+                                           num_types, edge_num)
+        self.out_channels = out_channels
+        self.edge_attention = edge_attention
+        self.target_specific = target_specific
+        self.global_attention = global_attention
+        KC = K * self.Cm
+        self.pre_conv = PointConv(in_channels, KC)
+        self.pre_bn = BatchNorm(KC)
+        self.k_linears = PointConv(in_channels, KC * num_types)
+        self.q_linears = PointConv(in_channels, KC * num_types)
+        if edge_attention:
+            self.edge_linears = PointConv(KC, K * edge_num * self.Cm)
+            self.register_buffer("edge_onehot", _onehot(edge_type, edge_num),
+                                 persistent=False)
+        self.alpha = nn.Parameter(torch.zeros(1))
+        if global_attention:
+            self.beta = nn.Parameter(torch.zeros(1))
+        self.out_linears = PointConv(
+            KC, (num_types if target_specific else 1) * out_channels)
+        self.register_buffer("node_onehot", _onehot(node_type, num_types),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+        n, t, v, _ = x.shape
+        K, Cm, P = self.K, self.Cm, self.P
+        acc, dt = accum_dtype(x.dtype), x.dtype
+        pre = F.relu(self.pre_bn(self.pre_conv(x))).reshape(n, t, v, K, Cm)
+        nt = cast(self.node_onehot, acc)
+
+        def semantic(lin):
+            # per-joint type gather and time mean (gcn.py:1096-1099)
+            y = lin(x).reshape(n, t, v, K, Cm, P)
+            return cast(torch.einsum("ntvkcp,vp->nkcv", cast(y, acc), nt),
+                        dt) / t
+        k_sem, q_sem = semantic(self.k_linears), semantic(self.q_linears)
+        diff = k_sem[..., :, None] - q_sem[..., None, :]   # (n, K, Cm, u, w)
+        if self.edge_attention:
+            # per-edge-class projection of the diff field (gcn.py:1168-1178)
+            flat = diff.permute(0, 3, 4, 1, 2).reshape(n, v, v, K * Cm)
+            es = self.edge_linears(flat).reshape(n, v, v, K, self.E, Cm)
+            field = cast(torch.einsum("nuwkec,uwe->nkcuw", cast(es, acc),
+                                      cast(self.edge_onehot, acc)), dt)
+        else:
+            field = F.relu(diff)                         # (gcn.py:1196)
+        A_eff = field * cast(self.alpha[0], dt) + cast(A, dt)[None, :, None]
+        if self.global_attention:
+            glo = cast(torch.einsum("nkcv,nkcw->nkvw", cast(k_sem, acc),
+                                    cast(q_sem, acc)), dt)
+            A_eff = A_eff + glo[:, :, None] * cast(self.beta[0], dt)
+        # aggregate the source joints u (gcn.py:1212/1219)
+        y = cast(torch.einsum("ntukc,nkcuv->ntvkc", cast(pre, acc),
+                              cast(A_eff, acc)), dt).reshape(n, t, v, K * Cm)
+        y = self.out_linears(y)
+        if self.target_specific:
+            y = y.reshape(n, t, v, P, self.out_channels)
+            y = cast(torch.einsum("ntvpo,vp->ntvo", cast(y, acc), nt), dt)
+        return y
+
+
+class UnitGTGCN(nn.Module):
+    """unit_gtgcn (reference gcn.py:1224-1294; JAX ``UnitGTGCN``):
+    :class:`GTGC` (``convs``) + BN + the residual (x, or ``down_conv`` +
+    ``down_bn`` where the width changes) + ReLU.  ``adaptive``: 'init' a
+    trained ``A``; 'offset' and 'importance' a (V, V) ``PA`` broadcast over
+    the K subsets (gcn.py:1281-1284); None the fixed graph."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, adaptive="init",
+                 edge_attention: bool = False, target_specific: bool = False,
+                 global_attention: bool = False, num_types: int = 5,
+                 reduce: int = 8, edge_num: int = 15, residual: bool = True,
+                 node_type: Optional[np.ndarray] = None,
+                 edge_type: Optional[np.ndarray] = None):
+        super().__init__()
+        _adaptive_graph(self, A_init, adaptive, A_init.shape[1:])
+        self.convs = GTGC(in_channels, out_channels, A_init.shape[0],
+                          edge_attention=edge_attention,
+                          target_specific=target_specific,
+                          num_types=num_types, reduce=reduce,
+                          edge_num=edge_num,
+                          global_attention=global_attention,
+                          node_type=node_type, edge_type=edge_type)
+        self.bn = BatchNorm(out_channels)
+        self.residual = residual
+        self.identity = in_channels == out_channels
+        if residual and not self.identity:
+            self.down_conv = PointConv(in_channels, out_channels)
+            self.down_bn = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.bn(self.convs(x, _graph_of(self, accum_dtype(x.dtype))))
+        if self.residual:
+            y = y + (x if self.identity
+                     else self.down_bn(self.down_conv(x)))
+        return F.relu(y)
+
+
+class UnitGCNEdge(nn.Module):
+    """unit_gcnedge (reference gcn.py:212-323; JAX ``UnitGCNEdge``): a graph
+    conv with explicit edge representations for STGIN.
+
+    The spatial edge e[u, w] of x's joints is projected with (x_u, x_w,
+    e_uw) per subset (``edge_conv``, one 1x1 over the concatenation of
+    gcn.py:318-323, applied here as three products of its column blocks
+    so that the (N, T, V, V, 3C) concatenation is never built); the nodes
+    (``conv``) aggregate through A, the edges through an A-weighted sum
+    over the targets; the spatial edges come out summed over the subsets,
+    the temporal edges through ``edge_conv_T`` where their width differs.
+    One ``bn`` normalizes the node output, the spatial edges and the
+    temporal edges in turn (gcn.py:313): in training each call moves its
+    running statistics from the last call's values, in JAX as in torch.
+    ``adaptive`` as :class:`UnitGTGCN`'s but with a (K, V, V) ``PA``
+    (default 'importance').  Only ``conv_pos='pre'``: JAX refuses 'post'
+    (the reference's branch is shape-inconsistent, gcn.py:298-305).
+    ``edge_t_channels``: the width of the temporal edges it is given."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 A_init: np.ndarray, adaptive="importance",
+                 conv_pos: str = "pre", with_res: bool = False,
+                 edge_t_channels: Optional[int] = None):
+        super().__init__()
+        if conv_pos != "pre":
+            raise ValueError("conv_pos must be 'pre': the reference's "
+                             "'post' branch is dead code (gcn.py:298-305)")
+        K = A_init.shape[0]
+        self.K, self.out_channels = K, out_channels
+        _adaptive_graph(self, A_init, adaptive, A_init.shape)
+        self.with_res = with_res
+        if with_res and in_channels != out_channels:
+            self.down_conv = PointConv(in_channels, out_channels)
+            self.down_bn = BatchNorm(out_channels)
+        self.conv = PointConv(in_channels, out_channels * K)
+        self.edge_conv = PointConv(3 * in_channels, out_channels * K)
+        if (edge_t_channels or out_channels) != out_channels:
+            self.edge_conv_T = PointConv(edge_t_channels, out_channels)
+        self.bn = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor, edge_s: torch.Tensor,
+                edge_t: torch.Tensor):
+        n, t, v, c = x.shape
+        K, O = self.K, self.out_channels
+        acc, dt = accum_dtype(x.dtype), x.dtype
+        A = _graph_of(self, acc)
+        res = 0.0
+        if self.with_res:
+            res = (self.down_bn(self.down_conv(x))
+                   if c != O else x)
+        node = self.conv(x).reshape(n, t, v, K, O)
+        # edge_conv over (x_u, x_w, e_uw), its kernel split by input block
+        w = cast(self.edge_conv.weight, dt)
+        xu = F.linear(x, w[:, :c])
+        xw = F.linear(x, w[:, c:2 * c])
+        efull = (F.linear(edge_s.reshape(n, t, v, v, -1), w[:, 2 * c:],
+                          cast(self.edge_conv.bias, dt))
+                 + xu[:, :, :, None] + xw[:, :, None])
+        efull = efull.reshape(n, t, v, v, K, O)
+        node_only = torch.einsum("ntvko,kvw->ntwo", cast(node, acc), A)
+        edge_only = torch.einsum("ntvwko,kvw->ntvo", cast(efull, acc), A)
+        y = cast(node_only + edge_only, dt)
+        edge_s_out = efull.sum(dim=4)                    # (n, t, v, v, O)
+        if hasattr(self, "edge_conv_T"):
+            edge_t = self.edge_conv_T(edge_t)
+        y = F.relu(self.bn(y) + res)
+        es = F.relu(self.bn(edge_s_out.reshape(n, t, v * v, O)))
+        et = F.relu(self.bn(edge_t))
+        return y, es.reshape(n, t, v, v, O), et

@@ -2,8 +2,9 @@
 
 The port of ``UnitTCN``, ``UnitMLP``, ``_MSBranches``, ``MSTCN``
 (STGCN++; msmlp with ``branch_kind='mlp'``), ``GCMLP``, ``DGMSTCN``
-(DG-STGCN, DS-GCN; dgmsmlp with ``branch_kind='mlp'``) and ``CTRMSTCN``
-(CTR-GCN) from ``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN trains
+(DG-STGCN, DS-GCN; dgmsmlp with ``branch_kind='mlp'``), ``CTRMSTCN``
+(CTR-GCN, MS-G3D) and ``UnitTCNEdge`` (STGIN) from
+``dsgcn_tpu/ops/tcn.py``, train and eval.  DGMSTCN trains
 in the reference ``concat`` layout, as JAX does: the mean joint is
 appended as an extra joint row, the branch stack runs once (so in
 training the branch BatchNorms see the 26th joint), and the global row is
@@ -430,7 +431,8 @@ class CTRMSTCN(nn.Module):
         self.add_module(f"branch{i + 1}_bn", BatchNorm(rem))
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def branch_outputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The branches' outputs concatenated over channels."""
         def pre(i):
             b = getattr(self, f"branch{i}_pre")(x)
             return F.relu(getattr(self, f"branch{i}_bn")(b))
@@ -441,8 +443,55 @@ class CTRMSTCN(nn.Module):
         outs.append(getattr(self, f"branch{i}_bn2")(b))
         b = getattr(self, f"branch{i + 1}_conv")(x)
         outs.append(getattr(self, f"branch{i + 1}_bn")(b))
-        out = torch.cat(outs, dim=-1)
+        return torch.cat(outs, dim=-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.branch_outputs(x)
         if self.use_residual:
             out = out + (x if self.identity else self.residual(x))
         return dropout(F.relu(out), self.tcn_dropout, self.training,
                        self.generator)
+
+
+class UnitTCNEdge(nn.Module):
+    """unit_tcnedge (reference tcn.py:39-103; JAX ``UnitTCNEdge``): STGIN's
+    temporal conv.  The nodes take the temporal edges (``conv`` over x +
+    edge_t); the temporal edges are re-emitted from (x, edge_t, x with
+    frame 0 zeroed) (``edge_conv``); the spatial edges are time-strided to
+    match (``edge_conv_S``, built where ``stride`` > 1).  One ``bn`` serves
+    every stream, and the node output passes it twice (tcn.py:85/97), in
+    JAX's order: node, the strided spatial edges, node again, the temporal
+    edges; in training each call moves the running statistics on from the
+    last.  Dropout (training only, masks from ``self.generator``) after
+    each BN."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 9, stride: int = 1, dilation: int = 1,
+                 dropout: float = 0.0):
+        super().__init__()
+        args = (kernel_size, stride, dilation)
+        self.conv = TemporalConv(in_channels, out_channels, *args)
+        self.edge_conv = TemporalConv(2 * in_channels + out_channels,
+                                      out_channels, *args)
+        if stride > 1:
+            self.edge_conv_S = TemporalConv(out_channels, out_channels, *args)
+        self.bn = BatchNorm(out_channels)
+        self.dropout = dropout
+        self.generator: Optional[torch.Generator] = None
+
+    def _bn(self, y: torch.Tensor) -> torch.Tensor:
+        return dropout(self.bn(y), self.dropout, self.training,
+                       self.generator)
+
+    def forward(self, x: torch.Tensor, edge_t: torch.Tensor,
+                edge_s: torch.Tensor):
+        v = x.shape[2]
+        node = self._bn(self.conv(x + edge_t))
+        node_remove = torch.cat([torch.zeros_like(x[:, :1]), x[:, 1:]], 1)
+        edge_out = self.edge_conv(torch.cat([x, edge_t, node_remove], -1))
+        if edge_s.shape[1] != node.shape[1]:
+            ns, ts = edge_s.shape[:2]
+            flat = self._bn(self.edge_conv_S(edge_s.reshape(ns, ts, v * v,
+                                                            -1)))
+            edge_s = flat.reshape(ns, flat.shape[1], v, v, -1)
+        return self._bn(node), self._bn(edge_out), edge_s

@@ -12,9 +12,17 @@ re-orients kernels:
   become its grouped ``Conv2d``'s ``conv.weight`` (C, 1, k, 1) and
   ``conv.bias``;
 * a BatchNorm's ``<name>/bn/{scale,bias}`` params and ``<name>/bn/{mean,var}``
-  statistics become ``<name>.{weight,bias,running_mean,running_var}``;
-* every other leaf (biases, ``A``, ``alpha``, ``beta``, ``add_coeff``) keeps
-  its name and value.
+  statistics become ``<name>.{weight,bias,running_mean,running_var}``; so
+  do a ``TorchBN``'s (flax's layout, SGN's ``joint_bn``/``motion_bn``),
+  whose ``scale``, ``bias``, ``mean`` and ``var`` sit at its own scope;
+* the ``constants`` collection (``GCComponent``'s init-time
+  ``weight_norm``) becomes persistent buffers of the same name;
+* every other leaf keeps its name and value: biases, ``A``, ``PA``,
+  ``alpha``, ``beta``, ``add_coeff``, and the raw kernels the port holds
+  in JAX's orientation (MS-G3D's ``out_conv_kernel`` (w, C, O) with
+  ``out_conv_bias``; the Granger banks ``branch{i}_w``/``branch{i}_b``,
+  ``follow_w``/``follow_b``, ``follow{j}_w``/``follow{j}_b``;
+  ``GCComponent.weight``).
 
 Load the result with ``model.load_state_dict(sd, strict=True)``: together
 with the converter's own check that no two leaves land on one name, every
@@ -30,6 +38,12 @@ import torch
 _BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
               ("batch_stats", "mean"): "running_mean",
               ("batch_stats", "var"): "running_var"}
+# a scale parameter and running statistics belong to a BatchNorm wherever
+# they sit (a TorchBN has no inner ``bn`` scope); a bare ``bias`` keeps its
+# name either way
+_BARE_BN_LEAVES = {k: v for k, v in _BN_LEAVES.items()
+                   if k != ("params", "bias")}
+_COLLECTIONS = ("params", "batch_stats", "constants")
 
 
 def _leaves(tree: Mapping[str, Any],
@@ -53,6 +67,10 @@ def _convert_leaf(collection: str, path: Tuple[str, ...],
     *scope, leaf = path
     if scope and scope[-1] == "bn" and (collection, leaf) in _BN_LEAVES:
         return ".".join(scope[:-1] + [_BN_LEAVES[collection, leaf]]), a
+    if (collection, leaf) in _BARE_BN_LEAVES:
+        return ".".join(scope + [_BARE_BN_LEAVES[collection, leaf]]), a
+    if collection == "constants":
+        return ".".join(path), a
     if collection != "params":
         raise ValueError(f"unexpected {collection} leaf {'/'.join(path)}")
     if leaf in ("conv_kernel", "conv_bias"):      # UnitMLP's depthwise conv
@@ -74,13 +92,13 @@ def _convert_leaf(collection: str, path: Tuple[str, ...],
 
 def convert_jax_variables(variables: Mapping[str, Any]) -> Dict[str,
                                                                 torch.Tensor]:
-    """Convert the JAX ``{'params', 'batch_stats'}`` tree (nested dicts of
-    numpy arrays) into the port's ``state_dict``."""
-    unknown = set(variables) - {"params", "batch_stats"}
+    """Convert the JAX ``{'params', 'batch_stats', 'constants'}`` tree
+    (nested dicts of numpy arrays) into the port's ``state_dict``."""
+    unknown = set(variables) - set(_COLLECTIONS)
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
-    for collection in ("params", "batch_stats"):
+    for collection in _COLLECTIONS:
         for path, leaf in _leaves(variables.get(collection, {})):
             key, a = _convert_leaf(collection, path, np.asarray(leaf))
             if key in sd:

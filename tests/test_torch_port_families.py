@@ -2,9 +2,9 @@
 ``UnitAAHGCN``, ``CTRGC``, ``CTRHGC``, ``UnitCTRHGCN``, ``UnitCTRGCN``,
 ``CTRMSTCN``, ``DataBN('MVC')``, both recognizers (plain and semantic, NTU's
 25 joints and COCO's 17), a float64 train step of each family,
-``model_cfg('aagcn'|'ctrgcn')``, the rank-3 kernel conversion and the init
-rules of ``dsgcn_tpu_torch`` against ``dsgcn_tpu`` on the CPU; and the
-options ``DGPHGCN1`` refuses by name.
+``model_cfg('aagcn'|'ctrgcn'|'msg3d'|'sgn')``, the rank-3 kernel
+conversion and the init rules of ``dsgcn_tpu_torch`` against
+``dsgcn_tpu`` on the CPU; and the options ``DGPHGCN1`` refuses by name.
 
 None of these modules reaches a Pallas kernel in JAX, and none launches a
 kernel in the port.  Variables are drawn with ``jax.eval_shape`` + numpy
@@ -450,8 +450,16 @@ def test_model_cfg_matches_jax(family, use_pallas):
 
 @pytest.mark.parametrize("name", ["msg3d", "sgn"])
 def test_model_cfg_unported_raise(name):
-    with pytest.raises(NotImplementedError, match=name):
-        model_cfg(name)
+    """MS-G3D and SGN were the last of JAX's model_cfg names the port
+    refused; now each reads as JAX's (head width 384, 512), and only a
+    name JAX does not know is refused, with a ValueError as JAX's."""
+    for layout in ("nturgb+d", "coco"):
+        assert (model_cfg(name, num_classes=120, layout=layout)
+                == j_model_cfg(name, num_classes=120, layout=layout))
+    with pytest.raises(ValueError, match=f"{name}x"):
+        model_cfg(f"{name}x")
+    with pytest.raises(ValueError):
+        j_model_cfg(f"{name}x")
 
 
 # ---------------------------------------------------------------------------

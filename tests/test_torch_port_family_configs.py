@@ -32,6 +32,7 @@ from dsgcn_tpu_torch.tools import test as test_cli
 from dsgcn_tpu_torch.tools import train as train_cli
 from dsgcn_tpu_torch.utils.convert import convert_jax_variables
 from test_torch_port_dggcn import _variables
+from torch_port_cases import one_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FAMILIES = ("aagcn", "ctrgcn", "stgcn", "stgcnpp")
@@ -114,16 +115,6 @@ def test_inference_leaves_the_hrnet_anno_as_it_was():
     first = inference_recognizer(model, anno)
     np.testing.assert_array_equal(anno["keypoint"], kp)
     assert inference_recognizer(model, anno) == first
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the CLI runs (the test workers' thread pools
-    outnumber the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _printed(out, key):

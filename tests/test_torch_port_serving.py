@@ -31,7 +31,7 @@ from dsgcn_tpu_torch.tools import export as export_cli
 from test_torch_port_dggcn import _variables
 from test_torch_port_families import _eval, _x
 from test_torch_port_model import MODEL_TOL, _load
-from torch_port_cases import opcheck_cases
+from torch_port_cases import one_thread, opcheck_cases  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 M, T, V, C, NCLS = 2, 12, 25, 3, 7
@@ -128,7 +128,7 @@ def test_export_bf16_serving(small_model, poly_art, tmp_path):
     assert (got.argmax(-1) == want.argmax(-1)).all()
 
 
-def test_export_cli(tmp_path, capsys):
+def test_export_cli(tmp_path, capsys, one_thread):  # noqa: F811
     """The export CLI on a committed config: the sample shape from the test
     pipeline, the manifest, a servable artifact."""
     out = str(tmp_path / "cli_art")

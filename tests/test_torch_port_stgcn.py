@@ -48,6 +48,7 @@ from test_torch_port_dggcn import _close, _variables
 from test_torch_port_grad import _train_parity, assert_rel
 from test_torch_port_model import MODEL_TOL, MODULE_TOL, _load, _run
 from test_torch_port_train import _run_both
+from torch_port_cases import one_thread  # noqa: F401
 
 CONFIG = str(pathlib.Path(__file__).resolve().parents[1] / "configs"
              / "stgcnpp" / "ntu60_xsub_3dkp" / "j.py")
@@ -393,7 +394,8 @@ def test_repeat_dataset_matches_jax(tmp_path):
         assert got["label"] == want["label"]
 
 
-def test_train_cli_runs_the_stgcnpp_config(tmp_path):
+def test_train_cli_runs_the_stgcnpp_config(tmp_path,
+                                           one_thread):  # noqa: F811
     """One epoch of the STGCN++ j config (its RepeatDataset train set) on a
     synthetic pickle, narrowed to two blocks, through the port's CLI."""
     ann = tmp_path / "synth.pkl"

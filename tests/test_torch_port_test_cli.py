@@ -34,6 +34,7 @@ from dsgcn_tpu_torch.tools import test as test_cli
 from dsgcn_tpu_torch.tools import train as train_cli
 from test_torch_port_dggcn import _variables
 from test_torch_port_model import MODEL_TOL, _load, _run
+from torch_port_cases import one_thread  # noqa: F401
 
 STREAMS = ("j", "b", "jm", "bm")
 WEIGHTS = (2.0, 2.0, 1.0, 1.0)
@@ -56,17 +57,6 @@ def _narrow_cfg(tmp, stream, ann):
         f"            val=dict(ann_file='{ann}', split='val'),\n"
         f"            test=dict(ann_file='{ann}', split='val'))\n")
     return str(path)
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the CLI runs: their many small ops slow
-    down tenfold when the test workers' thread pools outnumber the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _printed(out, key):

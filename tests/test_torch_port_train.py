@@ -46,6 +46,7 @@ from dsgcn_tpu_torch.ops.kernels.dyn_graph import fused_dyn_graph_agg
 from dsgcn_tpu_torch.tools import train as cli
 from dsgcn_tpu_torch.utils.convert import convert_jax_variables
 from test_torch_port_model import _cfgs
+from torch_port_cases import one_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIG = REPO / "configs" / "dsgcn" / "ntu60_xsub_3dkp" / "j.py"
@@ -341,7 +342,8 @@ checkpoint_config = dict(interval=1)
     return str(cfg)
 
 
-def test_train_cli_checkpoints_and_resumes(tmp_path):
+def test_train_cli_checkpoints_and_resumes(tmp_path,
+                                           one_thread):  # noqa: F811
     cfg = _cli_config(tmp_path)
     wd = tmp_path / "wd"
     base = [cfg, "--work-dir", str(wd), "--validate", "--device", "cpu",
@@ -361,7 +363,8 @@ def test_train_cli_checkpoints_and_resumes(tmp_path):
     assert losses and all(np.isfinite(losses))
 
 
-def test_train_cli_validates_without_the_flag(tmp_path):
+def test_train_cli_validates_without_the_flag(tmp_path,
+                                              one_thread):  # noqa: F811
     """As JAX's tools/train.py (:52, :105): a config with ``data.val`` is
     validated every ``evaluation.interval`` epochs, and the best
     checkpoint kept, with no ``--validate`` on the command line."""

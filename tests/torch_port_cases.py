@@ -1,8 +1,10 @@
 """Inputs shared by the port's tests: one DS-GCN block aggregation (K1
 packaging) as numpy arrays, K3's packaging of the same graph, the kernels'
-custom-op calls for ``opcheck`` and seeded state dicts.  No JAX here: the
-CUDA tests import it on machines without JAX."""
+custom-op calls for ``opcheck``, seeded state dicts, and the
+``one_thread`` fixture of the in-process CLI and trainer tests.  No JAX
+here: the CUDA tests import it on machines without JAX."""
 import numpy as np
+import pytest
 import torch
 
 from dsgcn_tpu_torch.graph import Graph
@@ -143,3 +145,14 @@ def seeded_state_dict(model, seed):
             a = 0.1 * n
         sd[k] = torch.from_numpy(a.astype(np.float32))
     return sd
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the in-process CLI and trainer runs: their
+    many small ops slow down tenfold and more when the test workers'
+    thread pools outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
