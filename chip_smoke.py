@@ -122,16 +122,31 @@ CPU's, a (64, 2, T, 25, 3) batch forward (T 30 for SGN; MS-G3D and SGN
 also in bf16) with its profile and peak memory, a train step against the
 CPU's (the learners on ``gc_recognizer_losses``) and timed steps at b16
 (STGIN at ``STGIN_TRAIN_BATCH``) with peak memory; no kernel of the port
-may launch.
+may launch.  Phase 22 takes PoseC3D (``configs/posec3d/
+slowonly_ntu60_xsub.py``: SlowOnly-R50 over 17-channel heatmap volumes,
+no kernel) built through ``Config.fromfile`` and ``build_model`` with
+seeded weights.  Serving, on the seeded model with BatchNorm statistics
+from two videos' 10-clip test volumes (64 x 64): their batch forward and
+clips/s, its logits against a CPU copy's (within 1e-3 of the largest,
+and varying over clips and classes by ten times that), four videos
+through the test CLI on the card, two of them on the CPU too (scores
+within 1e-3, top-1 equal).  Training: synthetic hrnet annos through the
+config's train pipeline and the Loader at b32 (clip_len 48, 56 x 56), a
+step against the CPU's, timed f32 steps with peak memory and the host
+pipeline's seconds a clip; the train CLI for two steps and a validation.
+No kernel of the port may launch.  The whole run writes each phase's
+finish time (seconds from the first phase's start) under
+``phase_done_s`` in ``chiprun_out/chip_smoke.json``.
 Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19,
-20, 21;
+20, 21, 22;
 ``--every-config`` runs 15 alone, ``--families`` 16 alone
 (``chiprun_out/families.json``), ``--options`` 17 alone
 (``chiprun_out/options.json``), ``--serving`` 18 alone
 (``chiprun_out/serving.json``), ``--parallel`` 19 alone
 (``chiprun_out/parallel.json``), ``--extras`` 20 alone
 (``chiprun_out/extras.json``), ``--other-families`` 21 alone
-(``chiprun_out/other_families.json``).  Any failed check raises, and the script
+(``chiprun_out/other_families.json``), ``--posec3d`` 22 alone
+(``chiprun_out/posec3d.json``).  Any failed check raises, and the script
 exits non-zero without a result line.
 ``python3 chip_smoke.py --sweep`` runs none of these: it times K1 and K3
 under the block plans near their planner's at the main paths' shapes
@@ -610,12 +625,13 @@ def gpu_vs_cpu_step(model, batch, out, step=None):
     parameter's update with cosine > 0.995 and norm within 5% (float32
     rounding grows through the untrained BatchNorm stacks;
     tests/test_training_dynamics_parity.py)."""
-    from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+    from dsgcn_tpu_torch.core.train import (input_key, make_optimizer,
+                                            train_step)
     step = step or train_step
     model = copy.deepcopy(model)          # the caller's model stays as it is
     cpu = copy.deepcopy(model).cpu()
     init = {k: v.detach().cpu().clone() for k, v in cpu.state_dict().items()}
-    kp = torch.from_numpy(batch["keypoint"])
+    kp = torch.from_numpy(batch[input_key(batch)])
     logits = []
     for m in (model, cpu):
         probe = copy.deepcopy(m).train()
@@ -4699,6 +4715,335 @@ def other_families(dev, card, report):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: PoseC3D, SlowOnly-R50 over heatmap volumes (no kernel)
+# ---------------------------------------------------------------------------
+
+POSEC3D_CONFIG = ROOT / "configs" / "posec3d" / "slowonly_ntu60_xsub.py"
+POSEC3D_BATCH = 32                  # the config's videos_per_gpu
+POSEC3D_STEPS = 5                   # timed steps after one warm-up
+POSEC3D_CPU_CLIPS = 2               # clips of the step against the CPU
+POSEC3D_VIDEOS = 4                  # test videos served on the card
+POSEC3D_CPU_VIDEOS = 2              # of them, scored on the CPU too
+POSEC3D_CPU_LOGIT_CLIPS = (0, 1, 10, 11)   # two clips of each served video
+
+
+def posec3d_annos(tmp, n_train, n_test, seed):
+    """Synthetic hrnet annos (COCO, 17 joints, 100 frames, 60 classes) in
+    a pickle whose 'train' split holds ``n_train`` and 'val' ``n_test``,
+    and 'cpu' the first POSEC3D_CPU_VIDEOS of the val ones."""
+    from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
+    data = make_synthetic_pose_dataset(num_samples=n_train + n_test,
+                                       num_classes=60, t=100, seed=seed,
+                                       layout="coco")
+    names = [a["frame_dir"] for a in data["annotations"]]
+    data["split"] = dict(train=names[:n_train], val=names[n_train:],
+                         cpu=names[n_train:n_train + POSEC3D_CPU_VIDEOS])
+    path = tmp / "posec3d.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    return path
+
+
+def posec3d_cli_config(tmp, ann, split):
+    """The committed config reading ``ann``: train on its 'train' split,
+    validate on 'cpu', test on ``split``, two videos a test batch."""
+    path = tmp / f"posec3d_{split}.py"
+    path.write_text(
+        f"_base_ = ['{POSEC3D_CONFIG}']\n"
+        "data = dict(test_dataloader=dict(videos_per_gpu=2),\n"
+        f"            train=dict(ann_file='{ann}', split='train'),\n"
+        f"            val=dict(ann_file='{ann}', split='cpu'),\n"
+        f"            test=dict(ann_file='{ann}', split='{split}'))\n")
+    return path
+
+
+def posec3d_train_cli(tmp, ann, out):
+    """The train CLI on the committed config for one epoch of its 'train'
+    split (two b32 steps) on the card: the trainer's ``imgs`` batches, a
+    validation of the 'cpu' split's 10-clip videos, a checkpoint; the
+    seconds it took."""
+    from dsgcn_tpu_torch.tools import train as train_cli
+    wd = tmp / "wd_train"
+    t0 = time.perf_counter()
+    trainer = train_cli.main([str(posec3d_cli_config(tmp, ann, "val")),
+                              "--work-dir", str(wd), "--total-epochs", "1",
+                              "--no-auto-resume"])
+    secs = time.perf_counter() - t0
+    logs = [json.loads(line) for f in wd.glob("*.log.jsonl")
+            for line in f.read_text().splitlines()]
+    val = [r for r in logs if r.get("mode") == "val"]
+    check(trainer.step == 2 and len(val) == 1
+          and any(wd.glob("ckpt/*.pt")),
+          f"posec3d train CLI: {trainer.step} steps, {len(val)} val "
+          f"records, checkpoints {sorted(wd.glob('ckpt/*'))}")
+    out["train_cli"] = dict(seconds=secs, steps=trainer.step, val=val[0])
+    print(f"posec3d: train CLI, one epoch of 2 b32 steps and a 2-video "
+          f"validation, {secs:.2f} s: val {json.dumps(val[0])}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def calibrate_posec3d_(model, x):
+    """BatchNorm statistics from ``x`` in one train-mode forward: from the
+    seeded statistics (mean 0, variance 1) momentum 0.1 leaves each
+    running statistic 0.1 of the batch's (the unbiased variance) plus 0.9
+    of the seed's, which this undoes; the model goes back to eval."""
+    from dsgcn_tpu_torch.ops.common import BNStats
+    bns = [m for m in model.modules() if isinstance(m, BNStats)]
+    check(len(bns) > 0 and all(bool((m.running_mean == 0).all()
+                                     and (m.running_var == 1).all())
+                               for m in bns),
+          "calibrate_posec3d_ needs the seeded BatchNorm statistics")
+    model.train()
+    with torch.no_grad():
+        model(x)
+        for m in bns:
+            m.running_mean.div_(0.1)
+            m.running_var.sub_(0.9).div_(0.1)
+    model.eval()
+
+
+def posec3d_logits_check(model, clips, card, out):
+    """The served model's logits on ``clips`` (two videos' 10 clips each)
+    on the card, against a CPU copy's on two clips of each video: within
+    1e-3 of the largest CPU logit.  So that the comparison can tell one
+    clip's or class's logits from another's, the card's logits must vary
+    across clips (the mean over classes of their standard deviation over
+    the clips) and across classes (the mean over clips of their standard
+    deviation over the classes) by at least 1e-2 of the largest, ten times
+    the tolerance."""
+    idx = torch.tensor(POSEC3D_CPU_LOGIT_CLIPS)
+    with torch.inference_mode():
+        g = model(clips).float().cpu()
+        c = copy.deepcopy(model).cpu()(clips[idx].cpu()).float()
+    check(g.shape == (clips.shape[0], 60) and bool(torch.isfinite(g).all()),
+          f"posec3d logits of shape {tuple(g.shape)} or not finite")
+    err = rel_err(g[idx], c)
+    top = g.abs().max()
+    over_clips = (g.std(dim=0).mean() / top).item()
+    over_classes = (g.std(dim=1).mean() / top).item()
+    out["logits"] = dict(rel_err=err, largest=top.item(),
+                         spread_over_clips=over_clips,
+                         spread_over_classes=over_classes,
+                         cpu_clips=POSEC3D_CPU_LOGIT_CLIPS)
+    print(f"posec3d: logits of {tuple(g.shape)} clips, card against CPU on "
+          f"clips {POSEC3D_CPU_LOGIT_CLIPS}: {err:.3e} of the largest "
+          f"({top.item():.4g}); spread over clips {over_clips:.3e}, over "
+          f"classes {over_classes:.3e} of the largest, on {card}",
+          flush=True)
+    check(err <= 1e-3, f"posec3d: GPU logits off the CPU's by {err:.3e} of "
+          f"the largest")
+    check(over_clips >= 1e-2 and over_classes >= 1e-2,
+          f"posec3d: logits spread {over_clips:.3e} over clips and "
+          f"{over_classes:.3e} over classes of the largest, under 1e-2: "
+          f"the comparison would not tell them apart")
+
+
+def posec3d_test_cli(tmp, ann, wd, card, out):
+    """The test CLI with the config's averaging (prob) on the checkpoint
+    under ``wd``: the 'val' split's POSEC3D_VIDEOS videos on the card, its
+    first POSEC3D_CPU_VIDEOS with ``--device cpu``; scores within 1e-3
+    relative, top-1 equal."""
+    from dsgcn_tpu_torch.tools import test as test_cli
+    scores = {}
+    for device, split in (("cuda", "val"), ("cpu", "cpu")):
+        pkl = tmp / f"scores_{device}.pkl"
+        args = [str(posec3d_cli_config(tmp, ann, split)), str(wd),
+                "--out", str(pkl)]
+        t0 = time.perf_counter()
+        test_cli.main(args + (["--device", "cpu"] if device == "cpu"
+                              else []))
+        secs = time.perf_counter() - t0
+        scores[device] = load_pickle(pkl)
+        n = len(scores[device]["labels"])
+        out[f"cli_{device}"] = dict(videos=n, seconds=secs,
+                                    clips_per_s=10 * n / secs)
+        print(f"posec3d: test CLI on {device}, {n} videos x 10 clips "
+              f"in {secs:.2f} s ({10 * n / secs:.2f} clips/s) on {card}",
+              flush=True)
+    g, c = (torch.from_numpy(np.asarray(scores[d]["scores"]))
+            for d in ("cuda", "cpu"))
+    check(g.shape == (POSEC3D_VIDEOS, 60)
+          and bool(torch.isfinite(g).all()),
+          f"posec3d scores of shape {tuple(g.shape)} or not finite")
+    n = POSEC3D_CPU_VIDEOS
+    err = rel_err(g[:n], c)
+    top1 = g[:n].argmax(-1).tolist() == c.argmax(-1).tolist()
+    out.update(scores_rel_err=err, top1_equal=top1)
+    print(f"posec3d: GPU vs CPU 10-clip scores rel err {err:.3e} on "
+          f"{n} videos, top-1 equal {top1}", flush=True)
+    check(err <= 1e-3 and top1, f"posec3d: GPU scores off the CPU's by "
+          f"{err:.3e} (top-1 equal {top1})")
+
+
+def posec3d_phase(dev, card, report):
+    """Phase 22: PoseC3D (``configs/posec3d/slowonly_ntu60_xsub.py``,
+    SlowOnly-R50: 17 heatmap channels in, base 32, blocks (4, 6, 3), 60
+    classes) built through ``Config.fromfile`` and ``build_model`` with
+    seeded weights.  Serving first, on the seeded model with BatchNorm
+    statistics from two test videos' clips (the config's 10-clip test
+    pipeline, 48 frames at 64 x 64): a batch forward of their 20 clips
+    timed, its logits against a CPU copy's (:func:`posec3d_logits_check`),
+    then from a checkpoint the test CLI on POSEC3D_VIDEOS videos on the
+    card and on the first POSEC3D_CPU_VIDEOS with ``--device cpu`` (scores
+    within 1e-3 relative, top-1 equal).  Training: synthetic hrnet annos
+    through the config's train pipeline (clip_len 48, 56 x 56) and the
+    port's Loader at b32, each batch's nc = 1 axis dropped by the
+    trainer's ``squeeze_clip``, with the host pipeline's seconds a clip;
+    one step on the card against the same step on the CPU (phase 7's
+    criteria, POSEC3D_CPU_CLIPS clips, dropout off, float64), then timed
+    f32 steps over two batches in turn (median of POSEC3D_STEPS after a
+    warm-up, dropout 0.5 from the card's generator) with peak memory, one
+    profiled; the train CLI on the config for one epoch of two steps with
+    its validation.  No kernel of the port may launch."""
+    import tempfile
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.core.trainer import squeeze_clip
+    from dsgcn_tpu_torch.data.dataset import Loader, PoseDataset
+    from dsgcn_tpu_torch.models.builder import (build_model, init_weights_,
+                                                set_dropout_generator)
+    out = report["posec3d"] = {}
+    t_phase = time.perf_counter()
+    reset_counts()
+    cfg = Config.fromfile(str(POSEC3D_CONFIG))
+    model = build_model(cfg["model"])
+    init_weights_(model, torch.Generator().manual_seed(22))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(type(model).__name__ == "RecognizerPoseC3D"
+          and model.fc_cls.in_features == 512 and n_params > 1e6,
+          f"the config built {type(model).__name__} with {n_params} "
+          f"parameters")
+    out["parameters"] = n_params
+    model = model.to(dev)
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = pathlib.Path(tmp_s)
+        ann = posec3d_annos(tmp, 2 * POSEC3D_BATCH, POSEC3D_VIDEOS, seed=22)
+
+        # serving: the seeded model with BatchNorm statistics from the
+        # 'cpu' split's two test videos (the 'val' split's first two)
+        val = PoseDataset(str(ann), cfg["data"]["test"]["pipeline"],
+                          split="val", test_mode=True)
+        clips = torch.from_numpy(np.concatenate(
+            [val.prepare(i)["imgs"] for i in range(2)])).to(dev)
+        check(clips.shape == (20, 48, 64, 64, 17),
+              f"test clips of shape {tuple(clips.shape)}")
+        calibrate_posec3d_(model, clips)
+        ms, counts = forward_ms(model, clips)
+        expect_counts(counts, {}, 1, "posec3d batch forward")
+        out["serving"] = dict(batch=list(clips.shape), ms_per_forward=ms,
+                              clips_per_s=clips.shape[0] / ms * 1e3)
+        print(f"posec3d: eval forward of {tuple(clips.shape)} {ms:.3f} ms "
+              f"({clips.shape[0] / ms * 1e3:.1f} clips/s, f32, TF32 off, "
+              f"channels_last_3d) on {card}", flush=True)
+        posec3d_logits_check(model, clips, card, out["serving"])
+        del clips
+        wd = tmp / "wd"
+        save_checkpoint(model, wd)
+        posec3d_test_cli(tmp, ann, wd, card, out["serving"])
+        no_launches("posec3d serving")
+
+        dataset = PoseDataset(str(ann), cfg["data"]["train"]["pipeline"],
+                              split="train")
+        # two distinct b32 batches: the first through the Loader with the
+        # config's 8 worker threads, the second on one thread; the timed
+        # steps take them in turn
+        batches, host_s = [], {}
+        for workers in (8, 0):
+            loader = Loader(dataset, batch_size=POSEC3D_BATCH, seed=22,
+                            drop_last=True, num_workers=workers)
+            t0 = time.perf_counter()
+            batches.append(squeeze_clip(next(loader.epoch(len(batches)))))
+            host_s[f"loader_{workers or 1}_threads"] = (
+                (time.perf_counter() - t0) / POSEC3D_BATCH)
+        x = batches[0]["imgs"]
+        check(x.shape == (POSEC3D_BATCH, 48, 56, 56, 17)
+              and x.dtype == np.float32 and 0.5 < float(x.max()) <= 1.0,
+              f"a train batch of {x.shape} {x.dtype}, max {float(x.max())}")
+        out["host_s_per_clip"] = host_s
+        print(f"posec3d: train pipeline through the Loader "
+              f"{host_s['loader_8_threads']:.4f} s a clip with 8 threads, "
+              f"{host_s['loader_1_threads']:.4f} on one; batches of "
+              f"{x.shape}", flush=True)
+
+        # a step on the card against the CPU's, dropout off, in float64:
+        # in float32 the loss (6.1e-6) and logits (1.1e-4) agree, but
+        # through 40 untrained train-mode BatchNorms single BatchNorm
+        # scales' updates differ by ~1% of cosine, rounding of cuDNN's and
+        # the CPU's convolutions (an H100 at 700 W, PERF.md §6)
+        out["train"] = {}
+        probe = copy.deepcopy(model).double()
+        probe.dropout = 0.0
+        t0 = time.perf_counter()
+        gpu_vs_cpu_step(probe, dict(
+            imgs=batches[0]["imgs"][:POSEC3D_CPU_CLIPS].astype(np.float64),
+            label=batches[0]["label"][:POSEC3D_CPU_CLIPS]), out["train"])
+        del probe
+        out["train"]["step_check_s"] = time.perf_counter() - t0
+        no_launches("posec3d GPU vs CPU step")
+
+        # timed f32 steps at b32, dropout 0.5 from the card's generator, on
+        # batches already on the card (the trainer's prefetch copies the
+        # next batch during a step); the copy's ms a batch beside them
+        from dsgcn_tpu_torch.core.train import make_optimizer, train_step
+        set_dropout_generator(model, torch.Generator(device=dev)
+                              .manual_seed(22))
+        opt, sched = make_optimizer(model, 100, lr=0.2, weight_decay=3e-4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                   for b in batches]
+        torch.cuda.synchronize()
+        out["train"]["h2d_ms_per_batch"] = h2d = (
+            (time.perf_counter() - t0) * 1e3 / len(batches))
+        rows = []
+        for i in range(1 + POSEC3D_STEPS):
+            b = batches[i % len(batches)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = train_step(model, opt, sched, b)["loss"].item()
+            wall = (time.perf_counter() - t0) * 1e3
+            check(np.isfinite(loss), f"posec3d step {i}: loss {loss}")
+            rows.append(dict(step=i, warmup=i == 0, loss=loss, wall_ms=wall,
+                             peak_mem_gib=torch.cuda.max_memory_allocated()
+                             / 2 ** 30))
+        timed = [r["wall_ms"] for r in rows[1:]]
+        step_ms = float(np.median(timed))
+        peak = max(r["peak_mem_gib"] for r in rows)
+        out["train"].update(steps=rows, median_step_ms=step_ms,
+                            clips_per_s=POSEC3D_BATCH / step_ms * 1e3,
+                            peak_mem_gib=peak)
+        print(f"posec3d: f32 steps at b{POSEC3D_BATCH} (TF32 off, "
+              f"channels_last_3d) "
+              f"{', '.join(f'{t:.2f}' for t in timed)} ms, median "
+              f"{step_ms:.2f} ms ({POSEC3D_BATCH / step_ms * 1e3:.1f} "
+              f"clips/s), peak {peak:.3f} GiB; a batch's copy to the card "
+              f"(pageable) {h2d:.2f} ms on {card}", flush=True)
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_step(model, opt, sched, batches[-1])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        out["train"]["profile"] = device_rows(prof, wall,
+                                              "posec3d train profile f32")
+        no_launches("posec3d steps")
+        del batches, opt, sched, model
+        torch.cuda.empty_cache()
+        posec3d_train_cli(tmp, ann, out)
+        no_launches("posec3d train CLI")
+    counts = read_counts()
+    expect_counts(counts, {}, 1, "phase 22's steps and forwards")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22: PoseC3D's steps and forwards launched no kernel of "
+          f"the port: {json.dumps(counts)}; {out['seconds']:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4749,6 +5094,10 @@ def main() -> int:
                     help="phase 21 alone: MS-G3D, SGN, GTGCN, STGIN, "
                     "STGCN_GC, GCGCN and GCGCN_component (serving, GPU "
                     "against CPU, batch forwards, steps)")
+    ap.add_argument("--posec3d", action="store_true",
+                    help="phase 22 alone: PoseC3D (SlowOnly-R50 over "
+                    "heatmap volumes) training steps and 10-clip serving "
+                    "through the test CLI, GPU against CPU")
     ap.add_argument("--parallel-worker", metavar="PART",
                     help="one process of a phase 19 launch (nccl, single, "
                     "gloo or send); no kernel build, no other phase")
@@ -4827,8 +5176,9 @@ def main() -> int:
     t_run = time.perf_counter()
 
     def done(phase):
-        print(f"phase {phase} done at {time.perf_counter() - t_run:.1f} s",
-              flush=True)
+        at = report.setdefault("phase_done_s", {})[str(phase)] = (
+            time.perf_counter() - t_run)
+        print(f"phase {phase} done at {at:.1f} s", flush=True)
     if args.every_config:
         every_config(dev, card, rng, report)
         done(15)
@@ -4879,6 +5229,15 @@ def main() -> int:
             report, indent=1, default=str))
         print(card)
         return 0
+    if args.posec3d:
+        posec3d_phase(dev, card, report)
+        done(22)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "posec3d.json").write_text(json.dumps(report, indent=1,
+                                                     default=str))
+        print(card)
+        return 0
     if args.families:
         families(dev, card, report)
         done(16)
@@ -4925,6 +5284,12 @@ def main() -> int:
     done(20)
     other_families(dev, card, report)                              # 21
     done(21)
+    posec3d_phase(dev, card, report)                               # 22
+    done(22)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "posec3d.json").write_text(json.dumps(report["posec3d"], indent=1,
+                                                 default=str))
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per

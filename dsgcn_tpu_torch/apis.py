@@ -60,7 +60,13 @@ def to_bf16_inference(model: torch.nn.Module) -> torch.nn.Module:
     """The bfloat16 serving model: a copy whose weights are bfloat16 and
     whose input is cast to bfloat16, so every matmul and conv runs in bf16
     with float32 accumulation.  BatchNorm statistics stay float32 (they fold
-    into the eval affine in float32), as in the JAX package."""
+    into the eval affine in float32), as in the JAX package.  A model
+    without a ``compute_dtype`` (``RecognizerPoseC3D``, as in JAX, whose
+    ``to_bf16_inference`` clones that field) is refused."""
+    if not hasattr(model, "compute_dtype"):
+        raise NotImplementedError(
+            f"{type(model).__name__} has no bfloat16 serving (no "
+            f"compute_dtype)")
     bf16 = copy.deepcopy(model)
     for p in bf16.parameters():
         p.data = p.data.to(torch.bfloat16)

@@ -18,15 +18,16 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.common import BatchNorm, TorchBN
+from ..ops.common import BNStats, TorchBN
 from .losses import cross_entropy, top_k_correct
 
 
 def jax_param_names(model: nn.Module) -> Dict[str, str]:
     """Port parameter name -> the dotted path of the same leaf in the JAX
     package's param tree (the inverse of ``utils/convert.py``): a
-    BatchNorm's ``weight``/``bias`` live under its ``bn`` scope as
-    ``scale``/``bias`` (a :class:`TorchBN`'s at its own scope), the
+    :class:`BNStats`'s ``weight``/``bias`` (a BatchNorm's, a
+    ``ConvBN3d``'s) live under its ``bn`` scope as ``scale``/``bias`` (a
+    :class:`TorchBN`'s at its own scope), the
     weights of linear maps and convolutions are ``kernel``s, and raw
     parameters (``PA``, ``out_conv_kernel``, the causal banks,
     ``GCComponent.weight``) keep their names."""
@@ -34,12 +35,12 @@ def jax_param_names(model: nn.Module) -> Dict[str, str]:
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{leaf}" if mod_name else leaf
-            if isinstance(mod, BatchNorm):
+            if isinstance(mod, BNStats):
                 scope = mod_name if isinstance(mod, TorchBN) \
                     else f"{mod_name}.bn"
                 path = f"{scope}." + ("scale" if leaf == "weight" else leaf)
             elif leaf == "weight" and isinstance(
-                    mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                    mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
                 path = f"{mod_name}.kernel"
             else:
                 path = name
@@ -138,17 +139,24 @@ def make_optimizer(model: nn.Module, total_steps: int, lr: float = 0.1,
         opt, cosine_factor(total_steps))
 
 
+def input_key(batch: Mapping) -> str:
+    """The batch's model input: ``keypoint`` (the GCNs' skeletons), else
+    ``imgs`` (PoseC3D's heatmap volumes; JAX ``core/train.py:163``)."""
+    return "keypoint" if "keypoint" in batch else "imgs"
+
+
 def _device_batch(batch: Mapping, device: torch.device):
-    kp, label = batch["keypoint"], batch["label"]
-    kp = torch.as_tensor(kp).to(device, non_blocking=True)
+    x, label = batch[input_key(batch)], batch["label"]
+    x = torch.as_tensor(x).to(device, non_blocking=True)
     label = torch.as_tensor(label).to(device, non_blocking=True)
-    return kp, label
+    return x, label
 
 
 def loss_and_metrics(model: nn.Module, batch: Mapping,
                      compute_dtype: Optional[str] = None):
     """Train-mode forward, cross entropy and the on-device top-1/top-5
-    (JAX ``core/train.py:loss_and_metrics``).  ``compute_dtype='bfloat16'``
+    (JAX ``core/train.py:loss_and_metrics``) of the batch's input
+    (:func:`input_key`).  ``compute_dtype='bfloat16'``
     casts only the input: the modules cast their float32 master weights to
     the activation dtype, BatchNorm statistics stay float32, and the loss
     is taken on float32 logits."""

@@ -39,7 +39,21 @@ from ..parallel.train import (distribute, make_dp_eval_step,
                               make_jp_train_step)
 from .checkpoint import CheckpointManager
 from .metrics import evaluate
-from .train import eval_step, make_optimizer, train_step
+from .train import eval_step, input_key, make_optimizer, train_step
+
+
+def squeeze_clip(batch) -> Dict[str, np.ndarray]:
+    """A train batch as the step takes it: its input (``keypoint``, else
+    ``imgs``) at its first clip, (N, nc=1, M, T, V, C) -> (N, M, T, V, C)
+    and (N, nc=1, T, H, W, C) -> (N, T, H, W, C), and its labels.  JAX's
+    trainer drops the clip axis for ``keypoint`` only
+    (``dsgcn_tpu/core/trainer.py:141-147``), so it hands PoseC3D a 6-D
+    batch; the port drops it for both."""
+    key = input_key(batch)
+    x = batch[key]
+    if x.ndim == 6:
+        x = x[:, 0]
+    return {key: x, "label": batch["label"]}
 
 
 class JsonlLogger:
@@ -87,7 +101,8 @@ class Trainer:
             raise ValueError("n_graph > 1 trains on the processes of a "
                              "torch.distributed group: launch with "
                              "python -m torch.distributed.run")
-        if n_graph > 1 and model.backbone.graph_axis is None:
+        if n_graph > 1 and getattr(model.backbone, "graph_axis",
+                                   None) is None:
             raise ValueError("n_graph > 1 needs a backbone built with "
                              "graph_axis='graph'")
         self.is_main = self.mesh is None or dist.get_rank() == 0
@@ -145,13 +160,8 @@ class Trainer:
 
     def _device_batches(self, epoch: int):
         def to_device(batch):
-            kp = batch["keypoint"]
-            if kp.ndim == 6:          # (N, nc=1, M, T, V, C)
-                kp = kp[:, 0]
-            return dict(keypoint=torch.from_numpy(kp).to(
-                            self.device, non_blocking=True),
-                        label=torch.from_numpy(batch["label"]).to(
-                            self.device, non_blocking=True))
+            return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                    for k, v in squeeze_clip(batch).items()}
         return prefetch(self.train_loader.epoch(epoch), to_device,
                         depth=self.prefetch_depth)
 
@@ -162,7 +172,7 @@ class Trainer:
             for it, batch in enumerate(self._device_batches(epoch)):
                 metrics = self._step(self.ddp, self.opt, self.sched, batch)
                 self.step += 1
-                n_seen += batch["keypoint"].shape[0]
+                n_seen += batch["label"].shape[0]
                 if it % self.log_interval == 0:
                     self.logger.log(dict(
                         mode="train", epoch=epoch, iter=it, step=self.step,
@@ -208,8 +218,9 @@ class Trainer:
 def clip_scores(model, loader: Loader, average_clips: Optional[str] = "prob",
                 prefetch_depth: int = 2, mesh: Optional[Mesh] = None):
     """(scores, labels) of every sample ``loader`` yields: each batch's
-    clips folded into the batch for one eval forward, then averaged per
-    sample (``average_clips``; None keeps (N, nc, classes)).
+    clips (its ``keypoint`` (N, nc, M, T, V, C), else its ``imgs`` (N, nc,
+    T, H, W, C)) folded into the batch for one eval forward, then averaged
+    per sample (``average_clips``; None keeps (N, nc, classes)).
 
     With a ``mesh`` (JAX ``core/trainer.py:203-240``) every process folds
     the same batch, wraps the clips round to a multiple of the data axis,
@@ -218,12 +229,13 @@ def clip_scores(model, loader: Loader, average_clips: Optional[str] = "prob",
     N nc: every process returns the same scores."""
     fwd, n_data = eval_step, 1
     if mesh is not None:
-        fwd = (make_jp_eval_step if model.backbone.graph_axis is not None
+        fwd = (make_jp_eval_step
+               if getattr(model.backbone, "graph_axis", None) is not None
                else make_dp_eval_step)(mesh)
         n_data = mesh.shape[DATA_AXIS]
     scores, labels = [], []
     for batch in prefetch(loader.epoch(0), depth=prefetch_depth):
-        kp = batch["keypoint"]                         # (N, nc, M, T, V, C)
+        kp = batch[input_key(batch)]
         n, nc = kp.shape[:2]
         folded = kp.reshape((n * nc,) + kp.shape[2:])
         pad = (-len(folded)) % n_data

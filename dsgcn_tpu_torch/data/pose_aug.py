@@ -1,16 +1,25 @@
-"""Keypoint-space crop of the 2D pose pipelines (port of ``PoseCompact``
-and ``_combine_quadruple`` from ``dsgcn_tpu/data/pose_aug.py``; reference
-datasets/pipelines/augmentations.py:22-117).  The hrnet DS-GCN pipelines
-(``configs/dsgcn/kinetics400_hrnet``, ``fight_detection``) run it after
-``PoseDecode``; only the keypoints and ``img_shape`` change, no pixels
-exist."""
+"""Keypoint-space augmentations of the 2D pose pipelines (port of
+``dsgcn_tpu/data/pose_aug.py``; reference
+datasets/pipelines/augmentations.py).  The hrnet DS-GCN pipelines
+(``configs/dsgcn/kinetics400_hrnet``, ``fight_detection``) run
+``PoseCompact`` after ``PoseDecode``; PoseC3D's heatmap pipelines
+(``configs/posec3d``) also resize, crop and flip in keypoint space before
+``GeneratePoseTarget`` (``heatmap.py``) draws the volume, so no pixels
+exist until then: only the keypoints, ``img_shape`` and the crop and
+scale records change (and ``imgs``, where a results dict holds frames).
+The random transforms draw from the ``RandomState`` that ``Compose``
+passes them, in JAX's order, so the same seed gives the same crop and
+flip."""
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
 
-__all__ = ["PoseCompact"]
+from .heatmap import COCO_LEFT_KP, COCO_RIGHT_KP
+
+__all__ = ["PoseCompact", "RandomResizedCrop", "CenterCrop", "Resize",
+           "Flip", "FormatHeatmapInput", "bilinear_resize"]
 
 
 def _combine_quadruple(a, b):
@@ -72,3 +81,215 @@ class PoseCompact:
             quad, (min_x / w, min_y / h, (max_x - min_x) / w,
                    (max_y - min_y) / h))
         return results
+
+
+class RandomResizedCrop:
+    """A crop of random area (``area_range`` of the image's) and aspect
+    ratio (log-uniform in ``aspect_ratio_range``) in keypoint space
+    (augmentations.py:242-370): ten (aspect, area) pairs are drawn at once
+    and the first that fits is placed at a random corner; when none fits,
+    the centred square.  Keypoints shift by the corner."""
+    randomized = True
+
+    def __init__(self, area_range=(0.56, 1.0),
+                 aspect_ratio_range=(3 / 4, 4 / 3)):
+        self.area_range = area_range
+        self.aspect_ratio_range = aspect_ratio_range
+
+    def _get_crop_bbox(self, img_shape, rng, max_attempts=10):
+        img_h, img_w = img_shape
+        area = img_h * img_w
+        min_ar, max_ar = self.aspect_ratio_range
+        ars = np.exp(rng.uniform(np.log(min_ar), np.log(max_ar),
+                                 size=max_attempts))
+        areas = rng.uniform(*self.area_range, size=max_attempts) * area
+        ws = np.round(np.sqrt(areas * ars)).astype(np.int32)
+        hs = np.round(np.sqrt(areas / ars)).astype(np.int32)
+        for i in range(max_attempts):
+            if hs[i] <= img_h and ws[i] <= img_w:
+                x = rng.randint(0, img_w - ws[i] + 1)
+                y = rng.randint(0, img_h - hs[i] + 1)
+                return x, y, x + ws[i], y + hs[i]
+        size = min(img_h, img_w)
+        x = (img_w - size) // 2
+        y = (img_h - size) // 2
+        return x, y, x + size, y + size
+
+    def __call__(self, results: Dict, rng) -> Dict:
+        img_h, img_w = results["img_shape"]
+        left, top, right, bottom = self._get_crop_bbox((img_h, img_w), rng)
+        new_h, new_w = bottom - top, right - left
+        quad = results.get("crop_quadruple", (0.0, 0.0, 1.0, 1.0))
+        results["crop_quadruple"] = _combine_quadruple(
+            quad, (left / img_w, top / img_h, new_w / img_w, new_h / img_h))
+        results["crop_bbox"] = np.array([left, top, right, bottom])
+        results["img_shape"] = (new_h, new_w)
+        results["keypoint"] = results["keypoint"] - np.array([left, top],
+                                                             np.float32)
+        _crop_imgs_inplace(results, left, top, right, bottom)
+        return results
+
+
+class CenterCrop:
+    """The centred ``crop_size`` (an int, or (w, h)) crop
+    (augmentations.py:699)."""
+    randomized = False
+
+    def __init__(self, crop_size):
+        self.crop_size = ((crop_size, crop_size) if isinstance(crop_size, int)
+                          else tuple(crop_size))
+
+    def __call__(self, results: Dict) -> Dict:
+        img_h, img_w = results["img_shape"]
+        cw, ch = self.crop_size
+        left = (img_w - cw) // 2
+        top = (img_h - ch) // 2
+        quad = results.get("crop_quadruple", (0.0, 0.0, 1.0, 1.0))
+        results["crop_quadruple"] = _combine_quadruple(
+            quad, (left / img_w, top / img_h, cw / img_w, ch / img_h))
+        results["crop_bbox"] = np.array([left, top, left + cw, top + ch])
+        results["img_shape"] = (ch, cw)
+        results["keypoint"] = results["keypoint"] - np.array([left, top],
+                                                             np.float32)
+        _crop_imgs_inplace(results, left, top, left + cw, top + ch)
+        return results
+
+
+def _rescale_size(old_size, scale):
+    """mmcv's ``rescale_size``: (w, h) scaled by a number, or fitted into
+    the (long, short) edges of ``scale`` keeping its aspect, rounded half
+    up."""
+    w, h = old_size
+    if isinstance(scale, (float, int)) and not isinstance(scale, bool):
+        factor = scale
+    else:
+        max_long, max_short = max(scale), min(scale)
+        factor = min(max_long / max(h, w), max_short / min(h, w))
+    return int(w * factor + 0.5), int(h * factor + 0.5)
+
+
+class Resize:
+    """Keypoint-space resize (augmentations.py:373-480): to ``scale`` (w, h)
+    as given, or with ``keep_ratio`` fitted into it (a -1 edge is
+    unbounded: ``(-1, 64)`` sets the short edge to 64).  The keypoints and
+    the accumulated ``scale_factor`` scale by the float32 (w, h) factor;
+    ``imgs``, where present, resize bilinearly."""
+    randomized = False
+
+    def __init__(self, scale, keep_ratio=True):
+        if isinstance(scale, (list, tuple)):
+            scale = tuple(scale)
+            if min(scale) == -1:
+                scale = (np.inf, max(scale))
+        self.scale = scale
+        self.keep_ratio = keep_ratio
+
+    def __call__(self, results: Dict) -> Dict:
+        if "scale_factor" not in results:
+            results["scale_factor"] = np.array([1, 1], np.float32)
+        img_h, img_w = results["img_shape"]
+        if self.keep_ratio:
+            new_w, new_h = _rescale_size((img_w, img_h), self.scale)
+        else:
+            new_w, new_h = self.scale
+        sf = np.array([new_w / img_w, new_h / img_h], np.float32)
+        results["img_shape"] = (new_h, new_w)
+        results["keep_ratio"] = self.keep_ratio
+        results["scale_factor"] = results["scale_factor"] * sf
+        if "keypoint" in results:
+            results["keypoint"] = results["keypoint"] * sf
+        if "imgs" in results:
+            results["imgs"] = [bilinear_resize(img, (new_w, new_h))
+                               for img in results["imgs"]]
+        return results
+
+
+class Flip:
+    """Horizontal flip with probability ``flip_ratio``, one draw a clip
+    (augmentations.py:482-610): non-zero x coordinates become
+    ``img_w - x`` and the left and right joints swap (keypoints and
+    scores); ``imgs``, where present, mirror."""
+    randomized = True
+
+    def __init__(self, flip_ratio=0.5, direction="horizontal",
+                 left_kp=COCO_LEFT_KP, right_kp=COCO_RIGHT_KP):
+        if direction != "horizontal":
+            raise ValueError(f"Flip: keypoint mode flips horizontally, not "
+                             f"{direction!r}")
+        self.flip_ratio = flip_ratio
+        self.left_kp = left_kp
+        self.right_kp = right_kp
+
+    def __call__(self, results: Dict, rng) -> Dict:
+        flip = rng.rand() < self.flip_ratio
+        results["flip"] = flip
+        results["flip_direction"] = "horizontal"
+        if not flip:
+            return results
+        img_w = results["img_shape"][1]
+        kps = results["keypoint"]
+        kp_x = kps[..., 0]
+        kp_x[kp_x != 0] = img_w - kp_x[kp_x != 0]
+        new_order = list(range(kps.shape[2]))
+        if self.left_kp is not None and self.right_kp is not None:
+            for lt, rt in zip(self.left_kp, self.right_kp):
+                new_order[lt] = rt
+                new_order[rt] = lt
+        results["keypoint"] = kps[:, :, new_order]
+        if "keypoint_score" in results:
+            results["keypoint_score"] = \
+                results["keypoint_score"][:, :, new_order]
+        if "imgs" in results:
+            results["imgs"] = [np.ascontiguousarray(img[:, ::-1])
+                               for img in results["imgs"]]
+        return results
+
+
+class FormatHeatmapInput:
+    """The (T, H, W, C) volume split into its clips: (nc, T/nc, H, W, C),
+    as ``FormatGCNInput`` splits skeletons."""
+    randomized = False
+
+    def __call__(self, results: Dict) -> Dict:
+        imgs = results["imgs"]
+        nc = results.get("num_clips", 1)
+        t = imgs.shape[0]
+        if t % nc:
+            raise ValueError(f"{t} frames do not split into {nc} clips")
+        results["imgs"] = np.ascontiguousarray(
+            imgs.reshape((nc, t // nc) + imgs.shape[1:]))
+        return results
+
+
+def _crop_imgs_inplace(results: Dict, x1, y1, x2, y2):
+    if "imgs" in results:
+        results["imgs"] = [img[y1:y2, x1:x2] for img in results["imgs"]]
+
+
+def bilinear_resize(img: np.ndarray, size) -> np.ndarray:
+    """Bilinear resize of an (H, W) or (H, W, C) image to ``size`` (w, h),
+    cv2's pixel-centre mapping (align_corners=False), in float64; integer
+    images round and clip to their type."""
+    new_w, new_h = size
+    h, w = img.shape[:2]
+    if (w, h) == (new_w, new_h):
+        return img.copy()
+    x = (np.arange(new_w, dtype=np.float64) + 0.5) * (w / new_w) - 0.5
+    y = (np.arange(new_h, dtype=np.float64) + 0.5) * (h / new_h) - 0.5
+    x = np.clip(x, 0, w - 1)
+    y = np.clip(y, 0, h - 1)
+    x0 = np.floor(x).astype(np.int64)
+    y0 = np.floor(y).astype(np.int64)
+    x1 = np.minimum(x0 + 1, w - 1)
+    y1 = np.minimum(y0 + 1, h - 1)
+    wx = (x - x0)[None, :]
+    wy = (y - y0)[:, None]
+    if img.ndim == 3:
+        wx, wy = wx[..., None], wy[..., None]
+    f = img.astype(np.float64)
+    out = (f[y0][:, x0] * (1 - wy) * (1 - wx) + f[y0][:, x1] * (1 - wy) * wx
+           + f[y1][:, x0] * wy * (1 - wx) + f[y1][:, x1] * wy * wx)
+    if np.issubdtype(img.dtype, np.integer):
+        out = np.clip(np.round(out), np.iinfo(img.dtype).min,
+                      np.iinfo(img.dtype).max)
+    return out.astype(img.dtype)

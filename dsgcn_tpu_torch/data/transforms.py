@@ -6,9 +6,11 @@ The port's copy of the transforms that the committed DS-GCN pipelines
 C++ path of ``native.py``, and 2D), random rotation, scale and noise, the
 reference's ``GaussAug``, compressed-pose expansion, the joint, bone and
 motion stream features, clip sampling (also ``UniformSampleOrder``),
-decode, padding, format and collect (``PoseCompact`` is in
-``pose_aug.py``).  Behavioral parity with the reference pipelines (pyskl
-``pose_related.py``, ``sampling.py``, ``formatting.py``).  Randomized
+decode, padding, format and collect (``PoseCompact`` and PoseC3D's
+resize, crops, flip and ``FormatHeatmapInput`` are in ``pose_aug.py``,
+``GeneratePoseTarget`` in ``heatmap.py``).  Behavioral parity with the
+reference pipelines (pyskl ``pose_related.py``, ``sampling.py``,
+``formatting.py``).  Randomized
 transforms draw from the ``RandomState`` that ``Compose`` passes them, so
 a loader that seeds it as the JAX ``Loader`` does gets the same clips;
 test-time sampling seeds a local ``RandomState(seed)``.
@@ -19,7 +21,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from .pose_aug import PoseCompact
+from .heatmap import GeneratePoseTarget
+from .pose_aug import (CenterCrop, Flip, FormatHeatmapInput, PoseCompact,
+                       RandomResizedCrop, Resize)
 
 __all__ = [
     "Compose", "PreNormalize3D", "PreNormalize2D", "RandomRot", "RandomScale",
@@ -702,7 +706,9 @@ TRANSFORMS = {c.__name__: c for c in
                RandomGaussianNoise, GaussAug, JointToBone, ToMotion,
                MergeSkeFeat, GenSkeFeat, UniformSampleFrames, UniformSample,
                UniformSampleOrder, PoseDecode, DecompressPose, PoseCompact,
-               PadTo, FormatGCNInput, Collect, Rename]}
+               PadTo, FormatGCNInput, Collect, Rename, Resize,
+               RandomResizedCrop, CenterCrop, Flip, GeneratePoseTarget,
+               FormatHeatmapInput]}
 
 
 def build_pipeline(cfgs: Sequence[Dict]) -> Compose:

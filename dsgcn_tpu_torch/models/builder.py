@@ -9,7 +9,9 @@ The port of ``dsgcn_tpu/models/builder.py`` for what the port has: the
 Config keys are the JAX package's.  ``STGCN_GC`` and the two learners are
 built with ``build_backbone`` and composed by hand (the learners with
 ``GCHead`` and ``core/flows.py:gc_recognizer_losses``); ``build_model``
-builds a ``RecognizerGCN``, which feeds a backbone the clip alone.
+builds a ``RecognizerGCN``, which feeds a backbone the clip alone, or a
+``RecognizerPoseC3D`` over the 3D-CNN backbones ``ResNet3d`` and
+``ResNet3dSlowOnly`` (PoseC3D's heatmap volumes).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..ops.gcn import (CTRGC, CTRHGC, AttentionChain, UnitAAHGCN, UnitGCN,
 from ..ops.msg3d import MSG3DBlock, _ScaledGraphs
 from ..ops.tcn import CTRMSTCN
 from .backbones import AAGCN, CTRGCN, DGSTGCN, GTGCN, STGCN, STGCNGC, STGIN
+from .cnns import RecognizerPoseC3D, ResNet3d, ResNet3dSlowOnly
 from .heads import GCHead, GCNHead
 from .msg3d_sgn import MSG3D, SGN
 from .recognizer import RecognizerGCN
@@ -37,9 +40,14 @@ BACKBONES = {"STGCN": STGCN, "MEGASTGCN": STGCN, "GTGCN": GTGCN,
              "STGIN": STGIN, "STGCN_GC": STGCNGC, "GCGCN": GCGCN,
              "GCGCN_component": GCComponent, "AAGCN": AAGCN,
              "CTRGCN": CTRGCN, "DGSTGCN": DGSTGCN, "MSG3D": MSG3D,
-             "SGN": SGN}
+             "SGN": SGN, "ResNet3d": ResNet3d,
+             "ResNet3dSlowOnly": ResNet3dSlowOnly}
 # backbones configured by plain fields (no gcn_/tcn_ block routing)
-_PLAIN_BACKBONES = ("GCGCN", "GCGCN_component", "MSG3D", "SGN")
+_PLAIN_BACKBONES = ("GCGCN", "GCGCN_component", "MSG3D", "SGN", "ResNet3d",
+                    "ResNet3dSlowOnly")
+# the 3D-CNN fields a config gives as lists (JAX builder.py:82-85)
+_TUPLE_FIELDS = ("stage_blocks", "conv1_stride", "pool1_stride", "inflate",
+                 "spatial_strides", "temporal_strides", "conv1_kernel")
 HEADS = {"GCNHead": GCNHead, "GCHead": GCHead}
 
 _BACKBONE_FIELDS = {
@@ -65,6 +73,9 @@ def build_backbone(cfg: Dict[str, Any]):
             gc = cfg.pop("graph_cfg")
             cfg["graph_cfg"] = gc if isinstance(gc, GraphConfig) \
                 else GraphConfig(**gc)
+        for k in _TUPLE_FIELDS:
+            if cfg.get(k) is not None:
+                cfg[k] = tuple(cfg[k])
         return cls(**cfg)
     gc = cfg.pop("graph_cfg")
     if not isinstance(gc, GraphConfig):
@@ -90,9 +101,13 @@ def build_head(cfg: Dict[str, Any]):
     return cls(**cfg)
 
 
-def build_model(cfg: Dict[str, Any]) -> RecognizerGCN:
+def build_model(cfg: Dict[str, Any]) -> nn.Module:
     cfg = copy.deepcopy(dict(cfg))
     typ = cfg.pop("type", "RecognizerGCN")
+    if typ == "RecognizerPoseC3D":
+        return RecognizerPoseC3D(build_backbone(cfg["backbone"]),
+                                 num_classes=cfg.get("num_classes", 60),
+                                 dropout=cfg.get("dropout", 0.5))
     if typ != "RecognizerGCN":
         raise NotImplementedError(f"recognizer {typ!r} is not ported yet")
     if cfg.get("neck") is not None:
@@ -185,14 +200,16 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     distributions, not the same bits).  By default every 1x1 and temporal
     conv kernel and bias is U(+-1/sqrt(fan_in)) (torch's defaults, fan_in =
     in_channels * kernel size), the classifier N(0, init_std) with a zero
-    bias, an 'offset' PA of UnitGCN, UnitGTGCN or UnitGCNEdge U(0, 2e-6).
+    bias, an 'offset' PA of UnitGCN, UnitGTGCN or UnitGCNEdge U(0, 2e-6),
+    a 3-D conv kernel N(0, 2 / fan_out) (flax's untruncated
+    ``variance_scaling(2, 'fan_out', 'normal')`` in ``ConvBN3d``).
     Then the per-module rules of :func:`_module_rules` (AAGCN's and
     CTR-GCN's units and TCN, MS-G3D's graph offsets and window convs, the
     Granger banks).  Graphs, gates, joint coefficients and BatchNorms keep
     their deterministic initial values (the 1e-6 scale of a unit's closing
     ``bn`` included).  The generator lives on the CPU; call this before
     moving the model to its device."""
-    head_types = (GCNHead, GCHead)
+    head_types = (GCNHead, GCHead, RecognizerPoseC3D)
     heads = {id(m.fc_cls) for m in model.modules()
              if isinstance(m, head_types)}
     for m in model.modules():
@@ -202,6 +219,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, head_types):
             m.fc_cls.weight.normal_(0.0, m.init_std, generator=generator)
             m.fc_cls.bias.zero_()
+        elif isinstance(m, nn.Conv3d):
+            kaiming_normal_fan_out_(m.weight, generator)
         elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)) \
                 and id(m) not in heads:
             fan_in = m.weight[0].numel()

@@ -115,7 +115,22 @@ def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
     return a, bias - mean * a
 
 
-class BatchNorm(nn.Module):
+class BNStats(nn.Module):
+    """A module that holds a BatchNorm's affine ``weight``/``bias`` and its
+    ``running_mean``/``running_var`` at its own scope: :class:`BatchNorm`
+    and ``models/cnns.py:ConvBN3d``.  JAX keeps the pair under the scope's
+    ``bn`` as ``scale``/``bias`` (a :class:`TorchBN`'s at the scope itself;
+    ``core/train.py:jax_param_names``), and a data-parallel step averages
+    the statistics of every one (``parallel/train.py:running_stats``)."""
+
+    def _init_bn(self, num_features: int) -> None:
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+
+class BatchNorm(BNStats):
     """Per-channel BatchNorm over the trailing axis (torch BatchNorm2d on
     NCTV), as ``dsgcn_tpu/ops/common.py:BatchNorm``.
 
@@ -144,10 +159,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.num_features = num_features
         self.axis_name = axis_name
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
+        self._init_bn(num_features)
 
     def affine(self, dtype: torch.dtype = torch.float32):
         """The (a, b) of the eval affine, in ``dtype``."""

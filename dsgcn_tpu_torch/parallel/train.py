@@ -38,7 +38,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from ..core.train import eval_step, train_step
 from ..models.builder import set_dropout_generator
-from ..ops.common import BatchNorm
+from ..ops.common import BNStats
 from .mesh import DATA_AXIS, Mesh
 
 
@@ -89,8 +89,10 @@ def _mean_(tensors, group, size: int) -> None:
 
 
 def running_stats(model: nn.Module):
-    """Every BatchNorm's running mean and variance."""
-    return [b for m in model.modules() if isinstance(m, BatchNorm)
+    """Every BatchNorm's running mean and variance (a ``ConvBN3d``'s
+    too: every :class:`BNStats`)."""
+    return [b for m in model.modules()
+            if isinstance(m, BNStats)
             for b in (m.running_mean, m.running_var)]
 
 

@@ -10,9 +10,9 @@ score a config's test split with a checkpoint of the port's trainer.
 It loads the latest checkpoint under ``WORK_DIR/ckpt`` (or step ``S``),
 runs the config's test pipeline over ``data.test`` on the CUDA device
 unless ``--device`` names another (without a GPU it stops and says so),
-folds each batch's clips into the batch, averages each sample's clip
-scores (``--average-clips``), prints the metrics (``top1_acc: 0.xxxx``)
-and, with ``--out``, dumps ``{'scores': (N, classes), 'labels': [...]}``
+folds each batch's clips (skeletons, or PoseC3D's heatmap volumes) into
+the batch, averages each sample's clip scores (``--average-clips``),
+prints the metrics (``top1_acc: 0.xxxx``) and, with ``--out``, dumps ``{'scores': (N, classes), 'labels': [...]}``
 for ``dsgcn_tpu_torch.tools.fuse_scores``.  One device pads nothing.  On
 a GPU it also prints the forwards and the port's kernel launches.
 
@@ -24,7 +24,9 @@ extract_pooled_feat`` pooled over ``--pool-opt`` without 'n' ('all' means
 'nmtv'), and with 'n' the clip axis is averaged; ``--out`` dumps
 ``{'features': float16 array, 'labels': [...]}``, and the metrics
 'TSNEmap' and 'graph' print the embedding's and the per-class means'
-shapes.
+shapes.  They take a ``RecognizerGCN`` only, as JAX's
+``extract_pooled_feat`` does, and refuse another recognizer; ``--bf16``
+refuses a model without a ``compute_dtype`` (``RecognizerPoseC3D``).
 
 Under ``python -m torch.distributed.run --nproc-per-node N`` each process
 joins the group (as the train CLI does) and the evaluation is distributed
@@ -147,17 +149,23 @@ def main(argv=None):
     from ..core.trainer import clip_scores
     from ..data.dataset import Loader, build_dataset
     from ..models.builder import build_model
+    from ..models.recognizer import RecognizerGCN
 
     launched, device = join_launcher(args)
     device = resolve_device(device)
     features = args.feat_ext or args.score_ext
+    cfg = Config.fromfile(args.config)
+    model = build_model(cfg["model"])
+    if features and not isinstance(model, RecognizerGCN):
+        raise NotImplementedError(
+            f"--feat-ext/--score-ext: feature extraction takes a "
+            f"RecognizerGCN's (N, M, T, V, C) features (JAX's "
+            f"extract_pooled_feat), not a {type(model).__name__}'s")
     mesh = None
     if launched and not features:
         from ..parallel.mesh import make_mesh
         mesh = make_mesh()
     is_main = not launched or dist.get_rank() == 0
-    cfg = Config.fromfile(args.config)
-    model = build_model(cfg["model"])
     meta = CheckpointManager(args.work_dir).restore(model, step=args.step)
     if meta is None:
         raise FileNotFoundError(f"no checkpoint under {args.work_dir}/ckpt")

@@ -7,14 +7,16 @@ re-orients kernels:
 
 * ``kernel`` -> ``weight``: a dense (I, O) kernel becomes (O, I); a 1-D
   conv (k, I, O) kernel becomes (O, I, k) (``nn.Conv1d``); a conv
-  (k, 1, I, O) kernel becomes (O, I, k, 1);
+  (k, 1, I, O) kernel becomes (O, I, k, 1); a 3-D conv (kt, kh, kw, I, O)
+  kernel becomes (O, I, kt, kh, kw) (``nn.Conv3d``);
 * ``UnitMLP``'s depthwise ``conv_kernel`` (k, 1, 1, C) and ``conv_bias``
   become its grouped ``Conv2d``'s ``conv.weight`` (C, 1, k, 1) and
   ``conv.bias``;
 * a BatchNorm's ``<name>/bn/{scale,bias}`` params and ``<name>/bn/{mean,var}``
   statistics become ``<name>.{weight,bias,running_mean,running_var}``; so
   do a ``TorchBN``'s (flax's layout, SGN's ``joint_bn``/``motion_bn``),
-  whose ``scale``, ``bias``, ``mean`` and ``var`` sit at its own scope;
+  whose ``scale``, ``bias``, ``mean`` and ``var`` sit at its own scope
+  (a ``ConvBN3d``'s ``TorchBN`` named ``bn`` lands on the ``ConvBN3d``);
 * the ``constants`` collection (``GCComponent``'s init-time
   ``weight_norm``) becomes persistent buffers of the same name;
 * every other leaf keeps its name and value: biases, ``A``, ``PA``,
@@ -84,6 +86,8 @@ def _convert_leaf(collection: str, path: Tuple[str, ...],
             a = a.transpose(2, 1, 0)
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 5:              # a flax 3-D conv: (kt, kh, kw, I, O)
+            a = a.transpose(4, 3, 0, 1, 2)
         else:
             raise ValueError(f"kernel {'/'.join(path)} has rank {a.ndim}")
         return ".".join(scope + ["weight"]), a
