@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.common import BNStats, TorchBN
+from ..sparse.supermask import SparseKernel
 from .losses import cross_entropy, top_k_correct
 
 
@@ -28,9 +29,11 @@ def jax_param_names(model: nn.Module) -> Dict[str, str]:
     :class:`BNStats`'s ``weight``/``bias`` (a BatchNorm's, a
     ``ConvBN3d``'s) live under its ``bn`` scope as ``scale``/``bias`` (a
     :class:`TorchBN`'s at its own scope), the
-    weights of linear maps and convolutions are ``kernel``s, and raw
+    weights of linear maps, convolutions and sparse layers are
+    ``kernel``s (a sparse layer's ``score`` keeps its name), and raw
     parameters (``PA``, ``out_conv_kernel``, the causal banks,
-    ``GCComponent.weight``) keep their names."""
+    ``GCComponent.weight``, the necks' prototypes, ``Set2Set``'s and the
+    cMLP's leaves) keep their names."""
     out = {}
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):
@@ -40,8 +43,9 @@ def jax_param_names(model: nn.Module) -> Dict[str, str]:
                     else f"{mod_name}.bn"
                 path = f"{scope}." + ("scale" if leaf == "weight" else leaf)
             elif leaf == "weight" and isinstance(
-                    mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
-                path = f"{mod_name}.kernel"
+                    mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d,
+                          SparseKernel)):
+                path = f"{mod_name}.kernel" if mod_name else "kernel"
             else:
                 path = name
             out[name] = path

@@ -27,7 +27,8 @@ from .pose_aug import (CenterCrop, Flip, FormatHeatmapInput, PoseCompact,
 
 __all__ = [
     "Compose", "PreNormalize3D", "PreNormalize2D", "RandomRot", "RandomScale",
-    "RandomGaussianNoise", "GaussAug", "BONE_PAIRS", "JointToBone",
+    "RandomGaussianNoise", "GaussAug", "Causalmetrix", "BONE_PAIRS",
+    "JointToBone",
     "ToMotion", "MergeSkeFeat", "GenSkeFeat", "UniformSampleFrames",
     "UniformSample", "UniformSampleOrder", "PoseDecode", "DecompressPose",
     "PadTo", "FormatGCNInput", "Collect", "Rename", "build_pipeline",
@@ -690,6 +691,25 @@ class FormatGCNInput:
         return results
 
 
+class Causalmetrix:
+    """Percentile-threshold a precomputed causality matrix
+    (reference pose_related.py:106-127; JAX ``transforms.py:Causalmetrix``):
+    every entry of ``results['causal']`` below its ``thr``-th percentile
+    becomes 0, in place.  The in-pipeline pTE of the reference is
+    commented out upstream; the matrix arrives precomputed
+    (``data/causal_pte.py:pte`` computes one)."""
+    randomized = False
+
+    def __init__(self, thr=75):
+        self.thr = thr
+
+    def __call__(self, results: Dict) -> Dict:
+        causal = results["causal"]
+        causal[causal < np.percentile(causal, self.thr)] = 0
+        results["causal"] = causal
+        return results
+
+
 class Collect:
     randomized = False
 
@@ -703,8 +723,8 @@ class Collect:
 
 TRANSFORMS = {c.__name__: c for c in
               [PreNormalize3D, PreNormalize2D, RandomRot, RandomScale,
-               RandomGaussianNoise, GaussAug, JointToBone, ToMotion,
-               MergeSkeFeat, GenSkeFeat, UniformSampleFrames, UniformSample,
+               RandomGaussianNoise, GaussAug, Causalmetrix, JointToBone,
+               ToMotion, MergeSkeFeat, GenSkeFeat, UniformSampleFrames, UniformSample,
                UniformSampleOrder, PoseDecode, DecompressPose, PoseCompact,
                PadTo, FormatGCNInput, Collect, Rename, Resize,
                RandomResizedCrop, CenterCrop, Flip, GeneratePoseTarget,

@@ -5,8 +5,10 @@ The port of ``dsgcn_tpu/models/builder.py`` for what the port has: the
 ``CTRGCN``, the ``DGSTGCN`` backbone in its DG-STGCN and DS-GCN forms,
 ``GTGCN``, ``STGIN``, ``STGCN_GC`` (whose forward takes the external graph
 ``A_ext``), ``MSG3D`` and ``SGN``, the Granger-causality learners
-``GCGCN`` and ``GCGCN_component``, and the ``GCNHead`` and ``GCHead``.
-Config keys are the JAX package's.  ``STGCN_GC`` and the two learners are
+``GCGCN`` and ``GCGCN_component``, and the ``GCNHead``, ``GCHead``,
+``HGTHead`` and ``ClsHead``; a ``RecognizerGCN`` takes any neck of
+``models/necks.py:NECKS`` from ``cfg['neck']``.  Config keys are the JAX
+package's.  ``STGCN_GC`` and the two learners are
 built with ``build_backbone`` and composed by hand (the learners with
 ``GCHead`` and ``core/flows.py:gc_recognizer_losses``); ``build_model``
 builds a ``RecognizerGCN``, which feeds a backbone the clip alone, or a
@@ -32,7 +34,10 @@ from ..ops.msg3d import MSG3DBlock, _ScaledGraphs
 from ..ops.tcn import CTRMSTCN
 from .backbones import AAGCN, CTRGCN, DGSTGCN, GTGCN, STGCN, STGCNGC, STGIN
 from .cnns import RecognizerPoseC3D, ResNet3d, ResNet3dSlowOnly
-from .heads import GCHead, GCNHead
+from .heads import ClsHead, GCHead, GCNHead, HGTHead
+from .necks import (CausalNeck, PretrainNeck, ReadoutNeck, Set2Set,
+                    SimpleNeck, build_neck)
+from ..sparse.supermask import SparseKernel
 from .msg3d_sgn import MSG3D, SGN
 from .recognizer import RecognizerGCN
 
@@ -48,7 +53,8 @@ _PLAIN_BACKBONES = ("GCGCN", "GCGCN_component", "MSG3D", "SGN", "ResNet3d",
 # the 3D-CNN fields a config gives as lists (JAX builder.py:82-85)
 _TUPLE_FIELDS = ("stage_blocks", "conv1_stride", "pool1_stride", "inflate",
                  "spatial_strides", "temporal_strides", "conv1_kernel")
-HEADS = {"GCNHead": GCNHead, "GCHead": GCHead}
+HEADS = {"GCNHead": GCNHead, "GCHead": GCHead, "HGTHead": HGTHead,
+         "ClsHead": ClsHead}
 
 _BACKBONE_FIELDS = {
     "in_channels", "base_channels", "ch_ratio", "num_person", "num_stages",
@@ -110,14 +116,14 @@ def build_model(cfg: Dict[str, Any]) -> nn.Module:
                                  dropout=cfg.get("dropout", 0.5))
     if typ != "RecognizerGCN":
         raise NotImplementedError(f"recognizer {typ!r} is not ported yet")
-    if cfg.get("neck") is not None:
-        raise NotImplementedError("recognizer necks are not ported yet")
     compute_dtype = cfg.get("compute_dtype")
     if compute_dtype is not None:
         compute_dtype = getattr(torch, compute_dtype)
+    neck = cfg.get("neck")
     return RecognizerGCN(backbone=build_backbone(cfg["backbone"]),
                          head=build_head(cfg["cls_head"]),
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype,
+                         neck=None if neck is None else build_neck(neck))
 
 
 MODEL_NAMES = ("stgcn", "stgcn++", "aagcn", "ctrgcn", "dgstgcn", "dsgcn",
@@ -209,16 +215,20 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     their deterministic initial values (the 1e-6 scale of a unit's closing
     ``bn`` included).  The generator lives on the CPU; call this before
     moving the model to its device."""
-    head_types = (GCNHead, GCHead, RecognizerPoseC3D)
+    head_types = (GCNHead, GCHead, HGTHead, ClsHead, RecognizerPoseC3D)
     heads = {id(m.fc_cls) for m in model.modules()
              if isinstance(m, head_types)}
+    heads |= {id(m.node_cls) for m in model.modules()
+              if isinstance(m, HGTHead)}
     for m in model.modules():
         if isinstance(m, (UnitGCN, UnitGTGCN, UnitGCNEdge)) \
                 and m.adaptive == "offset":
             m.PA.uniform_(0.0, 2e-6, generator=generator)
         elif isinstance(m, head_types):
-            m.fc_cls.weight.normal_(0.0, m.init_std, generator=generator)
-            m.fc_cls.bias.zero_()
+            for fc in (m.fc_cls, getattr(m, "node_cls", None)):
+                if fc is not None:
+                    fc.weight.normal_(0.0, m.init_std, generator=generator)
+                    fc.bias.zero_()
         elif isinstance(m, nn.Conv3d):
             kaiming_normal_fan_out_(m.weight, generator)
         elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)) \
@@ -245,7 +255,11 @@ def _module_rules(m: nn.Module, gen: torch.Generator) -> None:
     ``variance_scaling(1/3, fan_in, uniform)`` (U(+-1/sqrt(w C))) with zero
     biases; the Granger banks JAX's ``torch_default_kernel``/``_bias``
     over its fans (GCComponent's ``weight_norm`` then taken from the new
-    weight, as JAX's init computes it)."""
+    weight, as JAX's init computes it); the necks' prototypes flax's
+    ``xavier_normal`` (truncated, variance 2 / (P + C)), ``Set2Set``
+    U(+-1/sqrt(C)), ``PretrainNeck``'s and ``CausalNeck``'s ``fc_cls``
+    N(0, 0.01) with a zero bias, ``PretrainNeck``'s ``gate`` flax's
+    default Dense, the cMLP and the sparse layers their own ``init_``."""
     if isinstance(m, UnitAAHGCN):
         for name, sub in m.named_children():
             if name.startswith(("conv_a", "conv_b", "conv_edge")):
@@ -280,6 +294,34 @@ def _module_rules(m: nn.Module, gen: torch.Generator) -> None:
         m.out_conv_bias.zero_()
     elif isinstance(m, (GCSparse, GCComponent)):
         m.draw_(gen)
+    elif isinstance(m, (ReadoutNeck, PretrainNeck)):
+        for name, p in m.named_parameters(recurse=False):
+            trunc_normal_scaled_(p, 2.0 / sum(p.shape), gen)   # protos
+        if isinstance(m, PretrainNeck):
+            _normal_head_(m.fc_cls, 0.01, gen)
+            if m.read_op == "attention":
+                _lecun_(m.gate, gen)
+    elif isinstance(m, Set2Set):
+        for p in m.parameters():
+            p.uniform_(-m.in_channels ** -0.5, m.in_channels ** -0.5,
+                       generator=gen)
+    elif isinstance(m, CausalNeck):
+        _normal_head_(m.fc_cls, 0.01, gen)
+        m.cMLP.init_(gen)
+    elif isinstance(m, SparseKernel):
+        m.init_(gen)
+
+
+def _normal_head_(fc: nn.Linear, std: float, gen: torch.Generator) -> None:
+    fc.weight.normal_(0.0, std, generator=gen)
+    fc.bias.zero_()
+
+
+def _lecun_(fc: nn.Linear, gen: torch.Generator) -> None:
+    """flax's default Dense: a ``lecun_normal`` kernel (truncated, variance
+    1 / fan_in) and a zero bias."""
+    trunc_normal_scaled_(fc.weight, 1.0 / fc.in_features, gen)
+    fc.bias.zero_()
 
 
 def set_dropout_generator(model: nn.Module,

@@ -1,5 +1,5 @@
 """Classification heads (port of ``dsgcn_tpu/models/heads.py``:
-``GCNHead`` and ``GCHead``)."""
+``GCNHead``, ``GCHead``, ``HGTHead`` and ``ClsHead``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,8 +7,22 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.common import cast
+from ..ops.common import accum_dtype, cast
 from ..ops.common import dropout as _dropout
+
+
+def _classifier(in_channels: int, num_classes: int,
+                init_std: float) -> nn.Linear:
+    fc = nn.Linear(in_channels, num_classes)
+    nn.init.normal_(fc.weight, std=init_std)
+    nn.init.zeros_(fc.bias)
+    return fc
+
+
+def _linear(fc: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``fc`` applied in the activation dtype."""
+    return torch.nn.functional.linear(x, cast(fc.weight, x.dtype),
+                                      cast(fc.bias, x.dtype))
 
 
 class GCNHead(nn.Module):
@@ -24,9 +38,7 @@ class GCNHead(nn.Module):
         super().__init__()
         self.dropout, self.init_std = dropout, init_std
         self.generator: Optional[torch.Generator] = None
-        self.fc_cls = nn.Linear(in_channels, num_classes)
-        nn.init.normal_(self.fc_cls.weight, std=init_std)
-        nn.init.zeros_(self.fc_cls.bias)
+        self.fc_cls = _classifier(in_channels, num_classes, init_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() != 2:
@@ -35,9 +47,7 @@ class GCNHead(nn.Module):
                                  f"{tuple(x.shape)}")
             x = x.mean(dim=(2, 3)).mean(dim=1)
         x = _dropout(x, self.dropout, self.training, self.generator)
-        w = cast(self.fc_cls.weight, x.dtype)
-        return torch.nn.functional.linear(x, w,
-                                          cast(self.fc_cls.bias, x.dtype))
+        return _linear(self.fc_cls, x)
 
 
 class GCHead(nn.Module):
@@ -52,9 +62,7 @@ class GCHead(nn.Module):
         super().__init__()
         self.dropout, self.init_std = dropout, init_std
         self.generator: Optional[torch.Generator] = None
-        self.fc_cls = nn.Linear(in_channels, num_classes)
-        nn.init.normal_(self.fc_cls.weight, std=init_std)
-        nn.init.zeros_(self.fc_cls.bias)
+        self.fc_cls = _classifier(in_channels, num_classes, init_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() != 4:
@@ -62,6 +70,90 @@ class GCHead(nn.Module):
         n, m = x.shape[:2]
         x = x.reshape(n, m, -1).mean(dim=1)
         x = _dropout(x, self.dropout, self.training, self.generator)
-        w = cast(self.fc_cls.weight, x.dtype)
-        return torch.nn.functional.linear(x, w,
-                                          cast(self.fc_cls.bias, x.dtype))
+        return _linear(self.fc_cls, x)
+
+
+# fixed per-joint body-part labels (simple_head.py:198-201)
+NODE_LABELS = {
+    "nturgb+d": (0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4,
+                 0, 1, 1, 2, 2),
+    "coco": (0, 0, 0, 0, 0, 1, 2, 1, 2, 1, 2, 3, 4, 3, 4, 3, 4),
+}
+
+
+def node_type_loss(logits: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """Per-row cross entropy of the body-part logits (..., P) against
+    ``labels`` broadcast to the rows, unreduced; the log-softmax runs in
+    ``accum_dtype`` (JAX casts to float32)."""
+    logp = torch.log_softmax(cast(logits, accum_dtype(logits.dtype)), dim=-1)
+    idx = labels.to(logits.device).long().expand(logp.shape[:-1])
+    return -torch.gather(logp, -1, idx[..., None])[..., 0]
+
+
+def joint_type_losses(x: torch.Tensor, fc: nn.Linear,
+                      node_type) -> torch.Tensor:
+    """Each (sample, person, joint)'s body-part cross entropy (N M V,):
+    ``fc`` on the T-pooled feature of x (N, M, T, V, C), the labels
+    ``node_type`` (length V) repeated over samples and persons (the
+    necks' ``node_precost``, Simple_neck.py:94-107)."""
+    n, m, t, v, c = x.shape
+    logits = _linear(fc, x.mean(dim=2).reshape(n * m * v, c))
+    labels = torch.as_tensor(node_type, device=x.device).repeat(n * m)
+    return node_type_loss(logits, labels)
+
+
+class HGTHead(nn.Module):
+    """Classification head with an auxiliary node-type classifier
+    (simple_head.py:162-245, DS-GCN's semantic supervision; JAX
+    ``heads.py:HGTHead``).  Returns ``(cls_score, node_loss)``: the action
+    logits of the (T, V)- then person-pooled feature, and the mean over
+    (N, V) of the cross entropy of each joint's body part
+    (``NODE_LABELS[pose_type]``, length V) predicted by ``node_cls`` from
+    its T-pooled, person-meaned feature.  Dropout (training only, one mask
+    from ``self.generator`` per branch) precedes both classifiers."""
+
+    def __init__(self, num_classes: int, in_channels: int,
+                 pose_type: str = "nturgb+d", dropout: float = 0.5,
+                 init_std: float = 0.01, num_parts: int = 5):
+        super().__init__()
+        self.dropout, self.init_std = dropout, init_std
+        self.generator: Optional[torch.Generator] = None
+        self.register_buffer("labels", torch.tensor(NODE_LABELS[pose_type]),
+                             persistent=False)
+        self.fc_cls = _classifier(in_channels, num_classes, init_std)
+        self.node_cls = _classifier(in_channels, num_parts, init_std)
+
+    def forward(self, x: torch.Tensor):
+        if x.dim() != 5:
+            raise ValueError(f"expect (N, M, T, V, C), got {tuple(x.shape)}")
+        v = x.shape[3]
+        if v != self.labels.shape[0]:
+            raise ValueError(f"{v} joints against {self.labels.shape[0]} "
+                             "node labels")
+        pooled = x.mean(dim=(2, 3)).mean(dim=1)
+        drop = lambda h: _dropout(h, self.dropout, self.training,  # noqa
+                                  self.generator)
+        cls_score = _linear(self.fc_cls, drop(pooled))
+        nodes = x.mean(dim=2).mean(dim=1)                   # (N, V, C)
+        node_score = _linear(self.node_cls, drop(nodes))
+        return cls_score, node_type_loss(node_score, self.labels).mean()
+
+
+class ClsHead(nn.Module):
+    """Pre-pooled-feature head (simple_head.py:247-296; JAX
+    ``heads.py:ClsHead``): dropout (training only) and ``fc_cls`` on an
+    (N, C) input."""
+
+    def __init__(self, num_classes: int, in_channels: int,
+                 dropout: float = 0.5, init_std: float = 0.01):
+        super().__init__()
+        self.dropout, self.init_std = dropout, init_std
+        self.generator: Optional[torch.Generator] = None
+        self.fc_cls = _classifier(in_channels, num_classes, init_std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 2:
+            raise ValueError(f"expect (N, C), got {tuple(x.shape)}")
+        x = _dropout(x, self.dropout, self.training, self.generator)
+        return _linear(self.fc_cls, x)

@@ -14,27 +14,34 @@ from ..ops.common import cast
 
 
 class RecognizerGCN(nn.Module):
-    """Composes a GCN backbone and a classification head.
+    """Composes a GCN backbone, an optional neck and a classification head.
 
     ``forward`` takes ``(N, M, T, V, C)`` and returns logits
-    ``(N, classes)`` in the input's type.  ``compute_dtype`` (e.g.
+    ``(N, classes)`` in the input's type.  A ``neck`` (``models/necks.py``)
+    reads the backbone's feature out to (N, C) before the head, as in the
+    reference's neck-bearing recognizers (recognizergcnR.py:30-31).  ``compute_dtype`` (e.g.
     ``torch.bfloat16``) casts the input so the whole forward runs in that
     type, and the logits come back in float32.  Multi-clip averaging is
     done by the caller (:func:`average_clip`).
     """
 
     def __init__(self, backbone: nn.Module, head: nn.Module,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 neck: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
+        self.neck = neck
         self.head = head
         self.compute_dtype = compute_dtype
 
     def forward(self, keypoint: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
-            return self.head(self.backbone(keypoint))
-        logits = self.head(self.backbone(keypoint.to(self.compute_dtype)))
-        return logits.float()
+        if self.compute_dtype is not None:
+            keypoint = keypoint.to(self.compute_dtype)
+        feat = self.backbone(keypoint)
+        if self.neck is not None:
+            feat = self.neck(feat)
+        logits = self.head(feat)
+        return logits if self.compute_dtype is None else logits.float()
 
 
 @torch.no_grad()

@@ -9,6 +9,8 @@ re-orients kernels:
   conv (k, I, O) kernel becomes (O, I, k) (``nn.Conv1d``); a conv
   (k, 1, I, O) kernel becomes (O, I, k, 1); a 3-D conv (kt, kh, kw, I, O)
   kernel becomes (O, I, kt, kh, kw) (``nn.Conv3d``);
+* a sparse layer's ``score`` (``dsgcn_tpu_torch/sparse/``) keeps its
+  name and turns exactly as its sibling ``kernel``;
 * ``UnitMLP``'s depthwise ``conv_kernel`` (k, 1, 1, C) and ``conv_bias``
   become its grouped ``Conv2d``'s ``conv.weight`` (C, 1, k, 1) and
   ``conv.bias``;
@@ -24,7 +26,9 @@ re-orients kernels:
   in JAX's orientation (MS-G3D's ``out_conv_kernel`` (w, C, O) with
   ``out_conv_bias``; the Granger banks ``branch{i}_w``/``branch{i}_b``,
   ``follow_w``/``follow_b``, ``follow{j}_w``/``follow{j}_b``;
-  ``GCComponent.weight``).
+  ``GCComponent.weight``; the necks' prototypes ``protos``/``proto{i}``,
+  ``Set2Set``'s ``w_ih``/``w_hh``/``b_ih``/``b_hh`` and the cMLP's
+  ``l{i}_w``/``l{i}_b``).
 
 Load the result with ``model.load_state_dict(sd, strict=True)``: together
 with the converter's own check that no two leaves land on one name, every
@@ -79,7 +83,7 @@ def _convert_leaf(collection: str, path: Tuple[str, ...],
         scope, leaf = scope + ["conv"], leaf[5:]
         if leaf == "bias":
             return ".".join(scope + ["bias"]), a
-    if leaf == "kernel":
+    if leaf in ("kernel", "score"):   # a sparse score turns as its kernel
         if a.ndim == 2:
             a = a.T
         elif a.ndim == 3:              # a flax 1-D conv: (k, I, O)
@@ -90,7 +94,8 @@ def _convert_leaf(collection: str, path: Tuple[str, ...],
             a = a.transpose(4, 3, 0, 1, 2)
         else:
             raise ValueError(f"kernel {'/'.join(path)} has rank {a.ndim}")
-        return ".".join(scope + ["weight"]), a
+        return ".".join(scope + ["weight" if leaf == "kernel"
+                                 else "score"]), a
     return ".".join(path), a
 
 
