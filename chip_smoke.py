@@ -49,7 +49,8 @@ GPU against CPU, request latency, clips/s); and a COCO b training step
 against the CPU with timed steps (K1 and K2 at V = 17).  Phase 16 takes
 AAGCN and CTR-GCN (``configs/{aagcn,ctrgcn}/ntu60_xsub_3dkp/j.py`` and the
 hrnet ``ntu60_xsub_hrnet/j.py``, V = 17), which have no kernel: serving
-through init_recognizer / inference_recognizer (GPU against CPU, request
+through init_recognizer / inference_recognizer (GPU against CPU on the
+first request, request
 latency, clips/s of a batch in f32 and bf16 with profiles), a training
 step against the CPU and timed steps at the config's b16 x M2 x T100,
 and CTR-GCN's j and b streams through the train, test and fuse CLIs; no
@@ -146,12 +147,31 @@ CPU's; then SparseSTGCN, SparseCTRGCN and SparseSTGCNExact at their
 defaults with a linear head, up a sparsity ramp at b16 x M2 x T100 with
 ``make_sparse_optimizer`` and ``group_lasso_penalty`` (each threshold pool
 keeps 1 - sparsity within 0.05, the masks equal a CPU copy's, a step
-against the CPU's, float32 but SparseCTRGCN's float64; no kernel).  The
+against the CPU's, float32 but SparseCTRGCN's float64; no kernel).
+Phase 24 takes the rest of sparse training: (a) SparseAAGCN (NTU spatial
+graph) and SparseDGSTGCN (the random K = 8 graph, seeded) at their
+defaults with a linear head, and (b) AssembleSparse over ST-GCN, AA-GCN,
+CTR-GCN and DG-GCN on the random K = 8 graph (two subsets a branch,
+``assemble_regularize`` as the penalty), each up the sparsity ramp as
+phase 23's backbones (pools within 0.05, masks equal a CPU copy's, a
+float64 step against the CPU's: their gates start at 0); (c)
+SMoEAssembleSparse over routed ST-GCN, AA-GCN, CTR-GCN and DG-GCN experts
+and an ST-GCN base (k = 1, noisy gating, ``w_gate`` and ``w_noise``
+drawn off 0), a ClsHead of 60 classes and ``smoe_recognizer_losses`` with
+``smoe_regularize``: a float64 step against the CPU with the same
+injected gate noise, b16 x M2 x T100 steps inside and past the warm-up
+with noise from a generator on the card (the experts each step routed
+to), an eval forward (clips/s, logits against a CPU copy within 1e-3,
+the same routing); (d) expert parallelism: two gloo processes on cuda:0
+(phase 19's launcher), rank e running routed expert e of a full-width
+SMoE of three ST-GCN backbones, each rank's feature and balance loss
+within 1e-5 of the dense SMoE on the card.  No kernel of the port
+launches in phase 24 (the ranks count theirs too).  The
 whole run writes each phase's
 finish time (seconds from the first phase's start) under
 ``phase_done_s`` in ``chiprun_out/chip_smoke.json``.
 Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19,
-20, 21, 22, 23;
+20, 21, 22, 23, 24;
 ``--every-config`` runs 15 alone, ``--families`` 16 alone
 (``chiprun_out/families.json``), ``--options`` 17 alone
 (``chiprun_out/options.json``), ``--serving`` 18 alone
@@ -160,7 +180,8 @@ Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19,
 (``chiprun_out/extras.json``), ``--other-families`` 21 alone
 (``chiprun_out/other_families.json``), ``--posec3d`` 22 alone
 (``chiprun_out/posec3d.json``), ``--readouts`` 23 alone
-(``chiprun_out/readouts.json``).  Any failed check raises, and the script
+(``chiprun_out/readouts.json``), ``--smoe`` 24 alone
+(``chiprun_out/smoe.json``).  Any failed check raises, and the script
 exits non-zero without a result line.
 The kernel checks of phases 2, 6, 8 and 15 draw their random inputs on
 the card (one torch.Generator, seed 0).  A bfloat16 output of K1 (phases 8
@@ -639,15 +660,13 @@ def as_batch(b, n=None):
     return dict(keypoint=kp[:n], label=b["label"][:n])
 
 
-def gpu_vs_cpu_step(model, batch, out, step=None, strict=True):
+def gpu_vs_cpu_step(model, batch, out, step=None):
     """One train_step (or ``step``, of train_step's signature) on the card
     and the same step on the CPU (plain versions) from the same weights and
     batch: loss within 1e-4, train-mode logits within 1e-3 relative, each
     parameter's update with cosine > 0.995 and norm within 5% (float32
     rounding grows through the untrained BatchNorm stacks;
-    tests/test_training_dynamics_parity.py).  ``strict=False`` records
-    the reading without these checks.  Returns the CPU's update of each
-    parameter."""
+    tests/test_training_dynamics_parity.py)."""
     from dsgcn_tpu_torch.core.train import (input_key, make_optimizer,
                                             train_step)
     step = step or train_step
@@ -668,9 +687,8 @@ def gpu_vs_cpu_step(model, batch, out, step=None, strict=True):
     loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
     worst_cos, worst_ratio, worst_name = 1.0, 0.0, None
     gpu_state = model.state_dict()
-    updates = {}
     for name, p in cpu.named_parameters():
-        du_c = updates[name] = (p.detach() - init[name]).ravel()
+        du_c = (p.detach() - init[name]).ravel()
         du_g = (gpu_state[name].cpu() - init[name]).ravel()
         cos = (du_g @ du_c / (du_g.norm() * du_c.norm())).item()
         if cos < worst_cos:
@@ -683,14 +701,11 @@ def gpu_vs_cpu_step(model, batch, out, step=None, strict=True):
                worst_update_norm_ratio_err=worst_ratio)
     print("train gpu vs cpu", json.dumps(row), flush=True)
     out["gpu_vs_cpu"] = row
-    if not strict:
-        return updates
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
     check(loss_err <= 1e-4, f"GPU loss off the CPU's by {loss_err:.3e} rel")
     check(lerr <= 1e-3, f"GPU logits off the CPU's by {lerr:.3e} rel")
     check(worst_cos > 0.995 and worst_ratio < 5e-2,
           f"GPU update off the CPU's: cosine {worst_cos}, norm {worst_ratio}")
-    return updates
 
 
 def timed_steps(model, batches, dtype_name, card, out, per_step):
@@ -2469,6 +2484,7 @@ COCO_V = 17
 COCO_N = (64, 160)
 COCO_THROUGHPUT_BATCH = (64, 2, 100, COCO_V, 3)
 STREAMS = ("j", "b", "jm", "bm")
+STREAM_CPU_SAMPLES = 1   # of the first test batch, scored on the CPU too
 FUSE_WEIGHTS = (2.0, 2.0, 1.0, 1.0)
 
 
@@ -2603,8 +2619,10 @@ def four_streams(tmp, report, cfg_dir=DSGCN_DIR / "ntu60_xsub_3dkp",
     """Phase 15(b): the j, b, jm and bm NTU configs
     (``configs/dsgcn/ntu60_xsub_3dkp``, full width) on a synthetic pickle
     through the CLIs on the card, the streams side by side: one short
-    training epoch (3 steps of 16) with ``--test-last``, the test CLI (10 K3 launches a forward; its first
-    batch's scores within 1e-3 of the same checkpoint on the CPU), then
+    training epoch (3 steps of 16) with ``--test-last``, the test CLI (10
+    K3 launches a forward; its first STREAM_CPU_SAMPLES samples' scores,
+    10 clips each, within 1e-3 of the same checkpoint on the CPU),
+    then
     the fusion at 2:2:1:1, equal to the numpy sum of the four pickles and
     printing its metrics.  Phase 16 takes the ``streams`` of another
     ``cfg_dir`` with other ``weights`` and kernel launches
@@ -2615,7 +2633,7 @@ def four_streams(tmp, report, cfg_dir=DSGCN_DIR / "ntu60_xsub_3dkp",
     ann = tmp / f"{key}.pkl"
     make_synthetic_pose_dataset(num_samples=64, num_classes=60, t=100,
                                 seed=15, path=str(ann))
-    test_batch = 4
+    test_batch, n_cpu = 4, STREAM_CPU_SAMPLES
     out = report[key] = {}
     cfgs, wds, pkls = {}, {}, []
     for s in streams:
@@ -2654,8 +2672,8 @@ def four_streams(tmp, report, cfg_dir=DSGCN_DIR / "ntu60_xsub_3dkp",
         check(got["scores"].shape == (16, 60)
               and bool(np.isfinite(got["scores"]).all()),
               f"stream {s} scores {got['scores'].shape}")
-        cpu = scores_on_cpu(cfgs[s], wds[s], test_batch)
-        err = float(np.abs(got["scores"][:test_batch] - cpu).max()
+        cpu = scores_on_cpu(cfgs[s], wds[s], n_cpu)
+        err = float(np.abs(got["scores"][:n_cpu] - cpu).max()
                     / np.abs(cpu).max())
         print(f"stream {s}: {forwards} forwards, launches "
               f"{json.dumps(launches)}, first batch's scores vs CPU rel err "
@@ -2813,6 +2831,7 @@ def every_config(dev, card, rng, report):
 # ---------------------------------------------------------------------------
 
 FAMILIES = ("aagcn", "ctrgcn")
+FAMILY_CPU_REQUESTS = 1             # of the served requests, on the CPU too
 
 
 def family_config(family, data="ntu60_xsub_3dkp", stream="j"):
@@ -2824,9 +2843,10 @@ def family_serving(dev, card, family, data, annos, calib, seed, tmp, out,
     """A committed config of a family through init_recognizer (a
     checkpoint of seeded ``init_weights_`` weights, then BN statistics from
     data, ``calibrate_``) and inference_recognizer: no kernel of the port
-    launched, GPU top-1 equal to the CPU's and logits within 1e-3 of them,
-    each request's wall ms; with ``shape``, clips/s of a batch forward in
-    f32 and bf16 with profiles."""
+    launched, each request's wall ms, and on the first
+    FAMILY_CPU_REQUESTS requests GPU top-1 equal to the CPU's and logits
+    within 1e-3 of them; with ``shape``, clips/s of a batch forward in f32
+    and bf16 with profiles."""
     from dsgcn_tpu_torch.apis import (inference_recognizer, init_recognizer,
                                       to_bf16_inference)
     from dsgcn_tpu_torch.configs.config import Config
@@ -2858,7 +2878,7 @@ def family_serving(dev, card, family, data, annos, calib, seed, tmp, out,
     cpu = init_recognizer(cfg, device="cpu")
     cpu.load_state_dict(model.state_dict(), strict=True)
     rows = []
-    for a, ans in zip(annos, answers):
+    for a, ans in list(zip(annos, answers))[:FAMILY_CPU_REQUESTS]:
         g, c = logits_of(model, pipeline, a), logits_of(cpu, pipeline, a)
         check(g.shape == (10, classes) and bool(torch.isfinite(g).all()),
               f"{name} logits of shape {tuple(g.shape)} or not finite")
@@ -2954,6 +2974,7 @@ HAND_TCN_SHAPES = [(64, 10, 1, 5), (128, 10, 2, 1), (128, 5, 1, 0)]
 HRNET_N = 128                             # b64 x M2 serving
 LAYOUT_BATCHES = (16, 64)                 # clips; x M2 skeletons
 OPTION_BATCH = 16
+OPTION_CPU_REQUESTS = 1            # of the two served requests, on the CPU
 
 
 def hand_annos(seed, n=4):
@@ -3238,9 +3259,10 @@ def option_config(**backbone):
 def serve_option(dev, card, out, name, cfg, per_forward, annos, calib,
                  seed):
     """A DS-GCN variant through init_recognizer / inference_recognizer
-    (calibrated weights): its launches ``per_forward``, GPU top-1 equal to
-    the CPU's and logits within 1e-3 (phase 3's criteria); then a
-    (16, 2, 100, 25, 3) batch forward's ms and peak device memory."""
+    (calibrated weights): its launches ``per_forward``, on the first
+    OPTION_CPU_REQUESTS requests GPU top-1 equal to the CPU's and logits
+    within 1e-3 (phase 3's criteria); then a (16, 2, 100, 25, 3) batch
+    forward's ms and peak device memory."""
     from dsgcn_tpu_torch.apis import inference_recognizer, init_recognizer
     from dsgcn_tpu_torch.data.transforms import build_pipeline
     from dsgcn_tpu_torch.models.recognizer import average_clip
@@ -3256,7 +3278,7 @@ def serve_option(dev, card, out, name, cfg, per_forward, annos, calib,
     cpu = init_recognizer(cfg, device="cpu")
     cpu.load_state_dict(model.state_dict(), strict=True)
     rows = []
-    for a, ans in zip(annos, answers):
+    for a, ans in list(zip(annos, answers))[:OPTION_CPU_REQUESTS]:
         g, c = logits_of(model, pipeline, a), logits_of(cpu, pipeline, a)
         err = rel_err(g, c)
         cpu_top1 = int(average_clip(c[None], "prob")[0].argmax())
@@ -3654,7 +3676,7 @@ def serving_phase(dev, card, report):
 # phase 19: data-parallel and joint-partitioned training (parallel/)
 # ---------------------------------------------------------------------------
 
-PAR_TIMED = 5            # timed DDP steps of part (a), after one warm-up
+PAR_TIMED = 3            # timed DDP steps of part (a), after one warm-up
 GLOO_BATCH, GLOO_STEPS = 128, 2     # part (b): the global batch, its steps
 JP_BATCH = 16            # part (c)
 
@@ -3949,8 +3971,9 @@ def gloo_send_probe(work):
 
 
 def parallel_worker(part, work):
-    """One process of a phase 19 launch (``--parallel-worker``); rank 0
-    writes its report to ``work/<part>.json``."""
+    """One process of a phase 19 launch (``--parallel-worker``; rank 0
+    writes its report to ``work/<part>.json``) or of phase 24's expert
+    parallelism (``ep``: each rank writes ``work/ep<rank>.pt``)."""
     import torch.distributed as dist
     work = pathlib.Path(work)
     if part == "single":           # a plain process: no launcher, no group
@@ -3967,6 +3990,8 @@ def parallel_worker(part, work):
     elif part == "gloo":
         rep = gloo_part(work)
         (work / f"gloo{dist.get_rank()}.json").write_text(json.dumps(rep))
+    elif part == "ep":
+        ep_part(work)
     else:
         gloo_send_probe(work)
     dist.destroy_process_group()
@@ -5155,6 +5180,7 @@ SPARSE_RAMP = 3                     # steps over the sparsity ramp to 0.5
 SPARSE_WARMUP = 2                   # epochs whose score gradients are gated
 SPARSE_MAIN = dict(lr=0.1, momentum=0.9, nesterov=True, weight_decay=5e-4)
 SPARSE_SCORE = dict(lr=0.1, momentum=0.9, weight_decay=0.0)
+SPARSE_CPU_CLIPS = 2                # of a timed batch, stepped on the CPU too
 
 
 def readout_config(neck):
@@ -5357,29 +5383,60 @@ def neck_training(dev, card, out):
 
 class SparseClassifier(torch.nn.Module):
     """A sparse backbone and a linear head over its pooled feature (JAX
-    composes its sparse backbones by hand too), at ``self.sparsity``."""
+    composes its sparse backbones by hand too), masked at
+    ``self.sparsity``: a sparsity, or for ``AssembleSparse`` the (epoch,
+    max epoch) pair, whose B streams' pooled features are summed."""
 
     def __init__(self, backbone, num_classes=60):
         super().__init__()
         self.backbone = backbone
-        self.fc_cls = torch.nn.Linear(256, num_classes)
+        self.fc_cls = torch.nn.Linear(backbone.out_channels, num_classes)
         self.sparsity = 0.0
 
+    def mask_args(self):
+        s = self.sparsity
+        return s if isinstance(s, tuple) else (s,)
+
     def forward(self, x):
-        y = self.backbone(x, self.sparsity)
-        return self.fc_cls(y.mean(dim=(1, 2, 3)))
+        pooled = self.backbone(x, *self.mask_args()).mean(dim=(-4, -3, -2))
+        return self.fc_cls(pooled if pooled.dim() == 2 else pooled.sum(0))
+
+    def penalty(self):
+        """The recipe's group lasso (1e-4): the masked one of the sparse
+        kernels, or Assemble's regularizer (GSGL over pruned weights)."""
+        from dsgcn_tpu_torch.sparse.nested import (AssembleSparse,
+                                                   assemble_regularize)
+        from dsgcn_tpu_torch.sparse.supermask import group_lasso_penalty
+        if isinstance(self.backbone, AssembleSparse):
+            return assemble_regularize(self.backbone, 1e-4)
+        return group_lasso_penalty(self.backbone, 1e-4, self.sparsity)
+
+    def set_epoch(self, epoch, total):
+        """The backbone's sparsity ramp at ``epoch`` of ``total``."""
+        from dsgcn_tpu_torch.sparse.nested import AssembleSparse
+        self.sparsity = ((epoch, total)
+                         if isinstance(self.backbone, AssembleSparse)
+                         else self.backbone.epoch_sparsity(epoch, total))
+
+    def sparsities(self):
+        """The sparsity of each threshold pool's schedule (Assemble: one a
+        branch)."""
+        bb = self.backbone
+        if isinstance(self.sparsity, tuple):
+            return [bb.branch_sparsity(j, *self.sparsity)
+                    for j in range(len(bb.model_list))]
+        return [self.sparsity]
 
 
 def sparse_step(model, opt, gate, batch, epoch):
-    """One step of the sparse recipe: cross entropy plus the masked
-    group lasso (1e-4), the score gradients gated by ``epoch``."""
+    """One step of the sparse recipe: cross entropy plus the model's
+    penalty, the score gradients gated by ``epoch``."""
     from dsgcn_tpu_torch.core.losses import cross_entropy
-    from dsgcn_tpu_torch.sparse.supermask import group_lasso_penalty
     model.train()
     dev = next(model.parameters()).device
     loss = cross_entropy(model(torch.as_tensor(batch["keypoint"]).to(dev)),
                          torch.as_tensor(batch["label"]).to(dev)) \
-        + group_lasso_penalty(model.backbone, 1e-4, model.sparsity)
+        + model.penalty()
     opt.zero_grad(set_to_none=True)
     loss.backward()
     gate(epoch)
@@ -5399,72 +5456,49 @@ def sparse_opt_step(model, opt, sched, batch):
 
 def sparse_masks(model):
     """{kernel: mask} of every sparse kernel at the model's sparsity (each
-    block's threshold; STGCN_sparse's residual at 0) and, per threshold
-    pool, the fraction of its scores kept."""
+    block's threshold; STGCN_sparse's and AAGCN_sparse's residuals at 0)
+    and, per threshold pool, how far the fraction of its scores kept lies
+    from 1 - its sparsity."""
     from dsgcn_tpu_torch.sparse import models as sm
+    from dsgcn_tpu_torch.sparse.nested import AssembleSparse, \
+        SparseAAGCNBlock
     from dsgcn_tpu_torch.sparse.supermask import sparse_kernels
     bb = model.backbone
-    masks, kept = {}, []
+    masks, kept_err = {}, []
     with torch.no_grad():
-        thresholds = bb.thresholds(model.sparsity)
-        for i, (blk, thr) in enumerate(zip(bb.blocks(), thresholds)):
-            for name, k in sparse_kernels(blk):
-                exact_res = isinstance(blk, sm.SparseSTGCNBlockExact) \
-                    and name.startswith("residual")
-                masks[f"block{i}.{name}"] = k.mask(
-                    0.0 if exact_res else thr)
+        if isinstance(bb, AssembleSparse):
+            sp = model.sparsities()
+            blocks = [(f"stage{i}_branch{j}", bb.block(i, j), thr, sp[j])
+                      for i, row in enumerate(bb.thresholds(*model.sparsity))
+                      for j, thr in enumerate(row)]
+        else:
+            blocks = [(f"block{i}", blk, thr, model.sparsity)
+                      for i, (blk, thr) in enumerate(zip(
+                          bb.blocks(), bb.thresholds(model.sparsity)))]
+        for name, blk, thr, sparsity in blocks:
+            for kname, k in sparse_kernels(blk):
+                at_zero = isinstance(blk, (sm.SparseSTGCNBlockExact,
+                                           SparseAAGCNBlock)) \
+                    and kname.startswith("residual")
+                masks[f"{name}.{kname}"] = k.mask(0.0 if at_zero else thr)
                 if isinstance(bb, sm.SparseSTGCN):
-                    kept.append(masks[f"block{i}.{name}"].mean().item())
+                    kept_err.append(abs(masks[f"{name}.{kname}"].mean()
+                                        .item() - (1 - sparsity)))
             if not isinstance(bb, sm.SparseSTGCN):
                 pool = (sm._block_score_pool
                         if isinstance(bb, sm.SparseCTRGCN)
                         and not bb.pool_all_scores else sm._all_score_pool)
                 s = torch.cat([p.reshape(-1) for p in pool(blk)])
-                kept.append((s >= thr).double().mean().item())
-    return masks, kept
+                kept_err.append(abs((s >= thr).double().mean().item()
+                                    - (1 - sparsity)))
+    return masks, kept_err
 
 
-def update_drift(a, b):
-    """The worst cosine and norm ratio between two runs' updates of each
-    parameter (``gpu_vs_cpu_step``'s returns), with their parameters."""
-    rows = []
-    for name in a:
-        u, w = a[name].double(), b[name].double()
-        if u.norm() > 0 and w.norm() > 0:
-            rows.append(((u @ w / (u.norm() * w.norm())).item(),
-                         abs((u.norm() / w.norm()).item() - 1), name))
-    cos = min(rows)
-    ratio = max(rows, key=lambda r: r[1])
-    return dict(worst_cos=cos[0], worst_cos_param=cos[2],
-                worst_norm_ratio_err=ratio[1], worst_norm_param=ratio[2])
-
-
-def sparse_training(dev, card, out):
-    """SparseSTGCN, SparseCTRGCN and SparseSTGCNExact at their defaults
-    (10 stages, base 64, the NTU spatial graph), each with a linear head:
-    SPARSE_RAMP f32 steps at b16 x M2 x T100 up the sparsity ramp to 0.5
-    (``epoch_sparsity``; ``make_sparse_optimizer`` with the scores gated
-    for SPARSE_WARMUP epochs, ``group_lasso_penalty``) with ms, clips/s
-    and peak memory, one profiled; after each, every threshold pool keeps
-    within 0.05 of 1 - sparsity; the masks on the card equal a CPU copy's;
-    one step against the CPU at sparsity 0.5 (phase 7's criteria, on the
-    first CPU_CHECK_CLIPS clips of a timed batch): float32, but float64 for
-    SparseCTRGCN, whose float32 step strays from float64 on the CPU alone
-    (its CTRGC gate ``alpha`` starts at 0); for it the float32 reading and
-    the CPU's float32 update against its float64 one are recorded
-    unchecked.  No kernel of the port launches."""
-    from dsgcn_tpu_torch.models.builder import init_weights_
+def sparse_builds():
+    """Phase 23's backbones: (name, build, epochs of the ramp, the dtype of
+    the check against the CPU)."""
     from dsgcn_tpu_torch.sparse import models as sm
-    from dsgcn_tpu_torch.sparse.supermask import (make_sparse_optimizer,
-                                                  sparse_kernels)
-    rng = np.random.default_rng(24)
-    batches = [dict(keypoint=rng.standard_normal(SPARSE_BATCH).astype(
-                        np.float32),
-                    label=rng.integers(0, 60, SPARSE_BATCH[0]))
-               for _ in range(2)]
-    cpu_batch = dict(keypoint=batches[0]["keypoint"][:CPU_CHECK_CLIPS],
-                     label=batches[0]["label"][:CPU_CHECK_CLIPS])
-    builds = (
+    return (
         ("SparseSTGCN", lambda: sm.SparseSTGCN(target_sparsity=0.5),
          SPARSE_RAMP, torch.float32),
         ("SparseCTRGCN", lambda: sm.SparseCTRGCN(
@@ -5473,10 +5507,38 @@ def sparse_training(dev, card, out):
         ("SparseSTGCNExact", lambda: sm.SparseSTGCNExact(
             linear_sparsity=0.5, sparse_decay=True), 2 * SPARSE_RAMP,
          torch.float32))
+
+
+def sparse_training(dev, card, out, builds, seed=24, bias=(1.0, 2.0)):
+    """Sparse backbones at their defaults (10 stages, base 64), each with a
+    linear head (``SparseClassifier``): SPARSE_RAMP f32 steps at b16 x M2
+    x T100 up the sparsity ramp to 0.5 (``set_epoch``;
+    ``make_sparse_optimizer`` with the scores gated for SPARSE_WARMUP
+    epochs, the model's penalty) with ms, clips/s and peak memory, one
+    profiled (the card's activity only: the host's tens of thousands of
+    op events took the profile's analysis 5-15 s); after each, every
+    threshold pool keeps within 0.05 of 1 -
+    its sparsity; the masks on the card equal a CPU copy's; one step
+    against the CPU at the ramp's end (phase 7's criteria, on the first
+    SPARSE_CPU_CLIPS clips of a timed batch) in the build's dtype: float64
+    where the float32 step strays from float64 on the CPU alone (a gate
+    such as CTRGC's ``alpha`` starts at 0; PERF.md §6).  The
+    zero-initialised biases of the thresholded layers are first drawn from
+    U(``bias``).  No kernel of the port launches."""
+    from dsgcn_tpu_torch.models.builder import init_weights_
+    from dsgcn_tpu_torch.sparse.supermask import (make_sparse_optimizer,
+                                                  sparse_kernels)
+    rng = np.random.default_rng(seed)
+    batches = [dict(keypoint=rng.standard_normal(SPARSE_BATCH).astype(
+                        np.float32),
+                    label=rng.integers(0, 60, SPARSE_BATCH[0]))
+               for _ in range(2)]
+    cpu_batch = dict(keypoint=batches[0]["keypoint"][:SPARSE_CPU_CLIPS],
+                     label=batches[0]["label"][:SPARSE_CPU_CLIPS])
     for i, (name, build, total, check_dtype) in enumerate(builds):
         t0 = time.perf_counter()
         o = out[name] = {}
-        gen = torch.Generator().manual_seed(24 + i)
+        gen = torch.Generator().manual_seed(seed + i)
         model = init_weights_(SparseClassifier(build()), gen)
         with torch.no_grad():
             # the zero-initialised biases (the thresholded layers') before
@@ -5485,28 +5547,22 @@ def sparse_training(dev, card, out):
             # the same on the card and the CPU (nudge_pre_bn_biases_)
             for _, k in sparse_kernels(model):
                 if k.zero_bias:
-                    k.bias.uniform_(1, 2, generator=gen)
-        check(model.backbone.num_blocks == 10, f"{name}: "
-              f"{model.backbone.num_blocks} blocks")
-        model.sparsity = 0.5
-        f32 = gpu_vs_cpu_step(copy.deepcopy(model).to(dev), cpu_batch,
-                              o.setdefault("float32", {}), sparse_opt_step,
-                              strict=check_dtype == torch.float32)
-        if check_dtype == torch.float64:
-            f64 = gpu_vs_cpu_step(copy.deepcopy(model).to(dev, check_dtype),
-                                  dict(cpu_batch, keypoint=cpu_batch[
-                                      "keypoint"].astype(np.float64)),
-                                  o.setdefault("float64", {}),
-                                  sparse_opt_step)
-            o["cpu_float32_vs_float64"] = drift = update_drift(f32, f64)
-            print(f"{name}: the CPU's float32 update against its float64 "
-                  f"one: {json.dumps(drift)}", flush=True)
+                    k.bias.uniform_(*bias, generator=gen)
+        bb = model.backbone
+        stages = getattr(bb, "num_blocks", getattr(bb, "num_stages", None))
+        check(stages == 10, f"{name}: {stages} stages")
+        model.set_epoch(total, total)
+        gpu_vs_cpu_step(copy.deepcopy(model).to(dev, check_dtype), dict(
+            cpu_batch, keypoint=cpu_batch["keypoint"].astype(
+                np.float64 if check_dtype == torch.float64 else np.float32)),
+            o.setdefault(str(check_dtype).split(".")[-1], {}),
+            sparse_opt_step)
         model = model.to(dev)
         opt, gate = make_sparse_optimizer(model, SPARSE_MAIN, SPARSE_SCORE,
                                           SPARSE_WARMUP)
         rows = []
         for epoch in range(1, SPARSE_RAMP + 1):
-            model.sparsity = model.backbone.epoch_sparsity(epoch, total)
+            model.set_epoch(epoch, total)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
@@ -5515,16 +5571,16 @@ def sparse_training(dev, card, out):
                                epoch)["loss"].item()
             wall = (time.perf_counter() - t1) * 1e3
             no_launches(f"{name} step {epoch}")
-            _, kept = sparse_masks(model)
-            worst = max(abs(k - (1 - model.sparsity)) for k in kept)
-            rows.append(dict(epoch=epoch, sparsity=model.sparsity,
+            _, kept_err = sparse_masks(model)
+            worst = max(kept_err)
+            rows.append(dict(epoch=epoch, sparsity=model.sparsities(),
                              loss=loss, wall_ms=wall,
                              peak_mem_gib=torch.cuda.max_memory_allocated()
                              / 2 ** 30, worst_kept_err=worst,
                              scores_gated=epoch < SPARSE_WARMUP))
             check(np.isfinite(loss), f"{name} epoch {epoch}: loss {loss}")
             check(worst <= 0.05, f"{name} epoch {epoch}: a pool keeps "
-                  f"{worst:.3f} off 1 - {model.sparsity:.3f}")
+                  f"{worst:.3f} off 1 - its sparsity {model.sparsities()}")
         masks_g, _ = sparse_masks(model)
         cpu = copy.deepcopy(model).cpu()
         masks_c, _ = sparse_masks(cpu)
@@ -5539,7 +5595,7 @@ def sparse_training(dev, card, out):
                  clips_per_s=SPARSE_BATCH[0] / np.median(timed) * 1e3,
                  peak_mem_gib=max(r["peak_mem_gib"] for r in rows))
         print(f"{name}: f32 steps at b{SPARSE_BATCH[0]} over sparsity "
-              f"{', '.join('%.3f' % r['sparsity'] for r in rows)}: "
+              f"{json.dumps([r['sparsity'] for r in rows])}: "
               f"{', '.join('%.2f' % r['wall_ms'] for r in rows)} ms (first "
               f"a warm-up), peak {o['peak_mem_gib']:.3f} GiB; pools keep "
               f"within {max(r['worst_kept_err'] for r in rows):.4f} of 1 - "
@@ -5547,8 +5603,7 @@ def sparse_training(dev, card, out):
               f"CPU, on {card}", flush=True)
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             sparse_step(model, opt, gate, batches[0], SPARSE_RAMP)
             torch.cuda.synchronize()
@@ -5572,13 +5627,353 @@ def readouts_phase(dev, card, report):
     t1 = time.perf_counter()
     neck_training(dev, card, out.setdefault("train", {}))
     t2 = time.perf_counter()
-    sparse_training(dev, card, out.setdefault("sparse", {}))
+    sparse_training(dev, card, out.setdefault("sparse", {}), sparse_builds())
     out["seconds"] = dict(serving=t1 - t0, train=t2 - t1,
                           sparse=time.perf_counter() - t2,
                           total=time.perf_counter() - t0)
     print(f"phase 23: readout serving {t1 - t0:.1f} s, neck training "
           f"{t2 - t1:.1f} s, sparse training {time.perf_counter() - t2:.1f} "
           f"s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the nested sparse backbones, AssembleSparse, the SMoE backbone
+# and expert parallelism (no kernel)
+# ---------------------------------------------------------------------------
+
+SMOE_EXPERTS = ("ST-GCN", "AA-GCN", "CTR-GCN", "DG-GCN", "ST-GCN")
+SMOE_WARMUP = 2                     # epochs with the regularizer in the loss
+SMOE_EPOCHS = (1, 2, 3)             # timed steps: inside and past the warm-up
+SMOE_MAX_EPOCH = 2 * SPARSE_RAMP
+SMOE_FORWARDS = 5                   # timed eval forwards
+EP_EXPERTS = ("ST-GCN",) * 3        # two routed experts and the base
+EP_TOL = 1e-5
+# the thresholded layers' biases before a BatchNorm, off zero but small: a
+# channel whose inputs are all masked is its bias alone, and at U(1, 2) the
+# sum of AAGCN's three subsets' biases made E[x^2] - E[x]^2 negative in
+# float32 (NaN from the first block's BatchNorm; JAX's formula, kept)
+NESTED_BIAS = (-0.2, 0.2)
+
+
+def dg_random_graph():
+    """SparseDGSTGCN's default graph (random, K = 8), seeded."""
+    from dsgcn_tpu_torch.graph import GraphConfig
+    return GraphConfig(layout="nturgb+d", mode="random", num_filter=8,
+                       init_off=0.04, init_std=0.02, seed=24)
+
+
+def nested_builds():
+    """Phase 24 (a) and (b): SparseAAGCN and SparseDGSTGCN at their
+    defaults, and AssembleSparse over the four families on the random
+    K = 8 graph (two subsets a branch); float64 checks (their gates start
+    at 0)."""
+    from dsgcn_tpu_torch.sparse import nested as sn
+    return (
+        ("SparseAAGCN", lambda: sn.SparseAAGCN(
+            linear_sparsity=0.5, sparse_decay=True), 2 * SPARSE_RAMP,
+         torch.float64),
+        ("SparseDGSTGCN", lambda: sn.SparseDGSTGCN(
+            graph_cfg=dg_random_graph(), linear_sparsity=0.5,
+            sparse_decay=True), 2 * SPARSE_RAMP, torch.float64)), (
+        ("AssembleSparse", lambda: sn.AssembleSparse(
+            SMOE_EXPERTS[:4], (0.5,) * 4, graph_cfg=dg_random_graph(),
+            sparse_decay=True), 2 * SPARSE_RAMP, torch.float64),)
+
+
+class SMoEClassifier(torch.nn.Module):
+    """SMoEAssembleSparse and a ClsHead (60 classes, no dropout, so the
+    card's step and the CPU's see the same network) over its combined
+    feature, at ``self.epoch`` of SMOE_MAX_EPOCH; the gate's noise from
+    ``self.generator`` or, when set, ``self.gate_noise``; ``self.aux``
+    keeps the last balance loss."""
+
+    def __init__(self, smoe):
+        super().__init__()
+        from dsgcn_tpu_torch.models.heads import ClsHead
+        self.smoe = smoe
+        self.head = ClsHead(60, smoe.out_channel, dropout=0.0)
+        self.epoch, self.generator, self.gate_noise = 1, None, None
+        self.aux = None
+
+    def forward(self, x):
+        feat, self.aux = self.smoe(x, self.epoch, SMOE_MAX_EPOCH,
+                                   self.generator, self.gate_noise)
+        return self.head(feat)
+
+
+def smoe_step(model, opt, gate, batch):
+    """One SMoE recognizer step: ``smoe_recognizer_losses`` (CE, the
+    balance loss, and while the epoch is within SMOE_WARMUP the gradual
+    lam times ``smoe_regularize``), the score gradients gated by the
+    epoch."""
+    from dsgcn_tpu_torch.core.flows import smoe_recognizer_losses
+    from dsgcn_tpu_torch.sparse.smoe import smoe_regularize
+    model.train()
+    dev = next(model.parameters()).device
+    logits = model(torch.as_tensor(batch["keypoint"]).to(dev))
+    pen = smoe_regularize(model.smoe, 1.0) \
+        if model.epoch <= SMOE_WARMUP else None
+    losses = smoe_recognizer_losses(
+        logits, torch.as_tensor(batch["label"]).to(dev), model.aux,
+        current_epoch=model.epoch, warm_up=SMOE_WARMUP, penalty_value=pen)
+    opt.zero_grad(set_to_none=True)
+    losses["loss"].backward()
+    gate(model.epoch)
+    opt.step()
+    return {k: v.detach() for k, v in losses.items()}
+
+
+def smoe_opt_step(model, opt, sched, batch):
+    """:func:`smoe_step` with its own ``make_sparse_optimizer``, of
+    ``train_step``'s signature (the optimizer given is not used)."""
+    from dsgcn_tpu_torch.sparse.supermask import make_sparse_optimizer
+    sopt, gate = make_sparse_optimizer(model, SPARSE_MAIN, SPARSE_SCORE,
+                                       SPARSE_WARMUP)
+    return smoe_step(model, sopt, gate, batch)
+
+
+def smoe_model(models, seed):
+    """The SMoE over ``models`` at full width (10 stages, base 64, ratio
+    0.5 each, k = 1, noisy gating), seeded (``init_weights_``), the zero
+    biases before BatchNorms from U(NESTED_BIAS) and the gate's zero
+    weights drawn N(0, 0.1), so the gates route by the features from the
+    first step."""
+    from dsgcn_tpu_torch.models.builder import init_weights_
+    from dsgcn_tpu_torch.sparse.smoe import SMoEAssembleSparse
+    from dsgcn_tpu_torch.sparse.supermask import sparse_kernels
+    gen = torch.Generator().manual_seed(seed)
+    model = init_weights_(SMoEClassifier(SMoEAssembleSparse(
+        models, (0.5,) * len(models), k_num=1, noisy_gating=True,
+        out_channel=256, sparse_decay=True)), gen)
+    with torch.no_grad():
+        for _, k in sparse_kernels(model):
+            if k.zero_bias:
+                k.bias.uniform_(*NESTED_BIAS, generator=gen)
+        for w in (model.smoe.gate.w_gate, model.smoe.gate.w_noise):
+            w.normal_(0.0, 0.1, generator=gen)
+    return model
+
+
+def routed(gates):
+    """Samples a routed expert takes (its gate nonzero), by expert."""
+    return (gates > 0).sum(0).tolist()
+
+
+def smoe_training(dev, card, out):
+    """Part (c): SMoEAssembleSparse over four routed experts (ST-GCN,
+    AA-GCN, CTR-GCN, DG-GCN) and an ST-GCN base, with a ClsHead and
+    ``smoe_recognizer_losses`` including ``smoe_regularize``: one step
+    against the CPU in float64 with the same injected gate noise (phase
+    7's criteria), timed b16 x M2 x T100 steps inside and past the
+    warm-up with noise from a generator on the card (ms, clips/s, peak
+    GiB, one profiled for the idle share, the card's activity only), the
+    experts the gates picked,
+    and an eval forward (clips/s, logits against the CPU within 1e-3 on
+    SPARSE_CPU_CLIPS clips, the same routing).  No kernel launches."""
+    from dsgcn_tpu_torch.sparse.supermask import make_sparse_optimizer
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(25)
+    batches = [dict(keypoint=rng.standard_normal(SPARSE_BATCH).astype(
+                        np.float32),
+                    label=rng.integers(0, 60, SPARSE_BATCH[0]))
+               for _ in range(2)]
+    model = smoe_model(SMOE_EXPERTS, 25)
+    E = model.smoe.num_experts
+    check(E == 4 and model.smoe.expert(E).num_blocks == 10,
+          f"SMoE: {E} routed experts")
+    cpu_batch = dict(keypoint=batches[0]["keypoint"][
+        :SPARSE_CPU_CLIPS].astype(np.float64),
+        label=batches[0]["label"][:SPARSE_CPU_CLIPS])
+    checked = copy.deepcopy(model).to(dev, torch.float64)
+    checked.epoch = SMOE_WARMUP
+    checked.gate_noise = torch.from_numpy(rng.standard_normal(
+        (SPARSE_CPU_CLIPS, E)))
+    gpu_vs_cpu_step(checked, cpu_batch, out.setdefault("float64", {}),
+                    smoe_opt_step)
+    del checked
+    model = model.to(dev)
+    model.generator = torch.Generator(device=dev).manual_seed(25)
+    opt, gate = make_sparse_optimizer(model, SPARSE_MAIN, SPARSE_SCORE,
+                                      SPARSE_WARMUP)
+    rows = []
+    for i, epoch in enumerate(SMOE_EPOCHS):
+        model.epoch = epoch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        losses = {k: v.item() for k, v in smoe_step(
+            model, opt, gate, batches[i % 2]).items()}
+        wall = (time.perf_counter() - t1) * 1e3
+        no_launches(f"SMoE step at epoch {epoch}")
+        rows.append(dict(epoch=epoch, losses=losses, wall_ms=wall,
+                         routed=routed(model.smoe.gates),
+                         peak_mem_gib=torch.cuda.max_memory_allocated()
+                         / 2 ** 30))
+        check(all(np.isfinite(v) for v in losses.values()),
+              f"SMoE epoch {epoch}: losses {losses}")
+        check(("panelty_loss" in losses) == (epoch <= SMOE_WARMUP),
+              f"SMoE epoch {epoch}: the penalty {losses}")
+        print(f"SMoE step at epoch {epoch}: {json.dumps(rows[-1])} on "
+              f"{card}", flush=True)
+    timed = [r["wall_ms"] for r in rows[1:]]
+    out.update(steps=rows, median_step_ms=float(np.median(timed)),
+               clips_per_s=SPARSE_BATCH[0] / np.median(timed) * 1e3,
+               peak_mem_gib=max(r["peak_mem_gib"] for r in rows))
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        smoe_step(model, opt, gate, batches[0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    out["profile"] = device_rows(prof, wall, "SMoE step profile")
+    no_launches("SMoE profiled step")
+    # serving: the eval forward of a b16 batch, and on the CPU
+    model.eval()
+    x = torch.from_numpy(batches[1]["keypoint"]).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms, counts = forward_ms(model, x, SMOE_FORWARDS)
+    expect_counts(counts, {}, 1, "an SMoE eval forward")
+    gates_g = model.smoe.gates
+    cpu = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        lg = model(x[:SPARSE_CPU_CLIPS]).cpu()
+        lc = cpu(x[:SPARSE_CPU_CLIPS].cpu())
+    err = rel_err(lg, lc)
+    same = torch.equal(model.smoe.gates.cpu() > 0, cpu.smoe.gates > 0)
+    out["eval"] = dict(forward_ms=ms, clips_per_s=SPARSE_BATCH[0] / ms * 1e3,
+                       peak_mem_gib=torch.cuda.max_memory_allocated()
+                       / 2 ** 30, logits_rel_err=err, routed=routed(gates_g),
+                       same_routing_on_cpu=same)
+    print(f"SMoE eval forward b{SPARSE_BATCH[0]}: {ms:.3f} ms "
+          f"({out['eval']['clips_per_s']:.1f} clips/s), routed "
+          f"{routed(gates_g)}; logits against the CPU {err:.3e} of the "
+          f"largest, on {card}", flush=True)
+    check(same, "SMoE: the card and the CPU route differently")
+    check(err <= 1e-3, f"SMoE eval logits off the CPU's by {err:.3e}")
+    out["seconds"] = time.perf_counter() - t0
+    del model, opt, cpu
+    torch.cuda.empty_cache()
+
+
+def ep_config():
+    """The SMoE of part (d), on the meta device: its configuration."""
+    from dsgcn_tpu_torch.sparse.smoe import SMoEAssembleSparse
+    with torch.device("meta"):
+        return SMoEAssembleSparse(EP_EXPERTS, (0.5,) * 3, k_num=1,
+                                  sparse_decay=True)
+
+
+def ep_part(work):
+    """Part (d), in each of a two-process launch: gloo, both processes on
+    cuda:0, rank e running routed expert e of the SMoE whose state the
+    phase saved (``make_ep_smoe_eval``); the feature and balance loss of
+    the b16 eval batch, the launches, the parameters this rank holds."""
+    import torch.distributed as dist
+    from dsgcn_tpu_torch.parallel.expert_parallel import (make_ep_smoe_eval,
+                                                          make_expert_mesh)
+    from dsgcn_tpu_torch.parallel.mesh import init_distributed
+    dev = init_distributed("gloo", device="cuda:0")
+    state = torch.load(work / "ep_state.pt", weights_only=True)
+    x = torch.load(work / "ep_x.pt", weights_only=True).to(dev)
+    run = make_ep_smoe_eval(make_expert_mesh(dist.get_world_size()),
+                            ep_config())
+    reset_counts()
+    feat, aux = run(state, x, SMOE_MAX_EPOCH, SMOE_MAX_EPOCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feat, aux = run(state, x, SMOE_MAX_EPOCH, SMOE_MAX_EPOCH)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.save(dict(feat=feat.cpu(), aux=aux.cpu(), ms=ms,
+                    launches=read_counts(),
+                    held=sum(p.numel() for m in run.modules
+                             for p in m.parameters())),
+               work / f"ep{dist.get_rank()}.pt")
+    return dict(rank=dist.get_rank(), backend=dist.get_backend())
+
+
+def expert_parallel(dev, card, out, tmp):
+    """Part (d): the SMoE of EP_EXPERTS (two routed ST-GCN experts and an
+    ST-GCN base) at full width, seeded (distinct experts), ``w_gate``
+    set so that both experts take samples: its dense eval forward on the
+    card, then two gloo
+    processes on cuda:0 (``torchrun``; NCCL refuses two ranks on one
+    device), each rank's feature and balance loss within EP_TOL of the
+    dense ones, no launch of the port's kernels."""
+    from dsgcn_tpu_torch.sparse.smoe import _pool
+    t0 = time.perf_counter()
+    model = smoe_model(EP_EXPERTS, 26).to(dev).eval()
+    x = torch.from_numpy(np.random.default_rng(26).standard_normal(
+        SPARSE_BATCH).astype(np.float32))
+    smoe, gen = model.smoe, torch.Generator(device=dev).manual_seed(26)
+    with torch.no_grad():
+        # the pooled features share a large mean: a gate of two opposite
+        # columns along a random direction orthogonal to the batch's mean
+        # routes by each sample's own part, so both experts take samples
+        base = smoe.expert(smoe.num_experts)
+        f = _pool(base(x.to(dev), base.epoch_sparsity(SMOE_MAX_EPOCH,
+                                                       SMOE_MAX_EPOCH)))
+        m = f.mean(0)
+        u = torch.randn(m.shape, generator=gen, device=dev)
+        w = u - (u @ m) / (m @ m) * m
+        w = w / (f @ w).std()
+        smoe.gate.w_gate.copy_(torch.stack([w, -w], 1))
+        feat, aux = smoe(x.to(dev), SMOE_MAX_EPOCH, SMOE_MAX_EPOCH)
+    gates = smoe.gates
+    check(min(routed(gates)) > 0, f"EP: the gates route {routed(gates)}")
+    torch.save({k: v.cpu() for k, v in model.smoe.state_dict().items()},
+               tmp / "ep_state.pt")
+    torch.save(x, tmp / "ep_x.pt")
+    held_dense = sum(p.numel() for p in model.smoe.parameters())
+    del model
+    torch.cuda.empty_cache()
+    rc, secs, err = torchrun(2, "ep", tmp, timeout=300)
+    check(rc == 0, f"expert-parallel launch exited {rc}:\n{err}")
+    rows = []
+    for r in range(2):
+        got = torch.load(tmp / f"ep{r}.pt", weights_only=True)
+        fe = rel_err(got["feat"], feat)
+        ae = abs(got["aux"].item() - aux.item()) / abs(aux.item())
+        rows.append(dict(rank=r, feat_rel_err=fe, aux_rel_err=ae,
+                         ms=got["ms"], held_params=got["held"],
+                         launches=got["launches"]))
+        expect_counts(got["launches"], {}, 1, f"EP rank {r}")
+        check(fe <= EP_TOL and ae <= EP_TOL, f"EP rank {r}: feature "
+              f"{fe:.3e}, aux {ae:.3e} off the dense SMoE")
+    out.update(ranks=rows, routed=routed(gates), launch_s=secs,
+               dense_params=held_dense, seconds=time.perf_counter() - t0)
+    print(f"expert parallelism, 2 gloo processes on cuda:0: {json.dumps(rows)}"
+          f"; routed {routed(gates)} of {SPARSE_BATCH[0]}; dense holds "
+          f"{held_dense} parameters; launch {secs:.1f} s, on {card}",
+          flush=True)
+
+
+def smoe_phase(dev, card, report):
+    """Phase 24: (a) SparseAAGCN and SparseDGSTGCN, (b) AssembleSparse,
+    each through :func:`sparse_training`; (c) the SMoE recognizer
+    (:func:`smoe_training`); (d) expert parallelism
+    (:func:`expert_parallel`).  No kernel."""
+    import tempfile
+    out = report["smoe"] = {}
+    nested, assemble = nested_builds()
+    t = [time.perf_counter()]
+    sparse_training(dev, card, out.setdefault("nested", {}), nested, seed=27,
+                    bias=NESTED_BIAS)
+    t.append(time.perf_counter())
+    sparse_training(dev, card, out.setdefault("assemble", {}), assemble,
+                    seed=28, bias=NESTED_BIAS)
+    t.append(time.perf_counter())
+    smoe_training(dev, card, out.setdefault("smoe", {}))
+    t.append(time.perf_counter())
+    with tempfile.TemporaryDirectory() as tmp:
+        expert_parallel(dev, card, out.setdefault("ep", {}),
+                        pathlib.Path(tmp))
+    t.append(time.perf_counter())
+    out["seconds"] = dict(zip(("nested", "assemble", "smoe", "ep"),
+                              np.diff(t).tolist()), total=t[-1] - t[0])
+    print(f"phase 24: {json.dumps(out['seconds'])}", flush=True)
 
 
 def main() -> int:
@@ -5640,13 +6035,18 @@ def main() -> int:
                     "(serving with K3, train, gcnr and pretraining steps with "
                     "K1 + K2), SparseSTGCN, SparseCTRGCN and "
                     "SparseSTGCNExact steps, GPU against CPU")
+    ap.add_argument("--smoe", action="store_true",
+                    help="phase 24 alone: SparseAAGCN, SparseDGSTGCN and "
+                    "AssembleSparse steps, the SMoE recognizer's steps and "
+                    "forward, expert parallelism over two gloo processes")
     ap.add_argument("--kernel-seeds", type=int, metavar="N",
                     help="phases 2, 6, 8 and 15(a) (the kernel checks, on "
                     "the whole run's inputs), then K4's bfloat16 cases over "
                     "N more input draws")
     ap.add_argument("--parallel-worker", metavar="PART",
-                    help="one process of a phase 19 launch (nccl, single, "
-                    "gloo or send); no kernel build, no other phase")
+                    help="one process of a phase 19 or 24 launch (nccl, "
+                    "single, gloo, send or ep); no kernel build, no other "
+                    "phase")
     ap.add_argument("--work", metavar="DIR",
                     help="phase 19's working directory (with "
                     "--parallel-worker)")
@@ -5810,6 +6210,15 @@ def main() -> int:
                                                       default=str))
         print(card)
         return 0
+    if args.smoe:
+        smoe_phase(dev, card, report)
+        done(24)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "smoe.json").write_text(json.dumps(report, indent=1,
+                                                  default=str))
+        print(card)
+        return 0
     if args.families:
         families(dev, card, report)
         done(16)
@@ -5860,12 +6269,16 @@ def main() -> int:
     done(22)
     readouts_phase(dev, card, report)                              # 23
     done(23)
+    smoe_phase(dev, card, report)                                  # 24
+    done(24)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "posec3d.json").write_text(json.dumps(report["posec3d"], indent=1,
                                                  default=str))
     (out / "readouts.json").write_text(json.dumps(report["readouts"],
                                                   indent=1, default=str))
+    (out / "smoe.json").write_text(json.dumps(report["smoe"], indent=1,
+                                              default=str))
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per

@@ -1,8 +1,9 @@
 """Training objectives of the reference's variant recognizers (port of
 ``dsgcn_tpu/core/flows.py``): the Granger-causality one, masked
 pretraining (``mask_keypoints`` + ``pretrain_losses``,
-recognizergcnPre.py:22-78) and the readout recognizer's
-(``gcnr_losses``, recognizergcnR.py:22-52)."""
+recognizergcnPre.py:22-78), the readout recognizer's (``gcnr_losses``,
+recognizergcnR.py:22-52) and the SMoE recognizer's
+(``smoe_recognizer_losses``, RecognizerGCN_sMoE.py:22-70)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
@@ -58,6 +59,28 @@ def pretrain_losses(neck, feats: torch.Tensor, feats_masked: torch.Tensor,
     graph = neck.get_intercost(feats, feats_masked)
     return {"node_loss": node, "graph_loss": graph,
             "loss_cls": node + graph}
+
+
+def smoe_recognizer_losses(cls_logits: torch.Tensor, labels: torch.Tensor,
+                           important_loss: torch.Tensor, *,
+                           current_epoch=0, warm_up=0, lam="gradual",
+                           penalty_value: Optional[torch.Tensor] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """The SMoE recognizer's objective (RecognizerGCN_sMoE.py:22-70): the
+    cross entropy of the ``ClsHead`` logits over the gate-combined
+    feature, plus the gates' balance loss 'important_loss', plus, only
+    while ``current_epoch <= warm_up``, ``lam`` times ``penalty_value``
+    (``smoe_regularize`` at lam 1) as 'panelty_loss' (the reference's
+    spelling); ``lam='gradual'`` ramps it as min(epoch / warm_up, 1)
+    (:46-62).  'loss' is the sum."""
+    losses = {"loss_cls": cross_entropy(cls_logits, labels),
+              "important_loss": important_loss}
+    if penalty_value is not None and current_epoch <= warm_up:
+        if lam == "gradual":
+            lam = min(current_epoch / max(warm_up, 1), 1.0)
+        losses["panelty_loss"] = lam * penalty_value
+    losses["loss"] = sum(losses.values())
+    return losses
 
 
 def gcnr_losses(cls_logits: torch.Tensor, labels: torch.Tensor,

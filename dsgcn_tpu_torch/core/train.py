@@ -33,7 +33,8 @@ def jax_param_names(model: nn.Module) -> Dict[str, str]:
     ``kernel``s (a sparse layer's ``score`` keeps its name), and raw
     parameters (``PA``, ``out_conv_kernel``, the causal banks,
     ``GCComponent.weight``, the necks' prototypes, ``Set2Set``'s and the
-    cMLP's leaves) keep their names."""
+    cMLP's leaves, the SMoE gate's ``w_gate``/``w_noise``) keep their
+    names."""
     out = {}
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):

@@ -59,7 +59,7 @@ class _SparseBackbone(nn.Module):
         self.data_bn = _data_bn(data_bn, graph, in_channels, num_person)
         plan = stage_plan(in_channels, base_channels, ch_ratio, num_stages,
                           tuple(inflate_stages), tuple(down_stages))
-        self.num_blocks = len(plan)
+        self.num_blocks, self.out_channels = len(plan), plan[-1][1]
         for i, (in_c, out_c, stride, residual) in enumerate(plan):
             self.add_module(f"block{i}", block(in_c, out_c, A, stride,
                                                residual))

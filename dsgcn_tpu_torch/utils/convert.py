@@ -27,8 +27,11 @@ re-orients kernels:
   ``out_conv_bias``; the Granger banks ``branch{i}_w``/``branch{i}_b``,
   ``follow_w``/``follow_b``, ``follow{j}_w``/``follow{j}_b``;
   ``GCComponent.weight``; the necks' prototypes ``protos``/``proto{i}``,
-  ``Set2Set``'s ``w_ih``/``w_hh``/``b_ih``/``b_hh`` and the cMLP's
-  ``l{i}_w``/``l{i}_b``).
+  ``Set2Set``'s ``w_ih``/``w_hh``/``b_ih``/``b_hh``, the cMLP's
+  ``l{i}_w``/``l{i}_b`` and the SMoE gate's ``w_gate``/``w_noise``, (C, E)
+  as in JAX).  Scopes such as ``stage{i}_branch{j}`` (``AssembleSparse``)
+  and ``expert{i}`` (``SMoEAssembleSparse``) are module names like any
+  other.
 
 Load the result with ``model.load_state_dict(sd, strict=True)``: together
 with the converter's own check that no two leaves land on one name, every

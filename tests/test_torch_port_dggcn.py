@@ -41,7 +41,7 @@ from dsgcn_tpu_torch.ops.kernels.dggcn_block import fused_dggcn_block_eval
 from dsgcn_tpu_torch.ops.kernels.dyn_graph import (fused_dyn_graph_agg_bwd,
                                                    fused_dyn_graph_agg_eval)
 from dsgcn_tpu_torch.ops.kernels.ms_tcn import fused_dgmstcn_eval
-from test_torch_port_grad import _train_parity, assert_rel
+from test_torch_port_grad import _jit_eval, _train_parity, assert_rel
 from test_torch_port_model import (GCN_KW, MODEL_TOL, MODULE_TOL, _load,
                                    _run)
 from test_torch_port_train import _run_both
@@ -267,8 +267,7 @@ def _jax_dggcn(case, name, path):
                 dict(use_pallas=True, pallas_interpret=True,
                      eval_kernel=path))
         m = JDGGCN(cout, A_init=_graph8(), **kw, **opts)
-        c["want"][path] = np.asarray(m.apply(c["v"], jnp.asarray(c["x"]),
-                                             train=False))
+        c["want"][path] = _jit_eval(m, c["v"], c["x"])
     return c["want"][path]
 
 
@@ -308,7 +307,7 @@ def test_dggcn_dense_options_match_jax(kw):
         np.float32)
     ref = JDGGCN(16, A_init=_graph8(), **kw)
     v = _variables(ref, x, seed=33)
-    want = np.asarray(ref.apply(v, jnp.asarray(x), train=False))
+    want = _jit_eval(ref, v, x)
     port = _load(DGGCN(16, 16, A_init=_graph8(), **kw, use_pallas=True), v)
     np.testing.assert_allclose(_run(port, x), want, **MODULE_TOL)
 
@@ -374,7 +373,7 @@ def test_dgphgcn1_mega_matches_jax():
     ref = JDGPHGCN1(32, use_pallas=True, pallas_interpret=True,
                     eval_kernel="mega", **graph, **GCN_KW)
     v = _variables(ref, x, seed=38)
-    want = np.asarray(ref.apply(v, jnp.asarray(x), train=False))
+    want = _jit_eval(ref, v, x)
     got = {}
     for ek in ("mega", "bd"):
         port = _load(DGPHGCN1(cin, 32, **graph, **GCN_KW, use_pallas=True,
@@ -411,7 +410,7 @@ def narrow_dgstgcn():
     jcfg, tcfg = _cfgs()
     ref = j_build_model(jcfg)
     v = _variables(ref, x, seed=41)
-    return tcfg, v, x, np.asarray(ref.apply(v, jnp.asarray(x), train=False))
+    return tcfg, v, x, _jit_eval(ref, v, x)
 
 
 @pytest.mark.parametrize("port_path", ["auto", "mega", "dense"])
@@ -474,8 +473,7 @@ def test_tcn_use_pallas_raises_naming_k7(narrow_dgstgcn):
     tcfg, v, x, _ = narrow_dgstgcn
     jcfg, _ = _cfgs()
     jcfg["backbone"].update(tcn_use_pallas=True, tcn_pallas_interpret=True)
-    want = np.asarray(j_build_model(jcfg).apply(v, jnp.asarray(x),
-                                                train=False))
+    want = _jit_eval(j_build_model(jcfg), v, x)
     tcfg = dict(tcfg, backbone=dict(tcfg["backbone"], gcn_use_pallas=True,
                                     tcn_use_pallas=True))
     before = fused_dgmstcn_eval.launches

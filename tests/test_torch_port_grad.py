@@ -168,12 +168,25 @@ def test_batchnorm_train_matches_jax(shape):
     assert_rel(y_eval.numpy(), y_j_eval, 1e-5, "eval after the update")
 
 
-def _train_parity(jmod, port, v, x, out_shape, seed, jit=False):
+def _jit_eval(jmod, v, x):
+    """JAX's eval-mode output of ``jmod`` on ``x`` as one program."""
+    return np.asarray(jax.jit(lambda vv, xx: jmod.apply(vv, xx, train=False))(
+        v, jnp.asarray(x)))
+
+
+def _jit_init(jmod, x):
+    """JAX's eval-mode init of ``jmod`` on ``x`` as one program."""
+    return jax.jit(lambda xx: jmod.init(jax.random.PRNGKey(0), xx,
+                                        train=False))(jnp.asarray(x))
+
+
+def _train_parity(jmod, port, v, x, out_shape, seed, jit=True):
     """One train-mode forward and backward of a JAX module and its port from
     the same variables: outputs, updated statistics, parameter and input
     gradients (the loss is <y, g> for a fixed random g).  ``jit`` compiles
     JAX's forward and backward as one program (far cheaper on the CPU than
-    op by op for modules of many small ops)."""
+    op by op for modules of many small ops); ``jit=False`` runs it op by
+    op."""
     g = np.random.default_rng(seed).standard_normal(out_shape).astype(
         np.float32)
 
@@ -220,8 +233,7 @@ def test_dgphgcn1_train_matches_jax(path):
     use = path == "kernel"
     jmod = JDGPHGCN1(32, use_pallas=use, pallas_interpret=True, **graph,
                      **GCN_KW)
-    v = nudge(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False),
-              seed=8)
+    v = nudge(_jit_init(jmod, x), seed=8)
     port = DGPHGCN1(16, 32, **graph, **GCN_KW, use_pallas=use)
     _train_parity(jmod, port, v, x, (2, 8, 25, 32), seed=9)
 
@@ -232,8 +244,7 @@ def test_dgmstcn_train_matches_jax(stride):
     x = np.random.default_rng(10 + stride).standard_normal(
         (2, 8, 25, 24)).astype(np.float32)
     jmod = JDGMSTCN(24, stride=stride)
-    v = nudge(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False),
-              seed=stride)
+    v = nudge(_jit_init(jmod, x), seed=stride)
     _train_parity(jmod, DGMSTCN(24, 24, stride=stride), v, x,
                   (2, 8 // stride, 25, 24), seed=12)
 

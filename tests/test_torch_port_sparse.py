@@ -28,13 +28,14 @@ import jax.numpy as jnp
 
 from dsgcn_tpu.graph import GraphConfig as JGraphConfig
 from dsgcn_tpu.sparse import models as jm
+from dsgcn_tpu.sparse import nested as jn
 from dsgcn_tpu_torch.core.losses import cross_entropy
 from dsgcn_tpu_torch.core.train import jax_param_names, paramwise_mults
 from dsgcn_tpu_torch.graph import GraphConfig
 from dsgcn_tpu_torch.models.builder import init_weights_
 from dsgcn_tpu_torch.ops.kernels import launch_counts
 from dsgcn_tpu_torch.sparse import models as sm
-from dsgcn_tpu_torch.sparse import supermask as ss
+from dsgcn_tpu_torch.sparse import nested as tn
 from dsgcn_tpu_torch.utils.convert import convert_jax_variables
 from dsgcn_tpu.core.losses import cross_entropy as j_cross_entropy
 from dsgcn_tpu.core.train import paramwise_mults as j_paramwise_mults
@@ -42,8 +43,9 @@ from test_torch_port_dggcn import _random_variables
 from test_torch_port_gcn_families import F64, _f64, _x, x64
 from test_torch_port_grad import assert_rel
 
-# the module (``dsgcn_tpu.sparse`` exports its function of the same name)
+# the modules (each package exports its function of the same name)
 js = importlib.import_module("dsgcn_tpu.sparse.supermask")
+ss = importlib.import_module("dsgcn_tpu_torch.sparse.supermask")
 
 
 def _jvars(jmod, seed, *args, **kw):
@@ -184,15 +186,21 @@ BACKBONES = {
     "SparseSTGCNExact": (jm.SparseSTGCNExact, sm.SparseSTGCNExact, {}),
     "SparseSTGCNExact_global": (jm.SparseSTGCNExact, sm.SparseSTGCNExact,
                                 dict(global_threshold=True)),
+    "SparseAAGCN": (jn.SparseAAGCN, tn.SparseAAGCN, {}),
+    # the nested DG-STGCN on its default random K = 8 graph
+    "SparseDGSTGCN": (jn.SparseDGSTGCN, tn.SparseDGSTGCN,
+                      dict(mode="random", num_filter=8, seed=0)),
 }
+GRAPH_KEYS = ("mode", "num_filter", "seed")
 
 
 def _backbone_case(name):
     jcls, tcls, kw = BACKBONES[name]
-    jb = jcls(graph_cfg=JGraphConfig(layout="nturgb+d", mode="spatial"),
-              **NARROW, **kw)
-    tb = tcls(graph_cfg=GraphConfig(layout="nturgb+d", mode="spatial"),
-              **NARROW, **kw)
+    graph = dict(layout="nturgb+d", mode="spatial")
+    graph.update({k: v for k, v in kw.items() if k in GRAPH_KEYS})
+    kw = {k: v for k, v in kw.items() if k not in GRAPH_KEYS}
+    jb = jcls(graph_cfg=JGraphConfig(**graph), **NARROW, **kw)
+    tb = tcls(graph_cfg=GraphConfig(**graph), **NARROW, **kw)
     return jb, tb
 
 
@@ -256,8 +264,8 @@ def test_sparse_backbone_float64_matches_jax(name):
     for n, w in want.items():
         assert_rel(state[n].numpy(), w.numpy(), F64, n)
     if name != "SparseSTGCN":
-        pool = sm._all_score_pool if "Exact" in name \
-            else sm._block_score_pool
+        pool = sm._block_score_pool if name == "SparseCTRGCN" \
+            else sm._all_score_pool
         for blk, thr in zip(tb.blocks(), tb.thresholds(0.6)):
             scores = torch.cat([s.detach().reshape(-1) for s in pool(blk)])
             if "global" not in name:

@@ -45,7 +45,7 @@ from dsgcn_tpu_torch.ops import tcn as tcn_mod
 from dsgcn_tpu_torch.ops.tcn import DGMSTCN, MSTCN
 from dsgcn_tpu_torch.tools import train as cli
 from test_torch_port_dggcn import _close, _variables
-from test_torch_port_grad import _train_parity, assert_rel
+from test_torch_port_grad import _jit_eval, _train_parity, assert_rel
 from test_torch_port_model import MODEL_TOL, MODULE_TOL, _load, _run
 from test_torch_port_train import _run_both
 from torch_port_cases import one_thread  # noqa: F401
@@ -298,8 +298,7 @@ def test_stgcnpp_recognizer_matches_jax(narrow_stgcnpp, k7):
     the module path against JAX's module path."""
     v, x = narrow_stgcnpp
     jcfg, tcfg = _cfgs(k7)
-    want = np.asarray(j_build_model(jcfg).apply(v, jnp.asarray(x),
-                                                train=False))
+    want = _jit_eval(j_build_model(jcfg), v, x)
     port = _load(build_model(tcfg), v)
     assert type(port.backbone.block3.tcn).__name__ == "MSTCN"
     assert port.backbone.block3.tcn.use_pallas == k7

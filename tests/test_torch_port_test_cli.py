@@ -20,8 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
 from dsgcn_tpu.core.metrics import evaluate as j_evaluate
 from dsgcn_tpu.models.builder import build_model as j_build_model
 from dsgcn_tpu.models.builder import model_cfg as j_model_cfg
@@ -33,6 +31,7 @@ from dsgcn_tpu_torch.tools import fuse_scores as fuse_cli
 from dsgcn_tpu_torch.tools import test as test_cli
 from dsgcn_tpu_torch.tools import train as train_cli
 from test_torch_port_dggcn import _variables
+from test_torch_port_grad import _jit_eval
 from test_torch_port_model import MODEL_TOL, _load, _run
 from torch_port_cases import one_thread  # noqa: F401
 
@@ -162,7 +161,7 @@ def coco_case():
     j["cls_head"]["in_channels"] = 16
     ref = j_build_model(j)
     v = _variables(ref, x, seed=17)
-    want = np.asarray(ref.apply(v, jnp.asarray(x), train=False))
+    want = _jit_eval(ref, v, x)
     return v, x, want
 
 

@@ -54,7 +54,10 @@ def run_case(case, mesh):
     (one step of the mesh's train step on this data rank's ``batch``: the
     metrics and the state after it), 'g1' (the graph_axis model on a
     (world, 1) mesh against the plain model: eval logits and one train
-    step's state each)."""
+    step's state each), 'ep' (the expert-parallel eval of the SMoE that
+    ``smoe`` and ``graph`` configure, rank e running expert e, from the
+    whole model's ``state``: the feature, the balance loss and the
+    parameters this rank holds)."""
     kind = case["kind"]
     if kind == "ring":
         x, A = case["x"], case["A"]
@@ -104,6 +107,18 @@ def run_case(case, mesh):
             out[f"{tag}/loss"] = m["loss"].numpy()
             out.update({f"{tag}/{k}": v for k, v in _state(model).items()})
         return out
+    if kind == "ep":
+        from dsgcn_tpu_torch.graph import GraphConfig
+        from dsgcn_tpu_torch.parallel import expert_parallel as ep
+        from dsgcn_tpu_torch.sparse.smoe import SMoEAssembleSparse
+        with torch.device("meta"):    # the configuration, no expert's weights
+            model = SMoEAssembleSparse(graph_cfg=GraphConfig(**case["graph"]),
+                                       **case["smoe"])
+        run = ep.make_ep_smoe_eval(ep.make_expert_mesh(mesh.world_size),
+                                   model)
+        feat, aux = run(case["state"], case["x"], *case["epochs"])
+        return {"feat": feat.numpy(), "aux": aux.numpy(), "params": np.asarray(
+            sum(p.numel() for m in run.modules for p in m.parameters()))}
     raise ValueError(f"unknown case kind {kind!r}")
 
 
