@@ -166,12 +166,32 @@ the same routing); (d) expert parallelism: two gloo processes on cuda:0
 (phase 19's launcher), rank e running routed expert e of a full-width
 SMoE of three ST-GCN backbones, each rank's feature and balance loss
 within 1e-5 of the dense SMoE on the card.  No kernel of the port
-launches in phase 24 (the ranks count theirs too).  The
-whole run writes each phase's
+launches in phase 24 (the ranks count theirs too).  Phase 25 takes the
+3D-CNN, video and multimodal models, each built through ``build_model``
+from a config written here, seeded, with BatchNorm statistics from its
+own batch: (a) ``MMRecognizer3D(RGBPoseConv3D, RGBPoseHead(60, (2048,
+512)))`` at the backbone's fixed widths, fed b8 of synthetic hrnet annos
+with a seeded frame array through the multimodal pipeline (RGB 8 x 224
+x 224, heatmaps 32 x 56 x 56), its step on ``mm_cross_entropy``; (b)
+X3D-shallow and C3D-light (pyskl's PoseC3D variants, ``Recognizer3D`` +
+``I3DHead``) and ``Recognizer2D(PoTion)`` + ``TSNHead`` over
+``Heatmap2Potion(C=3, 'full')`` images, fed b32 from PoseC3D's train
+pipeline (48 x 56 x 56), X3D and C3D through the train CLI (two steps
+and a validation), X3D's seeded model through the test CLI on two videos
+on the card, with ``--bf16`` (2e-3 of f32) and on ``--device cpu`` (1e-3,
+top-1 equal); (c) SlowFast-R50 (JAX's defaults, 32 frames at 224) from
+``VideoDataset`` rawframe lines over JPEG frames through the train
+pipeline and the Loader at b8, and a ThreeCrop test batch folded as the
+test CLI folds clips.  Each: GPU logits against a CPU copy's on one
+sample (1e-3 of the largest; the card's logits varying over samples and
+classes by 1e-2 of the largest), a float64 step against the CPU's,
+timed f32 steps and a batch forward with clips/s, peak GiB, busy and idle
+and the top device operations.  No kernel of the port launches in phase
+25.  The whole run writes each phase's
 finish time (seconds from the first phase's start) under
 ``phase_done_s`` in ``chiprun_out/chip_smoke.json``.
 Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19,
-20, 21, 22, 23, 24;
+20, 21, 22, 23, 24, 25;
 ``--every-config`` runs 15 alone, ``--families`` 16 alone
 (``chiprun_out/families.json``), ``--options`` 17 alone
 (``chiprun_out/options.json``), ``--serving`` 18 alone
@@ -181,7 +201,8 @@ Phases run in the order 2-6, 8, 9, 11-13, 7, 10, 14, 15, 16, 17, 18, 19,
 (``chiprun_out/other_families.json``), ``--posec3d`` 22 alone
 (``chiprun_out/posec3d.json``), ``--readouts`` 23 alone
 (``chiprun_out/readouts.json``), ``--smoe`` 24 alone
-(``chiprun_out/smoe.json``).  Any failed check raises, and the script
+(``chiprun_out/smoe.json``), ``--video`` 25 alone
+(``chiprun_out/video.json``).  Any failed check raises, and the script
 exits non-zero without a result line.
 The kernel checks of phases 2, 6, 8 and 15 draw their random inputs on
 the card (one torch.Generator, seed 0).  A bfloat16 output of K1 (phases 8
@@ -660,30 +681,45 @@ def as_batch(b, n=None):
     return dict(keypoint=kp[:n], label=b["label"][:n])
 
 
+def scores_of(out):
+    """A recognizer's logits as a dict ({'rgb', 'pose'} or {'logits'})."""
+    return out if isinstance(out, dict) else {"logits": out}
+
+
+def model_inputs(batch):
+    """The model's inputs in a batch: ``imgs`` and ``heatmap_imgs`` (a
+    multimodal batch), else its ``keypoint`` or ``imgs``."""
+    from dsgcn_tpu_torch.core.train import input_key
+    keys = (("imgs", "heatmap_imgs") if "heatmap_imgs" in batch
+            else (input_key(batch),))
+    return [torch.as_tensor(batch[k]) for k in keys]
+
+
 def gpu_vs_cpu_step(model, batch, out, step=None):
     """One train_step (or ``step``, of train_step's signature) on the card
     and the same step on the CPU (plain versions) from the same weights and
-    batch: loss within 1e-4, train-mode logits within 1e-3 relative, each
-    parameter's update with cosine > 0.995 and norm within 5% (float32
-    rounding grows through the untrained BatchNorm stacks;
+    batch: loss within 1e-4, train-mode logits (each stream's) within 1e-3
+    relative, each parameter's update with cosine > 0.995 and norm within
+    5% (float32 rounding grows through the untrained BatchNorm stacks;
     tests/test_training_dynamics_parity.py)."""
-    from dsgcn_tpu_torch.core.train import (input_key, make_optimizer,
-                                            train_step)
+    from dsgcn_tpu_torch.core.train import make_optimizer, train_step
     step = step or train_step
     model = copy.deepcopy(model)          # the caller's model stays as it is
     cpu = copy.deepcopy(model).cpu()
     init = {k: v.detach().cpu().clone() for k, v in cpu.state_dict().items()}
-    kp = torch.from_numpy(batch[input_key(batch)])
+    xs = model_inputs(batch)
     logits = []
     for m in (model, cpu):
         probe = copy.deepcopy(m).train()
+        d = next(m.parameters()).device
         with torch.no_grad():
-            logits.append(probe(kp.to(next(m.parameters()).device)).cpu())
+            logits.append({k: v.cpu() for k, v in scores_of(
+                probe(*[x.to(d) for x in xs])).items()})
     losses = []
     for m in (model, cpu):
         opt, sched = make_optimizer(m, 10)
         losses.append(step(m, opt, sched, batch)["loss"].item())
-    lerr = rel_err(logits[0], logits[1])
+    lerr = max(rel_err(logits[0][k], logits[1][k]) for k in logits[1])
     loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
     worst_cos, worst_ratio, worst_name = 1.0, 0.0, None
     gpu_state = model.state_dict()
@@ -739,8 +775,7 @@ def timed_steps(model, batches, dtype_name, card, out, per_step):
     # one more step of the same kind under the profiler
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train_step(model, opt, sched, batches[-1], compute_dtype=compute)
         torch.cuda.synchronize()
@@ -1989,8 +2024,7 @@ def breakdown(model, x, name, out, tag=""):
     with torch.inference_mode():
         model(x)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             model(x)
             torch.cuda.synchronize()
@@ -3101,8 +3135,10 @@ def validate_by_default(tmp, report):
                    f"    train=dict(ann_file={str(ann)!r}, split='train'),\n"
                    f"    val=dict(ann_file={str(ann)!r}, split='val'))\n")
     wd = tmp / "wd_val_default"
-    run_module(["dsgcn_tpu_torch.tools.train", cfg, "--work-dir", wd,
-                "--total-epochs", "1"], "train CLI without --validate")
+    # in this process (a subprocess took ~20 s more to reach the card)
+    from dsgcn_tpu_torch.tools import train as train_cli
+    train_cli.main([str(cfg), "--work-dir", str(wd), "--total-epochs", "1"])
+    torch.cuda.empty_cache()
     records = [json.loads(line) for f in sorted(wd.glob("*.log.jsonl"))
                for line in f.read_text().splitlines()]
     vals = [r for r in records if r.get("mode") == "val"]
@@ -4190,21 +4226,22 @@ def variant_model(cfg, dev, calib, seed):
 
 def forward_ms(model, x, iters=5):
     """Wall ms of a batch forward on the card (two warm-ups) and its
-    kernel launches."""
+    kernel launches; ``x`` is the input, or a list of a model's inputs."""
+    xs = x if isinstance(x, list) else [x]
     with torch.inference_mode():
         for _ in range(2):
-            y = model(x)
+            y = model(*xs)
         torch.cuda.synchronize()
         reset_counts()
-        y = model(x)
+        y = model(*xs)
         torch.cuda.synchronize()
         counts = read_counts()
         t0 = time.perf_counter()
         for _ in range(iters):
-            y = model(x)
+            y = model(*xs)
         torch.cuda.synchronize()
-    check(bool(torch.isfinite(y).all()), "a batch forward gave non-finite "
-          "logits")
+    check(all(bool(torch.isfinite(v).all()) for v in scores_of(y).values()),
+          "a batch forward gave non-finite logits")
     return (time.perf_counter() - t0) / iters * 1e3, counts
 
 
@@ -4865,28 +4902,32 @@ def posec3d_annos(tmp, n_train, n_test, seed):
     return path
 
 
-def posec3d_cli_config(tmp, ann, split):
+def posec3d_cli_config(tmp, ann, split, model=None, tag="posec3d"):
     """The committed config reading ``ann``: train on its 'train' split,
-    validate on 'cpu', test on ``split``, two videos a test batch."""
-    path = tmp / f"posec3d_{split}.py"
+    validate on 'cpu', test on ``split``, two videos a test batch; with
+    ``model`` that model config in place of the committed one."""
+    path = tmp / f"{tag}_{split}.py"
     path.write_text(
         f"_base_ = ['{POSEC3D_CONFIG}']\n"
-        "data = dict(test_dataloader=dict(videos_per_gpu=2),\n"
+        + ("" if model is None else
+           f"model = {dict(model, _delete_=True)!r}\n")
+        + "data = dict(test_dataloader=dict(videos_per_gpu=2),\n"
         f"            train=dict(ann_file='{ann}', split='train'),\n"
         f"            val=dict(ann_file='{ann}', split='cpu'),\n"
         f"            test=dict(ann_file='{ann}', split='{split}'))\n")
     return path
 
 
-def posec3d_train_cli(tmp, ann, out):
-    """The train CLI on the committed config for one epoch of its 'train'
-    split (two b32 steps) on the card: the trainer's ``imgs`` batches, a
-    validation of the 'cpu' split's 10-clip videos, a checkpoint; the
-    seconds it took."""
+def posec3d_train_cli(tmp, ann, out, model=None, tag="posec3d"):
+    """The train CLI on the committed config (with ``model`` in place of
+    its model) for one epoch of its 'train' split (two b32 steps) on the
+    card: the trainer's ``imgs`` batches, a validation of the 'cpu'
+    split's 10-clip videos, a checkpoint; the seconds it took."""
     from dsgcn_tpu_torch.tools import train as train_cli
-    wd = tmp / "wd_train"
+    wd = tmp / f"wd_train_{tag}"
     t0 = time.perf_counter()
-    trainer = train_cli.main([str(posec3d_cli_config(tmp, ann, "val")),
+    trainer = train_cli.main([str(posec3d_cli_config(tmp, ann, "val", model,
+                                                     tag)),
                               "--work-dir", str(wd), "--total-epochs", "1",
                               "--no-auto-resume"])
     secs = time.perf_counter() - t0
@@ -4898,26 +4939,28 @@ def posec3d_train_cli(tmp, ann, out):
           f"posec3d train CLI: {trainer.step} steps, {len(val)} val "
           f"records, checkpoints {sorted(wd.glob('ckpt/*'))}")
     out["train_cli"] = dict(seconds=secs, steps=trainer.step, val=val[0])
-    print(f"posec3d: train CLI, one epoch of 2 b32 steps and a 2-video "
+    print(f"{tag}: train CLI, one epoch of 2 b32 steps and a 2-video "
           f"validation, {secs:.2f} s: val {json.dumps(val[0])}", flush=True)
     del trainer
     torch.cuda.empty_cache()
 
 
-def calibrate_posec3d_(model, x):
-    """BatchNorm statistics from ``x`` in one train-mode forward: from the
-    seeded statistics (mean 0, variance 1) momentum 0.1 leaves each
-    running statistic 0.1 of the batch's (the unbiased variance) plus 0.9
-    of the seed's, which this undoes; the model goes back to eval."""
+def calibrate_posec3d_(model, *xs):
+    """BatchNorm statistics from the inputs ``xs`` in one train-mode
+    forward: from the seeded statistics (mean 0, variance 1) momentum 0.1
+    leaves each running statistic 0.1 of the batch's (the unbiased
+    variance) plus 0.9 of the seed's, which this undoes; the model goes
+    back to eval."""
     from dsgcn_tpu_torch.ops.common import BNStats
-    bns = [m for m in model.modules() if isinstance(m, BNStats)]
+    bns = [m for m in model.modules()
+           if isinstance(m, BNStats) and hasattr(m, "running_mean")]
     check(len(bns) > 0 and all(bool((m.running_mean == 0).all()
                                      and (m.running_var == 1).all())
                                for m in bns),
           "calibrate_posec3d_ needs the seeded BatchNorm statistics")
     model.train()
     with torch.no_grad():
-        model(x)
+        model(*xs)
         for m in bns:
             m.running_mean.div_(0.1)
             m.running_var.sub_(0.9).div_(0.1)
@@ -5142,8 +5185,7 @@ def posec3d_phase(dev, card, report):
               f"(pageable) {h2d:.2f} ms on {card}", flush=True)
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             train_step(model, opt, sched, batches[-1])
             torch.cuda.synchronize()
@@ -5369,8 +5411,7 @@ def neck_training(dev, card, out):
         from torch.profiler import ProfilerActivity, profile
         opt, sched = make_optimizer(model, 10)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             (step or train_step)(model, opt, sched, batches[0])
             torch.cuda.synchronize()
@@ -5976,6 +6017,483 @@ def smoe_phase(dev, card, report):
     print(f"phase 24: {json.dumps(out['seconds'])}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the 3D-CNN, video and multimodal models (no kernel)
+# ---------------------------------------------------------------------------
+
+VIDEO_BATCH = 8                 # RGB+pose and SlowFast clips a step
+HEATMAP_BATCH = 32              # X3D, C3D and PoTion (PoseC3D's b32)
+VIDEO_STEPS = 3                 # timed steps after a warm-up
+VIDEO_FRAMES = 80               # a synthetic video's frames
+VIDEO_SIZE = (256, 340)         # its frames' (h, w), Kinetics' short side
+VIDEO_TEST_VIDEOS = 2           # ThreeCrop test videos (6 folded clips)
+MM_CLIPS = dict(RGB=(8, 224), Pose=(32, 56))   # frames, size a modality
+SLOWFAST_CLIP = (32, 224)       # SlowFast's frames and crop
+# pyskl's configs/posec3d/x3d_shallow_ntu60_xsub/joint.py and
+# c3d_light_ntu60_xsub/joint.py, the head widths as there
+X3D_SHALLOW = dict(
+    type="Recognizer3D",
+    backbone=dict(type="X3D", gamma_d=1, in_channels=17, base_channels=24,
+                  num_stages=3, se_ratio=None, use_swish=False,
+                  stage_blocks=[2, 5, 3], spatial_strides=[2, 2, 2]),
+    cls_head=dict(type="I3DHead", in_channels=216, num_classes=60,
+                  dropout=0.5))
+C3D_LIGHT = dict(
+    type="Recognizer3D",
+    backbone=dict(type="C3D", in_channels=17, base_channels=32,
+                  num_stages=3, temporal_downsample=False),
+    cls_head=dict(type="I3DHead", in_channels=256, num_classes=60,
+                  dropout=0.5))
+# JAX's RGBPoseConv3D (fixed widths) with RGBPoseHead, SlowFast at JAX's
+# defaults with its 2304-wide head, PoTion at its default widths over
+# Heatmap2Potion(C=3, 'full') images of 17 joints (119 channels)
+RGBPOSE = dict(type="MMRecognizer3D", backbone=dict(type="RGBPoseConv3D"),
+               cls_head=dict(type="RGBPoseHead", num_classes=60,
+                             in_channels=[2048, 512]))
+SLOWFAST = dict(type="Recognizer3D",
+                backbone=dict(type="ResNet3dSlowFast"),
+                cls_head=dict(type="SlowFastHead", num_classes=60,
+                              in_channels=2304))
+POTION = dict(type="Recognizer2D",
+              backbone=dict(type="PoTion", in_channels=119),
+              cls_head=dict(type="TSNHead", num_classes=60,
+                            in_channels=512))
+IMAGENET_MEAN = [123.675, 116.28, 103.53]
+IMAGENET_STD = [58.395, 57.12, 57.375]
+
+
+def video_model(cfg, seed, dev):
+    """``build_model`` on ``cfg`` with weights from ``init_weights_``
+    (seeded), on ``dev``."""
+    from dsgcn_tpu_torch.models.builder import build_model, init_weights_
+    model = build_model(cfg)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    return model.to(dev)
+
+
+def video_logits_check(name, model, batch, card, out, n_cpu=1):
+    """The served (eval, BatchNorm statistics from data) model's logits on
+    ``batch`` on the card, against a CPU copy's on the first ``n_cpu``
+    samples: within 1e-3 of the largest card logit; so that the comparison
+    can tell samples and classes apart, the card's logits must vary over
+    the samples and over the classes by at least 1e-2 of the largest (ten
+    times the tolerance), each stream's."""
+    xs = model_inputs(batch)
+    with torch.inference_mode():
+        g = scores_of(model(*xs))
+        c = scores_of(copy.deepcopy(model).cpu()(
+            *[x[:n_cpu].cpu() for x in xs]))
+    rows = {}
+    for k in g:
+        gk = g[k].float().cpu()
+        check(gk.shape == (xs[0].shape[0], 60)
+              and bool(torch.isfinite(gk).all()),
+              f"{name} {k} logits of shape {tuple(gk.shape)} or not finite")
+        err = rel_err(gk[:n_cpu], c[k])
+        top = gk.abs().max()
+        over_s = (gk.std(dim=0).mean() / top).item()
+        over_c = (gk.std(dim=1).mean() / top).item()
+        rows[k] = dict(rel_err=err, largest=top.item(),
+                       spread_over_samples=over_s,
+                       spread_over_classes=over_c)
+        print(f"{name}: {'' if k == 'logits' else k + ' '}logits of "
+              f"{xs[0].shape[0]} samples, card against CPU on {n_cpu}: "
+              f"{err:.3e} of the largest ({top.item():.4g}); spread over "
+              f"samples {over_s:.3e}, over classes {over_c:.3e}, on {card}",
+              flush=True)
+        check(err <= 1e-3, f"{name}: {k} GPU logits off the CPU's by "
+              f"{err:.3e} of the largest")
+        check(over_s >= 1e-2 and over_c >= 1e-2,
+              f"{name}: {k} logits spread {over_s:.3e} over samples and "
+              f"{over_c:.3e} over classes of the largest, under 1e-2")
+    out["logits"] = rows
+
+
+def mm_step(model, opt, sched, batch):
+    """One step of MMRecognizer3D on ``mm_cross_entropy`` (JAX has no
+    trainer for it: the step is written here as ``train_step`` does its
+    own); ``train_step``'s ``loss`` metric."""
+    from dsgcn_tpu_torch.core.losses import mm_cross_entropy
+    from dsgcn_tpu_torch.core.train import zero_missing_grads_
+    model.train()
+    d = next(model.parameters()).device
+    xs = [x.to(d) for x in model_inputs(batch)]
+    loss, _ = mm_cross_entropy(model(*xs),
+                               torch.as_tensor(batch["label"]).to(d))
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    zero_missing_grads_(opt)
+    opt.step()
+    sched.step()
+    return dict(loss=loss.detach())
+
+
+def video_step_check(name, model, batch, step, out):
+    """``gpu_vs_cpu_step`` on a float64 copy of the model (dropout off)
+    and the batch's first sample (float64: phases 22-24 found float32's
+    rounding through untrained BatchNorm stacks move single BatchNorm
+    updates by ~1% of cosine)."""
+    probe = copy.deepcopy(model).double()
+    for m in probe.modules():
+        if isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+    one = {k: v[:1].cpu() if k == "label" else v[:1].cpu().double()
+           for k, v in batch.items()}
+    print(f"{name}: a float64 step on one sample, card against CPU",
+          flush=True)
+    t0 = time.perf_counter()
+    gpu_vs_cpu_step(probe, one, out, step)
+    out["gpu_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    del probe
+
+
+def video_timed(name, model, batch, step, card, out):
+    """The served batch forward (``forward_ms``: ms, clips/s, peak GiB, no
+    launch of the port's kernels), then f32 steps on the batch (dropout
+    0.5 from a generator on the card; the median of VIDEO_STEPS after a
+    warm-up, clips/s, peak GiB) and one more step under the profiler (the
+    card's activity only: busy and idle, the top device operations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsgcn_tpu_torch.core.train import make_optimizer
+    from dsgcn_tpu_torch.models.builder import set_dropout_generator
+    xs = model_inputs(batch)
+    n = xs[0].shape[0]
+    model.eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, counts = forward_ms(model, xs, iters=3)
+    expect_counts(counts, {}, 1, f"{name}'s batch forward")
+    out["forward"] = dict(batch=n, ms=ms, clips_per_s=n / ms * 1e3,
+                          peak_mem_gib=torch.cuda.max_memory_allocated()
+                          / 2 ** 30)
+    set_dropout_generator(model, torch.Generator(device=xs[0].device)
+                          .manual_seed(25))
+    opt, sched = make_optimizer(model, 100)
+    rows = []
+    for i in range(1 + VIDEO_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step(model, opt, sched, batch)["loss"].item()
+        wall = (time.perf_counter() - t0) * 1e3
+        check(np.isfinite(loss), f"{name} step {i}: loss {loss}")
+        rows.append(dict(step=i, warmup=i == 0, loss=loss, wall_ms=wall,
+                         peak_mem_gib=torch.cuda.max_memory_allocated()
+                         / 2 ** 30))
+    timed = [r["wall_ms"] for r in rows[1:]]
+    step_ms = float(np.median(timed))
+    peak = max(r["peak_mem_gib"] for r in rows)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, opt, sched, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    out["train"] = dict(steps=rows, median_step_ms=step_ms,
+                        clips_per_s=n / step_ms * 1e3, peak_mem_gib=peak,
+                        profile=device_rows(prof, wall,
+                                            f"{name} train profile f32"))
+    print(f"{name}: eval forward of {n} clips {ms:.2f} ms "
+          f"({n / ms * 1e3:.1f} clips/s, peak "
+          f"{out['forward']['peak_mem_gib']:.2f} GiB); f32 steps at b{n} "
+          f"{', '.join(f'{t:.2f}' for t in timed)} ms, median "
+          f"{step_ms:.2f} ms ({n / step_ms * 1e3:.1f} clips/s), peak "
+          f"{peak:.2f} GiB (TF32 off) on {card}", flush=True)
+    del opt, sched
+
+
+def synthetic_video(rng, n_frames, size=VIDEO_SIZE):
+    """(n_frames, h, w, 3) uint8 frames that differ from video to video: a
+    coarse random colour field, upsampled, drifting a few pixels a frame,
+    with noise."""
+    h, w = size
+    coarse = rng.integers(0, 256, (6, 8, 3)).astype(np.float32)
+    field = np.repeat(np.repeat(coarse, -(-h // 6), 0), -(-w // 8), 1)
+    field = np.tile(field, (1, 2, 1))[:h]
+    step = int(rng.integers(1, 5))
+    frames = np.stack([field[:, (t * step) % w:(t * step) % w + w]
+                       for t in range(n_frames)])
+    noise = rng.integers(-20, 21, frames.shape)
+    return np.clip(frames + noise, 0, 255).astype(np.uint8)
+
+
+def mm_batch(seed, n):
+    """``n`` samples of synthetic hrnet annos (COCO, 48 frames, two
+    persons) with a seeded uint8 frame ``array`` (270 x 480, so MMDecode
+    rescales the 1080 x 1920 keypoints), through the multimodal pipeline
+    at full size (``MM_CLIPS``): MMUniformSampleFrames (RGB 8, Pose 32)
+    -> MMDecode ->
+    MMCompact -> Resize 224 -> Rename -> Resize 56 -> GeneratePoseTarget
+    -> FormatShape; the RGB frames normalized by ImageNet's mean and std
+    (``Normalize`` refuses the multimodal list modality, in JAX and here).
+    Returns (imgs (n, 8, 224, 224, 3), heatmaps (n, 32, 56, 56, 17),
+    labels) and the pipeline's seconds a sample."""
+    from dsgcn_tpu_torch.data.dataset import make_synthetic_pose_dataset
+    from dsgcn_tpu_torch.data.transforms import build_pipeline
+    (tr, sr), (tp, sp) = MM_CLIPS["RGB"], MM_CLIPS["Pose"]
+    pipeline = build_pipeline([
+        dict(type="MMUniformSampleFrames", clip_len=dict(RGB=tr, Pose=tp),
+             num_clips=1),
+        dict(type="MMDecode"),
+        dict(type="MMCompact", padding=0.25, hw_ratio=1),
+        dict(type="Resize", scale=(sr, sr), keep_ratio=False),
+        dict(type="Rename", mapping=dict(imgs="rgb_imgs")),
+        dict(type="Resize", scale=(sp, sp), keep_ratio=False),
+        dict(type="GeneratePoseTarget", sigma=0.6, use_score=True,
+             with_kp=True),
+        dict(type="FormatShape", input_format="NCTHW"),
+    ])
+    annos = make_synthetic_pose_dataset(num_samples=n, num_classes=60, t=48,
+                                        seed=seed,
+                                        layout="coco")["annotations"]
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    imgs, heat, labels = [], [], []
+    for i, a in enumerate(annos):
+        a = dict(a, array=synthetic_video(rng, 48, (270, 480)),
+                 modality="Pose", start_index=0)
+        r = pipeline(a, rng=np.random.RandomState(seed + i))
+        rgb = (np.stack(r["rgb_imgs"]).astype(np.float32)
+               - np.float32(IMAGENET_MEAN)) / np.float32(IMAGENET_STD)
+        imgs.append(rgb)
+        heat.append(r["imgs"])
+        labels.append(r["label"])
+    secs = (time.perf_counter() - t0) / n
+    return (np.stack(imgs), np.stack(heat), np.array(labels)), secs
+
+
+def rgbpose_part(dev, card, out):
+    """RGBPoseConv3D + RGBPoseHead at full width: b8 from the multimodal
+    pipeline, BatchNorm statistics from it, GPU logits against the CPU,
+    a ``mm_cross_entropy`` step against the CPU, the timed forward and
+    steps."""
+    (imgs, heat, labels), secs = mm_batch(25, VIDEO_BATCH)
+    (tr, sr), (tp, sp) = MM_CLIPS["RGB"], MM_CLIPS["Pose"]
+    check(imgs.shape == (VIDEO_BATCH, tr, sr, sr, 3)
+          and heat.shape == (VIDEO_BATCH, tp, sp, sp, 17)
+          and 0.5 < float(heat.max()) <= 1.0,
+          f"multimodal batch {imgs.shape} {heat.shape}")
+    out["host_s_per_sample"] = secs
+    model = video_model(RGBPOSE, 25, dev)
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("imgs", imgs), ("heatmap_imgs", heat), ("label", labels))}
+    calibrate_posec3d_(model, *model_inputs(batch))
+    video_logits_check("rgbpose", model, batch, card, out)
+    video_step_check("rgbpose", model, batch, mm_step, out)
+    video_timed("rgbpose", model, batch, mm_step, card, out)
+    no_launches("phase 25 RGB+pose")
+    del model, batch
+    torch.cuda.empty_cache()
+
+
+def video_dir(tmp, n_train, n_test, seed):
+    """JPEG frames of ``n_train + n_test`` synthetic videos under ``tmp``
+    and two rawframe annotation files ('<frame_dir> <frames> <label>')."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    lines = []
+    for v in range(n_train + n_test):
+        d = tmp / f"video{v:02d}"
+        d.mkdir()
+        for i, f in enumerate(synthetic_video(rng, VIDEO_FRAMES)):
+            Image.fromarray(f).save(d / f"img_{i:05}.jpg", quality=90)
+        lines.append(f"{d.name} {VIDEO_FRAMES} {int(rng.integers(60))}\n")
+    (tmp / "train.txt").write_text("".join(lines[:n_train]))
+    (tmp / "test.txt").write_text("".join(lines[n_train:]))
+
+
+def slowfast_part(dev, card, out, tmp):
+    """SlowFast-R50 (JAX's defaults) over 32 frames at 224
+    (``SLOWFAST_CLIP``): VideoDataset
+    rawframe lines over JPEG frames, the train pipeline (SampleFrames(32,
+    2), RawFrameDecode, RandomResizedCrop, Resize 224, Flip, Normalize,
+    FormatShape) through the Loader at b8, the ThreeCrop test pipeline's
+    (3 x 32)-frame videos folded into three clips each as the test CLI
+    folds a batch's clips; BatchNorm statistics from the train batch, GPU
+    logits against the CPU on the test clips, a step against the CPU, the
+    timed test forward and b8 steps."""
+    from dsgcn_tpu_torch.data.dataset import Loader, VideoDataset
+    from dsgcn_tpu_torch.models.recognizer import average_clip
+    video_dir(tmp, VIDEO_BATCH, VIDEO_TEST_VIDEOS, seed=25)
+    norm = dict(type="Normalize", mean=IMAGENET_MEAN, std=IMAGENET_STD)
+    t, size = SLOWFAST_CLIP
+    train = VideoDataset(str(tmp / "train.txt"), [
+        dict(type="SampleFrames", clip_len=t, frame_interval=2,
+             num_clips=1),
+        dict(type="RawFrameDecode"),
+        dict(type="RandomResizedCrop"),
+        dict(type="Resize", scale=(size, size), keep_ratio=False),
+        dict(type="Flip", flip_ratio=0.5),
+        norm, dict(type="FormatShape", input_format="NCTHW"),
+        dict(type="Collect", keys=["imgs", "label"])],
+        data_prefix=str(tmp) + "/")
+    test = VideoDataset(str(tmp / "test.txt"), [
+        dict(type="SampleFrames", clip_len=t, frame_interval=2,
+             num_clips=1, test_mode=True),
+        dict(type="RawFrameDecode"),
+        dict(type="Resize", scale=(-1, size)),
+        dict(type="ThreeCrop", crop_size=size),
+        norm, dict(type="FormatShape", input_format="NCTHW"),
+        dict(type="Collect", keys=["imgs", "label"])],
+        data_prefix=str(tmp) + "/", test_mode=True)
+    t0 = time.perf_counter()
+    batch = next(Loader(train, VIDEO_BATCH, seed=25).epoch(0))
+    out["host_s_per_clip"] = (time.perf_counter() - t0) / VIDEO_BATCH
+    tb = next(Loader(test, VIDEO_TEST_VIDEOS, shuffle=False).epoch(0))
+    check(batch["imgs"].shape == (VIDEO_BATCH, t, size, size, 3)
+          and tb["imgs"].shape == (VIDEO_TEST_VIDEOS, 3 * t, size, size,
+                                   3),
+          f"video batches {batch['imgs'].shape} {tb['imgs'].shape}")
+    from dsgcn_tpu_torch.core.train import train_step
+    model = video_model(SLOWFAST, 26, dev)
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    calibrate_posec3d_(model, batch["imgs"])
+    # the test CLI's fold: (N, nc, T, H, W, C) -> (N nc, T, H, W, C)
+    n = VIDEO_TEST_VIDEOS
+    folded = torch.from_numpy(tb["imgs"].reshape(
+        (n * 3, t) + tb["imgs"].shape[2:])).to(dev)
+    video_logits_check("slowfast", model, dict(imgs=folded), card, out)
+    with torch.inference_mode():
+        scores = average_clip(model(folded).float().reshape(n, 3, -1))
+    check(scores.shape == (n, 60) and bool(torch.isfinite(scores).all())
+          and torch.allclose(scores.sum(-1), torch.ones(n, device=dev)),
+          f"slowfast three-crop scores {tuple(scores.shape)}")
+    out["test"] = dict(videos=n, clips=3 * n,
+                       forward_ms=forward_ms(model, folded, iters=3)[0])
+    video_step_check("slowfast", model, batch, train_step, out)
+    video_timed("slowfast", model, batch, train_step, card, out)
+    no_launches("phase 25 SlowFast")
+    del model, batch, folded
+    torch.cuda.empty_cache()
+
+
+def heatmap_batch(ann, pipeline, n):
+    """The first b``n`` of the 'train' split through ``pipeline`` and the
+    Loader (the trainer's ``squeeze_clip`` applied); seconds a clip."""
+    from dsgcn_tpu_torch.core.trainer import squeeze_clip
+    from dsgcn_tpu_torch.data.dataset import Loader, PoseDataset
+    ds = PoseDataset(str(ann), pipeline, split="train")
+    t0 = time.perf_counter()
+    b = squeeze_clip(next(Loader(ds, n, seed=25, drop_last=True)
+                          .epoch(0)))
+    return b, (time.perf_counter() - t0) / n
+
+
+def heatmap_part(dev, card, out, tmp):
+    """X3D-shallow, C3D-light (Recognizer3D + I3DHead, 60 classes) and
+    PoTion (Recognizer2D + TSNHead) over PoseC3D's train pipeline at 48 x
+    56 x 56 (PoTion's with ``Heatmap2Potion(C=3, 'full')`` in place of
+    ``FormatHeatmapInput``): BatchNorm statistics from the b32 batch, GPU
+    logits against the CPU, a step against the CPU, timed b32 forwards and
+    steps; X3D and C3D through the train CLI (two b32 steps and a
+    validation); X3D's seeded model through the test CLI on two videos on
+    the card, with ``--bf16`` and with ``--device cpu``."""
+    from dsgcn_tpu_torch.configs.config import Config
+    from dsgcn_tpu_torch.core.train import train_step
+    cfg = Config.fromfile(str(POSEC3D_CONFIG))
+    ann = posec3d_annos(tmp, 2 * HEATMAP_BATCH, POSEC3D_CPU_VIDEOS, seed=25)
+    pipe = cfg["data"]["train"]["pipeline"]
+    batch, secs = heatmap_batch(ann, pipe, HEATMAP_BATCH)
+    potion_pipe = [dict(type="Heatmap2Potion", C=3, option="full")
+                   if s["type"] == "FormatHeatmapInput" else s for s in pipe]
+    pbatch, psecs = heatmap_batch(ann, potion_pipe, HEATMAP_BATCH)
+    check(batch["imgs"].shape == (HEATMAP_BATCH, 48, 56, 56, 17)
+          and pbatch["imgs"].shape == (HEATMAP_BATCH, 1, 56, 56, 119),
+          f"heatmap batches {batch['imgs'].shape} {pbatch['imgs'].shape}")
+    out["host_s_per_clip"] = dict(heatmap=secs, potion=psecs)
+    for name, mcfg, b in (("x3d_shallow", X3D_SHALLOW, batch),
+                          ("c3d_light", C3D_LIGHT, batch),
+                          ("potion", POTION, pbatch)):
+        o = out[name] = {}
+        model = video_model(mcfg, 27, dev)
+        o["parameters"] = sum(p.numel() for p in model.parameters())
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        calibrate_posec3d_(model, b["imgs"])
+        video_logits_check(name, model, b, card, o)
+        video_step_check(name, model, b, train_step, o)
+        if name == "x3d_shallow":
+            wd = tmp / "wd_x3d"
+            save_checkpoint(model, wd)
+        video_timed(name, model, b, train_step, card, o)
+        no_launches(f"phase 25 {name}")
+        del model, b
+        torch.cuda.empty_cache()
+        if name != "potion":
+            posec3d_train_cli(tmp, ann, o, model=mcfg, tag=name)
+            no_launches(f"phase 25 {name} train CLI")
+    x3d_test_cli(tmp, ann, wd, card, out["x3d_shallow"])
+    no_launches("phase 25 X3D test CLI")
+
+
+def x3d_test_cli(tmp, ann, wd, card, out):
+    """The test CLI (10-clip PoseC3D test pipeline, prob averaging) on the
+    X3D-shallow checkpoint under ``wd`` for the 'cpu' split's two videos:
+    on the card in f32 and with ``--bf16``, and with ``--device cpu``;
+    the card's f32 scores within 1e-3 of the CPU's (of the largest) with
+    top-1 equal, bf16's within 2e-3 of f32's."""
+    from dsgcn_tpu_torch.tools import test as test_cli
+    path = posec3d_cli_config(tmp, ann, "cpu", model=X3D_SHALLOW,
+                              tag="x3d_test")
+    scores = {}
+    for run, extra in (("cuda", []), ("bf16", ["--bf16"]),
+                       ("cpu", ["--device", "cpu"])):
+        pkl = tmp / f"x3d_scores_{run}.pkl"
+        t0 = time.perf_counter()
+        test_cli.main([str(path), str(wd), "--out", str(pkl)] + extra)
+        secs = time.perf_counter() - t0
+        scores[run] = torch.from_numpy(np.asarray(load_pickle(pkl)[
+            "scores"]))
+        out[f"cli_{run}_s"] = secs
+    g, b, c = scores["cuda"], scores["bf16"], scores["cpu"]
+    check(g.shape == (POSEC3D_CPU_VIDEOS, 60)
+          and bool(torch.isfinite(g).all()), f"x3d scores {g.shape}")
+    err, berr = rel_err(g, c), rel_err(b, g)
+    top1 = g.argmax(-1).tolist() == c.argmax(-1).tolist()
+    out.update(test_cli_rel_err=err, test_cli_bf16_rel_err=berr,
+               test_cli_top1_equal=top1)
+    print(f"x3d_shallow: test CLI on {POSEC3D_CPU_VIDEOS} videos x 10 "
+          f"clips, card against CPU {err:.3e}, bf16 against f32 "
+          f"{berr:.3e}, top-1 equal {top1} on {card}", flush=True)
+    check(err <= 1e-3 and top1, f"x3d: GPU scores off the CPU's by "
+          f"{err:.3e} (top-1 equal {top1})")
+    check(berr <= 2e-3, f"x3d: bf16 scores off f32's by {berr:.3e}")
+
+
+def video_phase(dev, card, report):
+    """Phase 25: the 3D-CNN, video and multimodal models at full width,
+    each built through ``build_model`` from a config written here, with
+    seeded weights and BatchNorm statistics from its own batch (one
+    train-mode forward, ``calibrate_posec3d_``): (1) RGBPoseConv3D +
+    RGBPoseHead on the multimodal pipeline (``rgbpose_part``), (2)
+    X3D-shallow, C3D-light and PoTion over heatmaps (``heatmap_part``),
+    (3) SlowFast-R50 over JPEG frames through VideoDataset
+    (``slowfast_part``).  No kernel of the port may launch."""
+    import tempfile
+    out = report["video"] = {}
+    t_phase = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = pathlib.Path(tmp_s)
+        for name, part in (("rgbpose", lambda o: rgbpose_part(dev, card, o)),
+                           ("heatmap", lambda o: heatmap_part(dev, card, o,
+                                                              tmp)),
+                           ("slowfast", lambda o: slowfast_part(
+                               dev, card, o, tmp))):
+            t0 = time.perf_counter()
+            part(out.setdefault(name, {}))
+            out[name]["seconds"] = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts(counts, {}, 1, "phase 25's steps and forwards")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 25: the video and multimodal models launched no kernel "
+          f"of the port: {json.dumps(counts)}; {out['seconds']:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6039,6 +6557,11 @@ def main() -> int:
                     help="phase 24 alone: SparseAAGCN, SparseDGSTGCN and "
                     "AssembleSparse steps, the SMoE recognizer's steps and "
                     "forward, expert parallelism over two gloo processes")
+    ap.add_argument("--video", action="store_true",
+                    help="phase 25 alone: RGBPoseConv3D on the multimodal "
+                    "pipeline, X3D-shallow, C3D-light and PoTion over "
+                    "heatmaps, SlowFast over JPEG frames (serving, steps, "
+                    "GPU against CPU, the CLIs)")
     ap.add_argument("--kernel-seeds", type=int, metavar="N",
                     help="phases 2, 6, 8 and 15(a) (the kernel checks, on "
                     "the whole run's inputs), then K4's bfloat16 cases over "
@@ -6219,6 +6742,15 @@ def main() -> int:
                                                   default=str))
         print(card)
         return 0
+    if args.video:
+        video_phase(dev, card, report)
+        done(25)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "video.json").write_text(json.dumps(report, indent=1,
+                                                   default=str))
+        print(card)
+        return 0
     if args.families:
         families(dev, card, report)
         done(16)
@@ -6271,6 +6803,8 @@ def main() -> int:
     done(23)
     smoe_phase(dev, card, report)                                  # 24
     done(24)
+    video_phase(dev, card, report)                                 # 25
+    done(25)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "posec3d.json").write_text(json.dumps(report["posec3d"], indent=1,
@@ -6279,6 +6813,8 @@ def main() -> int:
                                                   indent=1, default=str))
     (out / "smoe.json").write_text(json.dumps(report["smoe"], indent=1,
                                               default=str))
+    (out / "video.json").write_text(json.dumps(report["video"], indent=1,
+                                               default=str))
 
     # K1 and K2 on DS-GCN's training path (times per step at b128 x M2 x
     # T60), K3 on DS-GCN's serving path and K4 on DG-STGCN's (times per

@@ -3,7 +3,7 @@
 cross_entropy_loss.py and heads/base.py)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +50,27 @@ def bce_with_logits(cls_score: torch.Tensor, label: torch.Tensor,
     if class_weight is not None:
         loss = loss * class_weight[None]
     return loss.mean() * loss_weight
+
+
+def mm_cross_entropy(scores: Dict[str, torch.Tensor], labels: torch.Tensor,
+                     loss_weights=None):
+    """Weighted per-stream cross entropy of a multimodal recognizer
+    (reference mm_recognizer3d.py:26-34; JAX ``losses.py:mm_cross_entropy``):
+    total = sum_k w_k CE(scores[k], labels), ``loss_weights`` a dict by
+    stream (1.0 where absent), one number for every stream, or None (1.0).
+    Returns (total, {'<stream>_loss_cls': weighted loss})."""
+    parts, total = {}, 0.0
+    for name, score in scores.items():
+        if loss_weights is None:
+            w = 1.0
+        elif isinstance(loss_weights, dict):
+            w = loss_weights.get(name, 1.0)
+        else:
+            w = loss_weights
+        loss = cross_entropy(score, labels) * w
+        parts[f"{name}_loss_cls"] = loss
+        total = total + loss
+    return total, parts
 
 
 def top_k_correct(cls_score: torch.Tensor, label: torch.Tensor,

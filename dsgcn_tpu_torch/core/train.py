@@ -29,7 +29,8 @@ def jax_param_names(model: nn.Module) -> Dict[str, str]:
     :class:`BNStats`'s ``weight``/``bias`` (a BatchNorm's, a
     ``ConvBN3d``'s) live under its ``bn`` scope as ``scale``/``bias`` (a
     :class:`TorchBN`'s at its own scope), the
-    weights of linear maps, convolutions and sparse layers are
+    weights of linear maps, convolutions (transposed ones too) and sparse
+    layers are
     ``kernel``s (a sparse layer's ``score`` keeps its name), and raw
     parameters (``PA``, ``out_conv_kernel``, the causal banks,
     ``GCComponent.weight``, the necks' prototypes, ``Set2Set``'s and the
@@ -45,7 +46,7 @@ def jax_param_names(model: nn.Module) -> Dict[str, str]:
                 path = f"{scope}." + ("scale" if leaf == "weight" else leaf)
             elif leaf == "weight" and isinstance(
                     mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d,
-                          SparseKernel)):
+                          nn.ConvTranspose3d, SparseKernel)):
                 path = f"{mod_name}.kernel" if mod_name else "kernel"
             else:
                 path = name

@@ -1,6 +1,7 @@
-"""Skeleton datasets and batch loading (port of
+"""Skeleton and video datasets and batch loading (port of
 ``dsgcn_tpu/data/dataset.py``: ``PoseDataset``, ``GestureDataset``,
-``RepeatDataset``, ``ConcatDataset``, ``epoch_indices``, ``Loader``,
+``VideoDataset``, ``RepeatDataset``, ``ConcatDataset``,
+``epoch_indices``, ``Loader``,
 ``prefetch``, ``make_synthetic_pose_dataset``, ``build_dataset``).
 
 Reference parity targets: PoseDataset (datasets/pose_dataset.py:12-125)
@@ -204,6 +205,49 @@ class ConcatDataset:
         return np.concatenate([d.labels for d in self.datasets])
 
 
+class VideoDataset:
+    """Text-annotation dataset (reference datasets/video_dataset.py:9).
+
+    Line formats: "<filename> <label>" (video files, decord pipelines) or
+    the rawframe form "<frame_dir> <total_frames> <label>" (mmaction
+    RawframeDataset convention) for RawFrameDecode pipelines."""
+
+    def __init__(self, ann_file: str, pipeline, data_prefix: str = "",
+                 test_mode: bool = False):
+        self.pipeline = (pipeline if isinstance(pipeline, Compose)
+                         else build_pipeline(pipeline))
+        self.test_mode = test_mode
+        self.video_infos = []
+        with open(ann_file) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                if len(parts) == 3:
+                    self.video_infos.append(dict(
+                        frame_dir=data_prefix + parts[0],
+                        total_frames=int(parts[1]), label=int(parts[2])))
+                else:
+                    name, label = parts
+                    self.video_infos.append(dict(
+                        filename=data_prefix + name, label=int(label)))
+
+    def __len__(self):
+        return len(self.video_infos)
+
+    def prepare(self, idx, rng=None):
+        results = cp.deepcopy(self.video_infos[idx])
+        results["test_mode"] = self.test_mode
+        results.setdefault("start_index", 0)
+        return self.pipeline(results, rng=rng)
+
+    __getitem__ = prepare
+
+    @property
+    def labels(self):
+        return np.array([a["label"] for a in self.video_infos])
+
+
 def epoch_indices(n: int, epoch: int, shard: int = 0, num_shards: int = 1,
                   shuffle: bool = True, seed: int = 0,
                   drop_last_to_multiple: Optional[int] = None,
@@ -402,9 +446,9 @@ def make_compressed_pose_anno(seed=0, t=120, v=17, max_per_frame=3,
 
 
 def build_dataset(dcfg: Dict, test_mode: bool = False):
-    """Config-dict dataset factory (reference datasets/builder.py:42); the
-    port has ``PoseDataset``, ``GestureDataset`` and the ``RepeatDataset``
-    and ``ConcatDataset`` wrappers."""
+    """Config-dict dataset factory (reference datasets/builder.py:42):
+    ``PoseDataset``, ``GestureDataset``, ``VideoDataset`` and the
+    ``RepeatDataset`` and ``ConcatDataset`` wrappers."""
     dcfg = dict(dcfg)
     typ = dcfg.pop("type", "PoseDataset")
     if typ == "RepeatDataset":
@@ -419,11 +463,15 @@ def build_dataset(dcfg: Dict, test_mode: bool = False):
             valid_frames_thr=dcfg.get("valid_frames_thr", 0),
             squeeze=dcfg.get("squeeze", True), mode=dcfg.get("mode", "2D"),
             subset=dcfg.get("subset"), test_mode=test_mode)
+    if typ == "VideoDataset":
+        return VideoDataset(dcfg["ann_file"], dcfg["pipeline"],
+                            data_prefix=dcfg.get("data_prefix", ""),
+                            test_mode=test_mode)
     if typ != "PoseDataset":
         raise NotImplementedError(f"dataset {typ!r} is not ported yet (the "
                                   "port has 'PoseDataset', "
-                                  "'GestureDataset', 'RepeatDataset' and "
-                                  "'ConcatDataset')")
+                                  "'GestureDataset', 'VideoDataset', "
+                                  "'RepeatDataset' and 'ConcatDataset')")
     return PoseDataset(dcfg["ann_file"], dcfg["pipeline"],
                        split=dcfg.get("split"),
                        valid_ratio=dcfg.get("valid_ratio"),

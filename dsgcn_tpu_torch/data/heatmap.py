@@ -1,14 +1,16 @@
 """Pseudo-heatmap volumes for PoseC3D (the port's copy of
-``GeneratePoseTarget`` and the COCO constants of
+``GeneratePoseTarget``, ``Heatmap2Potion`` and the COCO constants of
 ``dsgcn_tpu/data/heatmap.py``; reference
-datasets/pipelines/heatmap_related.py:10-252).
+datasets/pipelines/heatmap_related.py:10-339).
 
 Per frame, a Gaussian bump per person at each joint (or a Gaussian of the
 distance to each limb's segment), its amplitude the joint's score, drawn
 in a 3-sigma patch whose bounds truncate toward zero (``int``) over
 float32 ``arange`` grids, as the reference draws them.  The volume is
 channels-last ``imgs: (T, H, W, C)`` for the 3D-CNN (the reference's
-(T, C, H, W) with ``channels_last=False``).  Numpy only.
+(T, C, H, W) with ``channels_last=False``).  ``Heatmap2Potion`` colours
+such a volume over time into PoTion's (num_clips, H, W, K (2C + 1))
+images.  Numpy only.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["GeneratePoseTarget", "COCO_SKELETONS", "COCO_LEFT_KP",
+__all__ = ["GeneratePoseTarget", "Heatmap2Potion", "COCO_SKELETONS", "COCO_LEFT_KP",
            "COCO_RIGHT_KP", "COCO_LEFT_LIMB", "COCO_RIGHT_LIMB"]
 
 EPS = 1e-3
@@ -148,4 +150,66 @@ class GeneratePoseTarget:
         if self.channels_last:
             heat = np.transpose(heat, (0, 2, 3, 1))   # (T, H, W, C)
         results["imgs"] = np.ascontiguousarray(heat)
+        return results
+
+
+class Heatmap2Potion:
+    """Temporal color-coding of joint heatmaps into a PoTion image
+    (reference heatmap_related.py:272-339): each frame's heatmap is weighted
+    by a C-bin linear color ramp over time and summed; emits the U
+    (max-normalized), I (intensity), N (I-normalized) maps or their 'full'
+    concat, flattened to (num_clips, H, W, K*(2C+1)).
+
+    Input 'imgs': (N*T, H, W, K) channels-last volumes (the layout of
+    ``GeneratePoseTarget``; with ``channels_last=False``, the reference's
+    (N*T, K, H, W))."""
+    randomized = False
+
+    def __init__(self, C: int, option: str = "full",
+                 channels_last: bool = True):
+        assert isinstance(C, int) and C >= 2
+        assert option in ("U", "N", "I", "full")
+        self.C = C
+        self.option = option
+        self.eps = 1e-4
+        self.channels_last = channels_last
+
+    def _colors(self, clip_len: int) -> np.ndarray:
+        """(T, C) linear interpolation ramp (idx2color, :291-303)."""
+        C = self.C
+        out = np.zeros((clip_len, C), np.float32)
+        for t in range(clip_len):
+            if t == clip_len - 1:
+                out[t, C - 1] = 1.0
+                continue
+            val = t / (clip_len - 1) * (C - 1)
+            b = int(val)
+            val -= b
+            out[t, b] = 1 - val
+            out[t, b + 1] = val
+        return out
+
+    def __call__(self, results: Dict, rng=None) -> Dict:
+        heat = results["imgs"]
+        clip_len = results.get("clip_len", heat.shape[0])
+        if isinstance(clip_len, dict):
+            clip_len = clip_len.get("Pose", heat.shape[0])
+        heat = heat.reshape((-1, clip_len) + heat.shape[1:])
+        if not self.channels_last:                # (n, t, K, H, W) ->
+            heat = heat.transpose(0, 1, 3, 4, 2)  # (n, t, H, W, K)
+        colors = self._colors(clip_len)
+        heat_s = np.einsum("nthwk,tc->nhwkc", heat.astype(np.float32), colors)
+        u_norm = heat_s.max(axis=(1, 2), keepdims=True)
+        heat_u = heat_s / (u_norm + self.eps)
+        heat_i = heat_u.sum(axis=-1, keepdims=True)
+        heat_n = heat_u / (heat_i + 1)
+        if self.option == "U":
+            out = heat_u
+        elif self.option == "I":
+            out = heat_i
+        elif self.option == "N":
+            out = heat_n
+        else:
+            out = np.concatenate([heat_u, heat_i, heat_n], axis=-1)
+        results["imgs"] = out.reshape(out.shape[:3] + (-1,))
         return results

@@ -1,5 +1,5 @@
-"""Keypoint-space augmentations of the 2D pose pipelines (port of
-``dsgcn_tpu/data/pose_aug.py``; reference
+"""Keypoint- and pixel-space augmentations of the 2D pose and video
+pipelines (port of ``dsgcn_tpu/data/pose_aug.py``; reference
 datasets/pipelines/augmentations.py).  The hrnet DS-GCN pipelines
 (``configs/dsgcn/kinetics400_hrnet``, ``fight_detection``) run
 ``PoseCompact`` after ``PoseDecode``; PoseC3D's heatmap pipelines
@@ -9,7 +9,11 @@ exist until then: only the keypoints, ``img_shape`` and the crop and
 scale records change (and ``imgs``, where a results dict holds frames).
 The random transforms draw from the ``RandomState`` that ``Compose``
 passes them, in JAX's order, so the same seed gives the same crop and
-flip."""
+flip.  The video pipelines crop (``RandomCrop``, ``ThreeCrop``,
+``TenCrop``), resize, flip and ``Normalize`` decoded frames; where a
+results dict holds frames and no keypoints, ``RandomResizedCrop``,
+``CenterCrop`` and ``Flip`` act on the frames alone (JAX's raise a
+KeyError on the missing ``keypoint``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -19,7 +23,8 @@ import numpy as np
 from .heatmap import COCO_LEFT_KP, COCO_RIGHT_KP
 
 __all__ = ["PoseCompact", "RandomResizedCrop", "CenterCrop", "Resize",
-           "Flip", "FormatHeatmapInput", "bilinear_resize"]
+           "Flip", "FormatHeatmapInput", "bilinear_resize", "RandomCrop",
+           "Normalize", "ThreeCrop", "TenCrop"]
 
 
 def _combine_quadruple(a, b):
@@ -124,8 +129,7 @@ class RandomResizedCrop:
             quad, (left / img_w, top / img_h, new_w / img_w, new_h / img_h))
         results["crop_bbox"] = np.array([left, top, right, bottom])
         results["img_shape"] = (new_h, new_w)
-        results["keypoint"] = results["keypoint"] - np.array([left, top],
-                                                             np.float32)
+        _shift_keypoints(results, left, top)
         _crop_imgs_inplace(results, left, top, right, bottom)
         return results
 
@@ -149,8 +153,7 @@ class CenterCrop:
             quad, (left / img_w, top / img_h, cw / img_w, ch / img_h))
         results["crop_bbox"] = np.array([left, top, left + cw, top + ch])
         results["img_shape"] = (ch, cw)
-        results["keypoint"] = results["keypoint"] - np.array([left, top],
-                                                             np.float32)
+        _shift_keypoints(results, left, top)
         _crop_imgs_inplace(results, left, top, left + cw, top + ch)
         return results
 
@@ -226,6 +229,11 @@ class Flip:
         results["flip_direction"] = "horizontal"
         if not flip:
             return results
+        if "imgs" in results:
+            results["imgs"] = [np.ascontiguousarray(img[:, ::-1])
+                               for img in results["imgs"]]
+        if "keypoint" not in results:
+            return results
         img_w = results["img_shape"][1]
         kps = results["keypoint"]
         kp_x = kps[..., 0]
@@ -239,9 +247,6 @@ class Flip:
         if "keypoint_score" in results:
             results["keypoint_score"] = \
                 results["keypoint_score"][:, :, new_order]
-        if "imgs" in results:
-            results["imgs"] = [np.ascontiguousarray(img[:, ::-1])
-                               for img in results["imgs"]]
         return results
 
 
@@ -259,6 +264,12 @@ class FormatHeatmapInput:
         results["imgs"] = np.ascontiguousarray(
             imgs.reshape((nc, t // nc) + imgs.shape[1:]))
         return results
+
+
+def _shift_keypoints(results: Dict, left, top):
+    if "keypoint" in results:
+        results["keypoint"] = results["keypoint"] - np.array([left, top],
+                                                             np.float32)
 
 
 def _crop_imgs_inplace(results: Dict, x1, y1, x2, y2):
@@ -293,3 +304,132 @@ def bilinear_resize(img: np.ndarray, size) -> np.ndarray:
         out = np.clip(np.round(out), np.iinfo(img.dtype).min,
                       np.iinfo(img.dtype).max)
     return out.astype(img.dtype)
+
+
+class RandomCrop:
+    """Square random crop over pixels + keypoints
+    (augmentations.py:124-239)."""
+    randomized = True
+
+    def __init__(self, size):
+        assert isinstance(size, int)
+        self.size = size
+
+    def __call__(self, results: Dict, rng) -> Dict:
+        img_h, img_w = results["img_shape"]
+        assert self.size <= img_h and self.size <= img_w
+        y_off = (int(rng.randint(0, img_h - self.size))
+                 if img_h > self.size else 0)
+        x_off = (int(rng.randint(0, img_w - self.size))
+                 if img_w > self.size else 0)
+
+        quad = results.get("crop_quadruple", (0.0, 0.0, 1.0, 1.0))
+        results["crop_quadruple"] = np.array(_combine_quadruple(
+            quad, (x_off / img_w, y_off / img_h,
+                   self.size / img_w, self.size / img_h)), np.float32)
+        bbox = np.array([x_off, y_off, x_off + self.size, y_off + self.size])
+        results["crop_bbox"] = bbox
+        results["img_shape"] = (self.size, self.size)
+        if "keypoint" in results:
+            results["keypoint"] = results["keypoint"] - bbox[:2]
+        _crop_imgs_inplace(results, *bbox)
+        return results
+
+
+class Normalize:
+    """Mean/std image normalization (augmentations.py:612-695); RGB stacks the
+    frame list to (N, H, W, C), Flow pairs x/y frames into (N, H, W, 2)."""
+    randomized = False
+
+    def __init__(self, mean, std, to_bgr=False, adjust_magnitude=False):
+        self.mean = np.array(mean, np.float32)
+        self.std = np.array(std, np.float32)
+        self.to_bgr = to_bgr
+        self.adjust_magnitude = adjust_magnitude
+
+    def __call__(self, results: Dict) -> Dict:
+        modality = results.get("modality", "RGB")
+        if modality == "RGB":
+            imgs = np.stack(results["imgs"]).astype(np.float32)
+            if self.to_bgr:
+                imgs = imgs[..., ::-1]
+            imgs = (imgs - self.mean) / self.std
+            results["imgs"] = imgs
+            results["img_norm_cfg"] = dict(mean=self.mean, std=self.std,
+                                           to_bgr=self.to_bgr)
+            return results
+        if modality == "Flow":
+            n = len(results["imgs"]) // 2
+            x = np.stack(results["imgs"][0::2]).astype(np.float32)
+            y = np.stack(results["imgs"][1::2]).astype(np.float32)
+            x = (x - self.mean[0]) / self.std[0]
+            y = (y - self.mean[1]) / self.std[1]
+            if self.adjust_magnitude:
+                x = x * results["scale_factor"][0]
+                y = y * results["scale_factor"][1]
+            results["imgs"] = np.stack([x, y], axis=-1)
+            return results
+        raise NotImplementedError(modality)
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class ThreeCrop:
+    """Three equal crops along the long side (augmentations.py:769-838);
+    frames triple: (T,) -> (3T,)."""
+    randomized = False
+
+    def __init__(self, crop_size):
+        self.crop_size = _pair(crop_size)
+
+    def __call__(self, results: Dict) -> Dict:
+        imgs = results["imgs"]
+        img_h, img_w = imgs[0].shape[:2]
+        cw, ch = self.crop_size
+        assert ch == img_h or cw == img_w
+        if ch == img_h:
+            step = (img_w - cw) // 2
+            offsets = [(0, 0), (2 * step, 0), (step, 0)]
+        else:
+            step = (img_h - ch) // 2
+            offsets = [(0, 0), (0, 2 * step), (0, step)]
+        cropped, bboxes = [], []
+        for x_off, y_off in offsets:
+            cropped.extend(img[y_off:y_off + ch, x_off:x_off + cw]
+                           for img in imgs)
+            bboxes.extend([[x_off, y_off, x_off + cw, y_off + ch]] * len(imgs))
+        results["imgs"] = cropped
+        results["crop_bbox"] = np.array(bboxes)
+        results["img_shape"] = (ch, cw)
+        return results
+
+
+class TenCrop:
+    """Four corners + center, each plus horizontal flip
+    (augmentations.py:840-920); frames x10."""
+    randomized = False
+
+    def __init__(self, crop_size):
+        self.crop_size = _pair(crop_size)
+
+    def __call__(self, results: Dict) -> Dict:
+        imgs = results["imgs"]
+        img_h, img_w = imgs[0].shape[:2]
+        cw, ch = self.crop_size
+        w_step = (img_w - cw) // 4
+        h_step = (img_h - ch) // 4
+        offsets = [(0, 0), (4 * w_step, 0), (0, 4 * h_step),
+                   (4 * w_step, 4 * h_step), (2 * w_step, 2 * h_step)]
+        out, bboxes = [], []
+        for x_off, y_off in offsets:
+            crop = [img[y_off:y_off + ch, x_off:x_off + cw] for img in imgs]
+            out.extend(crop)
+            out.extend(np.ascontiguousarray(c[:, ::-1]) for c in crop)
+            bboxes.extend([[x_off, y_off, x_off + cw, y_off + ch]]
+                          * (len(imgs) * 2))
+        results["imgs"] = out
+        results["crop_bbox"] = np.array(bboxes)
+        results["img_shape"] = (ch, cw)
+        return results

@@ -6,9 +6,13 @@ The port's copy of the transforms that the committed DS-GCN pipelines
 C++ path of ``native.py``, and 2D), random rotation, scale and noise, the
 reference's ``GaussAug``, compressed-pose expansion, the joint, bone and
 motion stream features, clip sampling (also ``UniformSampleOrder``),
-decode, padding, format and collect (``PoseCompact`` and PoseC3D's
-resize, crops, flip and ``FormatHeatmapInput`` are in ``pose_aug.py``,
-``GeneratePoseTarget`` in ``heatmap.py``).  Behavioral parity with the
+decode, padding, format and collect, and the video input's
+``FormatShape`` (``PoseCompact``, PoseC3D's resize, crops, flip and
+``FormatHeatmapInput`` and the video crops and ``Normalize`` are in
+``pose_aug.py``, ``GeneratePoseTarget`` and ``Heatmap2Potion`` in
+``heatmap.py``, the frame samplers and decoders in ``video.py``, the
+multimodal ``MM*`` transforms in ``multimodal.py``, registered when a
+pipeline names one).  Behavioral parity with the
 reference pipelines (pyskl ``pose_related.py``, ``sampling.py``,
 ``formatting.py``).  Randomized
 transforms draw from the ``RandomState`` that ``Compose`` passes them, so
@@ -21,9 +25,12 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from .heatmap import GeneratePoseTarget
-from .pose_aug import (CenterCrop, Flip, FormatHeatmapInput, PoseCompact,
-                       RandomResizedCrop, Resize)
+from .heatmap import GeneratePoseTarget, Heatmap2Potion
+from .pose_aug import (CenterCrop, Flip, FormatHeatmapInput, Normalize,
+                       PoseCompact, RandomCrop, RandomResizedCrop, Resize,
+                       TenCrop, ThreeCrop)
+from .video import (ArrayDecode, DecordDecode, DecordInit, RawFrameDecode,
+                    SampleFrames)
 
 __all__ = [
     "Compose", "PreNormalize3D", "PreNormalize2D", "RandomRot", "RandomScale",
@@ -31,7 +38,8 @@ __all__ = [
     "JointToBone",
     "ToMotion", "MergeSkeFeat", "GenSkeFeat", "UniformSampleFrames",
     "UniformSample", "UniformSampleOrder", "PoseDecode", "DecompressPose",
-    "PadTo", "FormatGCNInput", "Collect", "Rename", "build_pipeline",
+    "PadTo", "FormatGCNInput", "FormatShape", "Collect", "Rename",
+    "build_pipeline",
 ]
 
 
@@ -710,6 +718,27 @@ class Causalmetrix:
         return results
 
 
+class FormatShape:
+    """Stack decoded frames into the model input (reference
+    formatting.py:164-231 FormatShape), as JAX's: channels-last (T, H, W,
+    C) for every format (T = num_clips x clip_len; the recognizers take
+    (N, T, H, W, C) and permute once inside), 'NCTHW' and 'THWC' accepted
+    as aliases of 'NTHWC'."""
+    randomized = False
+
+    def __init__(self, input_format: str = "NTHWC"):
+        assert input_format in ("NTHWC", "THWC", "NCTHW")
+        self.input_format = input_format
+
+    def __call__(self, results: Dict, rng=None) -> Dict:
+        imgs = results["imgs"]
+        if isinstance(imgs, (list, tuple)):
+            imgs = np.stack(imgs)
+        results["imgs"] = np.ascontiguousarray(imgs)
+        results["input_shape"] = results["imgs"].shape
+        return results
+
+
 class Collect:
     randomized = False
 
@@ -728,7 +757,9 @@ TRANSFORMS = {c.__name__: c for c in
                UniformSampleOrder, PoseDecode, DecompressPose, PoseCompact,
                PadTo, FormatGCNInput, Collect, Rename, Resize,
                RandomResizedCrop, CenterCrop, Flip, GeneratePoseTarget,
-               FormatHeatmapInput]}
+               FormatHeatmapInput, FormatShape, Heatmap2Potion, RandomCrop,
+               Normalize, ThreeCrop, TenCrop, SampleFrames, ArrayDecode,
+               RawFrameDecode, DecordInit, DecordDecode]}
 
 
 def build_pipeline(cfgs: Sequence[Dict]) -> Compose:
@@ -739,6 +770,8 @@ def build_pipeline(cfgs: Sequence[Dict]) -> Compose:
         typ = cfg.pop("type")
         if typ == "ToTensor":   # tensors are created at batch level here
             continue
+        if typ not in TRANSFORMS and typ.startswith("MM"):
+            from . import multimodal  # noqa: F401  (registers MM*)
         if typ not in TRANSFORMS:
             raise NotImplementedError(f"transform {typ!r} is not ported yet")
         ops.append(TRANSFORMS[typ](**cfg))

@@ -7,13 +7,17 @@ The port of ``dsgcn_tpu/models/builder.py`` for what the port has: the
 ``A_ext``), ``MSG3D`` and ``SGN``, the Granger-causality learners
 ``GCGCN`` and ``GCGCN_component``, and the ``GCNHead``, ``GCHead``,
 ``HGTHead`` and ``ClsHead``; a ``RecognizerGCN`` takes any neck of
-``models/necks.py:NECKS`` from ``cfg['neck']``.  Config keys are the JAX
-package's.  ``STGCN_GC`` and the two learners are
-built with ``build_backbone`` and composed by hand (the learners with
+``models/necks.py:NECKS`` from ``cfg['neck']``.  The 3-D and 2-D CNNs
+``ResNet3d``, ``ResNet3dSlowOnly``, ``C3D``, ``X3D``, ``ResNet3dSlowFast``,
+``RGBPoseConv3D`` and ``PoTion`` go under a ``RecognizerPoseC3D``,
+``Recognizer3D``, ``Recognizer2D`` or ``MMRecognizer3D`` with the heads
+``SimpleHead`` / ``I3DHead`` / ``SlowFastHead``, ``TSNHead`` and
+``RGBPoseHead``.  Config keys are the JAX package's.  ``STGCN_GC`` and
+the two learners are built with ``build_backbone`` and composed by hand
+(the learners with
 ``GCHead`` and ``core/flows.py:gc_recognizer_losses``); ``build_model``
-builds a ``RecognizerGCN``, which feeds a backbone the clip alone, or a
-``RecognizerPoseC3D`` over the 3D-CNN backbones ``ResNet3d`` and
-``ResNet3dSlowOnly`` (PoseC3D's heatmap volumes).
+builds a ``RecognizerGCN``, which feeds a backbone the clip alone, or
+one of the CNN recognizers (``cfg['type']``).
 """
 from __future__ import annotations
 
@@ -33,28 +37,41 @@ from ..ops.gcn import (CTRGC, CTRHGC, AttentionChain, UnitAAHGCN, UnitGCN,
 from ..ops.msg3d import MSG3DBlock, _ScaledGraphs
 from ..ops.tcn import CTRMSTCN
 from .backbones import AAGCN, CTRGCN, DGSTGCN, GTGCN, STGCN, STGCNGC, STGIN
-from .cnns import RecognizerPoseC3D, ResNet3d, ResNet3dSlowOnly
-from .heads import ClsHead, GCHead, GCNHead, HGTHead
+from .cnns import (C3D, X3D, ConvBN2d, PoTion, RecognizerPoseC3D, ResNet3d,
+                   ResNet3dSlowFast, ResNet3dSlowOnly, RGBPoseConv3D)
+from .heads import (ClsHead, GCHead, GCNHead, HGTHead, RGBPoseHead,
+                    SimpleHead3D, TSNHead)
 from .necks import (CausalNeck, PretrainNeck, ReadoutNeck, Set2Set,
                     SimpleNeck, build_neck)
 from ..sparse.supermask import SparseKernel
 from .msg3d_sgn import MSG3D, SGN
-from .recognizer import RecognizerGCN
+from .recognizer import (MMRecognizer3D, Recognizer2D, Recognizer3D,
+                         RecognizerGCN)
 
 BACKBONES = {"STGCN": STGCN, "MEGASTGCN": STGCN, "GTGCN": GTGCN,
              "STGIN": STGIN, "STGCN_GC": STGCNGC, "GCGCN": GCGCN,
              "GCGCN_component": GCComponent, "AAGCN": AAGCN,
              "CTRGCN": CTRGCN, "DGSTGCN": DGSTGCN, "MSG3D": MSG3D,
              "SGN": SGN, "ResNet3d": ResNet3d,
-             "ResNet3dSlowOnly": ResNet3dSlowOnly}
+             "ResNet3dSlowOnly": ResNet3dSlowOnly,
+             "ResNet3dSlowFast": ResNet3dSlowFast, "X3D": X3D, "C3D": C3D,
+             "PoTion": PoTion, "RGBPoseConv3D": RGBPoseConv3D}
 # backbones configured by plain fields (no gcn_/tcn_ block routing)
 _PLAIN_BACKBONES = ("GCGCN", "GCGCN_component", "MSG3D", "SGN", "ResNet3d",
-                    "ResNet3dSlowOnly")
-# the 3D-CNN fields a config gives as lists (JAX builder.py:82-85)
+                    "ResNet3dSlowOnly", "ResNet3dSlowFast", "X3D", "C3D",
+                    "PoTion", "RGBPoseConv3D")
+# the CNN fields a config gives as lists (JAX builder.py:82-85)
 _TUPLE_FIELDS = ("stage_blocks", "conv1_stride", "pool1_stride", "inflate",
-                 "spatial_strides", "temporal_strides", "conv1_kernel")
+                 "spatial_strides", "temporal_strides", "conv1_kernel",
+                 "channels", "num_layers", "lateral_activate")
 HEADS = {"GCNHead": GCNHead, "GCHead": GCHead, "HGTHead": HGTHead,
-         "ClsHead": ClsHead}
+         "ClsHead": ClsHead, "SimpleHead": SimpleHead3D,
+         "I3DHead": SimpleHead3D, "SlowFastHead": SimpleHead3D,
+         "TSNHead": TSNHead, "RGBPoseHead": RGBPoseHead}
+# recognizers of a backbone and a head, with a compute_dtype
+_CNN_RECOGNIZERS = {"Recognizer3D": Recognizer3D,
+                    "Recognizer2D": Recognizer2D,
+                    "MMRecognizer3D": MMRecognizer3D}
 
 _BACKBONE_FIELDS = {
     "in_channels", "base_channels", "ch_ratio", "num_person", "num_stages",
@@ -103,7 +120,9 @@ def build_backbone(cfg: Dict[str, Any]):
 def build_head(cfg: Dict[str, Any]):
     cfg = copy.deepcopy(dict(cfg))
     cls = _lookup(HEADS, cfg.pop("type"), "head")
-    cfg.pop("mode", None)
+    cfg.pop("mode", None)       # SimpleHead's mode is chosen by the class
+    if isinstance(cfg.get("in_channels"), list):
+        cfg["in_channels"] = tuple(cfg["in_channels"])
     return cls(**cfg)
 
 
@@ -114,11 +133,18 @@ def build_model(cfg: Dict[str, Any]) -> nn.Module:
         return RecognizerPoseC3D(build_backbone(cfg["backbone"]),
                                  num_classes=cfg.get("num_classes", 60),
                                  dropout=cfg.get("dropout", 0.5))
-    if typ != "RecognizerGCN":
-        raise NotImplementedError(f"recognizer {typ!r} is not ported yet")
     compute_dtype = cfg.get("compute_dtype")
     if compute_dtype is not None:
         compute_dtype = getattr(torch, compute_dtype)
+    if typ in _CNN_RECOGNIZERS:
+        return _CNN_RECOGNIZERS[typ](build_backbone(cfg["backbone"]),
+                                     build_head(cfg["cls_head"]),
+                                     compute_dtype=compute_dtype)
+    if typ != "RecognizerGCN":
+        raise NotImplementedError(
+            f"recognizer {typ!r} is not ported yet (the port has "
+            f"'RecognizerGCN', 'RecognizerPoseC3D' and "
+            f"{', '.join(map(repr, _CNN_RECOGNIZERS))})")
     neck = cfg.get("neck")
     return RecognizerGCN(backbone=build_backbone(cfg["backbone"]),
                          head=build_head(cfg["cls_head"]),
@@ -206,31 +232,38 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     distributions, not the same bits).  By default every 1x1 and temporal
     conv kernel and bias is U(+-1/sqrt(fan_in)) (torch's defaults, fan_in =
     in_channels * kernel size), the classifier N(0, init_std) with a zero
-    bias, an 'offset' PA of UnitGCN, UnitGTGCN or UnitGCNEdge U(0, 2e-6),
-    a 3-D conv kernel N(0, 2 / fan_out) (flax's untruncated
-    ``variance_scaling(2, 'fan_out', 'normal')`` in ``ConvBN3d``).
+    bias (each of ``RGBPoseHead``'s two), an 'offset' PA of UnitGCN,
+    UnitGTGCN or UnitGCNEdge U(0, 2e-6), a 3-D conv kernel N(0, 2 /
+    fan_out) (flax's untruncated ``variance_scaling(2, 'fan_out',
+    'normal')`` in ``ConvBN3d``, SE's ``fc1``/``fc2`` and the laterals;
+    fan_out is the output channels times the kernel's taps, for a grouped
+    kernel too, and for a transposed lateral its (I, O, ...) weight's O)
+    with a zero bias (SE's).
     Then the per-module rules of :func:`_module_rules` (AAGCN's and
     CTR-GCN's units and TCN, MS-G3D's graph offsets and window convs, the
     Granger banks).  Graphs, gates, joint coefficients and BatchNorms keep
     their deterministic initial values (the 1e-6 scale of a unit's closing
     ``bn`` included).  The generator lives on the CPU; call this before
     moving the model to its device."""
-    head_types = (GCNHead, GCHead, HGTHead, ClsHead, RecognizerPoseC3D)
-    heads = {id(m.fc_cls) for m in model.modules()
-             if isinstance(m, head_types)}
-    heads |= {id(m.node_cls) for m in model.modules()
-              if isinstance(m, HGTHead)}
+    head_types = (GCNHead, GCHead, HGTHead, ClsHead, RecognizerPoseC3D,
+                  SimpleHead3D, TSNHead, RGBPoseHead)
+    heads = {id(fc) for m in model.modules() if isinstance(m, head_types)
+             for fc in _head_fcs(m)}
     for m in model.modules():
         if isinstance(m, (UnitGCN, UnitGTGCN, UnitGCNEdge)) \
                 and m.adaptive == "offset":
             m.PA.uniform_(0.0, 2e-6, generator=generator)
         elif isinstance(m, head_types):
-            for fc in (m.fc_cls, getattr(m, "node_cls", None)):
-                if fc is not None:
-                    fc.weight.normal_(0.0, m.init_std, generator=generator)
-                    fc.bias.zero_()
-        elif isinstance(m, nn.Conv3d):
-            kaiming_normal_fan_out_(m.weight, generator)
+            for fc in _head_fcs(m):
+                fc.weight.normal_(0.0, m.init_std, generator=generator)
+                fc.bias.zero_()
+        elif isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+            w = m.weight
+            if isinstance(m, nn.ConvTranspose3d):    # (I, O, *kernel)
+                w = w.transpose(0, 1)
+            kaiming_normal_fan_out_(w, generator)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)) \
                 and id(m) not in heads:
             fan_in = m.weight[0].numel()
@@ -243,10 +276,18 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def _head_fcs(m: nn.Module):
+    """A head's classifiers: ``fc_cls`` (and HGTHead's ``node_cls``), or
+    RGBPoseHead's ``fc_rgb`` and ``fc_pose``."""
+    names = ("fc_cls", "node_cls", "fc_rgb", "fc_pose")
+    return [getattr(m, n) for n in names if getattr(m, n, None) is not None]
+
+
 def _module_rules(m: nn.Module, gen: torch.Generator) -> None:
     """The JAX modules' own initializers where they differ from the
     default: ``kaiming_normal_fan_out`` (N(0, 2/fan_out)) with zero biases
-    for the graph embeddings, ``branch_init(K)`` for AAGCN's ``conv_d``,
+    for the graph embeddings, flax's ``variance_scaling(2, 'fan_out',
+    'normal')`` (the same normal) for PoTion's 2-D convs, ``branch_init(K)`` for AAGCN's ``conv_d``,
     flax's ``xavier_normal``/``kaiming_normal`` (truncated normals) and
     zeros in :class:`AttentionChain`, ``kaiming_normal_fan_out`` kernels
     (default biases) for the residual 1x1s and CTRMSTCN's branch 1x1s
@@ -310,6 +351,8 @@ def _module_rules(m: nn.Module, gen: torch.Generator) -> None:
         m.cMLP.init_(gen)
     elif isinstance(m, SparseKernel):
         m.init_(gen)
+    elif isinstance(m, ConvBN2d):
+        kaiming_normal_fan_out_(m.conv.weight, gen)
 
 
 def _normal_head_(fc: nn.Linear, std: float, gen: torch.Generator) -> None:

@@ -1,8 +1,10 @@
 """Classification heads (port of ``dsgcn_tpu/models/heads.py``:
-``GCNHead``, ``GCHead``, ``HGTHead`` and ``ClsHead``)."""
+``GCNHead``, ``GCHead``, ``HGTHead``, ``ClsHead``, the 3D-CNN heads
+``SimpleHead3D`` (alias ``I3DHead``, ``SlowFastHead``), ``TSNHead`` and
+``RGBPoseHead``)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -157,3 +159,82 @@ class ClsHead(nn.Module):
             raise ValueError(f"expect (N, C), got {tuple(x.shape)}")
         x = _dropout(x, self.dropout, self.training, self.generator)
         return _linear(self.fc_cls, x)
+
+
+def _pool_channels_last(x: torch.Tensor) -> torch.Tensor:
+    """The mean over every axis but the first and the last."""
+    return x.mean(dim=tuple(range(1, x.dim() - 1)))
+
+
+class SimpleHead3D(nn.Module):
+    """3D-CNN-mode SimpleHead (simple_head.py:77-82): the mean over every
+    axis but the first and the last of (N, T, H, W, C) features, or of each
+    pathway's, concatenated on channels, for a tuple (SlowFast,
+    simple_head.py:79-80); dropout (training only, mask from
+    ``self.generator``); ``fc_cls`` with normal(``init_std``) weights and a
+    zero bias."""
+
+    def __init__(self, num_classes: int, in_channels: int,
+                 dropout: float = 0.5, init_std: float = 0.01):
+        super().__init__()
+        self.dropout, self.init_std = dropout, init_std
+        self.generator: Optional[torch.Generator] = None
+        self.fc_cls = _classifier(in_channels, num_classes, init_std)
+
+    def forward(self, x) -> torch.Tensor:
+        if isinstance(x, (tuple, list)):
+            x = torch.cat([_pool_channels_last(f) for f in x], dim=-1)
+        else:
+            x = _pool_channels_last(x)
+        x = _dropout(x, self.dropout, self.training, self.generator)
+        return _linear(self.fc_cls, x)
+
+
+# I3DHead (simple_head.py:100-117) and SlowFastHead (:119-121) are
+# SimpleHead in 3-D mode; the tuple path covers SlowFast
+I3DHead = SimpleHead3D
+SlowFastHead = SimpleHead3D
+
+
+class TSNHead(nn.Module):
+    """2-D-mode SimpleHead (simple_head.py:70-77, TSNHead at :143-159):
+    (N, S, H, W, C) segments -> the spatial mean -> the mean over segments
+    -> dropout (training only, mask from ``self.generator``) -> ``fc_cls``
+    (normal(``init_std``), zero bias)."""
+
+    def __init__(self, num_classes: int, in_channels: int,
+                 dropout: float = 0.5, init_std: float = 0.01):
+        super().__init__()
+        self.dropout, self.init_std = dropout, init_std
+        self.generator: Optional[torch.Generator] = None
+        self.fc_cls = _classifier(in_channels, num_classes, init_std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 5:
+            raise ValueError(f"expect (N, S, H, W, C), got {tuple(x.shape)}")
+        x = x.mean(dim=(2, 3)).mean(dim=1)
+        x = _dropout(x, self.dropout, self.training, self.generator)
+        return _linear(self.fc_cls, x)
+
+
+class RGBPoseHead(nn.Module):
+    """Two-stream head of RGBPoseConv3D (reference heads/rgbpose_head.py:
+    9-79): each pathway's features pooled (every axis but the first and
+    the last), a dropout mask drawn for each stream (training only, from
+    ``self.generator``, rgb first), and ``fc_rgb`` / ``fc_pose``
+    (normal(``init_std``), zero biases); returns ``{'rgb', 'pose'}``
+    logits.  ``in_channels`` is (rgb C, pose C)."""
+
+    def __init__(self, num_classes: int, in_channels: Sequence[int],
+                 dropout: float = 0.5, init_std: float = 0.01):
+        super().__init__()
+        self.dropout, self.init_std = dropout, init_std
+        self.generator: Optional[torch.Generator] = None
+        self.fc_rgb = _classifier(in_channels[0], num_classes, init_std)
+        self.fc_pose = _classifier(in_channels[1], num_classes, init_std)
+
+    def forward(self, x) -> Dict[str, torch.Tensor]:
+        x_rgb, x_pose = (_dropout(_pool_channels_last(f), self.dropout,
+                                  self.training, self.generator) for f in x)
+        return {"rgb": _linear(self.fc_rgb, x_rgb),
+                "pose": _linear(self.fc_pose, x_pose)}

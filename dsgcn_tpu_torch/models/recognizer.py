@@ -1,7 +1,9 @@
-"""Recognizer: backbone + head (port of ``dsgcn_tpu/models/recognizer.py``).
+"""Recognizers: backbone + head (port of ``dsgcn_tpu/models/recognizer.py``):
+``RecognizerGCN`` and the 3D-CNN, 2D-CNN and multimodal ``Recognizer3D``,
+``Recognizer2D`` and ``MMRecognizer3D``.
 
-Reference: pyskl/models/recognizers/recognizergcn.py and base.py
-average_clip (:93-116).
+Reference: pyskl/models/recognizers/recognizergcn.py, recognizer3d.py,
+recognizer2d.py, mm_recognizer3d.py and base.py average_clip (:93-116).
 """
 from __future__ import annotations
 
@@ -84,3 +86,92 @@ def average_clip(cls_score: torch.Tensor,
     if mode == "score":
         return cls_score.mean(dim=1)
     raise ValueError(f"average_clips={mode!r} not supported")
+
+
+def _cast_logits(logits, compute_dtype):
+    return logits if compute_dtype is None else logits.float()
+
+
+class Recognizer3D(nn.Module):
+    """3D-CNN recognizer (reference recognizer3d.py:10-85): a backbone over
+    (N, T, H, W, C) volumes and a 3-D head.  Multi-clip folding and score
+    averaging are the caller's (fold (N, nc, ...) -> (N nc, ...) and
+    :func:`average_clip`), as in JAX.  ``compute_dtype`` casts the input
+    and the logits come back in float32; with ``feat_ext`` the forward
+    returns the backbone's feature pooled over every axis but the first
+    and the last (each pathway's, concatenated), in float32
+    (recognizer3d.py:58-78)."""
+
+    def __init__(self, backbone: nn.Module, head: nn.Module,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.backbone, self.head = backbone, head
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor, feat_ext: bool = False):
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        feat = self.backbone(x)
+        if feat_ext:
+            feats = feat if isinstance(feat, (tuple, list)) else (feat,)
+            return torch.cat([f.mean(dim=tuple(range(1, f.dim() - 1)))
+                              for f in feats], dim=-1).float()
+        return _cast_logits(self.head(feat), self.compute_dtype)
+
+
+class Recognizer2D(nn.Module):
+    """2D-CNN recognizer over frame segments (reference recognizer2d.py:
+    9-58): (N, S, H, W, C) folded to (N S, H, W, C) for a 2-D backbone,
+    unfolded to (N, S, H', W', C') for a 2-D head (``TSNHead``: the
+    segment mean inside).  ``compute_dtype`` and ``feat_ext`` (the spatial
+    then the segment mean, float32) as :class:`Recognizer3D`'s.
+
+    A 3-D backbone is refused: JAX builds one, and flax's 3-D conv then
+    reads the folded rank-4 batch as one unbatched volume of N S frames,
+    which mixes the videos (a change to one video's frames moved another's
+    eval logits by 4.9e-3)."""
+
+    def __init__(self, backbone: nn.Module, head: nn.Module,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if getattr(backbone, "spatial_dims", None) != 2:
+            raise ValueError(
+                f"Recognizer2D takes a 2-D backbone over (N S, H, W, C) "
+                f"frames (PoTion), not {type(backbone).__name__}: a 3-D "
+                f"backbone would read the folded segments as one volume")
+        self.backbone, self.head = backbone, head
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor, feat_ext: bool = False):
+        n, s = x.shape[:2]
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        feat = self.backbone(x.reshape((n * s,) + tuple(x.shape[2:])))
+        feat = feat.reshape((n, s) + tuple(feat.shape[1:]))
+        if feat_ext:
+            return feat.mean(dim=(2, 3)).mean(dim=1).float()
+        return _cast_logits(self.head(feat), self.compute_dtype)
+
+
+class MMRecognizer3D(nn.Module):
+    """Multimodal RGB + pose recognizer (reference mm_recognizer3d.py:
+    6-62): a two-input backbone (``RGBPoseConv3D``) over ``imgs`` (N, T,
+    H, W, 3) and ``heatmap_imgs`` (N, T', H', W', 17) and an
+    ``RGBPoseHead``; returns ``{'rgb', 'pose'}`` logits (float32 under a
+    ``compute_dtype``, which casts both inputs).  Its loss is
+    ``core/losses.py:mm_cross_entropy``; as in JAX, no trainer or CLI
+    takes it."""
+
+    def __init__(self, backbone: nn.Module, head: nn.Module,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.backbone, self.head = backbone, head
+        self.compute_dtype = compute_dtype
+
+    def forward(self, imgs: torch.Tensor, heatmap_imgs: torch.Tensor):
+        if self.compute_dtype is not None:
+            imgs = imgs.to(self.compute_dtype)
+            heatmap_imgs = heatmap_imgs.to(self.compute_dtype)
+        scores = self.head(self.backbone(imgs, heatmap_imgs))
+        return {k: _cast_logits(v, self.compute_dtype)
+                for k, v in scores.items()}

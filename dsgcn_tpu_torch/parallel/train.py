@@ -90,9 +90,10 @@ def _mean_(tensors, group, size: int) -> None:
 
 def running_stats(model: nn.Module):
     """Every BatchNorm's running mean and variance (a ``ConvBN3d``'s
-    too: every :class:`BNStats`)."""
+    too: every :class:`BNStats` that keeps them; a ``ConvBN3d`` built
+    ``with_bn=False`` keeps none)."""
     return [b for m in model.modules()
-            if isinstance(m, BNStats)
+            if isinstance(m, BNStats) and hasattr(m, "running_mean")
             for b in (m.running_mean, m.running_var)]
 
 

@@ -7,8 +7,15 @@ re-orients kernels:
 
 * ``kernel`` -> ``weight``: a dense (I, O) kernel becomes (O, I); a 1-D
   conv (k, I, O) kernel becomes (O, I, k) (``nn.Conv1d``); a conv
-  (k, 1, I, O) kernel becomes (O, I, k, 1); a 3-D conv (kt, kh, kw, I, O)
-  kernel becomes (O, I, kt, kh, kw) (``nn.Conv3d``);
+  (k, 1, I, O) or 2-D conv (kh, kw, I, O) kernel becomes (O, I, k, 1) or
+  (O, I, kh, kw); a 3-D conv (kt, kh, kw, I, O) kernel becomes (O, I, kt,
+  kh, kw) (``nn.Conv3d``; a depthwise (kt, kh, kw, 1, C) one (C, 1, kt,
+  kh, kw), X3D's grouped ``nn.Conv3d``);
+* the transposed time-upsampling laterals of ``RGBPoseConv3D``'s pose
+  pathway (``pose_path/layer{i}_lateral/conv/kernel``, flax
+  ``ConvTranspose``, (kt, 1, 1, I, O)) are recognised by that scope: the
+  kernel flips in time and becomes ``nn.ConvTranspose3d``'s (I, O, kt, 1,
+  1) (``models/cnns.py:_LateralConv``);
 * a sparse layer's ``score`` (``dsgcn_tpu_torch/sparse/``) keeps its
   name and turns exactly as its sibling ``kernel``;
 * ``UnitMLP``'s depthwise ``conv_kernel`` (k, 1, 1, C) and ``conv_bias``
@@ -41,6 +48,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
+import re
+
 import numpy as np
 import torch
 
@@ -71,6 +80,12 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _transposed_lateral(scope) -> bool:
+    """A pose pathway's lateral: JAX's transposed (time-upsampling) conv."""
+    return "pose_path" in scope and any(
+        re.fullmatch(r"layer\d+_lateral", s) for s in scope)
+
+
 def _convert_leaf(collection: str, path: Tuple[str, ...],
                   a: np.ndarray) -> Tuple[str, np.ndarray]:
     *scope, leaf = path
@@ -86,6 +101,9 @@ def _convert_leaf(collection: str, path: Tuple[str, ...],
         scope, leaf = scope + ["conv"], leaf[5:]
         if leaf == "bias":
             return ".".join(scope + ["bias"]), a
+    if leaf == "kernel" and _transposed_lateral(scope):
+        a = a[::-1].transpose(3, 4, 0, 1, 2).copy()
+        return ".".join(scope + ["weight"]), a
     if leaf in ("kernel", "score"):   # a sparse score turns as its kernel
         if a.ndim == 2:
             a = a.T

@@ -55,17 +55,18 @@ def test_test_pipeline_identity(t):
 
 
 def test_unported_transforms_raise():
-    """Transforms of JAX's registry that the port does not have yet raise
-    (RandomScale and GaussAug are ported: test_torch_port_data_extras);
-    ``Causalmetrix`` is ported: built from its config dict it zeroes the
-    entries JAX's zeroes (more in test_torch_port_necks)."""
+    """A transform that is not in the registry raises (every one of JAX's
+    registry is ported: test_torch_port_video_data); ``Causalmetrix`` is
+    ported: built from its config dict it zeroes the entries JAX's zeroes
+    (more in test_torch_port_necks), and ``FormatShape`` builds."""
     causal = np.random.default_rng(3).random((25, 25))
     got = T.build_pipeline([dict(type="Causalmetrix", thr=60)])(
         dict(causal=causal.copy()))["causal"]
     want = JT.Causalmetrix(thr=60)(dict(causal=causal.copy()))["causal"]
     np.testing.assert_array_equal(got, want)
+    T.build_pipeline([dict(type="FormatShape", input_format="NCTHW")])
     with pytest.raises(NotImplementedError):
-        T.build_pipeline([dict(type="FormatShape", input_format="NCTHW")])
+        T.build_pipeline([dict(type="FormatShapes", input_format="NCTHW")])
 
 
 @pytest.mark.parametrize("c", [3, 2])

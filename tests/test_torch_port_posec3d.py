@@ -552,10 +552,24 @@ def test_data_parallel_step_averages_convbn3d_statistics():
 
 
 def test_recognizers_not_ported_are_refused():
-    for typ in ("Recognizer3D", "Recognizer2D", "MMRecognizer3D"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(dict(type=typ, backbone=NARROW,
-                             cls_head=dict(type="I3DHead")))
+    """The 3-D, 2-D and multimodal recognizers build (their parity is in
+    ``test_torch_port_video_models.py``); a recognizer type the port does
+    not have is refused."""
+    head = dict(type="I3DHead", num_classes=5, in_channels=128)
+    assert type(build_model(dict(type="Recognizer3D", backbone=NARROW,
+                                 cls_head=head))).__name__ == "Recognizer3D"
+    assert type(build_model(dict(
+        type="Recognizer2D", backbone=dict(type="PoTion", in_channels=17),
+        cls_head=dict(type="TSNHead", num_classes=5, in_channels=512)))
+    ).__name__ == "Recognizer2D"
+    assert type(build_model(dict(
+        type="MMRecognizer3D", backbone=dict(type="RGBPoseConv3D"),
+        cls_head=dict(type="RGBPoseHead", num_classes=5,
+                      in_channels=[2048, 512])))).__name__ == \
+        "MMRecognizer3D"
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model(dict(type="RecognizerAudio", backbone=NARROW,
+                         cls_head=head))
 
 
 # ---------------------------------------------------------------------------
